@@ -1,0 +1,165 @@
+// Kernel D, lf_walk: LF-mapping walks of the full tier, two entry points.
+//
+// locate replaces femto_tpu/ops/search_ops.py locate_rows (115) with
+// ops/rank.py lf_grank_step (883), mark_rank (821) and mark_offset (842):
+// walk LF until the row is marked (at most mark_period + 1 checks), take
+// its mark rank from mark_ckpt + popcounts of the segment's bitmap words,
+// and decode the bit-packed mark value.  extract replaces
+// ops/search_ops.py extract_backward (342): walk num_steps times, emitting
+// the BWT symbol of each row.
+//
+// The TPU walked every lane in lockstep for the longest walk and gathered
+// whole [B, seg] rows per step; here each thread walks its own row and
+// stops at its own mark, so there is no lockstep tail (the reason
+// femto_tpu's locate_rows_pyramid exists), and each step reads only the
+// segment prefix it counts.
+//
+// Bound on the H100: bytes of dependent random gathers.  Per step: one
+// mark word, one symbol, one checkpoint int and the first `off` symbols of
+// the row's segment; per hit the segment's mark words, one mark_ckpt int
+// and two or three mark_vals words.  chip_smoke.py sums those over this
+// run's steps and divides by 3.35 TB/s; the walk itself is a chain of
+// dependent loads, so latency, not bandwidth, is what this kernel meets.
+#include "fm_common.cuh"
+
+namespace {
+
+using femto::kAlpha;
+
+struct Index {
+  const uint16_t* bwt;
+  const int* occ_ckpt;
+  const int* C;
+  long long n_seg;
+  int seg;
+};
+
+// One LF step from row r: LF(r) = C[c] + occ(c, r) with c = BWT[r].
+// Returns -1 (and leaves *sym the pad symbol) on a pad row.
+__device__ __forceinline__ long long lf_step(const Index& ix, long long r,
+                                             int* sym) {
+  const long long s = r / ix.seg;
+  const int off = static_cast<int>(r - s * ix.seg);
+  const uint16_t* row = ix.bwt + s * ix.seg;
+  const int c = __ldg(row + off);
+  *sym = c;
+  if (c >= kAlpha) return -1;
+  return static_cast<long long>(__ldg(ix.C + c)) +
+         __ldg(ix.occ_ckpt + s * kAlpha + c) +
+         femto::count_prefix(row, off, c);
+}
+
+// ops/rank.py mark_offset: decode the packed store's slot g.
+// mark_meta = [bits, exc_base, period, exc_off (words), cap].
+__device__ __forceinline__ int mark_offset(const unsigned* __restrict__ mv,
+                                           long long mv_len,
+                                           const int* __restrict__ mm, int g) {
+  const int bits = __ldg(mm + 0), exc_base = __ldg(mm + 1);
+  const int period = __ldg(mm + 2), exc_off = __ldg(mm + 3);
+  const int cap = __ldg(mm + 4);
+  g = min(max(g, 0), cap - 1);
+  const long long bp = static_cast<long long>(g) * bits;
+  const long long wi = bp >> 5;
+  const unsigned sh = static_cast<unsigned>(bp & 31);
+  const unsigned lo = __ldg(mv + wi) >> sh;
+  const unsigned hi = sh == 0 ? 0u : (__ldg(mv + wi + 1) << (32u - sh));
+  const unsigned mask = (1u << bits) - 1u;
+  const int k = static_cast<int>((lo | hi) & mask);
+  if (k < exc_base) return k * period;
+  long long e = static_cast<long long>(exc_off) + (k - exc_base);
+  e = min(max(e, 0LL), mv_len - 1);
+  return static_cast<int>(__ldg(mv + e));
+}
+
+__global__ void lf_locate_kernel(const int* __restrict__ rows, int B, Index ix,
+                                 const unsigned* __restrict__ mark_bits,
+                                 const int* __restrict__ mark_ckpt,
+                                 const unsigned* __restrict__ mark_vals,
+                                 long long mark_vals_len,
+                                 const int* __restrict__ mark_meta,
+                                 int mark_period, int* __restrict__ out) {
+  const int b = blockIdx.x * blockDim.x + threadIdx.x;
+  if (b >= B) return;
+  const int words_per_seg = ix.seg >> 5;
+  long long r = rows[b];
+  int result = -1;
+  for (int i = 0; i <= mark_period && r >= 0; ++i) {
+    const long long s = r / ix.seg;
+    const int wl = static_cast<int>(r - s * ix.seg) >> 5;
+    const unsigned* words = mark_bits + s * words_per_seg;
+    const unsigned w = __ldg(words + wl);
+    const unsigned bit = static_cast<unsigned>(r & 31);
+    if ((w >> bit) & 1u) {
+      int g = __ldg(mark_ckpt + s);
+      for (int k = 0; k < wl; ++k) g += __popc(__ldg(words + k));
+      g += __popc(w & ((1u << bit) - 1u));
+      result = mark_offset(mark_vals, mark_vals_len, mark_meta, g) + i;
+      break;
+    }
+    if (i == mark_period) break;  // no mark within reach: -1
+    int c;
+    r = lf_step(ix, r, &c);
+  }
+  out[b] = result;
+}
+
+__global__ void lf_extract_kernel(const int* __restrict__ rows, int B,
+                                  int num_steps, Index ix,
+                                  int* __restrict__ chars,
+                                  int* __restrict__ final_rows) {
+  const int b = blockIdx.x * blockDim.x + threadIdx.x;
+  if (b >= B) return;
+  long long r = rows[b];
+  int* out = chars + static_cast<long long>(b) * num_steps;
+  for (int t = 0; t < num_steps; ++t) {
+    int c = femto::kInvalidAlpha;
+    if (r >= 0) {
+      const long long nxt = lf_step(ix, r, &c);
+      if (nxt >= 0) r = nxt;  // a pad row (invalid input) stays put
+    }
+    out[t] = c;
+  }
+  final_rows[b] = static_cast<int>(r);
+}
+
+}  // namespace
+
+// rows int32[B] -> offsets int32[B] (-1 where no mark was reached).
+extern "C" int femto_lf_locate(const void* rows, int B, const void* bwt,
+                               const void* occ_ckpt, const void* C,
+                               long long n_seg, int seg, const void* mark_bits,
+                               const void* mark_ckpt, const void* mark_vals,
+                               long long mark_vals_len, const void* mark_meta,
+                               int mark_period, void* out, void* stream) {
+  if (B > 0) {
+    const Index ix{static_cast<const uint16_t*>(bwt),
+                   static_cast<const int*>(occ_ckpt),
+                   static_cast<const int*>(C), n_seg, seg};
+    lf_locate_kernel<<<(B + 127) / 128, 128, 0,
+                       static_cast<cudaStream_t>(stream)>>>(
+        static_cast<const int*>(rows), B, ix,
+        static_cast<const unsigned*>(mark_bits),
+        static_cast<const int*>(mark_ckpt),
+        static_cast<const unsigned*>(mark_vals), mark_vals_len,
+        static_cast<const int*>(mark_meta), mark_period,
+        static_cast<int*>(out));
+  }
+  return static_cast<int>(cudaGetLastError());
+}
+
+// rows int32[B] -> chars int32[B, num_steps], final_rows int32[B].
+extern "C" int femto_lf_extract(const void* rows, int B, int num_steps,
+                                const void* bwt, const void* occ_ckpt,
+                                const void* C, long long n_seg, int seg,
+                                void* chars, void* final_rows, void* stream) {
+  if (B > 0) {
+    const Index ix{static_cast<const uint16_t*>(bwt),
+                   static_cast<const int*>(occ_ckpt),
+                   static_cast<const int*>(C), n_seg, seg};
+    lf_extract_kernel<<<(B + 127) / 128, 128, 0,
+                        static_cast<cudaStream_t>(stream)>>>(
+        static_cast<const int*>(rows), B, num_steps, ix,
+        static_cast<int*>(chars), static_cast<int*>(final_rows));
+  }
+  return static_cast<int>(cudaGetLastError());
+}

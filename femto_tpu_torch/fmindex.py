@@ -1,0 +1,307 @@
+"""FM-index container, persistence and the single-device build (PyTorch).
+
+The counterpart of femto_tpu/fmindex.py for the full tier: the same array
+fields with the same dtypes and shapes (bit for bit what femto_tpu builds),
+held as torch tensors on one device:
+
+  * bwt       uint16[n_seg, seg]   BWT symbols; INVALID_ALPHA past row n;
+  * occ_ckpt  int32[n_seg, 261]    occurrences of c in BWT[0 : s*seg);
+  * C         int32[262]           C[c] = number of symbols < c;
+  * mark_bits uint32[n_seg, seg/32], mark_ckpt int32[n_seg]: sampled rows;
+  * mark_vals uint32[...] + mark_meta int32[5]: bit-packed mark values
+    (ops/build_ops.mark_pack_geom);
+  * doc_starts int32[ndocs+1], doc_seof_rows int32[ndocs].
+
+Entry points take an explicit ``device`` (default ``"cuda"``) and raise when
+the card is asked for and absent; they never fall back to the CPU.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+import json
+import os
+from typing import Any, List, Mapping, NamedTuple, Optional, Tuple, Union
+
+import numpy as np
+import torch
+
+from .alphabet import ALPHA_SIZE, PreparedText
+
+DEFAULT_SEG = 256
+DEFAULT_MARK_PERIOD = 20
+
+# Fields of the compressed and paged tiers; this port serves the full tier.
+_OTHER_TIER_FIELDS = ("seg_ovf", "seg_nsym", "seg_woff", "seg_syms",
+                      "seg_rle", "seg_cont", "seg_slot")
+_ROADMAP_TIERS = "ROADMAP.md Q1 item 6 (compressed tiers)"
+
+
+def resolve_device(device: Union[str, torch.device]) -> torch.device:
+    """torch.device for an entry point's ``device`` argument; raises when
+    CUDA is asked for and torch sees no card (no silent CPU fallback)."""
+    dev = torch.device(device)
+    if dev.type == "cuda":
+        if not torch.cuda.is_available():
+            raise RuntimeError(
+                "device='cuda' but torch.cuda.is_available() is false; pass "
+                "device='cpu' to run the plain PyTorch path")
+    elif dev.type != "cpu":
+        raise ValueError(f"unsupported device {device!r}")
+    return dev
+
+
+class FMArrays(NamedTuple):
+    """Device tensors of the index (femto_tpu.fmindex.FMArrays' fields).
+
+    The compressed-tier fields stay None in this port (full tier only)."""
+
+    bwt: torch.Tensor        # uint16[n_seg, seg]
+    occ_ckpt: torch.Tensor   # int32[n_seg, 261]
+    occ_l1: torch.Tensor     # int32[1, 261] dummy (full tier)
+    C: torch.Tensor          # int32[262]
+    mark_bits: torch.Tensor  # uint32[n_seg, seg//32]
+    mark_ckpt: torch.Tensor  # int32[n_seg]
+    mark_vals: torch.Tensor  # uint32[n_words + exc_cap]
+    doc_starts: torch.Tensor     # int32[ndocs+1]
+    doc_seof_rows: torch.Tensor  # int32[ndocs]
+    alpha_map: torch.Tensor  # int32[261] identity
+    alpha_rev: torch.Tensor  # int32[261] identity
+    seg_ovf: Optional[torch.Tensor] = None
+    seg_nsym: Optional[torch.Tensor] = None
+    seg_woff: Optional[torch.Tensor] = None
+    seg_syms: Optional[torch.Tensor] = None
+    mark_meta: Optional[torch.Tensor] = None  # int32[5]
+    seg_rle: Optional[torch.Tensor] = None
+    seg_cont: Optional[torch.Tensor] = None
+    seg_slot: Optional[torch.Tensor] = None
+
+
+@dataclasses.dataclass(frozen=True)
+class FMMeta:
+    """Static metadata (femto_tpu.fmindex.FMMeta)."""
+
+    n: int            # real text length (symbols)
+    seg: int          # rows per segment
+    mark_period: int
+    num_docs: int
+    n_marks: int
+    n_seg: int = 0
+    alpha_used: int = 0
+    n_rows: int = 0   # total rows (n, or n_pad for padded builds)
+    row0: int = 0     # first real row (= n_rows - n)
+
+    def __post_init__(self):
+        if self.n_seg == 0:
+            object.__setattr__(self, "n_seg", self.n // self.seg + 1)
+        if self.n_rows == 0:
+            object.__setattr__(self, "n_rows", self.n)
+
+
+@dataclasses.dataclass
+class FMIndex:
+    """Device tensors + static meta + host-side metadata."""
+
+    arrays: FMArrays
+    meta: FMMeta
+    doc_starts_np: np.ndarray  # int64[ndocs+1]
+    infos: List[bytes]
+    header_lens_np: Optional[np.ndarray] = None
+    chunk_doc_offsets_np: Optional[np.ndarray] = None
+    chunk_docs_np: Optional[np.ndarray] = None
+    sa_direct: Optional[torch.Tensor] = None  # int32[n], locate="direct"
+
+    @property
+    def n(self) -> int:
+        return self.meta.n
+
+    @property
+    def num_docs(self) -> int:
+        return self.meta.num_docs
+
+    @property
+    def device(self) -> torch.device:
+        return self.arrays.bwt.device
+
+    def save(self, path: str) -> None:
+        """Write meta.json + arrays.npz in femto_tpu's directory format."""
+        os.makedirs(path, exist_ok=True)
+        meta = dataclasses.asdict(self.meta)
+        meta["infos"] = [i.decode("utf-8", "surrogateescape")
+                         for i in self.infos]
+        with open(os.path.join(path, "meta.json"), "w") as f:
+            json.dump(meta, f)
+        arrs = {k: v.cpu().numpy() for k, v in self.arrays._asdict().items()
+                if v is not None}
+        arrs["doc_starts_np"] = self.doc_starts_np
+        if self.header_lens_np is not None:
+            arrs["header_lens_np"] = self.header_lens_np
+        if self.chunk_docs_np is not None:
+            arrs["chunk_doc_offsets_np"] = self.chunk_doc_offsets_np
+            arrs["chunk_docs_np"] = self.chunk_docs_np
+        if self.sa_direct is not None:
+            arrs["sa_direct"] = self.sa_direct.cpu().numpy()
+        np.savez(os.path.join(path, "arrays.npz"), **arrs)
+
+    @classmethod
+    def load(cls, path: str, device: Union[str, torch.device] = "cuda"
+             ) -> "FMIndex":
+        """Load an index directory written by either package."""
+        if os.path.isfile(path):
+            raise NotImplementedError(
+                "flat .ftpu index files are not ported yet "
+                "(ROADMAP.md Q1 item 2)")
+        with open(os.path.join(path, "meta.json")) as f:
+            meta = json.load(f)
+        with np.load(os.path.join(path, "arrays.npz")) as z:
+            arrs = {k: z[k] for k in z.files}
+        return arrays_from_numpy(arrs, meta, device=device)
+
+
+def _to_device(a: np.ndarray, dev: torch.device) -> torch.Tensor:
+    # torch wants writable memory; read-only arrays (a JAX array's numpy
+    # view, say) are copied
+    return torch.from_numpy(np.require(a, requirements=["C", "W"])).to(dev)
+
+
+def arrays_from_numpy(arrays: Mapping[str, np.ndarray], meta: Any, *,
+                      device: Union[str, torch.device] = "cuda",
+                      infos: Optional[List[bytes]] = None) -> FMIndex:
+    """Carry an index across: numpy arrays named after femto_tpu's FMArrays
+    fields (plus the .npz host entries doc_starts_np, header_lens_np,
+    chunk_doc_offsets_np, chunk_docs_np, sa_direct where present) and the
+    FMMeta fields (a mapping, or any object with those attributes) -> the
+    port's FMIndex on ``device``.  Bits are kept as they are: uint16 and
+    uint32 arrays stay uint16 and uint32 tensors.  ``infos`` defaults to
+    meta["infos"] (a .npz directory's meta.json) or doc<i> names."""
+    dev = resolve_device(device)
+    if not isinstance(meta, Mapping):
+        meta = {f.name: getattr(meta, f.name)
+                for f in dataclasses.fields(FMMeta)}
+    arrays = {k: np.asarray(v) for k, v in arrays.items() if v is not None}
+    for k in _OTHER_TIER_FIELDS:
+        if k in arrays:
+            raise NotImplementedError(
+                f"index field {k!r} belongs to a tier not ported yet "
+                f"({_ROADMAP_TIERS}); build femto_tpu indexes with "
+                "tier='full' to serve them here")
+    if (arrays["bwt"].dtype != np.uint16
+            or arrays["occ_ckpt"].dtype != np.int32
+            or arrays["C"].shape[0] != ALPHA_SIZE + 1):
+        raise NotImplementedError(
+            "compact/packed tier indexes are not ported yet "
+            f"({_ROADMAP_TIERS})")
+    if "mark_meta" not in arrays:
+        raise ValueError("this index stores raw int32 mark values (a legacy "
+                         "layout); rebuild it with the current version")
+    arrays.setdefault("occ_l1", np.zeros((1, ALPHA_SIZE), np.int32))
+    arrays.setdefault("alpha_map", np.arange(ALPHA_SIZE, dtype=np.int32))
+    arrays.setdefault("alpha_rev", np.arange(ALPHA_SIZE, dtype=np.int32))
+    fm = FMArrays(**{k: _to_device(arrays[k], dev) for k in FMArrays._fields
+                     if k in arrays})
+    meta_fields = {f.name for f in dataclasses.fields(FMMeta)}
+    fm_meta = FMMeta(**{k: int(v) for k, v in meta.items()
+                        if k in meta_fields})
+    if infos is None:
+        if "infos" in meta:
+            infos = [s.encode("utf-8", "surrogateescape") if isinstance(s, str)
+                     else bytes(s) for s in meta["infos"]]
+        else:
+            infos = [b"doc%d" % i for i in range(fm_meta.num_docs)]
+    doc_starts_np = arrays.get("doc_starts_np")
+    if doc_starts_np is None:
+        doc_starts_np = arrays["doc_starts"][: fm_meta.num_docs + 1]
+    return FMIndex(
+        arrays=fm, meta=fm_meta,
+        doc_starts_np=np.asarray(doc_starts_np, dtype=np.int64),
+        infos=list(infos),
+        header_lens_np=arrays.get("header_lens_np"),
+        chunk_doc_offsets_np=arrays.get("chunk_doc_offsets_np"),
+        chunk_docs_np=arrays.get("chunk_docs_np"),
+        sa_direct=(_to_device(arrays["sa_direct"], dev)
+                   if "sa_direct" in arrays else None),
+    )
+
+
+def build_index(
+    prepared: PreparedText,
+    seg: int = DEFAULT_SEG,
+    mark_period: int = DEFAULT_MARK_PERIOD,
+    sa: Optional[np.ndarray] = None,
+    checkpoint_dir: Optional[str] = None,
+    compact: bool = False,
+    doc_chunks: bool = False,
+    tier: Optional[str] = None,
+    locate: str = "walk",
+    pad_shape: Optional[Tuple[int, int]] = None,
+    text_dev16: Optional[torch.Tensor] = None,
+    text_dev32: Optional[torch.Tensor] = None,
+    *,
+    device: Union[str, torch.device] = "cuda",
+) -> FMIndex:
+    """Single-device index build: suffix sort and packaging on ``device``
+    (femto_tpu.fmindex.build_index, full tier).
+
+    locate: "walk" (mark-sampled LF walk) or "direct" (keep the suffix
+    array on the device: locate = one gather).  sa: optional precomputed
+    suffix array (skips the sort)."""
+    from .ops.build_ops import build_fm_arrays_device, build_sa_payload
+    from .suffix import suffix_array
+
+    if tier is None:
+        tier = "compact" if compact else "full"
+    if tier != "full":
+        raise NotImplementedError(
+            f"tier={tier!r} is not ported yet ({_ROADMAP_TIERS})")
+    if pad_shape is not None:
+        raise NotImplementedError(
+            "pad_shape is not ported (ROADMAP.md Q1 item 8: only if a "
+            "measured compile cost calls for it)")
+    if text_dev16 is not None or text_dev32 is not None:
+        raise NotImplementedError(
+            "text_dev16/text_dev32 are not ported (ROADMAP.md Q1 item 8, "
+            "chunked builds)")
+    if checkpoint_dir is not None:
+        raise NotImplementedError(
+            "checkpoint_dir is not ported yet (ROADMAP.md Q1 item 8)")
+    if doc_chunks:
+        raise NotImplementedError(
+            "doc_chunks is not ported yet (ROADMAP.md Q1 item 6, K14)")
+    if locate not in ("walk", "direct"):
+        raise ValueError(f"unknown locate tier {locate!r}")
+    if seg % 32 != 0 or seg <= 0:
+        raise ValueError("seg must be a positive multiple of 32")
+    n = prepared.n
+    if n == 0:
+        raise ValueError("cannot index an empty corpus")
+    if n >= 2**31:
+        raise ValueError("single-index corpora are limited to 2^31 symbols "
+                         "(int32 row ids)")
+    dev = resolve_device(device)
+    ndocs = prepared.num_docs
+    # symbols < 261 fit int16, so the upload is the uint16 bits widened
+    text = torch.from_numpy(np.ascontiguousarray(
+        prepared.text.astype(np.uint16, copy=False)).view(np.int16)
+    ).to(dev).to(torch.int32)
+    doc_starts = _to_device(prepared.doc_starts.astype(np.int32), dev)
+    payload = build_sa_payload(text, doc_starts, n=n, mark_period=mark_period,
+                               ndocs=ndocs)
+    if sa is None:
+        sa_dev, pull = suffix_array(text, payload=payload)
+    else:
+        sa_dev = _to_device(np.asarray(sa, dtype=np.int32), dev)
+        pull = payload[sa_dev.long()]
+    del payload
+    arrays, n_marks, alpha_used = build_fm_arrays_device(
+        text, sa_dev, doc_starts, n=n, seg=seg, mark_period=mark_period,
+        ndocs=ndocs, pull=pull)
+    meta = FMMeta(n=n, seg=seg, mark_period=mark_period, num_docs=ndocs,
+                  n_marks=int(n_marks), n_seg=arrays.occ_ckpt.shape[0],
+                  alpha_used=alpha_used, n_rows=n, row0=0)
+    return FMIndex(
+        arrays=arrays, meta=meta,
+        doc_starts_np=prepared.doc_starts.astype(np.int64),
+        infos=list(prepared.infos),
+        header_lens_np=prepared.header_lens,
+        sa_direct=sa_dev if locate == "direct" else None,
+    )

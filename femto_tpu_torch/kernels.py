@@ -1,0 +1,167 @@
+"""Build, bind and count the port's hand-written CUDA kernels.
+
+Every source under ``csrc/`` compiles with ``nvcc`` for ``sm_90a`` into its
+own shared library with a plain C interface (no PyTorch headers, so a build
+takes seconds), loaded with ``ctypes``.  Libraries land in ``_build/`` beside
+this file (listed in ``.gitignore``), named by a hash of the sources and
+flags, and are built on first use: all sources at once, one ``nvcc`` each.
+
+Each C entry point launches its kernels on the stream it is given,
+allocates nothing, and returns ``cudaGetLastError()``; :func:`launch` raises
+when that is not 0 and otherwise adds one to the entry's launch count.
+Nothing here is built for CPU tensors: the wrappers in ``ops/`` check
+their inputs with :func:`check` and take their plain PyTorch versions
+where :func:`on_card` says the tensors lie on the CPU.
+"""
+
+from __future__ import annotations
+
+import ctypes
+import hashlib
+import os
+import shutil
+import subprocess
+import threading
+import time
+from typing import Dict, List, Tuple
+
+import torch
+
+CSRC = os.path.join(os.path.dirname(os.path.abspath(__file__)), "csrc")
+BUILD_DIR = os.path.join(os.path.dirname(os.path.abspath(__file__)), "_build")
+NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
+              "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v"]
+
+_P = ctypes.c_void_p
+_I = ctypes.c_int
+_L = ctypes.c_longlong
+
+# entry point -> (source stem, argument types without the trailing stream)
+ENTRIES: Dict[str, Tuple[str, List]] = {
+    "occ_build": ("occ_build", [_P, _L, _L, _I, _P, _P, _P, _P, _P]),
+    "marks_build": ("marks_build", [_P, _P, _L, _L, _I, _I, _L, _I, _I, _I,
+                                    _L, _P, _P, _P, _P, _P, _P, _P, _P, _P]),
+    "backward_search": ("backward_search",
+                        [_P, _I, _I, _P, _P, _P, _L, _I, _I, _I, _P, _P]),
+    "lf_locate": ("lf_walk", [_P, _I, _P, _P, _P, _L, _I, _P, _P, _P, _L, _P,
+                              _I, _P]),
+    "lf_extract": ("lf_walk", [_P, _I, _I, _P, _P, _P, _L, _I, _P, _P]),
+}
+SOURCES = sorted({src for src, _ in ENTRIES.values()})
+
+# Launches per entry point since the last reset_launches().
+launches: Dict[str, int] = {name: 0 for name in ENTRIES}
+# nvcc output (register and shared-memory use) of the last build, by source.
+build_logs: Dict[str, str] = {}
+
+_libs: Dict[str, ctypes.CDLL] = {}
+_lock = threading.Lock()
+
+
+def reset_launches() -> None:
+    for name in launches:
+        launches[name] = 0
+
+
+def nvcc_path() -> str:
+    """The CUDA compiler: $CUDA_HOME/bin/nvcc, else nvcc on PATH, else the
+    toolkit's default install location."""
+    home = os.environ.get("CUDA_HOME") or os.environ.get("CUDA_PATH")
+    if home and os.path.exists(os.path.join(home, "bin", "nvcc")):
+        return os.path.join(home, "bin", "nvcc")
+    found = shutil.which("nvcc")
+    return found or "/usr/local/cuda/bin/nvcc"
+
+
+def _lib_path(src: str) -> str:
+    h = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
+    for name in sorted(os.listdir(CSRC)):
+        if name == src + ".cu" or name.endswith(".cuh"):
+            with open(os.path.join(CSRC, name), "rb") as f:
+                h.update(name.encode() + f.read())
+    return os.path.join(BUILD_DIR, f"lib{src}.{h.hexdigest()[:12]}.so")
+
+
+def build(sources=None) -> Dict[str, float]:
+    """Compile the given sources (default: all) that are not built yet, all
+    at once; returns seconds per source compiled.  Raises with the
+    compiler's output when one fails."""
+    sources = SOURCES if sources is None else sources
+    os.makedirs(BUILD_DIR, exist_ok=True)
+    nvcc = nvcc_path()
+    procs = {}
+    t0 = time.perf_counter()
+    for src in sources:
+        out = _lib_path(src)
+        if os.path.exists(out):
+            continue
+        tmp = f"{out}.{os.getpid()}.tmp"
+        cmd = [nvcc, *NVCC_FLAGS, "-o", tmp, os.path.join(CSRC, src + ".cu")]
+        procs[src] = (subprocess.Popen(cmd, stdout=subprocess.PIPE,
+                                       stderr=subprocess.STDOUT, text=True),
+                      tmp, out)
+    seconds = {}
+    failed = []
+    for src, (proc, tmp, out) in procs.items():
+        log, _ = proc.communicate()
+        seconds[src] = time.perf_counter() - t0
+        build_logs[src] = log
+        if proc.returncode != 0:
+            failed.append(f"nvcc failed for {src}.cu:\n{log}")
+        else:
+            os.replace(tmp, out)
+    if failed:
+        raise RuntimeError("\n".join(failed))
+    return seconds
+
+
+def _lib(src: str) -> ctypes.CDLL:
+    with _lock:
+        lib = _libs.get(src)
+        if lib is None:
+            path = _lib_path(src)
+            if not os.path.exists(path):
+                build(SOURCES)
+            lib = ctypes.CDLL(path)
+            for entry, (s, argtypes) in ENTRIES.items():
+                if s == src:
+                    fn = getattr(lib, "femto_" + entry)
+                    fn.argtypes = argtypes + [_P]
+                    fn.restype = _I
+            _libs[src] = lib
+        return lib
+
+
+def launch(entry: str, *args) -> None:
+    """Call one C entry point on the current CUDA stream; raise if it
+    reports a CUDA error, else count the launch."""
+    src, _ = ENTRIES[entry]
+    fn = getattr(_lib(src), "femto_" + entry)
+    stream = torch.cuda.current_stream().cuda_stream
+    rc = fn(*args, stream)
+    if rc != 0:
+        raise RuntimeError(f"CUDA kernel {entry} failed: cudaError_t {rc}")
+    launches[entry] += 1
+
+
+def on_card(*tensors: torch.Tensor) -> bool:
+    """True if every tensor lies on the card (launch the kernel), False if
+    every one lies on the CPU (take the plain version); mixed or other
+    devices raise."""
+    types = {t.device.type for t in tensors}
+    if types == {"cuda"}:
+        return True
+    if types == {"cpu"}:
+        return False
+    raise ValueError(f"tensors on mixed or unsupported devices: {types}")
+
+
+def check(t: torch.Tensor, name: str, dtype: torch.dtype, ndim: int,
+          shape=None) -> None:
+    """Raise unless t is a contiguous ndim-D tensor of dtype (and shape)."""
+    if t.dtype != dtype or t.dim() != ndim or not t.is_contiguous():
+        raise ValueError(f"{name} must be a contiguous {ndim}-D {dtype} "
+                         f"tensor, got {t.dtype} {tuple(t.shape)}")
+    if shape is not None and tuple(t.shape) != tuple(shape):
+        raise ValueError(f"{name} must have shape {tuple(shape)}, got "
+                         f"{tuple(t.shape)}")

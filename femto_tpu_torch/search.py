@@ -1,0 +1,168 @@
+"""Query API: count / locate / extract over an FMIndex (full tier).
+
+The counterpart of femto_tpu/search.py.  Patterns are byte strings; every
+query runs on the index's device, through kernel C (count) and kernel D
+(locate walk, extract) on the card.  The direct locate tier is one tensor
+gather, sa_direct[rows].
+"""
+
+from __future__ import annotations
+
+from typing import List, Optional, Sequence, Tuple
+
+import numpy as np
+import torch
+
+from .alphabet import CHARACTER_OFFSET, pattern_to_alpha
+from .fmindex import FMIndex
+from .metrics import metrics
+from .ops import search_ops as S
+
+
+def _bucket(x: int, minimum: int = 8) -> int:
+    """Round up to a power of two."""
+    b = minimum
+    while b < x:
+        b *= 2
+    return b
+
+
+def pack_patterns(
+    patterns: Sequence[np.ndarray], pad_b: Optional[int] = None
+) -> Tuple[np.ndarray, int]:
+    """Right-align alpha-coded patterns into int32[B, P] padded with -1."""
+    lens = np.fromiter(map(len, patterns), np.int64, len(patterns))
+    flat = np.concatenate(patterns) if lens.sum() else np.zeros(0, np.int32)
+    return _pack_flat(flat, lens, pad_b), len(patterns)
+
+
+def _pack_flat(flat: np.ndarray, lens: np.ndarray,
+               pad_b: Optional[int]) -> np.ndarray:
+    """pack_patterns of the patterns laid end to end in flat, in
+    whole-array numpy steps (no Python loop over the patterns)."""
+    B = len(lens)
+    Bp = pad_b if pad_b is not None else _bucket(B)
+    Pp = _bucket(max(int(lens.max(initial=0)), 1), minimum=4)
+    out = np.full((Bp, Pp), -1, dtype=np.int32)
+    ends = np.cumsum(lens)
+    # right-aligned: pattern i ends at column Pp-1
+    col = np.arange(len(flat)) + np.repeat(Pp - ends, lens)
+    out[np.repeat(np.arange(B), lens), col] = flat
+    return out
+
+
+def count_ranges(
+    index: FMIndex, patterns: Sequence[bytes]
+) -> Tuple[np.ndarray, np.ndarray]:
+    """Row ranges [first, last) for each pattern."""
+    metrics.count("queries/count", len(patterns))
+    metrics.count("queries/backward_steps", sum(len(p) for p in patterns))
+    if not patterns:
+        return np.zeros(0, np.int64), np.zeros(0, np.int64)
+    lens = np.fromiter(map(len, patterns), np.int64, len(patterns))
+    pats = _pack_flat(pattern_to_alpha(b"".join(patterns)), lens,
+                      pad_b=len(patterns))
+    first, last = S.backward_search(
+        index.arrays, index.meta.n_rows,
+        torch.from_numpy(pats).to(index.device), row0=index.meta.row0)
+    return (first.cpu().numpy().astype(np.int64),
+            last.cpu().numpy().astype(np.int64))
+
+
+def count(index: FMIndex, patterns: Sequence[bytes]) -> np.ndarray:
+    """Number of occurrences of each pattern across the corpus."""
+    first, last = count_ranges(index, patterns)
+    return last - first
+
+
+def _locate_rows_dispatch(index: FMIndex, rows: torch.Tensor) -> torch.Tensor:
+    if index.sa_direct is not None:
+        return index.sa_direct[rows.long()]
+    return S.locate_rows(index.arrays, index.meta.mark_period, rows)
+
+
+def locate_range(
+    index: FMIndex, first: int, last: int, max_matches: Optional[int] = None
+) -> np.ndarray:
+    """Text offsets for all rows in [first, last), ascending by row."""
+    m = int(last - first)
+    if max_matches is not None:
+        m = min(m, max_matches)
+    metrics.count("queries/locate_rows", max(m, 0))
+    if m <= 0:
+        return np.zeros(0, dtype=np.int64)
+    rows = torch.arange(first, first + m, dtype=torch.int32,
+                        device=index.device)
+    return _locate_rows_dispatch(index, rows).cpu().numpy().astype(np.int64)
+
+
+def locate_rows_array(index: FMIndex, rows: np.ndarray) -> np.ndarray:
+    """Text offsets for an arbitrary batch of rows in [0, n_rows)."""
+    rows = np.asarray(rows)
+    m = len(rows)
+    if m == 0:
+        return np.zeros(0, np.int64)
+    if rows.min() < 0 or rows.max() >= index.meta.n_rows:
+        raise ValueError("rows must lie in [0, n_rows)")
+    metrics.count("queries/locate_rows", m)
+    rr = torch.from_numpy(rows.astype(np.int32)).to(index.device)
+    return _locate_rows_dispatch(index, rr).cpu().numpy().astype(np.int64)
+
+
+def offsets_to_docs(
+    index: FMIndex, offs: np.ndarray
+) -> Tuple[np.ndarray, np.ndarray]:
+    """Map global text offsets to (doc_id, offset_in_doc); matches inside a
+    document's header section come back negative."""
+    if offs.size == 0:
+        return np.zeros(0, np.int64), np.zeros(0, np.int64)
+    doc = np.searchsorted(index.doc_starts_np, offs, side="right") - 1
+    doc_off = offs - index.doc_starts_np[doc]
+    if index.header_lens_np is not None:
+        doc_off = doc_off - index.header_lens_np[doc]
+    return doc.astype(np.int64), doc_off.astype(np.int64)
+
+
+def locate(
+    index: FMIndex, pattern: bytes, max_matches: Optional[int] = None
+) -> List[Tuple[int, int]]:
+    """All (doc_id, offset) matches of pattern, sorted."""
+    first, last = count_ranges(index, [pattern])
+    offs = locate_range(index, int(first[0]), int(last[0]), max_matches)
+    doc, doc_off = offsets_to_docs(index, offs)
+    return sorted(zip(doc.tolist(), doc_off.tolist()))
+
+
+def _content_lens(index: FMIndex) -> np.ndarray:
+    lens = (np.diff(index.doc_starts_np) - 1).astype(np.int64)
+    if index.header_lens_np is not None:
+        lens = lens - index.header_lens_np
+    return lens
+
+
+def extract_document(index: FMIndex, doc_id: int) -> bytes:
+    """Reconstruct document bytes from the index alone, by a backward LF
+    walk from the document's SEOF row."""
+    dlen = int(_content_lens(index)[doc_id])
+    if dlen == 0:
+        return b""
+    rows = index.arrays.doc_seof_rows[doc_id: doc_id + 1].contiguous()
+    chars, _ = S.extract_backward(index.arrays, rows, dlen)
+    seq = chars.cpu().numpy()[0][::-1]  # reverse: the walk went backwards
+    return (seq - CHARACTER_OFFSET).astype(np.uint8).tobytes()
+
+
+def extract_all_documents(index: FMIndex) -> List[bytes]:
+    """Reconstruct every document in one batched LF walk (rows = all doc
+    SEOF rows, steps = the longest document)."""
+    lens = _content_lens(index)
+    ndocs = len(lens)
+    if ndocs == 0:
+        return []
+    maxlen = int(lens.max())
+    if maxlen == 0:
+        return [b""] * ndocs
+    rows = index.arrays.doc_seof_rows[:ndocs].contiguous()
+    chars = S.extract_backward(index.arrays, rows, maxlen)[0].cpu().numpy()
+    return [(chars[d][: int(lens[d])][::-1] - CHARACTER_OFFSET)
+            .astype(np.uint8).tobytes() for d in range(ndocs)]

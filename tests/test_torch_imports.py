@@ -1,0 +1,118 @@
+"""femto_tpu_torch stands alone: no JAX, no femto_tpu, no silent CPU path.
+
+The port's package and chip_smoke.py must import neither jax nor anything
+of femto_tpu, and its entry points must raise rather than fall back to the
+CPU when the card is asked for and absent (this host has no card).
+"""
+
+import os
+import re
+import subprocess
+import sys
+
+import numpy as np
+import pytest
+import torch
+
+import femto_tpu_torch as tt
+from femto_tpu_torch.ops import search_ops as TS
+
+ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+PKG = os.path.join(ROOT, "femto_tpu_torch")
+FORBIDDEN = re.compile(
+    r"^\s*(import\s+(jax|femto_tpu)\b(?!_torch)"
+    r"|from\s+(jax|femto_tpu)\b(?!_torch))", re.M)
+
+
+def _port_sources():
+    for dirpath, _, files in os.walk(PKG):
+        for f in files:
+            if f.endswith(".py"):
+                yield os.path.join(dirpath, f)
+    yield os.path.join(ROOT, "chip_smoke.py")
+
+
+def test_import_pulls_in_neither_jax_nor_femto_tpu():
+    code = ("import sys, femto_tpu_torch, femto_tpu_torch.ops.build_ops, "
+            "femto_tpu_torch.kernels; "
+            "print('jax' in sys.modules, 'femto_tpu' in sys.modules)")
+    out = subprocess.run([sys.executable, "-c", code], cwd=ROOT,
+                         capture_output=True, text=True, timeout=120)
+    assert out.returncode == 0, out.stderr
+    assert out.stdout.split() == ["False", "False"]
+
+
+@pytest.mark.parametrize("path", sorted(_port_sources()),
+                         ids=lambda p: os.path.relpath(p, ROOT))
+def test_no_jax_or_femto_tpu_import_in_source(path):
+    with open(path) as f:
+        hits = FORBIDDEN.findall(f.read())
+    assert not hits, f"{path} imports {hits}"
+
+
+def test_forbidden_pattern_catches_imports():
+    for line in ("import jax", "import jax.numpy as jnp", "from jax import x",
+                 "import femto_tpu", "from femto_tpu.ops import rank",
+                 "    from femto_tpu import search"):
+        assert FORBIDDEN.search(line), line
+    for line in ("import femto_tpu_torch", "from femto_tpu_torch import x",
+                 "from .ops import rank"):
+        assert not FORBIDDEN.search(line), line
+
+
+def test_entry_points_raise_without_a_card(tmp_path):
+    assert not torch.cuda.is_available()
+    prepared = tt.prepare_documents([b"abc", b"abd"])
+    with pytest.raises(RuntimeError, match="cuda"):
+        tt.build_index(prepared)
+    ix = tt.build_index(prepared, seg=64, mark_period=4, device="cpu")
+    ix.save(str(tmp_path / "ix"))
+    with pytest.raises(RuntimeError, match="cuda"):
+        tt.FMIndex.load(str(tmp_path / "ix"))
+    arrays = {k: v.numpy() for k, v in ix.arrays._asdict().items()
+              if v is not None}
+    with pytest.raises(RuntimeError, match="cuda"):
+        tt.arrays_from_numpy(arrays, ix.meta)
+    with pytest.raises(ValueError, match="device"):
+        tt.build_index(prepared, device="mps")
+
+
+def test_wrappers_refuse_mixed_devices():
+    ix = tt.build_index(tt.prepare_documents([b"abc"]), seg=64,
+                        mark_period=4, device="cpu")
+    rows = torch.zeros(2, dtype=torch.int32, device="meta")
+    with pytest.raises(ValueError, match="devices"):
+        TS.locate_rows(ix.arrays, 4, rows)
+    with pytest.raises(ValueError, match="int32"):
+        TS.extract_backward(ix.arrays, torch.zeros(2, dtype=torch.int64), 3)
+
+
+@pytest.mark.parametrize("alone", [False, True])
+def test_chip_smoke_fails_without_a_card(tmp_path, alone):
+    """No card: non-zero exit and no result line, also from a directory
+    that holds chip_smoke.py and nothing else of the repo."""
+    src = os.path.join(ROOT, "chip_smoke.py")
+    cwd = ROOT
+    if alone:
+        with open(src) as f, open(tmp_path / "chip_smoke.py", "w") as g:
+            g.write(f.read())
+        src, cwd = str(tmp_path / "chip_smoke.py"), str(tmp_path)
+    out = subprocess.run([sys.executable, src], cwd=cwd, capture_output=True,
+                         text=True, timeout=120)
+    assert out.returncode != 0
+    assert '"ok"' not in out.stdout
+
+
+def test_prepare_documents_matches_the_reference_layout():
+    import femto_tpu as ft
+
+    docs = [b"ab", b"", b"\x00\xff"]
+    headers = [b"h", b"", b"xy"]
+    got = tt.prepare_documents(docs, headers=headers)
+    want = ft.prepare_documents(docs, headers=headers)
+    assert np.array_equal(got.text, want.text)
+    assert np.array_equal(got.doc_starts, want.doc_starts)
+    assert np.array_equal(got.header_lens, want.header_lens)
+    assert got.infos == want.infos
+    assert np.array_equal(tt.alphabet.pattern_to_alpha(b"\x00z"),
+                          ft.alphabet.pattern_to_alpha(b"\x00z"))
