@@ -10,18 +10,29 @@ non-zero):
 1. card and toolchain: nvidia-smi name and power limit, CUDA, nvcc, triton;
 2. build every kernel under femto_tpu_torch/csrc/ with nvcc for sm_90a;
 3. each kernel against its plain PyTorch version, bit for bit, on an 8 MiB
-   seeded corpus (zipf English, a repeat-heavy, a binary and an empty doc);
-4. the main path at full size (a 256 MiB zipf-English corpus in 64 KiB
-   documents): build_index(tier="full", seg=256, mark_period=20), count of
-   32768 16-symbol patterns, locate of 65536 rows (walk and direct), and
-   extract_document of 8 documents, each checked, with the kernels'
-   launch counts read around this phase alone;
+   seeded corpus (zipf English, a repeat-heavy, a binary and an empty doc):
+   the builds of every tier, and the search kernels on each layout (full,
+   compact, packed; the packed one also at a 31-symbol alphabet);
+4. the first main path at full size (a 256 MiB zipf-English corpus in
+   64 KiB documents): build_index(tier="full", seg=256, mark_period=20),
+   count of 32768 16-symbol patterns, locate of 65536 rows (walk and
+   direct), and extract_document of 8 documents, each checked, with the
+   kernels' launch counts read around this phase alone;
+4b. the second main path on the same corpus: build_index of the compact and
+   packed tiers, a .ftpu round trip of the packed index (save_flat, load),
+   then on both tiers count, locate and extract as in 4, and on all three
+   tiers extract_context_batch of 4096 match rows and range_docs of 64
+   pattern ranges, each checked against the full tier and the documents,
+   with its own launch counts; each tier's index bytes per character;
 5. numbers: medians of 3 runs, per-kernel times beside their bounds, their
    plain versions and a one-call PyTorch yardstick where one exists; the
-   kernels at the main path's shapes are compared with their plain
-   versions again;
+   kernels at the main paths' shapes are compared with their plain
+   versions again (that one comparison run times the plain version); the
+   "kernels" line has one row per kernel and main path that launched it,
+   with that path's own launch count;
 6. where the time goes: device time by kernel and the device's busy share
-   over one build, count, locate and extract (torch.profiler).
+   over one build, count, locate and extract of the full tier and one
+   build, count, locate and context of the packed tier (torch.profiler).
 
 The last line is {"ok": true, "device": {...}}; the line before it is the
 card's name and power limit, and before that the "kernels" JSON line.  The
@@ -37,6 +48,7 @@ import os
 import statistics
 import subprocess
 import sys
+import tempfile
 import time
 
 import numpy as np
@@ -46,20 +58,42 @@ DOC_SIZE = 1 << 16
 PATLEN = 16
 N_PATTERNS = 32768
 N_LOCATE = 65536
+N_CONTEXT = 4096  # extract_context_batch rows: 32 before, 16 + 48 from
+CTX = (32, PATLEN, 48)
+N_RANGES = 64     # range_docs ranges, of 6-symbol patterns
 MAIN_MIB = 256  # the main path's corpus size
 ZIPF_LETTERS = b"etaoin shrdlucmfwypvbgkqjxz.,\n"
+LAYOUTS = ("full", "compact", "packed")
+# the kernels each main path must launch: phase 4 (full tier) and 4b
+PATH_KERNELS = {
+    "full": ("occ_build", "marks_build", "backward_search[full]",
+             "lf_locate[full]", "lf_extract[full]"),
+    "tiers": ("occ_build_compact", "marks_build", "pack_build")
+    + tuple(f"{k}[{lay}]" for k in ("backward_search", "lf_locate",
+                                    "lf_extract", "psi_walk")
+            for lay in LAYOUTS),
+}
 KERNELS = {  # entry -> (source, the femto_tpu function it replaces)
     "occ_build": ("femto_tpu_torch/csrc/occ_build.cu",
                   "femto_tpu/ops/build_ops.py:197"),
+    "occ_build_compact": ("femto_tpu_torch/csrc/occ_build.cu",
+                          "femto_tpu/ops/build_ops.py:169"),
     "marks_build": ("femto_tpu_torch/csrc/marks_build.cu",
                     "femto_tpu/ops/build_ops.py:1033"),
-    "backward_search": ("femto_tpu_torch/csrc/backward_search.cu",
-                        "femto_tpu/ops/search_ops.py:23"),
-    "lf_locate": ("femto_tpu_torch/csrc/lf_walk.cu",
-                  "femto_tpu/ops/search_ops.py:115"),
-    "lf_extract": ("femto_tpu_torch/csrc/lf_walk.cu",
-                   "femto_tpu/ops/search_ops.py:342"),
+    "pack_build": ("femto_tpu_torch/csrc/pack_build.cu",
+                   "femto_tpu/ops/build_ops.py:923"),
 }
+for _lay in LAYOUTS:
+    KERNELS.update({
+        f"backward_search[{_lay}]": ("femto_tpu_torch/csrc/backward_search.cu",
+                                     "femto_tpu/ops/search_ops.py:23"),
+        f"lf_locate[{_lay}]": ("femto_tpu_torch/csrc/lf_walk.cu",
+                               "femto_tpu/ops/search_ops.py:115"),
+        f"lf_extract[{_lay}]": ("femto_tpu_torch/csrc/lf_walk.cu",
+                                "femto_tpu/ops/search_ops.py:342"),
+        f"psi_walk[{_lay}]": ("femto_tpu_torch/csrc/psi_walk.cu",
+                              "femto_tpu/ops/search_ops.py:399"),
+    })
 
 
 class SmokeError(Exception):
@@ -201,19 +235,49 @@ def bound_occ_build(n, n_seg, seg):
             + 4 * 262) / HBM_BYTES_PER_S * 1e3
 
 
+def bound_occ_build_compact(n, n_seg, seg, K, grp):
+    """pull and the symbol map in; bwt, a_row, the uint16 checkpoints, the
+    L1 rows and C out."""
+    return (8 * n + 4 * 261 + 2 * n_seg * seg + 4 * n + 2 * K * n_seg
+            + 4 * K * (n_seg // grp) + 4 * (K + 1)) / HBM_BYTES_PER_S * 1e3
+
+
+def bound_pack_build(n_seg, seg, W):
+    return (2 * n_seg * seg + 4 * 261 + 4 * n_seg * W) / HBM_BYTES_PER_S * 1e3
+
+
 def bound_marks_build(n, n_seg, seg, n_marks, mark_vals_len, ndocs):
     return (4 * n + 4 * n_marks + n_seg * seg // 8 + 4 * n_seg
             + 4 * mark_vals_len + 4 * ndocs) / HBM_BYTES_PER_S * 1e3
 
 
+def _layout_bytes(arrays):
+    """(bytes of one code read, of one checkpoint, of a row prefix of off
+    rows as a tensor function, of the symbol map per use) of an index's
+    layout."""
+    from femto_tpu_torch.ops import rank as R
+
+    lay = R.layout(arrays)
+    ckpt = 4 if lay == "full" else 6          # int32 | uint16 + L1 int32
+    remap = 4 if R.is_remapped(arrays) else 0
+    if lay == "packed":
+        per_word, _ = R.pack_geometry(arrays)
+        return 4, ckpt, lambda off: 4 * ((off + per_word - 1) // per_word), \
+            remap
+    return 2, ckpt, lambda off: 2 * off, remap
+
+
 def bound_backward_search(arrays, pats, n_rows, row0):
-    """Patterns + outputs + per valid step C[c] and, for first and last,
-    one checkpoint int and the 2*off bytes of segment prefix counted."""
+    """Patterns + outputs + per valid step the symbol map, C[c] and, for
+    first and last, one checkpoint and the bytes of segment prefix
+    counted."""
     import torch
 
     from femto_tpu_torch.ops import rank as R
 
-    n_seg, seg = arrays.bwt.shape
+    seg = R.seg_size(arrays)
+    n_seg = R.n_segments(arrays)
+    _, ckpt, prefix, remap = _layout_bytes(arrays)
     B, P = pats.shape
     first = torch.full((B,), row0, dtype=torch.int32, device=pats.device)
     last = torch.full((B,), n_rows, dtype=torch.int32, device=pats.device)
@@ -221,11 +285,12 @@ def bound_backward_search(arrays, pats, n_rows, row0):
     for j in range(P - 1, -1, -1):
         col = pats[:, j]
         active = col >= 0
-        valid = active & (col < 261)
+        total += remap * int((active & (col < 261)).sum())
+        valid = active & (R.map_char(arrays, col) >= 0)
         total += 4 * int(valid.sum())
         for r in (first, last):
             inside = valid & (r < n_seg * seg)
-            total += int((inside * (4 + 2 * (r % seg))).sum())
+            total += int((inside * (ckpt + prefix(r.long() % seg))).sum())
         nf, nl = R.backward_step_pair(arrays, col, first, last)
         first = torch.where(active, nf, first)
         last = torch.where(active, nl, last)
@@ -234,13 +299,14 @@ def bound_backward_search(arrays, pats, n_rows, row0):
 
 def bound_locate(arrays, mark_period, rows):
     """Rows in, offsets out; per step the mark word, and on a miss the
-    symbol, C[c], a checkpoint and the counted prefix; on a hit the
+    code, C[c], a checkpoint and the counted prefix; on a hit the
     segment's earlier mark words, mark_ckpt and two mark_vals words."""
     import torch
 
     from femto_tpu_torch.ops import rank as R
 
-    seg = arrays.bwt.shape[1]
+    seg = R.seg_size(arrays)
+    code, ckpt, prefix, _ = _layout_bytes(arrays)
     total = 8 * rows.shape[0]
     done = torch.zeros_like(rows, dtype=torch.bool)
     r = rows
@@ -254,21 +320,49 @@ def bound_locate(arrays, mark_period, rows):
         miss = act & ~bit
         total += 4 * int(act.sum())
         total += int((hit * (4 * (off // 32) + 12)).sum())
-        total += int((miss * (10 + 2 * off)).sum())
+        total += int((miss * (code + 4 + ckpt + prefix(off))).sum())
         done = done | hit
         r = torch.where(done, r, nxt)
     return total / HBM_BYTES_PER_S * 1e3
 
 
-def bound_extract(isa, seof_pos, dlen, seg):
+def bound_extract(arrays, isa, seof_pos, dlen):
     """The rows an extract of one doc visits are isa[seof - t]; per step a
-    symbol, C[c], a checkpoint, the counted prefix and the output int."""
+    code, C[c], a checkpoint, the counted prefix, the symbol map and the
+    output int."""
     import torch
 
+    from femto_tpu_torch.ops import rank as R
+
+    seg = R.seg_size(arrays)
+    code, ckpt, prefix, remap = _layout_bytes(arrays)
     pos = seof_pos - torch.arange(dlen, device=isa.device)
     off = isa[pos] % seg
-    total = 8 + int((14 + 2 * off).sum())
+    total = 8 + int((code + 4 + ckpt + remap + 4 + prefix(off)).sum())
     return total / HBM_BYTES_PER_S * 1e3
+
+
+def bound_psi(arrays, rows, num_steps):
+    """Rows in and C once; per step one checkpoint (the hit segment's
+    base), the row prefix up to the hit, the symbol map and the output
+    int, counted over this run's walk (ops/rank.psi_step)."""
+    from femto_tpu_torch.ops import rank as R
+
+    seg = R.seg_size(arrays)
+    K = R.alpha_count(arrays)
+    _, ckpt, prefix, remap = _layout_bytes(arrays)
+    per_step = ckpt + remap + 4
+    total = 4 * rows.shape[0] + 4 * (K + 1)
+    r = rows
+    for _ in range(num_steps):
+        r, _ = R.psi_step(arrays, r)
+        total += per_step * r.shape[0] + int(prefix(r.long() % seg + 1).sum())
+    return total / HBM_BYTES_PER_S * 1e3
+
+
+def index_bytes(arrays):
+    """Bytes of an index's device arrays (FMArrays fields, no sa_direct)."""
+    return sum(t.numel() * t.element_size() for t in arrays if t is not None)
 
 
 # ---------------------------------------------------------------------------
@@ -354,20 +448,57 @@ def phase_parity(record, rng):
         errs[f"marks_build(mark_period={mp})"] = max_abs_err(
             f"marks_build(mark_period={mp})", b_k, b_p)
 
-    # the whole build on the card against the whole build on the CPU
-    ix = tt.build_index(prepared, seg=seg, mark_period=20, locate="direct",
-                        device="cuda")
-    ix_cpu = tt.build_index(prepared, seg=seg, mark_period=20, device="cpu")
-    for k, v in ix_cpu.arrays._asdict().items():
-        w = getattr(ix.arrays, k)
-        check((v is None) == (w is None), f"field {k}")
-        if v is not None:
-            max_abs_err(f"build_index field {k}", [w.cpu()], [v])
-    check(dataclasses.asdict(ix.meta) == dataclasses.asdict(ix_cpu.meta),
-          "meta differs between card and CPU builds")
-    check(torch.equal(ix.sa_direct, sa), "sa_direct differs")
+    # A' and F alone: the identity columns (compact tier) and the text's
+    # dense alphabet (packed tier)
+    n_seg16 = -(-n_seg // 16) * 16
+    for tag, arev in (("identity", torch.arange(261, dtype=torch.int32,
+                                                  device=dev)),
+                      ("dense", torch.unique(text).to(torch.int32))):
+        amap = torch.full((261,), -1, dtype=torch.int32, device=dev)
+        amap[arev.long()] = torch.arange(arev.shape[0], dtype=torch.int32,
+                                         device=dev)
+        kw = dict(n_seg=n_seg16, seg=seg)
+        got = BO.occ_build_compact(pull, amap, arev, **kw)
+        want = BO.occ_build_compact_plain(pull, arev, **kw)
+        torch.cuda.synchronize()
+        errs[f"occ_build_compact({tag})"] = max_abs_err(
+            f"occ_build_compact({tag})", got, want)
+        pw, bits = BO.pack_widths(arev.shape[0])
+        f_k = BO.pack_build(got[0], amap, per_word=pw, bits=bits)
+        f_p = BO.pack_build_plain(got[0], amap, per_word=pw, bits=bits)
+        torch.cuda.synchronize()
+        errs[f"pack_build({tag})"] = max_abs_err(f"pack_build({tag})",
+                                                 [f_k], [f_p])
 
-    arrays = ix.arrays
+    # the whole build of each tier on the card against the one on the CPU;
+    # packed31 is the packed tier at the main path's 31-symbol alphabet
+    small = tt.prepare_documents(docs[:32])
+    builds = {
+        "full": (prepared, dict(locate="direct")),
+        "compact": (prepared, {}),
+        "packed": (prepared, {}),
+        "packed31": (small, {}),
+    }
+    indexes = {}
+    for name, (prep, extra) in builds.items():
+        tier = name[:6] if name.startswith("packed") else name
+        ix = tt.build_index(prep, seg=seg, mark_period=20, tier=tier,
+                            device="cuda", **extra)
+        ix_cpu = tt.build_index(prep, seg=seg, mark_period=20, tier=tier,
+                                device="cpu")
+        for k, v in ix_cpu.arrays._asdict().items():
+            w = getattr(ix.arrays, k)
+            check((v is None) == (w is None), f"{name} field {k}")
+            if v is not None:
+                max_abs_err(f"build_index({name}) field {k}", [w.cpu()],
+                            [v])
+        check(dataclasses.asdict(ix.meta) == dataclasses.asdict(ix_cpu.meta),
+              f"{name}: meta differs between card and CPU builds")
+        indexes[name] = ix
+    check(torch.equal(indexes["full"].sa_direct, sa), "sa_direct differs")
+    check(indexes["packed31"].meta.alpha_used == 31,
+          "the zipf corpus should have 31 symbols")
+
     pats = []
     for _ in range(4000):
         d = int(rng.integers(0, len(docs) - 1))
@@ -379,29 +510,49 @@ def phase_parity(record, rng):
     packed, B = pack_patterns([pattern_to_alpha(p) for p in pats])
     packed[B - 1, -3] = 300  # a code outside the alphabet
     pt = torch.from_numpy(packed).to(dev)
-    c_k = S.backward_search(arrays, n, pt)
-    c_p = S.backward_search_plain(arrays, n, pt)
-    torch.cuda.synchronize()
-    errs["backward_search"] = max_abs_err("backward_search", c_k, c_p)
-    counts = (c_k[1] - c_k[0])[: B - 1].cpu().numpy()
-    check((counts[:-5] >= 1).all(), "a sliced pattern was not found")
-
     rows = torch.cat([
         torch.from_numpy(rng.integers(0, n, size=32768).astype(np.int32)),
         torch.arange(0, 2048, dtype=torch.int32)]).to(dev)
-    rows = torch.cat([rows, arrays.doc_seof_rows])
-    d_k = S.locate_rows(arrays, 20, rows)
-    d_p = S.locate_rows_plain(arrays, 20, rows)
-    torch.cuda.synchronize()
-    errs["lf_locate"] = max_abs_err("lf_locate", [d_k], [d_p])
-    check(torch.equal(d_k, sa[rows.long()]), "walk locate != suffix array")
-    er = rows[:512].contiguous()
-    e_k = S.extract_backward(arrays, er, 300)
-    e_p = S.extract_backward_plain(arrays, er, 300)
-    torch.cuda.synchronize()
-    errs["lf_extract"] = max_abs_err("lf_extract", e_k, e_p)
-    for d in (0, len(docs) - 4, len(docs) - 3, len(docs) - 2, len(docs) - 1):
-        check(tt.extract_document(ix, d) == docs[d], f"extract doc {d}")
+    rows = torch.cat([rows, indexes["full"].arrays.doc_seof_rows])
+    for name, ix in indexes.items():
+        arrays, nn = ix.arrays, ix.meta.n
+        ok_rows = rows if nn == n else rows[rows < nn]
+        c_k = S.backward_search(arrays, nn, pt)
+        c_p = S.backward_search_plain(arrays, nn, pt)
+        d_k = S.locate_rows(arrays, 20, ok_rows)
+        d_p = S.locate_rows_plain(arrays, 20, ok_rows)
+        er = ok_rows[:512].contiguous()
+        e_k = S.extract_backward(arrays, er, 300)
+        e_p = S.extract_backward_plain(arrays, er, 300)
+        p_k = S.psi_walk(arrays, er, 40)
+        p_p = S.psi_walk_plain(arrays, er, 40)
+        torch.cuda.synchronize()
+        errs[f"backward_search[{name}]"] = max_abs_err(
+            f"backward_search[{name}]", c_k, c_p)
+        errs[f"lf_locate[{name}]"] = max_abs_err(f"lf_locate[{name}]",
+                                                 [d_k], [d_p])
+        errs[f"lf_extract[{name}]"] = max_abs_err(f"lf_extract[{name}]",
+                                                  e_k, e_p)
+        errs[f"psi_walk[{name}]"] = max_abs_err(f"psi_walk[{name}]",
+                                                [p_k], [p_p])
+        if nn == n:
+            check(torch.equal(d_k, sa[ok_rows.long()]),
+                  f"{name}: walk locate != suffix array")
+            # psi walks forward through the text: chars[:, t] = text[sa + t]
+            # up to and including the document's SEOF
+            pos = sa[er.long()].long()[:, None] + torch.arange(40, device=dev)
+            want = text[pos.clamp(max=n - 1)]
+            seof = (want == 2).int()
+            upto = (torch.cumsum(seof, dim=1) - seof) == 0
+            check(torch.equal(p_k[upto], want[upto]),
+                  f"{name}: psi walk != the text after each row")
+            counts = (c_k[1] - c_k[0])[: B - 1].cpu().numpy()
+            check((counts[:-5] >= 1).all(),
+                  f"{name}: a sliced pattern was not found")
+            for d in (0, len(docs) - 4, len(docs) - 3, len(docs) - 2,
+                      len(docs) - 1):
+                check(tt.extract_document(ix, d) == docs[d],
+                      f"{name}: extract doc {d}")
     record["parity_8mib"] = {"n": n, "ndocs": ndocs, "max_abs_err": errs}
     log(f"[3] 8 MiB parity (n={n}): every kernel equals its plain version "
         f"bit for bit: {sorted(errs)}")
@@ -485,8 +636,9 @@ def phase_main(record, rng):
         check(docs[d][o: o + len(p)] == p, f"located match {d}:{o} wrong")
     for d, got in extracted.items():
         check(got == docs[d], f"extract_document({d}) differs")
-    for name, cnt in launches.items():
-        check(cnt >= 1, f"kernel {name} was not launched on the main path")
+    for name in PATH_KERNELS["full"]:
+        check(launches[name] >= 1,
+              f"kernel {name} was not launched on the main path")
     log(f"    checks: counts >= 1, 32 sampled counts == text scan, walk == "
         f"direct on {N_LOCATE} rows, 256 matches in the text, "
         f"{len(ext_docs)} documents extracted exactly")
@@ -498,11 +650,133 @@ def phase_main(record, rng):
     }
     return dict(prepared=prepared, docs=docs, index=index, walk=walk,
                 text=text, patterns=patterns, loc_rows=loc_rows,
-                ext_docs=ext_docs, launches=launches)
+                ext_docs=ext_docs, launches=launches, first=first, last=last,
+                offs_direct=offs_direct)
 
 
-def phase_numbers(record, st):
-    """End-to-end rates (medians of 3) and each kernel at the main path's
+def phase_tiers(record, rng, st):
+    """The second main path, on phase 4's corpus: the compact and packed
+    tiers built on the card, the packed index through a .ftpu file and
+    back, count / locate / extract on both held to the full tier, and
+    extract_context_batch and range_docs on all three tiers held to the
+    documents, with the kernels' launch counts read around this phase."""
+    import torch
+
+    import femto_tpu_torch as tt
+    from femto_tpu_torch import kernels
+
+    prepared, docs, walk = st["prepared"], st["docs"], st["walk"]
+    n = prepared.n
+    sa = st["index"].sa_direct
+    first, last = st["first"], st["last"]
+    patterns, loc_rows, ext_docs = (st["patterns"], st["loc_rows"],
+                                    st["ext_docs"])
+    pick = rng.integers(0, 1 << 30, size=N_CONTEXT)
+    ctx_rows = first[:N_CONTEXT] + pick % (last - first)[:N_CONTEXT]
+    rd_docs = rng.integers(0, len(docs), size=N_RANGES)
+    rd_offs = rng.integers(0, DOC_SIZE - 8, size=N_RANGES)
+    rd_pats = [docs[d][o: o + 6] for d, o in zip(rd_docs, rd_offs)]
+
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    kernels.reset_launches()
+    t0 = time.perf_counter()
+    compact = tt.build_index(prepared, seg=256, mark_period=20,
+                             tier="compact", device="cuda")
+    packed = tt.build_index(prepared, seg=256, mark_period=20,
+                            tier="packed", device="cuda")
+    torch.cuda.synchronize()
+    t_build = time.perf_counter() - t0
+    with tempfile.TemporaryDirectory() as tmp:
+        path = os.path.join(tmp, "packed.ftpu")
+        t0 = time.perf_counter()
+        packed.save_flat(path)
+        t_save = time.perf_counter() - t0
+        file_bytes = os.path.getsize(path)
+        t0 = time.perf_counter()
+        loaded = tt.FMIndex.load(path, device="cuda")
+        torch.cuda.synchronize()
+        t_load = time.perf_counter() - t0
+    tiers = {"full": walk, "compact": compact, "packed": loaded}
+    got = {}
+    for name, ix in tiers.items():
+        r = got[name] = {}
+        if name != "full":
+            r["ranges"] = tt.count_ranges(ix, patterns)
+            r["offs"] = tt.locate_rows_array(ix, loc_rows)
+            r["extracted"] = {d: tt.extract_document(ix, d)
+                              for d in ext_docs}
+        r["ctx"] = tt.extract_context_batch(ix, ctx_rows, *CTX)
+        rf, rl = tt.count_ranges(ix, rd_pats)
+        r["rd_ranges"] = (rf, rl)
+        r["rd"] = [tt.range_docs(ix, int(f), int(l)) for f, l in zip(rf, rl)]
+    torch.cuda.synchronize()
+    launches = dict(kernels.launches)
+    peak = torch.cuda.max_memory_allocated()
+    log(f"[4b] compact + packed build {t_build:.2f}s (first calls); .ftpu "
+        f"{file_bytes} B, save {t_save:.2f}s, load {t_load:.2f}s; peak "
+        f"device memory {peak / 2**30:.2f} GiB; launches {launches}")
+
+    # the .ftpu round trip is exact
+    for k, v in packed.arrays._asdict().items():
+        w = getattr(loaded.arrays, k)
+        check((v is None) == (w is None), f".ftpu field {k}")
+        if v is not None:
+            max_abs_err(f".ftpu field {k}", [w], [v])
+    check(loaded.meta == packed.meta and loaded.infos == packed.infos,
+          ".ftpu meta or infos differ")
+    check(packed.meta.alpha_used == 31, "the zipf corpus has 31 symbols")
+    # counts, locates and extracts of both tiers equal the full tier's
+    for name in ("compact", "packed"):
+        r = got[name]
+        check(np.array_equal(r["ranges"][0], first)
+              and np.array_equal(r["ranges"][1], last),
+              f"{name}: count ranges differ from the full tier's")
+        check(np.array_equal(r["offs"], st["offs_direct"]),
+              f"{name}: walk locate differs from sa_direct[rows]")
+        for d, b in r["extracted"].items():
+            check(b == docs[d], f"{name}: extract_document({d}) differs")
+    # contexts equal the documents' bytes around each match
+    offs = sa[torch.from_numpy(ctx_rows).to(sa.device)].cpu()
+    starts = prepared.doc_starts.astype(np.int64)
+    before, plen, after = CTX
+    for i, off in enumerate(offs.numpy().astype(np.int64)):
+        d = int(np.searchsorted(starts, off, side="right")) - 1
+        o = int(off - starts[d])
+        want = docs[d][max(0, o - before): o + plen + after]
+        for name in tiers:
+            check(got[name]["ctx"][i] == want,
+                  f"{name}: context of row {ctx_rows[i]} differs")
+    # range_docs equal the doc ids of the located offsets
+    rf, rl = got["full"]["rd_ranges"]
+    for j, (f, l) in enumerate(zip(rf, rl)):
+        offs = sa[int(f): int(l)].cpu().numpy().astype(np.int64)
+        want = np.unique(np.searchsorted(starts, offs, side="right") - 1)
+        for name in tiers:
+            check(np.array_equal(got[name]["rd"][j], want),
+                  f"{name}: range_docs of range {j} differs")
+    for name in PATH_KERNELS["tiers"]:
+        check(launches[name] >= 1,
+              f"kernel {name} was not launched on the second main path")
+    bpc = {name: index_bytes(ix.arrays) / n for name, ix in tiers.items()}
+    log(f"    checks: .ftpu round trip exact; both tiers' ranges, {N_LOCATE} "
+        f"walk offsets and {len(ext_docs)} extracts equal the full tier's; "
+        f"{N_CONTEXT} contexts and {N_RANGES} range_docs equal the "
+        f"documents' on all three tiers")
+    log(f"    index bytes per character: {bpc}")
+    record["tiers_path"] = {
+        "first_build_s_compact_and_packed": t_build, "ftpu_bytes": file_bytes,
+        "ftpu_save_s": t_save, "ftpu_load_s": t_load,
+        "peak_device_bytes": peak, "launches": launches,
+        "bytes_per_char": bpc, "alpha_used": packed.meta.alpha_used,
+        "n_seg": {name: ix.meta.n_seg for name, ix in tiers.items()},
+    }
+    return dict(compact=compact, packed=loaded, ctx_rows=ctx_rows,
+                launches=launches)
+
+
+def phase_numbers(record, st, st2):
+    """End-to-end rates (medians of 3) and each kernel at the main paths'
     shapes against its bound, its plain version and a library call."""
     import torch
 
@@ -556,6 +830,21 @@ def phase_numbers(record, st):
     rates["extract_chars_per_s"] = summary(
         [(DOC_SIZE - 1) / t
          for t in wall_runs(lambda: tt.extract_document(walk, d0))])
+    packed = st2["packed"]
+    ctx_rows = st2["ctx_rows"]
+    rates["build_packed_mib_per_s"] = summary(
+        [mib / t for t in wall_runs(lambda: tt.build_index(
+            prepared, seg=seg, mark_period=mp, tier="packed",
+            device="cuda"))])
+    rates["count_packed_steps_per_s"] = summary(
+        [steps / t for t in wall_runs(lambda: tt.count(packed, patterns))])
+    rates["locate_walk_packed_rows_per_s"] = summary(
+        [len(rows) / t
+         for t in wall_runs(lambda: tt.locate_rows_array(packed, rows))])
+    for name, ix in (("full", walk), ("packed", packed)):
+        rates[f"context_{name}_rows_per_s"] = summary(
+            [len(ctx_rows) / t for t in wall_runs(
+                lambda: tt.extract_context_batch(ix, ctx_rows, *CTX))])
     record["rates"] = rates
     for k, v in rates.items():
         log(f"[5] {k}: {v['median']:.6g} (min {v['min']:.6g}, max "
@@ -565,25 +854,38 @@ def phase_numbers(record, st):
     arrays = walk.arrays
     sa, pull = box["sa"], box["pull"]
     a_row = BO.occ_build(pull, n_seg=n_seg, seg=seg)[1]
-    kern = {}
+    kern = []
+    path_launches = {"full": st["launches"], "tiers": st2["launches"]}
 
     def kernel_row(name, run_k, run_p, bound_ms, library=None):
-        got, want = run_k(), run_p()
+        """One kernel against its plain version at these shapes; plain_ms
+        is the time of that one comparison run.  One row per main path
+        that launched the kernel, with that path's own count."""
+        a, b = torch.cuda.Event(enable_timing=True), \
+            torch.cuda.Event(enable_timing=True)
+        got = run_k()
+        a.record()
+        want = run_p()
+        b.record()
         torch.cuda.synchronize()
         err = max_abs_err(name, got, want)
         del got, want
+        plain_ms = a.elapsed_time(b)
         ms = cuda_ms(run_k)
-        plain_ms = cuda_ms(run_p, reps=1)
         lib_ms = cuda_ms(library) if library is not None else None
         src, replaces = KERNELS[name]
-        kern[name] = {
-            "name": name, "route": "cuda", "source": src,
-            "replaces": replaces, "launches": st["launches"][name],
-            "max_abs_err": err, "ms": ms, "plain_ms": plain_ms,
-            "bound_ms": bound_ms, "bound_by": "bytes", "library_ms": lib_ms,
-        }
+        per_path = {p: c.get(name, 0) for p, c in path_launches.items()
+                    if c.get(name, 0) or name in PATH_KERNELS[p]}
+        for path, launches in per_path.items():
+            kern.append({
+                "name": name, "path": path, "route": "cuda", "source": src,
+                "replaces": replaces, "launches": launches,
+                "max_abs_err": err, "ms": ms, "plain_ms": plain_ms,
+                "bound_ms": bound_ms, "bound_by": "bytes",
+                "library_ms": lib_ms,
+            })
         log(f"    {name}: {ms:.4g} ms (bound {bound_ms:.4g} ms, plain "
-            f"{plain_ms:.4g} ms, library {lib_ms})")
+            f"{plain_ms:.4g} ms, library {lib_ms}); launches {per_path}")
 
     seg_sym = (torch.arange(n, device=dev) // seg) * 261 + (pull & 511)
     kernel_row(
@@ -592,7 +894,28 @@ def phase_numbers(record, st):
         lambda: BO.occ_build_plain(pull, n_seg=n_seg, seg=seg),
         bound_occ_build(n, n_seg, seg),
         library=lambda: torch.bincount(seg_sym, minlength=n_seg * 261))
+    # A' and F as the packed build runs them (31 used columns)
+    pa = packed.arrays
+    K = pa.C.shape[0] - 1
+    n_seg16 = packed.meta.n_seg
+    kw16 = dict(n_seg=n_seg16, seg=seg)
+    kernel_row(
+        "occ_build_compact",
+        lambda: BO.occ_build_compact(pull, pa.alpha_map, pa.alpha_rev,
+                                     **kw16),
+        lambda: BO.occ_build_compact_plain(pull, pa.alpha_rev, **kw16),
+        bound_occ_build_compact(n, n_seg16, seg, K, 16),
+        library=lambda: torch.bincount(seg_sym, minlength=n_seg16 * 261))
     del seg_sym
+    bwt16 = BO.occ_build_compact(pull, pa.alpha_map, pa.alpha_rev, **kw16)[0]
+    pw, bits = BO.pack_widths(K)
+    kernel_row(
+        "pack_build",
+        lambda: [BO.pack_build(bwt16, pa.alpha_map, per_word=pw, bits=bits)],
+        lambda: [BO.pack_build_plain(bwt16, pa.alpha_map, per_word=pw,
+                                     bits=bits)],
+        bound_pack_build(n_seg16, seg, pa.bwt.shape[1]))
+    del bwt16
     kw = dict(n_seg=n_seg, seg=seg, mark_period=mp, ndocs=ndocs)
     kernel_row(
         "marks_build",
@@ -603,30 +926,40 @@ def phase_numbers(record, st):
     pt = torch.from_numpy(pack_patterns(
         [pattern_to_alpha(p) for p in patterns],
         pad_b=len(patterns))[0]).to(dev)
-    kernel_row(
-        "backward_search",
-        lambda: S.backward_search(arrays, n, pt),
-        lambda: S.backward_search_plain(arrays, n, pt),
-        bound_backward_search(arrays, pt, n, 0))
     rt = torch.from_numpy(rows).to(dev)
-    kernel_row(
-        "lf_locate",
-        lambda: [S.locate_rows(arrays, mp, rt)],
-        lambda: [S.locate_rows_plain(arrays, mp, rt)],
-        bound_locate(arrays, mp, rt))
     isa = torch.empty(n, dtype=torch.int64, device=dev)
     isa[index.sa_direct.long()] = torch.arange(n, device=dev)
-    er = arrays.doc_seof_rows[d0: d0 + 1].contiguous()
-    kernel_row(
-        "lf_extract",
-        lambda: S.extract_backward(arrays, er, DOC_SIZE - 1),
-        lambda: S.extract_backward_plain(arrays, er, DOC_SIZE - 1),
-        bound_extract(isa, int(prepared.doc_starts[d0 + 1]) - 1,
-                      DOC_SIZE - 1, seg))
-    record["kernels"] = list(kern.values())
+    ct = torch.from_numpy(ctx_rows.astype(np.int32)).to(dev)
+    fwd = CTX[1] + CTX[2]
+    for lay, ix in (("full", walk), ("compact", st2["compact"]),
+                    ("packed", packed)):
+        A = ix.arrays
+        kernel_row(
+            f"backward_search[{lay}]",
+            lambda: S.backward_search(A, n, pt),
+            lambda: S.backward_search_plain(A, n, pt),
+            bound_backward_search(A, pt, n, 0))
+        kernel_row(
+            f"lf_locate[{lay}]",
+            lambda: [S.locate_rows(A, mp, rt)],
+            lambda: [S.locate_rows_plain(A, mp, rt)],
+            bound_locate(A, mp, rt))
+        er = A.doc_seof_rows[d0: d0 + 1].contiguous()
+        kernel_row(
+            f"lf_extract[{lay}]",
+            lambda: S.extract_backward(A, er, DOC_SIZE - 1),
+            lambda: S.extract_backward_plain(A, er, DOC_SIZE - 1),
+            bound_extract(A, isa, int(prepared.doc_starts[d0 + 1]) - 1,
+                          DOC_SIZE - 1))
+        kernel_row(
+            f"psi_walk[{lay}]",
+            lambda: [S.psi_walk(A, ct, fwd)],
+            lambda: [S.psi_walk_plain(A, ct, fwd)],
+            bound_psi(A, ct, fwd))
+    record["kernels"] = kern
 
 
-def phase_profile(record, st):
+def phase_profile(record, st, st2):
     """Device time by kernel (torch.profiler, CUPTI) and the device's busy
     share over one call of each main-path step, for PERF.md's breakdown;
     "not measured" where the profiler reports no device time."""
@@ -642,6 +975,13 @@ def phase_profile(record, st):
         "count": lambda: tt.count(walk, st["patterns"]),
         "locate_walk": lambda: tt.locate_rows_array(walk, st["loc_rows"]),
         "extract": lambda: tt.extract_document(walk, st["ext_docs"][0]),
+        "packed_build": lambda: tt.build_index(
+            prepared, seg=256, mark_period=20, tier="packed", device="cuda"),
+        "packed_count": lambda: tt.count(st2["packed"], st["patterns"]),
+        "packed_locate_walk": lambda: tt.locate_rows_array(st2["packed"],
+                                                           st["loc_rows"]),
+        "packed_context": lambda: tt.extract_context_batch(
+            st2["packed"], st2["ctx_rows"], *CTX),
     }
     out = {}
     for name, fn in steps.items():
@@ -694,8 +1034,9 @@ def main(argv=None):
         phase_build(record)
         phase_parity(record, rng)
         st = phase_main(record, rng)
-        phase_numbers(record, st)
-        phase_profile(record, st)
+        st2 = phase_tiers(record, rng, st)
+        phase_numbers(record, st, st2)
+        phase_profile(record, st, st2)
     except SmokeError as e:
         print(f"chip_smoke: FAILED: {e}", file=sys.stderr)
         return 1

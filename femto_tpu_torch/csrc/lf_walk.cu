@@ -1,4 +1,5 @@
-// Kernel D, lf_walk: LF-mapping walks of the full tier, two entry points.
+// Kernel D, lf_walk: LF-mapping walks over the full, compact and packed
+// layouts (one instantiation each), two entry points.
 //
 // locate replaces femto_tpu/ops/search_ops.py locate_rows (115) with
 // ops/rank.py lf_grank_step (883), mark_rank (821) and mark_offset (842):
@@ -6,7 +7,8 @@
 // its mark rank from mark_ckpt + popcounts of the segment's bitmap words,
 // and decode the bit-packed mark value.  extract replaces
 // ops/search_ops.py extract_backward (342): walk num_steps times, emitting
-// the BWT symbol of each row.
+// the symbol of each row (dense codes unmapped through alpha_rev, as
+// rank.py unmap_char does).
 //
 // The TPU walked every lane in lockstep for the longest walk and gathered
 // whole [B, seg] rows per step; here each thread walks its own row and
@@ -15,38 +17,27 @@
 // segment prefix it counts.
 //
 // Bound on the H100: bytes of dependent random gathers.  Per step: one
-// mark word, one symbol, one checkpoint int and the first `off` symbols of
-// the row's segment; per hit the segment's mark words, one mark_ckpt int
-// and two or three mark_vals words.  chip_smoke.py sums those over this
-// run's steps and divides by 3.35 TB/s; the walk itself is a chain of
-// dependent loads, so latency, not bandwidth, is what this kernel meets.
+// mark word, one symbol (word), the checkpoint and the counted row prefix;
+// per hit the segment's mark words, one mark_ckpt int and two or three
+// mark_vals words.  chip_smoke.py sums those over this run's steps and
+// divides by 3.35 TB/s; the walk itself is a chain of dependent loads, so
+// latency, not bandwidth, is what this kernel meets.
 #include "fm_common.cuh"
 
 namespace {
 
-using femto::kAlpha;
-
-struct Index {
-  const uint16_t* bwt;
-  const int* occ_ckpt;
-  const int* C;
-  long long n_seg;
-  int seg;
-};
-
-// One LF step from row r: LF(r) = C[c] + occ(c, r) with c = BWT[r].
-// Returns -1 (and leaves *sym the pad symbol) on a pad row.
-__device__ __forceinline__ long long lf_step(const Index& ix, long long r,
-                                             int* sym) {
+// One LF step from row r: LF(r) = C[c] + occ(c, r) with c = the code at r.
+// Returns -1 (and leaves *code the pad code) on a pad row.
+template <int L>
+__device__ __forceinline__ long long lf_step(const femto::FmView& ix,
+                                             long long r, int* code) {
   const long long s = r / ix.seg;
   const int off = static_cast<int>(r - s * ix.seg);
-  const uint16_t* row = ix.bwt + s * ix.seg;
-  const int c = __ldg(row + off);
-  *sym = c;
-  if (c >= kAlpha) return -1;
+  const int c = femto::code_at<L>(ix, s, off);
+  *code = c;
+  if (c >= ix.K) return -1;
   return static_cast<long long>(__ldg(ix.C + c)) +
-         __ldg(ix.occ_ckpt + s * kAlpha + c) +
-         femto::count_prefix(row, off, c);
+         femto::ckpt_base<L>(ix, s, c) + femto::count_prefix<L>(ix, s, off, c);
 }
 
 // ops/rank.py mark_offset: decode the packed store's slot g.
@@ -71,7 +62,9 @@ __device__ __forceinline__ int mark_offset(const unsigned* __restrict__ mv,
   return static_cast<int>(__ldg(mv + e));
 }
 
-__global__ void lf_locate_kernel(const int* __restrict__ rows, int B, Index ix,
+template <int L>
+__global__ void lf_locate_kernel(femto::FmView ix,
+                                 const int* __restrict__ rows, int B,
                                  const unsigned* __restrict__ mark_bits,
                                  const int* __restrict__ mark_ckpt,
                                  const unsigned* __restrict__ mark_vals,
@@ -98,14 +91,15 @@ __global__ void lf_locate_kernel(const int* __restrict__ rows, int B, Index ix,
     }
     if (i == mark_period) break;  // no mark within reach: -1
     int c;
-    r = lf_step(ix, r, &c);
+    r = lf_step<L>(ix, r, &c);
   }
   out[b] = result;
 }
 
-__global__ void lf_extract_kernel(const int* __restrict__ rows, int B,
-                                  int num_steps, Index ix,
-                                  int* __restrict__ chars,
+template <int L>
+__global__ void lf_extract_kernel(femto::FmView ix,
+                                  const int* __restrict__ rows, int B,
+                                  int num_steps, int* __restrict__ chars,
                                   int* __restrict__ final_rows) {
   const int b = blockIdx.x * blockDim.x + threadIdx.x;
   if (b >= B) return;
@@ -114,8 +108,11 @@ __global__ void lf_extract_kernel(const int* __restrict__ rows, int B,
   for (int t = 0; t < num_steps; ++t) {
     int c = femto::kInvalidAlpha;
     if (r >= 0) {
-      const long long nxt = lf_step(ix, r, &c);
-      if (nxt >= 0) r = nxt;  // a pad row (invalid input) stays put
+      const long long nxt = lf_step<L>(ix, r, &c);
+      if (nxt >= 0) {
+        r = nxt;
+        c = femto::unmap_char(ix, c);
+      }  // a pad row (invalid input) stays put and emits its pad code
     }
     out[t] = c;
   }
@@ -125,41 +122,35 @@ __global__ void lf_extract_kernel(const int* __restrict__ rows, int B,
 }  // namespace
 
 // rows int32[B] -> offsets int32[B] (-1 where no mark was reached).
-extern "C" int femto_lf_locate(const void* rows, int B, const void* bwt,
-                               const void* occ_ckpt, const void* C,
-                               long long n_seg, int seg, const void* mark_bits,
+extern "C" int femto_lf_locate(const femto::FmView* ix, const void* rows,
+                               int B, const void* mark_bits,
                                const void* mark_ckpt, const void* mark_vals,
                                long long mark_vals_len, const void* mark_meta,
                                int mark_period, void* out, void* stream) {
-  if (B > 0) {
-    const Index ix{static_cast<const uint16_t*>(bwt),
-                   static_cast<const int*>(occ_ckpt),
-                   static_cast<const int*>(C), n_seg, seg};
-    lf_locate_kernel<<<(B + 127) / 128, 128, 0,
-                       static_cast<cudaStream_t>(stream)>>>(
-        static_cast<const int*>(rows), B, ix,
+  if (B <= 0) return static_cast<int>(cudaGetLastError());
+  return femto::dispatch_layout(*ix, [&](auto layout) {
+    constexpr int L = decltype(layout)::value;
+    lf_locate_kernel<L><<<(B + 127) / 128, 128, 0,
+                          static_cast<cudaStream_t>(stream)>>>(
+        *ix, static_cast<const int*>(rows), B,
         static_cast<const unsigned*>(mark_bits),
         static_cast<const int*>(mark_ckpt),
         static_cast<const unsigned*>(mark_vals), mark_vals_len,
         static_cast<const int*>(mark_meta), mark_period,
         static_cast<int*>(out));
-  }
-  return static_cast<int>(cudaGetLastError());
+  });
 }
 
 // rows int32[B] -> chars int32[B, num_steps], final_rows int32[B].
-extern "C" int femto_lf_extract(const void* rows, int B, int num_steps,
-                                const void* bwt, const void* occ_ckpt,
-                                const void* C, long long n_seg, int seg,
-                                void* chars, void* final_rows, void* stream) {
-  if (B > 0) {
-    const Index ix{static_cast<const uint16_t*>(bwt),
-                   static_cast<const int*>(occ_ckpt),
-                   static_cast<const int*>(C), n_seg, seg};
-    lf_extract_kernel<<<(B + 127) / 128, 128, 0,
-                        static_cast<cudaStream_t>(stream)>>>(
-        static_cast<const int*>(rows), B, num_steps, ix,
+extern "C" int femto_lf_extract(const femto::FmView* ix, const void* rows,
+                                int B, int num_steps, void* chars,
+                                void* final_rows, void* stream) {
+  if (B <= 0) return static_cast<int>(cudaGetLastError());
+  return femto::dispatch_layout(*ix, [&](auto layout) {
+    constexpr int L = decltype(layout)::value;
+    lf_extract_kernel<L><<<(B + 127) / 128, 128, 0,
+                           static_cast<cudaStream_t>(stream)>>>(
+        *ix, static_cast<const int*>(rows), B, num_steps,
         static_cast<int*>(chars), static_cast<int*>(final_rows));
-  }
-  return static_cast<int>(cudaGetLastError());
+  });
 }

@@ -1,19 +1,30 @@
 """FM-index container, persistence and the single-device build (PyTorch).
 
-The counterpart of femto_tpu/fmindex.py for the full tier: the same array
-fields with the same dtypes and shapes (bit for bit what femto_tpu builds),
-held as torch tensors on one device:
+The counterpart of femto_tpu/fmindex.py for the full, compact and packed
+tiers: the same array fields with the same dtypes and shapes (bit for bit
+what femto_tpu builds), held as torch tensors on one device:
 
-  * bwt       uint16[n_seg, seg]   BWT symbols; INVALID_ALPHA past row n;
-  * occ_ckpt  int32[n_seg, 261]    occurrences of c in BWT[0 : s*seg);
-  * C         int32[262]           C[c] = number of symbols < c;
+  * bwt       uint16[n_seg, seg] BWT symbols, INVALID_ALPHA past row n
+              (full, compact) | uint32[n_seg, W] dense codes bit-packed
+              32 // bits to a word, pad code all ones (packed);
+  * occ_ckpt  int32[n_seg, 261] occurrences of c in BWT[0 : s*seg) (full)
+              | uint16[n_seg, K] relative to occ_l1 int32[n_seg/grp, K],
+              the checkpoint of every grp-th segment (compact, packed;
+              grp = l1_group_for(seg), n_seg a multiple of it);
+  * C         int32[K+1]: C[c] = number of codes < c (K = 261, or the
+              packed tier's dense alphabet size);
+  * alpha_map int32[261] symbol -> dense code or -1, alpha_rev int32[K]
+              (identity on the full and compact tiers);
   * mark_bits uint32[n_seg, seg/32], mark_ckpt int32[n_seg]: sampled rows;
   * mark_vals uint32[...] + mark_meta int32[5]: bit-packed mark values
     (ops/build_ops.mark_pack_geom);
   * doc_starts int32[ndocs+1], doc_seof_rows int32[ndocs].
 
-Entry points take an explicit ``device`` (default ``"cuda"``) and raise when
-the card is asked for and absent; they never fall back to the CPU.
+Indexes persist as femto_tpu's .npz directories (save / load) and its
+single-file .ftpu format (save_flat / parse_flat / load_flat), byte for
+byte.  Entry points take an explicit ``device`` (default ``"cuda"``) and
+raise when the card is asked for and absent; they never fall back to the
+CPU.
 """
 
 from __future__ import annotations
@@ -21,6 +32,7 @@ from __future__ import annotations
 import dataclasses
 import json
 import os
+import zlib
 from typing import Any, List, Mapping, NamedTuple, Optional, Tuple, Union
 
 import numpy as np
@@ -30,11 +42,26 @@ from .alphabet import ALPHA_SIZE, PreparedText
 
 DEFAULT_SEG = 256
 DEFAULT_MARK_PERIOD = 20
+L1_GROUP = 16  # segments per L1 checkpoint group (compact tiers)
+TIERS = ("full", "compact", "packed")
 
-# Fields of the compressed and paged tiers; this port serves the full tier.
+# Fields of the vseg, vrle and paged tiers, which this port does not serve.
 _OTHER_TIER_FIELDS = ("seg_ovf", "seg_nsym", "seg_woff", "seg_syms",
                       "seg_rle", "seg_cont", "seg_slot")
 _ROADMAP_TIERS = "ROADMAP.md Q1 item 6 (compressed tiers)"
+
+
+def l1_group_for(seg: int) -> int:
+    """L1 group size for a segment length: the uint16 relative
+    checkpoints must stay below 65536 within one group, so large segments
+    halve the group (seg=4096 -> 8; the serving side derives it from
+    array shapes, ops/rank._l1_grp)."""
+    g = L1_GROUP
+    while g > 1 and seg * g > 0xFFFF:
+        g //= 2
+    if seg * g > 0xFFFF:
+        raise ValueError("segment too large for uint16 checkpoints")
+    return g
 
 
 def resolve_device(device: Union[str, torch.device]) -> torch.device:
@@ -54,19 +81,19 @@ def resolve_device(device: Union[str, torch.device]) -> torch.device:
 class FMArrays(NamedTuple):
     """Device tensors of the index (femto_tpu.fmindex.FMArrays' fields).
 
-    The compressed-tier fields stay None in this port (full tier only)."""
+    The fields of the vseg, vrle and paged tiers stay None in this port."""
 
-    bwt: torch.Tensor        # uint16[n_seg, seg]
-    occ_ckpt: torch.Tensor   # int32[n_seg, 261]
-    occ_l1: torch.Tensor     # int32[1, 261] dummy (full tier)
-    C: torch.Tensor          # int32[262]
+    bwt: torch.Tensor        # uint16[n_seg, seg] | uint32[n_seg, W] packed
+    occ_ckpt: torch.Tensor   # int32[n_seg, 261] | uint16[n_seg, K] relative
+    occ_l1: torch.Tensor     # int32[n_seg/grp, K] | int32[1, 261] dummy
+    C: torch.Tensor          # int32[K+1]
     mark_bits: torch.Tensor  # uint32[n_seg, seg//32]
     mark_ckpt: torch.Tensor  # int32[n_seg]
     mark_vals: torch.Tensor  # uint32[n_words + exc_cap]
     doc_starts: torch.Tensor     # int32[ndocs+1]
     doc_seof_rows: torch.Tensor  # int32[ndocs]
-    alpha_map: torch.Tensor  # int32[261] identity
-    alpha_rev: torch.Tensor  # int32[261] identity
+    alpha_map: torch.Tensor  # int32[261] symbol -> dense code | -1
+    alpha_rev: torch.Tensor  # int32[K] dense code -> symbol
     seg_ovf: Optional[torch.Tensor] = None
     seg_nsym: Optional[torch.Tensor] = None
     seg_woff: Optional[torch.Tensor] = None
@@ -123,14 +150,15 @@ class FMIndex:
     def device(self) -> torch.device:
         return self.arrays.bwt.device
 
-    def save(self, path: str) -> None:
-        """Write meta.json + arrays.npz in femto_tpu's directory format."""
-        os.makedirs(path, exist_ok=True)
+    def _meta_json(self) -> dict:
         meta = dataclasses.asdict(self.meta)
         meta["infos"] = [i.decode("utf-8", "surrogateescape")
                          for i in self.infos]
-        with open(os.path.join(path, "meta.json"), "w") as f:
-            json.dump(meta, f)
+        return meta
+
+    def _host_arrays(self) -> "dict[str, np.ndarray]":
+        """Every array of the index as host numpy, in femto_tpu's order:
+        the FMArrays fields, then the host entries."""
         arrs = {k: v.cpu().numpy() for k, v in self.arrays._asdict().items()
                 if v is not None}
         arrs["doc_starts_np"] = self.doc_starts_np
@@ -141,21 +169,106 @@ class FMIndex:
             arrs["chunk_docs_np"] = self.chunk_docs_np
         if self.sa_direct is not None:
             arrs["sa_direct"] = self.sa_direct.cpu().numpy()
-        np.savez(os.path.join(path, "arrays.npz"), **arrs)
+        return arrs
+
+    def save(self, path: str) -> None:
+        """Write meta.json + arrays.npz in femto_tpu's directory format."""
+        os.makedirs(path, exist_ok=True)
+        with open(os.path.join(path, "meta.json"), "w") as f:
+            json.dump(self._meta_json(), f)
+        np.savez(os.path.join(path, "arrays.npz"), **self._host_arrays())
 
     @classmethod
     def load(cls, path: str, device: Union[str, torch.device] = "cuda"
              ) -> "FMIndex":
-        """Load an index directory written by either package."""
+        """Load an index directory or .ftpu file written by either
+        package."""
         if os.path.isfile(path):
-            raise NotImplementedError(
-                "flat .ftpu index files are not ported yet "
-                "(ROADMAP.md Q1 item 2)")
+            return cls.load_flat(path, device=device)
         with open(os.path.join(path, "meta.json")) as f:
             meta = json.load(f)
         with np.load(os.path.join(path, "arrays.npz")) as z:
             arrs = {k: z[k] for k in z.files}
         return arrays_from_numpy(arrs, meta, device=device)
+
+    # ---- femto_tpu's single-file flat format (.ftpu) ----
+
+    MAGIC = b"FTPU0001"
+    PAGE = 4096
+
+    def save_flat(self, path: str, compress: bool = False) -> None:
+        """Write the index as one page-aligned file, byte for byte what
+        femto_tpu's FMIndex.save_flat writes: MAGIC, the header length
+        (8 bytes, little-endian), a JSON header {"meta", "arrays"} padded
+        to a whole page, then each array's bytes (zlib level 6 with
+        compress=True) padded to a page."""
+        meta = self._meta_json()
+        manifest, blobs = [], []
+        for name, a in self._host_arrays().items():
+            a = np.ascontiguousarray(a)
+            entry = {"name": name, "dtype": str(a.dtype),
+                     "shape": list(a.shape)}
+            b = a.tobytes()
+            if compress:
+                b = zlib.compress(b, level=6)
+                entry["codec"] = "zlib"
+                entry["csize"] = len(b)
+            manifest.append(entry)
+            blobs.append(b)
+        # offsets from a conservative header size, then one write
+        probe = json.dumps({"meta": meta, "arrays": manifest}).encode()
+        hdr_reserve = -(-(len(self.MAGIC) + 8 + len(probe) + 24 * len(manifest))
+                        // self.PAGE) * self.PAGE
+        off = hdr_reserve
+        for m, b in zip(manifest, blobs):
+            m["offset"] = off
+            off += len(b) + ((-len(b)) % self.PAGE)
+        hj = json.dumps({"meta": meta, "arrays": manifest}).encode()
+        if len(self.MAGIC) + 8 + len(hj) > hdr_reserve:
+            raise AssertionError("flat header outgrew its reserve")
+        with open(path, "wb") as f:
+            f.write(self.MAGIC)
+            f.write(len(hj).to_bytes(8, "little"))
+            f.write(hj)
+            f.write(b"\0" * (hdr_reserve - len(self.MAGIC) - 8 - len(hj)))
+            for b in blobs:
+                f.write(b)
+                f.write(b"\0" * ((-len(b)) % self.PAGE))
+
+    @classmethod
+    def parse_flat(cls, path: str):
+        """Parse a .ftpu file without uploading anything: (meta, infos,
+        arrays), the arrays host numpy views (read-only np.memmap for
+        uncompressed blobs, inflated buffers for zlib ones)."""
+        with open(path, "rb") as f:
+            if f.read(len(cls.MAGIC)) != cls.MAGIC:
+                raise ValueError("not a FTPU flat index file")
+            hlen = int.from_bytes(f.read(8), "little")
+            header = json.loads(f.read(hlen))
+        meta_d = header["meta"]
+        infos = [s.encode("utf-8", "surrogateescape")
+                 for s in meta_d.pop("infos")]
+        meta = FMMeta(**meta_d)
+        arrs = {}
+        for m in header["arrays"]:
+            dtype, shape = np.dtype(m["dtype"]), tuple(m["shape"])
+            if m.get("codec") == "zlib":
+                with open(path, "rb") as f:
+                    f.seek(m["offset"])
+                    raw = zlib.decompress(f.read(m["csize"]))
+                arrs[m["name"]] = np.frombuffer(raw, dtype=dtype).reshape(
+                    shape)
+            else:
+                arrs[m["name"]] = np.memmap(path, dtype=dtype, mode="r",
+                                            offset=m["offset"], shape=shape)
+        return meta, infos, arrs
+
+    @classmethod
+    def load_flat(cls, path: str, device: Union[str, torch.device] = "cuda"
+                  ) -> "FMIndex":
+        """Load a .ftpu file onto ``device`` (arrays_from_numpy)."""
+        meta, infos, arrs = cls.parse_flat(path)
+        return arrays_from_numpy(arrs, meta, device=device, infos=infos)
 
 
 def _to_device(a: np.ndarray, dev: torch.device) -> torch.Tensor:
@@ -171,9 +284,10 @@ def arrays_from_numpy(arrays: Mapping[str, np.ndarray], meta: Any, *,
     fields (plus the .npz host entries doc_starts_np, header_lens_np,
     chunk_doc_offsets_np, chunk_docs_np, sa_direct where present) and the
     FMMeta fields (a mapping, or any object with those attributes) -> the
-    port's FMIndex on ``device``.  Bits are kept as they are: uint16 and
-    uint32 arrays stay uint16 and uint32 tensors.  ``infos`` defaults to
-    meta["infos"] (a .npz directory's meta.json) or doc<i> names."""
+    port's FMIndex on ``device``.  Full, compact and packed indexes are
+    taken; bits are kept as they are: uint16 and uint32 arrays stay uint16
+    and uint32 tensors.  ``infos`` defaults to meta["infos"] (a .npz
+    directory's meta.json) or doc<i> names."""
     dev = resolve_device(device)
     if not isinstance(meta, Mapping):
         meta = {f.name: getattr(meta, f.name)
@@ -184,13 +298,12 @@ def arrays_from_numpy(arrays: Mapping[str, np.ndarray], meta: Any, *,
             raise NotImplementedError(
                 f"index field {k!r} belongs to a tier not ported yet "
                 f"({_ROADMAP_TIERS}); build femto_tpu indexes with "
-                "tier='full' to serve them here")
-    if (arrays["bwt"].dtype != np.uint16
-            or arrays["occ_ckpt"].dtype != np.int32
-            or arrays["C"].shape[0] != ALPHA_SIZE + 1):
-        raise NotImplementedError(
-            "compact/packed tier indexes are not ported yet "
-            f"({_ROADMAP_TIERS})")
+                "tier='full', 'compact' or 'packed' to serve them here")
+    layout = (arrays["bwt"].dtype, arrays["occ_ckpt"].dtype)
+    if layout not in ((np.uint16, np.int32), (np.uint16, np.uint16),
+                      (np.uint32, np.uint16)):
+        raise ValueError(f"unknown index layout (bwt, occ_ckpt) dtypes "
+                         f"{layout}")
     if "mark_meta" not in arrays:
         raise ValueError("this index stores raw int32 mark values (a legacy "
                          "layout); rebuild it with the current version")
@@ -228,6 +341,7 @@ def build_index(
     seg: int = DEFAULT_SEG,
     mark_period: int = DEFAULT_MARK_PERIOD,
     sa: Optional[np.ndarray] = None,
+    device_build: bool = True,
     checkpoint_dir: Optional[str] = None,
     compact: bool = False,
     doc_chunks: bool = False,
@@ -240,19 +354,28 @@ def build_index(
     device: Union[str, torch.device] = "cuda",
 ) -> FMIndex:
     """Single-device index build: suffix sort and packaging on ``device``
-    (femto_tpu.fmindex.build_index, full tier).
+    (femto_tpu.fmindex.build_index, the same positional parameters).
 
-    locate: "walk" (mark-sampled LF walk) or "direct" (keep the suffix
-    array on the device: locate = one gather).  sa: optional precomputed
-    suffix array (skips the sort)."""
+    tier: "full" (default), "compact" (uint16 relative checkpoints;
+    compact=True spells it too) or "packed" (compact checkpoints over the
+    corpus's dense alphabet and a bit-packed BWT).  locate: "walk"
+    (mark-sampled LF walk) or "direct" (keep the suffix array on the
+    device: locate = one gather).  sa: optional precomputed suffix array
+    (skips the sort)."""
     from .ops.build_ops import build_fm_arrays_device, build_sa_payload
     from .suffix import suffix_array
 
     if tier is None:
         tier = "compact" if compact else "full"
-    if tier != "full":
+    if not device_build:
+        raise NotImplementedError(
+            "device_build=False (the host packaging path build_fm_arrays) "
+            "is not ported (ROADMAP.md Q1 item 5)")
+    if tier in ("vseg", "vrle"):
         raise NotImplementedError(
             f"tier={tier!r} is not ported yet ({_ROADMAP_TIERS})")
+    if tier not in TIERS:
+        raise ValueError(f"unknown tier {tier!r}")
     if pad_shape is not None:
         raise NotImplementedError(
             "pad_shape is not ported (ROADMAP.md Q1 item 8: only if a "
@@ -294,7 +417,7 @@ def build_index(
     del payload
     arrays, n_marks, alpha_used = build_fm_arrays_device(
         text, sa_dev, doc_starts, n=n, seg=seg, mark_period=mark_period,
-        ndocs=ndocs, pull=pull)
+        ndocs=ndocs, tier=tier, pull=pull)
     meta = FMMeta(n=n, seg=seg, mark_period=mark_period, num_docs=ndocs,
                   n_marks=int(n_marks), n_seg=arrays.occ_ckpt.shape[0],
                   alpha_used=alpha_used, n_rows=n, row0=0)

@@ -8,10 +8,13 @@ flags, and are built on first use: all sources at once, one ``nvcc`` each.
 
 Each C entry point launches its kernels on the stream it is given,
 allocates nothing, and returns ``cudaGetLastError()``; :func:`launch` raises
-when that is not 0 and otherwise adds one to the entry's launch count.
-Nothing here is built for CPU tensors: the wrappers in ``ops/`` check
-their inputs with :func:`check` and take their plain PyTorch versions
-where :func:`on_card` says the tensors lie on the CPU.
+when that is not 0 and otherwise adds one to the entry's launch count.  The
+search entries take the index as an :class:`FmView` and run one kernel
+instantiation per row layout (full, compact, packed); their launches are
+counted per layout, as ``"entry[layout]"``.  Nothing here is built for CPU
+tensors: the wrappers in ``ops/`` check their inputs with :func:`check` and
+take their plain PyTorch versions where :func:`on_card` says the tensors lie
+on the CPU.
 """
 
 from __future__ import annotations
@@ -23,7 +26,7 @@ import shutil
 import subprocess
 import threading
 import time
-from typing import Dict, List, Tuple
+from typing import Dict, List, Optional, Tuple
 
 import torch
 
@@ -36,21 +39,49 @@ _P = ctypes.c_void_p
 _I = ctypes.c_int
 _L = ctypes.c_longlong
 
+LAYOUTS = ("full", "compact", "packed")  # csrc/fm_common.cuh Layout
+
+
+class FmView(ctypes.Structure):
+    """csrc/fm_common.cuh FmView: the index as the search kernels see it
+    (device pointers and the layout's geometry)."""
+
+    _fields_ = [("bwt", _P), ("occ_ckpt", _P), ("occ_l1", _P), ("C", _P),
+                ("alpha_map", _P), ("alpha_rev", _P), ("n_seg", _L),
+                ("seg", _I), ("K", _I), ("grp", _I), ("W", _I),
+                ("per_word", _I), ("bits", _I), ("layout", _I)]
+
+
+_V = ctypes.POINTER(FmView)
+
 # entry point -> (source stem, argument types without the trailing stream)
 ENTRIES: Dict[str, Tuple[str, List]] = {
     "occ_build": ("occ_build", [_P, _L, _L, _I, _P, _P, _P, _P, _P]),
+    "occ_build_compact": ("occ_build", [_P, _L, _L, _I, _P, _I, _I, _P, _P,
+                                        _P, _P, _P, _P, _P]),
     "marks_build": ("marks_build", [_P, _P, _L, _L, _I, _I, _L, _I, _I, _I,
                                     _L, _P, _P, _P, _P, _P, _P, _P, _P, _P]),
-    "backward_search": ("backward_search",
-                        [_P, _I, _I, _P, _P, _P, _L, _I, _I, _I, _P, _P]),
-    "lf_locate": ("lf_walk", [_P, _I, _P, _P, _P, _L, _I, _P, _P, _P, _L, _P,
-                              _I, _P]),
-    "lf_extract": ("lf_walk", [_P, _I, _I, _P, _P, _P, _L, _I, _P, _P]),
+    "pack_build": ("pack_build", [_P, _L, _I, _P, _I, _I, _I, _P]),
+    "backward_search": ("backward_search", [_V, _P, _I, _I, _I, _I, _P, _P]),
+    "lf_locate": ("lf_walk", [_V, _P, _I, _P, _P, _P, _L, _P, _I, _P]),
+    "lf_extract": ("lf_walk", [_V, _P, _I, _I, _P, _P]),
+    "psi_walk": ("psi_walk", [_V, _P, _I, _I, _P]),
 }
+# entries that take an FmView: one count per layout
+LAYOUT_ENTRIES = ("backward_search", "lf_locate", "lf_extract", "psi_walk")
 SOURCES = sorted({src for src, _ in ENTRIES.values()})
 
-# Launches per entry point since the last reset_launches().
-launches: Dict[str, int] = {name: 0 for name in ENTRIES}
+
+def counter(entry: str, layout: Optional[str] = None) -> str:
+    """Name of the launch count of an entry (and layout)."""
+    return entry if layout is None else f"{entry}[{layout}]"
+
+
+# Launches per entry point (and layout) since the last reset_launches().
+launches: Dict[str, int] = {
+    counter(name, layout): 0
+    for name in ENTRIES
+    for layout in (LAYOUTS if name in LAYOUT_ENTRIES else (None,))}
 # nvcc output (register and shared-memory use) of the last build, by source.
 build_logs: Dict[str, str] = {}
 
@@ -132,16 +163,20 @@ def _lib(src: str) -> ctypes.CDLL:
         return lib
 
 
-def launch(entry: str, *args) -> None:
+def launch(entry: str, *args, layout: Optional[str] = None) -> None:
     """Call one C entry point on the current CUDA stream; raise if it
-    reports a CUDA error, else count the launch."""
+    reports a CUDA error, else count the launch (under its layout for the
+    entries that take an FmView)."""
+    name = counter(entry, layout)
+    if name not in launches:
+        raise ValueError(f"no kernel entry {name!r}")
     src, _ = ENTRIES[entry]
     fn = getattr(_lib(src), "femto_" + entry)
     stream = torch.cuda.current_stream().cuda_stream
     rc = fn(*args, stream)
     if rc != 0:
-        raise RuntimeError(f"CUDA kernel {entry} failed: cudaError_t {rc}")
-    launches[entry] += 1
+        raise RuntimeError(f"CUDA kernel {name} failed: cudaError_t {rc}")
+    launches[name] += 1
 
 
 def on_card(*tensors: torch.Tensor) -> bool:

@@ -1,12 +1,15 @@
-"""On-device index packaging (full tier): kernel wrappers + plain versions.
+"""On-device index packaging (full, compact and packed tiers): kernel
+wrappers + plain versions.
 
-The counterpart of femto_tpu/ops/build_ops.py for the full tier.  The aux
+The counterpart of femto_tpu/ops/build_ops.py for those tiers.  The aux
 word and the suffix-sort payload are elementwise torch; the split of the
-pulled words with the occ histogram and checkpoints is kernel A
-(csrc/occ_build.cu), and the mark bitmap, checkpoints, doc SEOF rows and
-bit-packed mark values are kernel B (csrc/marks_build.cu).  Each wrapper
-launches its kernel for tensors on the card and takes the plain PyTorch
-version beside it for tensors on the CPU.
+pulled words with the occ histogram and checkpoints is kernel A (absolute
+int32 checkpoints) or A' (uint16 relative ones + L1 rows over the used
+columns), both in csrc/occ_build.cu; the mark bitmap, checkpoints, doc
+SEOF rows and bit-packed mark values are kernel B (csrc/marks_build.cu);
+the packed tier's BWT words are kernel F (csrc/pack_build.cu).  Each
+wrapper launches its kernel for tensors on the card and takes the plain
+PyTorch version beside it for tensors on the CPU.
 """
 
 from __future__ import annotations
@@ -18,8 +21,8 @@ import torch
 
 from .. import kernels
 from ..alphabet import ALPHA_SIZE, INVALID_ALPHA
-from ..fmindex import FMArrays
-from .rank import i64_to_u32
+from ..fmindex import FMArrays, l1_group_for
+from .rank import i32_to_u16, i64_to_u32, u16_to_i32
 
 
 def mark_cap(n: int, ndocs: int, mark_period: int, seg: int) -> int:
@@ -89,10 +92,9 @@ def build_sa_payload(text: torch.Tensor, doc_starts: torch.Tensor, *, n: int,
 # ---------------------------------------------------------------------------
 
 
-def occ_build_plain(pull: torch.Tensor, *, n_seg: int, seg: int):
-    """(bwt uint16[n_seg, seg], a_row int32[n], occ_ckpt int32[n_seg, 261],
-    C int32[262]) from the pulled words: the split, a per-segment
-    histogram, and exclusive checkpoints down the segments."""
+def _split_hist(pull: torch.Tensor, *, n_seg: int, seg: int):
+    """(bwt uint16[n_seg, seg], a_row int32[n], per-segment symbol counts
+    int64[n_seg, 261]) of the pulled words."""
     n = pull.shape[0]
     dev = pull.device
     sym = pull & 511
@@ -105,12 +107,26 @@ def occ_build_plain(pull: torch.Tensor, *, n_seg: int, seg: int):
     per_seg = torch.bincount((seg_id * ALPHA_SIZE + sym)[valid],
                              minlength=n_seg * ALPHA_SIZE).view(n_seg,
                                                                ALPHA_SIZE)
-    C = torch.zeros(ALPHA_SIZE + 1, dtype=torch.int64, device=dev)
+    return bwt.view(torch.uint16).view(n_seg, seg), a_row, per_seg
+
+
+def _checkpoints(per_seg: torch.Tensor):
+    """(exclusive checkpoints int64[n_seg, K], C int32[K+1]) of counts."""
+    C = torch.zeros(per_seg.shape[1] + 1, dtype=torch.int64,
+                    device=per_seg.device)
     C[1:] = torch.cumsum(per_seg.sum(dim=0), dim=0)
     occ = torch.zeros_like(per_seg)
     occ[1:] = torch.cumsum(per_seg[:-1], dim=0)
-    return (bwt.view(torch.uint16).view(n_seg, seg), a_row,
-            occ.to(torch.int32), C.to(torch.int32))
+    return occ, C.to(torch.int32)
+
+
+def occ_build_plain(pull: torch.Tensor, *, n_seg: int, seg: int):
+    """(bwt uint16[n_seg, seg], a_row int32[n], occ_ckpt int32[n_seg, 261],
+    C int32[262]) from the pulled words: the split, a per-segment
+    histogram, and exclusive checkpoints down the segments."""
+    bwt, a_row, per_seg = _split_hist(pull, n_seg=n_seg, seg=seg)
+    occ, C = _checkpoints(per_seg)
+    return bwt, a_row, occ.to(torch.int32), C
 
 
 def occ_build(pull: torch.Tensor, *, n_seg: int, seg: int):
@@ -132,6 +148,105 @@ def occ_build(pull: torch.Tensor, *, n_seg: int, seg: int):
                    bwt.data_ptr(), a_row.data_ptr(), occ.data_ptr(),
                    C.data_ptr(), tiles.data_ptr())
     return bwt, a_row, occ, C
+
+
+def occ_build_compact_plain(pull: torch.Tensor, alpha_rev: torch.Tensor, *,
+                            n_seg: int, seg: int):
+    """(bwt uint16[n_seg, seg], a_row int32[n], occ_ckpt uint16[n_seg, K],
+    occ_l1 int32[n_seg/grp, K], C int32[K+1]) over the K used symbols
+    alpha_rev (int32[K], ascending; every symbol on the compact tier):
+    femto_tpu's _ckpt_stage(compact=True) of the used columns."""
+    grp = l1_group_for(seg)
+    bwt, a_row, per_seg = _split_hist(pull, n_seg=n_seg, seg=seg)
+    occ, C = _checkpoints(per_seg[:, alpha_rev.long()])
+    occ_l1 = occ[::grp]
+    rel = occ - torch.repeat_interleave(occ_l1, grp, dim=0)
+    return (bwt, a_row, i32_to_u16(rel.to(torch.int32)),
+            occ_l1.to(torch.int32), C)
+
+
+def occ_build_compact(pull: torch.Tensor, alpha_map: torch.Tensor,
+                      alpha_rev: torch.Tensor, *, n_seg: int, seg: int):
+    """Kernel A' on the card (see occ_build_compact_plain for the
+    outputs); alpha_map int32[261] maps each symbol to its column or -1."""
+    kernels.check(pull, "pull", torch.int64, 1)
+    kernels.check(alpha_map, "alpha_map", torch.int32, 1, (ALPHA_SIZE,))
+    kernels.check(alpha_rev, "alpha_rev", torch.int32, 1)
+    n = pull.shape[0]
+    grp = l1_group_for(seg)
+    if seg % 32 != 0 or n_seg * seg <= n or n_seg % grp != 0:
+        raise ValueError("need seg % 32 == 0, n_seg * seg > n and n_seg a "
+                         "multiple of the L1 group")
+    if not kernels.on_card(pull, alpha_map, alpha_rev):
+        return occ_build_compact_plain(pull, alpha_rev, n_seg=n_seg, seg=seg)
+    dev = pull.device
+    K = alpha_rev.shape[0]
+
+    def empty(dtype, *shape):
+        return torch.empty(shape, dtype=dtype, device=dev)
+
+    bwt = empty(torch.uint16, n_seg, seg)
+    a_row = empty(torch.int32, n)
+    occ = empty(torch.uint16, n_seg, K)
+    occ_l1 = empty(torch.int32, n_seg // grp, K)
+    C = empty(torch.int32, K + 1)
+    hist = empty(torch.int32, n_seg, K)
+    tiles = empty(torch.int32, -(-n_seg // 1024), K)
+    kernels.launch("occ_build_compact", pull.data_ptr(), n, n_seg, seg,
+                   alpha_map.data_ptr(), K, grp, bwt.data_ptr(),
+                   a_row.data_ptr(), occ.data_ptr(), occ_l1.data_ptr(),
+                   C.data_ptr(), hist.data_ptr(), tiles.data_ptr())
+    return bwt, a_row, occ, occ_l1, C
+
+
+# ---------------------------------------------------------------------------
+# Kernel F: the packed tier's BWT words
+# ---------------------------------------------------------------------------
+
+
+def pack_widths(K: int):
+    """(per_word, bits) for a dense alphabet of K codes: the pad value
+    (all ones in `bits`) must be >= K so it never matches a query code,
+    and bits = 32 // per_word, as the query side derives it from shapes."""
+    per_word = 32 // max(1, int(K).bit_length())
+    return per_word, 32 // per_word
+
+
+def pack_build_plain(bwt: torch.Tensor, alpha_map: torch.Tensor, *,
+                     per_word: int, bits: int) -> torch.Tensor:
+    """uint32[n_seg, W] words of the uint16 BWT rows: each symbol's dense
+    code, per_word codes of `bits` bits to a word; the all-ones pad code
+    past row n and past seg in each row."""
+    n_seg, seg = bwt.shape
+    W = -(-seg // per_word)
+    pad = (1 << bits) - 1
+    sym = u16_to_i32(bwt).long()
+    valid = sym < ALPHA_SIZE
+    code = torch.where(valid, alpha_map[torch.where(valid, sym, 0)].long(),
+                       -1)
+    codes = torch.full((n_seg, W * per_word), pad, dtype=torch.int64,
+                       device=bwt.device)
+    codes[:, :seg] = torch.where(code >= 0, code, pad)
+    shifts = torch.arange(per_word, device=bwt.device) * bits
+    words = (codes.view(n_seg, W, per_word) << shifts).sum(dim=2)
+    return i64_to_u32(words)
+
+
+def pack_build(bwt: torch.Tensor, alpha_map: torch.Tensor, *, per_word: int,
+               bits: int) -> torch.Tensor:
+    """Kernel F on the card (see pack_build_plain for the output)."""
+    kernels.check(bwt, "bwt", torch.uint16, 2)
+    kernels.check(alpha_map, "alpha_map", torch.int32, 1, (ALPHA_SIZE,))
+    if per_word * bits > 32 or per_word < 1:
+        raise ValueError("need 1 <= per_word and per_word * bits <= 32")
+    if not kernels.on_card(bwt, alpha_map):
+        return pack_build_plain(bwt, alpha_map, per_word=per_word, bits=bits)
+    n_seg, seg = bwt.shape
+    W = -(-seg // per_word)
+    words = torch.empty((n_seg, W), dtype=torch.uint32, device=bwt.device)
+    kernels.launch("pack_build", bwt.data_ptr(), n_seg, seg,
+                   alpha_map.data_ptr(), W, per_word, bits, words.data_ptr())
+    return words
 
 
 # ---------------------------------------------------------------------------
@@ -245,30 +360,54 @@ def build_fm_arrays_device(text: torch.Tensor, sa: torch.Tensor,
                            mark_period: int, ndocs: int, tier: str = "full",
                            pull: torch.Tensor | None = None
                            ) -> Tuple[FMArrays, torch.Tensor, int]:
-    """Assemble the full tier's FMArrays on the tensors' device.  Returns
-    (arrays, n_marks scalar tensor, alpha_used = 0).
+    """Assemble FMArrays of tier "full", "compact" or "packed" on the
+    tensors' device.  Returns (arrays, n_marks scalar tensor, alpha_used:
+    K on the packed tier, else 0).
 
     pull: the BWT + aux words suffix_array carried for build_sa_payload's
-    payload (int64[n]); gathered here through sa when not given."""
-    if tier != "full":
+    payload (int64[n]); gathered here through sa when not given.  The
+    packed tier's dense alphabet is the set of symbols in the text, found
+    by one histogram of the text on its device (a host np.bincount of the
+    text, femto_tpu's way, made a 256 MiB build on the H100's host take
+    1.71 s instead of 0.25 s, PERF.md)."""
+    if tier not in ("full", "compact", "packed"):
         raise NotImplementedError(
             f"tier={tier!r} is not ported yet (ROADMAP.md Q1 item 6)")
     if pull is None:
         pull = build_sa_payload(text, doc_starts, n=n,
                                 mark_period=mark_period,
                                 ndocs=ndocs)[sa.long()]
+    dev = text.device
     n_seg = n // seg + 1
-    bwt, a_row, occ_ckpt, C = occ_build(pull, n_seg=n_seg, seg=seg)
+    ident = torch.arange(ALPHA_SIZE, dtype=torch.int32, device=dev)
+    alpha_map, alpha_rev, alpha_used = ident, ident.clone(), 0
+    if tier == "full":
+        bwt, a_row, occ_ckpt, C = occ_build(pull, n_seg=n_seg, seg=seg)
+        occ_l1 = torch.zeros((1, ALPHA_SIZE), dtype=torch.int32, device=dev)
+    else:
+        # compact tiers: uint16 relative checkpoints need whole L1 groups
+        grp = l1_group_for(seg)
+        n_seg = -(-n_seg // grp) * grp
+        if tier == "packed":
+            hist = torch.bincount(text, minlength=ALPHA_SIZE)
+            used = torch.nonzero(hist).flatten().to(torch.int32).cpu().numpy()
+            alpha_used = len(used)
+            amap = np.full(ALPHA_SIZE, -1, np.int32)
+            amap[used] = np.arange(alpha_used, dtype=np.int32)
+            alpha_map = torch.from_numpy(amap).to(dev)
+            alpha_rev = torch.from_numpy(used).to(dev)
+        bwt, a_row, occ_ckpt, occ_l1, C = occ_build_compact(
+            pull, alpha_map, alpha_rev, n_seg=n_seg, seg=seg)
+        if tier == "packed":
+            per_word, bits = pack_widths(alpha_used)
+            bwt = pack_build(bwt, alpha_map, per_word=per_word, bits=bits)
     mark_bits, mark_ckpt, mark_vals, mark_meta, n_marks, doc_seof_rows = \
         marks_build(sa, a_row, n_seg=n_seg, seg=seg, mark_period=mark_period,
                     ndocs=ndocs)
-    dev = text.device
-    ident = torch.arange(ALPHA_SIZE, dtype=torch.int32, device=dev)
     arrays = FMArrays(
-        bwt=bwt, occ_ckpt=occ_ckpt,
-        occ_l1=torch.zeros((1, ALPHA_SIZE), dtype=torch.int32, device=dev),
-        C=C, mark_bits=mark_bits, mark_ckpt=mark_ckpt, mark_vals=mark_vals,
-        doc_starts=doc_starts, doc_seof_rows=doc_seof_rows,
-        alpha_map=ident, alpha_rev=ident.clone(), mark_meta=mark_meta,
+        bwt=bwt, occ_ckpt=occ_ckpt, occ_l1=occ_l1, C=C, mark_bits=mark_bits,
+        mark_ckpt=mark_ckpt, mark_vals=mark_vals, doc_starts=doc_starts,
+        doc_seof_rows=doc_seof_rows, alpha_map=alpha_map,
+        alpha_rev=alpha_rev, mark_meta=mark_meta,
     )
-    return arrays, n_marks, 0
+    return arrays, n_marks, alpha_used

@@ -1,11 +1,14 @@
-"""Backward search, locate and extraction: kernel wrappers + plain versions.
+"""Backward search, locate, extraction and psi walks: kernel wrappers +
+plain versions, over the full, compact and packed tiers.
 
 The counterparts of femto_tpu/ops/search_ops.py backward_search,
-locate_rows and extract_backward (full tier).  Each wrapper launches its
-CUDA kernel (csrc/backward_search.cu, csrc/lf_walk.cu) for tensors on the
-card and takes the plain PyTorch version beside it for tensors on the CPU;
-a CUDA tensor never falls back.  The plain versions repeat femto_tpu's
-lockstep loops with the ops/rank.py steps.
+locate_rows, extract_backward and psi_step (scanned as search.py
+_psi_scan_jit).  Each wrapper launches its CUDA kernel (csrc/
+backward_search.cu, csrc/lf_walk.cu, csrc/psi_walk.cu; one instantiation
+per layout, picked from dtypes and shapes as ops/rank.py does) for tensors
+on the card and takes the plain PyTorch version beside it for tensors on
+the CPU; a CUDA tensor never falls back.  The plain versions repeat
+femto_tpu's lockstep loops with the ops/rank.py steps.
 """
 
 from __future__ import annotations
@@ -18,15 +21,55 @@ from ..fmindex import FMArrays
 from . import rank as R
 
 
-def check_full_tier(arrays: FMArrays) -> None:
-    """The tensors every full-tier kernel reads, with their layouts."""
-    n_seg, seg = arrays.bwt.shape
-    kernels.check(arrays.bwt, "bwt", torch.uint16, 2)
+def fm_view(arrays: FMArrays):
+    """(kernels.FmView, layout name) of an index, after checking the
+    tensors every search kernel reads against the layout's dtypes and
+    shapes.  Raises on a layout the kernels do not take."""
+    lay = R.layout(arrays)
+    n_seg = arrays.bwt.shape[0]
+    seg = R.seg_size(arrays)
+    K = R.alpha_count(arrays)
+    kernels.check(arrays.C, "C", torch.int32, 1)
+    kernels.check(arrays.mark_bits, "mark_bits", torch.uint32, 2,
+                  (n_seg, seg // 32))
     if seg % 32 != 0 or arrays.bwt.data_ptr() % 16 != 0:
         raise ValueError("bwt rows must be 16-byte aligned (seg % 32 == 0)")
-    kernels.check(arrays.occ_ckpt, "occ_ckpt", torch.int32, 2,
-                  (n_seg, ALPHA_SIZE))
-    kernels.check(arrays.C, "C", torch.int32, 1, (ALPHA_SIZE + 1,))
+    view = kernels.FmView(
+        bwt=arrays.bwt.data_ptr(), occ_ckpt=arrays.occ_ckpt.data_ptr(),
+        C=arrays.C.data_ptr(), n_seg=n_seg, seg=seg, K=K,
+        layout=kernels.LAYOUTS.index(lay))
+    if lay == "full":
+        kernels.check(arrays.bwt, "bwt", torch.uint16, 2, (n_seg, seg))
+        kernels.check(arrays.occ_ckpt, "occ_ckpt", torch.int32, 2, (n_seg, K))
+    else:
+        kernels.check(arrays.occ_ckpt, "occ_ckpt", torch.uint16, 2,
+                      (n_seg, K))
+        grp = R.l1_grp(arrays)
+        kernels.check(arrays.occ_l1, "occ_l1", torch.int32, 2,
+                      (n_seg // grp, K))
+        if n_seg % grp != 0:
+            raise ValueError("n_seg must be a multiple of the L1 group")
+        view.occ_l1, view.grp = arrays.occ_l1.data_ptr(), grp
+    if lay == "packed":
+        kernels.check(arrays.bwt, "bwt", torch.uint32, 2)
+        per_word, bits = R.pack_geometry(arrays)
+        if (1 << bits) - 1 < K:
+            raise ValueError("packed code width leaves no pad code")
+        view.W, view.per_word, view.bits = arrays.bwt.shape[1], per_word, bits
+    elif lay == "compact":
+        kernels.check(arrays.bwt, "bwt", torch.uint16, 2, (n_seg, seg))
+    if R.is_remapped(arrays):
+        kernels.check(arrays.alpha_map, "alpha_map", torch.int32, 1,
+                      (ALPHA_SIZE,))
+        kernels.check(arrays.alpha_rev, "alpha_rev", torch.int32, 1, (K,))
+        view.alpha_map = arrays.alpha_map.data_ptr()
+        view.alpha_rev = arrays.alpha_rev.data_ptr()
+    return view, lay
+
+
+def _index_tensors(arrays: FMArrays):
+    return (arrays.bwt, arrays.occ_ckpt, arrays.occ_l1, arrays.C,
+            arrays.alpha_map, arrays.alpha_rev)
 
 
 # ---------------------------------------------------------------------------
@@ -55,18 +98,15 @@ def backward_search(arrays: FMArrays, n: int, pats: torch.Tensor,
     """Batched FM count ranges.  pats: int32[B, P], right-aligned, -1 on
     the left.  Returns (first, last) int32[B]: half-open row ranges over
     [row0, n).  Kernel C on the card."""
-    check_full_tier(arrays)
     kernels.check(pats, "pats", torch.int32, 2)
-    if not kernels.on_card(pats, arrays.bwt, arrays.occ_ckpt, arrays.C):
+    if not kernels.on_card(pats, *_index_tensors(arrays)):
         return backward_search_plain(arrays, n, pats, row0)
+    view, lay = fm_view(arrays)
     B, P = pats.shape
     first = torch.empty(B, dtype=torch.int32, device=pats.device)
     last = torch.empty(B, dtype=torch.int32, device=pats.device)
-    n_seg, seg = arrays.bwt.shape
-    kernels.launch("backward_search", pats.data_ptr(), B, P,
-                   arrays.bwt.data_ptr(), arrays.occ_ckpt.data_ptr(),
-                   arrays.C.data_ptr(), n_seg, seg, n, row0,
-                   first.data_ptr(), last.data_ptr())
+    kernels.launch("backward_search", view, pats.data_ptr(), B, P, n, row0,
+                   first.data_ptr(), last.data_ptr(), layout=lay)
     return first, last
 
 
@@ -102,31 +142,29 @@ def locate_rows(arrays: FMArrays, mark_period: int,
                 rows: torch.Tensor) -> torch.Tensor:
     """Text offset of the suffix at each row (int32[B]; rows in
     [0, n_rows)), by LF walk to a marked row.  Kernel D on the card."""
-    check_full_tier(arrays)
     kernels.check(rows, "rows", torch.int32, 1)
-    n_seg, seg = arrays.bwt.shape
-    kernels.check(arrays.mark_bits, "mark_bits", torch.uint32, 2,
-                  (n_seg, seg // 32))
-    kernels.check(arrays.mark_ckpt, "mark_ckpt", torch.int32, 1, (n_seg,))
+    kernels.check(arrays.mark_ckpt, "mark_ckpt", torch.int32, 1,
+                  (arrays.mark_bits.shape[0],))
     kernels.check(arrays.mark_vals, "mark_vals", torch.uint32, 1)
     kernels.check(arrays.mark_meta, "mark_meta", torch.int32, 1, (5,))
-    if not kernels.on_card(rows, arrays.bwt, arrays.occ_ckpt, arrays.C,
-                           arrays.mark_bits, arrays.mark_ckpt,
-                           arrays.mark_vals, arrays.mark_meta):
+    if not kernels.on_card(rows, *_index_tensors(arrays), arrays.mark_bits,
+                           arrays.mark_ckpt, arrays.mark_vals,
+                           arrays.mark_meta):
         return locate_rows_plain(arrays, mark_period, rows)
+    view, lay = fm_view(arrays)
     out = torch.empty_like(rows)
-    kernels.launch("lf_locate", rows.data_ptr(), rows.shape[0],
-                   arrays.bwt.data_ptr(), arrays.occ_ckpt.data_ptr(),
-                   arrays.C.data_ptr(), n_seg, seg,
+    kernels.launch("lf_locate", view, rows.data_ptr(), rows.shape[0],
                    arrays.mark_bits.data_ptr(), arrays.mark_ckpt.data_ptr(),
                    arrays.mark_vals.data_ptr(), arrays.mark_vals.shape[0],
-                   arrays.mark_meta.data_ptr(), mark_period, out.data_ptr())
+                   arrays.mark_meta.data_ptr(), mark_period, out.data_ptr(),
+                   layout=lay)
     return out
 
 
 def extract_backward_plain(arrays: FMArrays, rows: torch.Tensor,
                            num_steps: int):
-    """femto_tpu's scan: num_steps LF steps, emitting each row's symbol."""
+    """femto_tpu's scan: num_steps LF steps, emitting each row's code,
+    unmapped to the alphabet at the end."""
     codes = []
     for _ in range(num_steps):
         codes.append(R.bwt_code_at(arrays, rows))
@@ -134,24 +172,57 @@ def extract_backward_plain(arrays: FMArrays, rows: torch.Tensor,
     if not codes:
         return (torch.zeros((rows.shape[0], 0), dtype=torch.int32,
                             device=rows.device), rows)
-    return torch.stack(codes, dim=1), rows
+    return R.unmap_char(arrays, torch.stack(codes, dim=1)), rows
 
 
 def extract_backward(arrays: FMArrays, rows: torch.Tensor, num_steps: int):
     """Walk LF num_steps times from each row (rows in [0, n)), collecting
-    BWT symbols.  Returns (chars int32[B, num_steps], final_rows int32[B]):
+    symbols.  Returns (chars int32[B, num_steps], final_rows int32[B]):
     chars[:, t] is the symbol t+1 positions before each row's suffix.
     Kernel D on the card."""
-    check_full_tier(arrays)
     kernels.check(rows, "rows", torch.int32, 1)
-    if not kernels.on_card(rows, arrays.bwt, arrays.occ_ckpt, arrays.C):
+    if not kernels.on_card(rows, *_index_tensors(arrays)):
         return extract_backward_plain(arrays, rows, num_steps)
+    view, lay = fm_view(arrays)
     B = rows.shape[0]
     chars = torch.empty((B, num_steps), dtype=torch.int32, device=rows.device)
     final = torch.empty_like(rows)
-    n_seg, seg = arrays.bwt.shape
-    kernels.launch("lf_extract", rows.data_ptr(), B, num_steps,
-                   arrays.bwt.data_ptr(), arrays.occ_ckpt.data_ptr(),
-                   arrays.C.data_ptr(), n_seg, seg, chars.data_ptr(),
-                   final.data_ptr())
+    kernels.launch("lf_extract", view, rows.data_ptr(), B, num_steps,
+                   chars.data_ptr(), final.data_ptr(), layout=lay)
     return chars, final
+
+
+# ---------------------------------------------------------------------------
+# Kernel E: psi walks (extract_context's forward half)
+# ---------------------------------------------------------------------------
+
+
+def psi_walk_plain(arrays: FMArrays, rows: torch.Tensor,
+                   num_steps: int) -> torch.Tensor:
+    """femto_tpu's _psi_scan_jit: num_steps psi steps, emitting each row's
+    first symbol."""
+    chars = []
+    for _ in range(num_steps):
+        rows, c = R.psi_step(arrays, rows)
+        chars.append(c)
+    if not chars:
+        return torch.zeros((rows.shape[0], 0), dtype=torch.int32,
+                           device=rows.device)
+    return torch.stack(chars, dim=1).to(torch.int32)
+
+
+def psi_walk(arrays: FMArrays, rows: torch.Tensor,
+             num_steps: int) -> torch.Tensor:
+    """Walk psi (forward) num_steps times from each row (rows in [0, n)),
+    collecting the first symbol of each row's suffix.  Returns chars
+    int32[B, num_steps]: chars[:, t] is the symbol t positions after each
+    row's suffix start.  Kernel E on the card."""
+    kernels.check(rows, "rows", torch.int32, 1)
+    if not kernels.on_card(rows, *_index_tensors(arrays)):
+        return psi_walk_plain(arrays, rows, num_steps)
+    view, lay = fm_view(arrays)
+    B = rows.shape[0]
+    chars = torch.empty((B, num_steps), dtype=torch.int32, device=rows.device)
+    kernels.launch("psi_walk", view, rows.data_ptr(), B, num_steps,
+                   chars.data_ptr(), layout=lay)
+    return chars

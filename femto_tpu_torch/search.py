@@ -1,8 +1,10 @@
-"""Query API: count / locate / extract over an FMIndex (full tier).
+"""Query API: count / locate / extract / context over an FMIndex (full,
+compact and packed tiers).
 
 The counterpart of femto_tpu/search.py.  Patterns are byte strings; every
-query runs on the index's device, through kernel C (count) and kernel D
-(locate walk, extract) on the card.  The direct locate tier is one tensor
+query runs on the index's device, through kernel C (count), kernel D
+(locate walk, extract, context before the match) and kernel E (context
+from the match on) on the card.  The direct locate tier is one tensor
 gather, sa_direct[rows].
 """
 
@@ -123,6 +125,31 @@ def offsets_to_docs(
     return doc.astype(np.int64), doc_off.astype(np.int64)
 
 
+def range_docs(index: FMIndex, first: int, last: int) -> np.ndarray:
+    """Unique doc ids of rows [first, last): per-row locate, or, when the
+    index carries chunk doc-lists (a femto_tpu doc_chunks=True index),
+    the lists of the whole segments and per-row locate for the edges."""
+    if index.chunk_docs_np is None:
+        doc, _ = offsets_to_docs(index, locate_range(index, first, last))
+        return np.unique(doc)
+    seg = index.meta.seg
+    s0 = -(-first // seg)   # first whole segment
+    s1 = last // seg        # end of whole segments
+    parts = []
+    if s1 > s0:
+        o = index.chunk_doc_offsets_np
+        parts.append(index.chunk_docs_np[o[s0]:o[s1]].astype(np.int64))
+        edges = [(first, min(s0 * seg, last)), (max(s1 * seg, first), last)]
+    else:
+        edges = [(first, last)]
+    for f, l in edges:
+        if l > f:
+            parts.append(offsets_to_docs(index, locate_range(index, f, l))[0])
+    if not parts:
+        return np.zeros(0, np.int64)
+    return np.unique(np.concatenate(parts))
+
+
 def locate(
     index: FMIndex, pattern: bytes, max_matches: Optional[int] = None
 ) -> List[Tuple[int, int]]:
@@ -166,3 +193,44 @@ def extract_all_documents(index: FMIndex) -> List[bytes]:
     chars = S.extract_backward(index.arrays, rows, maxlen)[0].cpu().numpy()
     return [(chars[d][: int(lens[d])][::-1] - CHARACTER_OFFSET)
             .astype(np.uint8).tobytes() for d in range(ndocs)]
+
+
+def extract_context_batch(
+    index: FMIndex, rows, before: int, pattern_len: int, after: int
+) -> List[bytes]:
+    """For each match row, `before` bytes of left context, the match and
+    `after` bytes of right context, cut at the document's bounds (and
+    header): one backward LF walk (kernel D) and one forward psi walk
+    (kernel E) for the whole batch."""
+    rows = np.asarray(rows, dtype=np.int64)
+    B = len(rows)
+    if B == 0:
+        return []
+    if rows.min() < 0 or rows.max() >= index.meta.n:
+        raise ValueError("rows must lie in [0, n)")
+    rr = torch.from_numpy(rows.astype(np.int32)).to(index.device)
+    fwd_steps = pattern_len + after
+    chars_fwd = (S.psi_walk(index.arrays, rr, fwd_steps).cpu().numpy()
+                 if fwd_steps > 0 else np.zeros((B, 0), np.int32))
+    chars_back = (S.extract_backward(index.arrays, rr, before)[0].cpu()
+                  .numpy() if before > 0 else np.zeros((B, 0), np.int32))
+    out = []
+    for i in range(B):
+        left = chars_back[i][::-1]
+        nonchar = np.nonzero(left < CHARACTER_OFFSET)[0]
+        if len(nonchar):
+            left = left[int(nonchar.max()) + 1:]
+        fwd = chars_fwd[i]
+        stops = np.nonzero(fwd < CHARACTER_OFFSET)[0]
+        if len(stops):
+            fwd = fwd[: stops[0]]
+        seq = np.concatenate([left, fwd]).astype(np.int64)
+        out.append((seq - CHARACTER_OFFSET).astype(np.uint8).tobytes())
+    return out
+
+
+def extract_context(
+    index: FMIndex, row: int, before: int, pattern_len: int, after: int
+) -> bytes:
+    """Single-row wrapper over extract_context_batch."""
+    return extract_context_batch(index, [row], before, pattern_len, after)[0]

@@ -252,15 +252,23 @@ def test_headers_and_mark_period_zero():
 
 
 def test_flat_files_are_not_ported_yet(tmp_path):
-    jix = ft.build_index(ft.prepare_documents(_graft_docs()), seg=64,
-                         mark_period=8)
-    jix.save_flat(str(tmp_path / "ix.ftpu"))
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        tt.FMIndex.load(str(tmp_path / "ix.ftpu"), device="cpu")
+    """.ftpu files (ported since) written by femto_tpu, plain and zlib,
+    load in the port and answer as femto_tpu does."""
+    docs = _graft_docs()
+    jix = ft.build_index(ft.prepare_documents(docs), seg=64, mark_period=8)
+    pats = _patterns(docs)
+    for compress in (False, True):
+        path = str(tmp_path / f"ix{compress}.ftpu")
+        jix.save_flat(path, compress=compress)
+        port = tt.FMIndex.load(path, device="cpu")
+        assert np.array_equal(tt.count(port, pats), ft.count(jix, pats))
+        assert tt.locate(port, b"an") == ft.locate(jix, b"an")
+        assert tt.extract_all_documents(port) == docs
+        assert port.infos == jix.infos
 
 
 def test_other_tiers_are_refused():
     jix = ft.build_index(ft.prepare_documents(_graft_docs()), seg=64,
-                         mark_period=8, tier="compact")
+                         mark_period=8, tier="vseg")
     with pytest.raises(NotImplementedError, match="ROADMAP"):
         _carry(jix)
