@@ -10,20 +10,29 @@ non-zero):
 1. card and toolchain: nvidia-smi name and power limit, CUDA, nvcc, triton;
 2. build every kernel under femto_tpu_torch/csrc/ with nvcc for sm_90a;
 3. each kernel against its plain PyTorch version, bit for bit, on an 8 MiB
-   seeded corpus (zipf English, a repeat-heavy, a binary and an empty doc):
-   the builds of every tier, and the search kernels on each layout (full,
-   compact, packed; the packed one also at a 31-symbol alphabet);
+   seeded corpus (zipf English with one document twice, a repeat-heavy, a
+   binary and an empty doc): the suffix sort's kernels one by one and the
+   sort as a whole in each of its regimes against the plain versions on
+   the CPU, the builds of every tier, and the search kernels on each layout
+   (full, compact, packed; the packed one also at a 31-symbol alphabet);
 4. the first main path at full size (a 256 MiB zipf-English corpus in
    64 KiB documents): build_index(tier="full", seg=256, mark_period=20),
    count of 32768 16-symbol patterns, locate of 65536 rows (walk and
-   direct), and extract_document of 8 documents, each checked, with the
-   kernels' launch counts read around this phase alone;
-4b. the second main path on the same corpus: build_index of the compact and
-   packed tiers, a .ftpu round trip of the packed index (save_flat, load),
-   then on both tiers count, locate and extract as in 4, and on all three
-   tiers extract_context_batch of 4096 match rows and range_docs of 64
-   pattern ranges, each checked against the full tier and the documents,
-   with its own launch counts; each tier's index bytes per character;
+   direct), and extract_document of 8 documents, each checked, the suffix
+   array held to be a permutation in suffix order on 65536 adjacent row
+   pairs; then one build of the twin corpus (the same documents with
+   document 1 a copy of document 0: a duplicate document sends the suffix
+   sort past its extension rounds into rank_init and the doubling rounds,
+   which the main corpus does not reach), checked the same way; the
+   kernels' launch counts are read around this phase alone, and printed
+   after the first build too;
+4b. the second main path on the same corpora: build_index of the compact
+   and packed tiers, a .ftpu round trip of the packed index (save_flat,
+   load), then on both tiers count, locate and extract as in 4, and on all
+   three tiers extract_context_batch of 4096 match rows and range_docs of
+   64 pattern ranges, each checked against the full tier and the
+   documents, and one compact build of the twin corpus, with its own
+   launch counts; each tier's index bytes per character;
 5. numbers: medians of 3 runs, per-kernel times beside their bounds, their
    plain versions and a one-call PyTorch yardstick where one exists; the
    kernels at the main paths' shapes are compared with their plain
@@ -32,7 +41,10 @@ non-zero):
    with that path's own launch count;
 6. where the time goes: device time by kernel and the device's busy share
    over one build, count, locate and extract of the full tier and one
-   build, count, locate and context of the packed tier (torch.profiler).
+   build, count, locate and context of the packed tier (torch.profiler);
+   a build whose device items include a library sort or scan fails, and
+   the build's device time outside the port's own kernels and copies is
+   printed by name.
 
 The last line is {"ok": true, "device": {...}}; the line before it is the
 card's name and power limit, and before that the "kernels" JSON line.  The
@@ -45,6 +57,7 @@ import argparse
 import dataclasses
 import json
 import os
+import re
 import statistics
 import subprocess
 import sys
@@ -65,10 +78,19 @@ MAIN_MIB = 256  # the main path's corpus size
 ZIPF_LETTERS = b"etaoin shrdlucmfwypvbgkqjxz.,\n"
 LAYOUTS = ("full", "compact", "packed")
 # the kernels each main path must launch: phase 4 (full tier) and 4b
+# the suffix sort and its payload (kernels G-L): every build runs them; the
+# main corpus ends in the extension rounds, the twin corpus (one document
+# twice), built once on each path, goes on to rank_init and doubling
+SORT_KERNELS = ("sym_hist", "sa_keys", "radix_sort_pairs", "group_flags",
+                "tied_compact", "rank_init", "round_keys[extension]",
+                "round_keys[doubling]", "round_commit", "sa_payload",
+                "gather_rows")
 PATH_KERNELS = {
-    "full": ("occ_build", "marks_build", "backward_search[full]",
-             "lf_locate[full]", "lf_extract[full]"),
-    "tiers": ("occ_build_compact", "marks_build", "pack_build")
+    "full": SORT_KERNELS + (
+        "occ_build", "marks_build", "backward_search[full]",
+        "lf_locate[full]", "lf_extract[full]"),
+    "tiers": SORT_KERNELS + (
+        "occ_build_compact", "marks_build", "pack_build")
     + tuple(f"{k}[{lay}]" for k in ("backward_search", "lf_locate",
                                     "lf_extract", "psi_walk")
             for lay in LAYOUTS),
@@ -82,7 +104,29 @@ KERNELS = {  # entry -> (source, the femto_tpu function it replaces)
                     "femto_tpu/ops/build_ops.py:1033"),
     "pack_build": ("femto_tpu_torch/csrc/pack_build.cu",
                    "femto_tpu/ops/build_ops.py:923"),
+    "sym_hist": ("femto_tpu_torch/csrc/sa_keys.cu", "femto_tpu/suffix.py:68"),
+    "sa_keys": ("femto_tpu_torch/csrc/sa_keys.cu", "femto_tpu/suffix.py:99"),
+    "radix_sort_pairs": ("femto_tpu_torch/csrc/radix_sort.cu",
+                         "femto_tpu/suffix.py:148"),
+    "group_flags": ("femto_tpu_torch/csrc/sa_groups.cu",
+                    "femto_tpu/suffix.py:157"),
+    "tied_compact": ("femto_tpu_torch/csrc/sa_groups.cu",
+                     "femto_tpu/suffix.py:167"),
+    "rank_init": ("femto_tpu_torch/csrc/sa_rounds.cu",
+                  "femto_tpu/suffix.py:272"),
+    "round_keys[extension]": ("femto_tpu_torch/csrc/sa_rounds.cu",
+                              "femto_tpu/suffix.py:204"),
+    "round_keys[doubling]": ("femto_tpu_torch/csrc/sa_rounds.cu",
+                             "femto_tpu/suffix.py:302"),
+    "round_commit": ("femto_tpu_torch/csrc/sa_rounds.cu",
+                     "femto_tpu/suffix.py:302"),
+    "sa_payload": ("femto_tpu_torch/csrc/sa_payload.cu",
+                   "femto_tpu/ops/build_ops.py:82"),
+    "gather_rows": ("femto_tpu_torch/csrc/sa_payload.cu",
+                    "femto_tpu/search.py:71"),
 }
+# device items that would mean a build fell back to a library sort or scan
+LIBRARY_SORT_NAMES = ("RadixSort", "Onesweep", "cub::", "thrust::")
 for _lay in LAYOUTS:
     KERNELS.update({
         f"backward_search[{_lay}]": ("femto_tpu_torch/csrc/backward_search.cu",
@@ -131,8 +175,10 @@ def zipf_docs(rng, n_docs):
 
 
 def small_docs(rng):
-    """~8 MiB: zipf English plus a repeat-heavy, a binary and an empty doc."""
-    docs = zipf_docs(rng, 124)
+    """~8 MiB: zipf English with one document twice (a long doubling tail
+    for the suffix sort) plus a repeat-heavy, a binary and an empty doc."""
+    docs = zipf_docs(rng, 123)
+    docs.insert(1, docs[0])
     docs.append((b"abcabcabd" * (DOC_SIZE // 9 + 1))[: DOC_SIZE - 1])
     docs.append(b"a" * 8192)
     docs.append(rng.integers(0, 256, size=DOC_SIZE - 1, dtype=np.uint8)
@@ -360,6 +406,37 @@ def bound_psi(arrays, rows, num_steps):
     return total / HBM_BYTES_PER_S * 1e3
 
 
+SECTOR = 32  # bytes one gathered row of gather_rows moves at the least
+
+
+def bound_ms(nbytes):
+    return nbytes / HBM_BYTES_PER_S * 1e3
+
+
+def bound_sort_kernels(n, ndocs, m):
+    """Bytes each suffix-sort function must move, whatever its design, at
+    text length n with m tied slots: each element it reads and each it
+    writes once, at the element's own size (a sort once, not once a pass);
+    gather_rows alone counts one sector for a gathered row."""
+    return {
+        "sym_hist": 4 * n + 4 * 513,
+        "sa_keys": 4 * n + 4 * 512 + 8 * n,
+        "radix_sort_pairs": 24 * n,             # key and value, in and out
+        "group_flags": 8 * n + n,
+        "tied_compact": n + 8 * m,              # flags in; slots, bases out
+        # sa in, n ranks out, then the m tied slots' bases over them
+        "rank_init": 4 * n + 4 * n + 8 * m + 4 * m,
+        # per slot: slot, base, sa and one key word in, pos and key out
+        "round_keys[extension]": (4 + 4 + 4 + 8 + 12) * m,
+        # per slot: slot, sa and two ranks in, pos and key out
+        "round_keys[doubling]": (4 + 4 + 8 + 12) * m,
+        # per slot: slot, sorted pos and new base in, sa and rank out
+        "round_commit": 12 * m + 8 * m,
+        "sa_payload": 4 * n + 4 * (ndocs + 1) + 8 * n,
+        "gather_rows": 4 * n + SECTOR * n + 8 * n,
+    }
+
+
 def index_bytes(arrays):
     """Bytes of an index's device arrays (FMArrays fields, no sa_direct)."""
     return sum(t.numel() * t.element_size() for t in arrays if t is not None)
@@ -413,6 +490,175 @@ def phase_build(record):
             log(f"    {src}: {ln}")
 
 
+def sort_round(SO, sa, slots, base, shift, key_bits, rank=None, h=0,
+               key0=None, w=0, drop=0):
+    """One round of the suffix sort over the tied slots from a copy of the
+    state (doubling with ``rank``, else extension from ``key0``), through
+    whichever of kernel and plain version the tensors' device selects:
+    [pos, key, sorted key, sorted pos, next slots, next bases, sa after,
+    rank after (doubling)]."""
+    sa = sa.clone()
+    if rank is not None:
+        rank = rank.clone()
+        pos, key = SO.round_keys(sa, slots, shift=shift, rank=rank, h=h)
+    else:
+        pos, key = SO.round_keys(sa, slots, shift=shift, base=base,
+                                 key0=key0, w=w, drop=drop)
+    skey, spos = SO.radix_sort_pairs(key, pos, 0, key_bits)
+    s2, b2, _, base_all = SO.tied_compact(SO.group_flags(skey), slots,
+                                          want_all=rank is not None)
+    SO.round_commit(sa, rank, slots, spos, base_all, skey=skey, shift=shift,
+                    base=base)
+    out = [pos, key, skey, spos, s2, b2, sa]
+    return out + [rank] if rank is not None else out
+
+
+def parity_sort_kernels(rng, docs, prepared, text, ds, errs):
+    """Kernels G-L one by one against their plain versions on the card, and
+    the suffix sort as a whole, in each regime, against the plain versions
+    on the CPU."""
+    import torch
+
+    import femto_tpu_torch as tt
+    from femto_tpu_torch import suffix as TS
+    from femto_tpu_torch.ops import build_ops as BO
+    from femto_tpu_torch.ops import sort_ops as SO
+
+    dev = text.device
+    n, ndocs = prepared.n, prepared.num_docs
+
+    def hold(name, got, want):
+        torch.cuda.synchronize()
+        errs[name] = max_abs_err(name, got, want)
+
+    def t_dev(a):
+        return torch.from_numpy(a).to(dev)
+
+    # G: the histogram (also of symbols outside [0, 512)) and the keys at
+    # the corpus's near-full byte alphabet and at the zipf documents' K = 31
+    bad = torch.cat([text[: 1 << 20], t_dev(np.array([512, -7, 1 << 30],
+                                                     np.int32))])
+    for tag, t in (("text", text), ("outside", bad)):
+        hold(f"sym_hist({tag})", [SO.sym_hist(t)], [SO.sym_hist_plain(t)])
+    check(int(SO.sym_hist(bad)[512]) == 3, "sym_hist: outside count")
+    zipf_text = text_tensor(tt.prepare_documents(docs[:32]), dev)
+    state = {}
+    for tag, t in (("bytes", text), ("zipf", zipf_text)):
+        used = TS.text_alphabet(t)
+        bits, per = TS.key_widths(len(used))
+        lut = t_dev(TS.alpha_lut(used))
+        key0 = SO.sa_keys(t, lut, bits=bits, per=per)
+        hold(f"sa_keys(K={len(used)},bits={bits},per={per})", [key0],
+             [SO.sa_keys_plain(t, lut, bits=bits, per=per)])
+        state[tag] = (t, key0, bits, per, len(used))
+    check(state["bytes"][2:4] == (9, 7) and state["bytes"][4] >= 128,
+          "the parity corpus should have a near-full byte alphabet")
+    check(state["zipf"][2:5] == (5, 12, 31), "the zipf docs have 31 symbols")
+
+    # H: random 63-bit keys with many duplicates, tiny and ragged sizes, a
+    # bit range, and the first sort of both texts
+    for m in (1, 31, 4097, (1 << 22) + 77):
+        keys = rng.integers(0, 2**63 - 1, size=m, dtype=np.int64)
+        keys[rng.integers(0, m, size=m // 2)] = keys[0]
+        keys[::3] &= 0xFFFFFF
+        vals = rng.integers(0, 2**31 - 1, size=m).astype(np.int32)
+        k, v = t_dev(keys), t_dev(vals)
+        for lo, hi, vv in ((0, 63, v), (0, 63, None), (8, 29, v)):
+            hold(f"radix_sort_pairs(m={m},bits={lo}:{hi},"
+                 f"vals={'given' if vv is not None else 'iota'})",
+                 SO.radix_sort_pairs(k, vv, lo, hi),
+                 SO.radix_sort_pairs_plain(k, vv, lo, hi))
+    for tag, (t, key0, bits, per, K) in state.items():
+        nn = t.shape[0]
+        skey, sa = SO.radix_sort_pairs(key0, None, 0, per * bits)
+        hold(f"radix_sort_pairs(first sort, {tag})", [skey, sa],
+             SO.radix_sort_pairs_plain(key0, None, 0, per * bits))
+        # I: flags and the tied slots, directly and through a slot list
+        flags = SO.group_flags(skey)
+        hold(f"group_flags({tag})", [flags], [SO.group_flags_plain(skey)])
+        got = SO.tied_compact(flags, want_all=True)
+        want = SO.tied_compact_plain(flags, want_all=True)
+        check(got[2] == want[2] and got[2] > 0, f"tied count ({tag})")
+        hold(f"tied_compact({tag})", [got[0], got[1], got[3]],
+             [want[0], want[1], want[3]])
+        slots, base, m, _ = got
+        sub = SO.group_flags(base.long())
+        got = SO.tied_compact(sub, slots, want_all=True)
+        want = SO.tied_compact_plain(sub, slots, want_all=True)
+        check(got[2] == want[2] == m, f"tied count through slots ({tag})")
+        hold(f"tied_compact(slots, {tag})", [got[0], got[1], got[3]],
+             [want[0], want[1], want[3]])
+        # J: the rank array, then one doubling and one extension round
+        # from the same state
+        rank = SO.rank_init(sa, slots, base)
+        hold(f"rank_init({tag})", [rank],
+             [SO.rank_init_plain(sa, slots, base)])
+        base_bits = max(1, (nn - 1).bit_length())
+        e = min(per, (63 - base_bits) // bits)
+        rounds = {
+            "doubling": dict(shift=nn.bit_length(),
+                             key_bits=nn.bit_length() + base_bits,
+                             rank=rank, h=per),
+            "extension": dict(shift=e * bits, key_bits=e * bits + base_bits,
+                              key0=key0, w=per, drop=(per - e) * bits),
+        }
+        cpu = [x.cpu() for x in (sa, slots, base)]
+        for mode, kw in rounds.items():
+            kw_cpu = {k: v.cpu() if torch.is_tensor(v) else v
+                      for k, v in kw.items()}
+            hold(f"round_keys+round_commit({mode}, {tag})",
+                 [x.cpu() for x in sort_round(SO, sa, slots, base, **kw)],
+                 sort_round(SO, *cpu, **kw_cpu))
+    del state
+
+    # K: the payload with and without marks (the corpus holds an empty doc)
+    check(any(len(d) == 0 for d in docs), "the corpus needs an empty doc")
+    for mp in (0, 20):
+        kw = dict(n=n, mark_period=mp, ndocs=ndocs)
+        hold(f"sa_payload(mark_period={mp})",
+             [BO.build_sa_payload(text, ds, **kw)],
+             [BO.sa_payload_plain(text, ds, **kw)])
+    # L: int32 and int64 sources, indices outside the source
+    payload = BO.build_sa_payload(text, ds, n=n, mark_period=20, ndocs=ndocs)
+    idx = t_dev(np.concatenate([
+        rng.integers(0, n, size=1 << 20), [-1, n, 2**31 - 1]]
+    ).astype(np.int32))
+    for tag, src in (("int64", payload), ("int32", text)):
+        hold(f"gather_rows({tag})", [SO.gather_rows(src, idx)],
+             [SO.gather_rows_plain(src, idx)])
+
+    # the sort as a whole on the card against the plain versions on the CPU,
+    # once in each regime
+    repeats = tt.prepare_documents(
+        [(b"abcabcabd" * 8000)[:65535], b"a" * 8192, b"", b"ab" * 3000])
+    planted = text_tensor(tt.prepare_documents(docs[2:18]), dev)
+    half = planted.shape[0] // 2
+    planted[half: half + 40] = planted[1000:1040]  # ties extension ends
+    texts = {
+        # docs[0] and docs[1] are the same document
+        "extension+doubling": text_tensor(tt.prepare_documents(docs[:16]),
+                                          dev),
+        "doubling": text_tensor(repeats, dev),
+        "sorted": t_dev(rng.integers(3, 259, size=1 << 20).astype(np.int32)),
+        "extension": planted,
+    }
+    regimes = {}
+    for regime, t in texts.items():
+        pl = t_dev(rng.integers(0, 2**40, size=t.shape[0]))
+        sa_k, pull_k = tt.suffix_array(t, payload=pl)
+        stats = {k: v for k, v in TS.last_stats.items()}
+        sa_p, pull_p = tt.suffix_array(t.cpu(), payload=pl.cpu())
+        check(stats == TS.last_stats, f"{regime}: the card's rounds "
+              f"{stats} differ from the CPU's {TS.last_stats}")
+        check(stats["regime"] == regime,
+              f"expected the {regime} regime, got {stats}")
+        hold(f"suffix_array({regime})", [sa_k.cpu(), pull_k.cpu()],
+             [sa_p, pull_p])
+        regimes[regime] = stats
+        log(f"    suffix_array n={t.shape[0]}: {stats}")
+    return regimes
+
+
 def phase_parity(record, rng):
     """Every kernel against its plain version on an 8 MiB corpus."""
     import torch
@@ -432,6 +678,7 @@ def phase_parity(record, rng):
     ds = torch.from_numpy(prepared.doc_starts.astype(np.int32)).to(dev)
     errs = {}
 
+    regimes = parity_sort_kernels(rng, docs, prepared, text, ds, errs)
     payload = BO.build_sa_payload(text, ds, n=n, mark_period=20, ndocs=ndocs)
     sa, pull = tt.suffix_array(text, payload=payload)
     a_k = BO.occ_build(pull, n_seg=n_seg, seg=seg)
@@ -440,7 +687,7 @@ def phase_parity(record, rng):
     errs["occ_build"] = max_abs_err("occ_build", a_k, a_p)
     for mp in (20, 0):
         pl = BO.build_sa_payload(text, ds, n=n, mark_period=mp, ndocs=ndocs)
-        a_row = (pl[sa.long()] >> 9).to(torch.int32)
+        a_row = (pl[sa.long()] >> 9).to(torch.int32)  # the script's own
         kw = dict(n_seg=n_seg, seg=seg, mark_period=mp, ndocs=ndocs)
         b_k = BO.marks_build(sa, a_row, **kw)
         b_p = BO.marks_build_plain(sa, a_row, **kw)
@@ -553,7 +800,8 @@ def phase_parity(record, rng):
                       len(docs) - 1):
                 check(tt.extract_document(ix, d) == docs[d],
                       f"{name}: extract doc {d}")
-    record["parity_8mib"] = {"n": n, "ndocs": ndocs, "max_abs_err": errs}
+    record["parity_8mib"] = {"n": n, "ndocs": ndocs, "max_abs_err": errs,
+                             "sort_regimes": regimes}
     log(f"[3] 8 MiB parity (n={n}): every kernel equals its plain version "
         f"bit for bit: {sorted(errs)}")
 
@@ -571,6 +819,34 @@ def direct_count(text, pat_codes):
     return int(cand.shape[0])
 
 
+def check_suffix_order(text, sa, rng):
+    """sa is a permutation of 0..n-1, and on N_LOCATE random adjacent row
+    pairs the upper row's suffix is the larger one over their first 64
+    symbols (the text's end sorts first).  Returns the number of pairs
+    that are equal over those 64."""
+    import torch
+
+    n = text.shape[0]
+    seen = torch.zeros(n, dtype=torch.int32, device=text.device)
+    seen.index_add_(0, sa.long(), torch.ones_like(seen))
+    check(bool((seen == 1).all()), "sa is not a permutation of 0..n-1")
+    del seen
+    r = torch.from_numpy(rng.integers(0, n - 1, size=N_LOCATE)).to(sa.device)
+    j = torch.arange(64, device=sa.device)
+    pa = sa[r].long()[:, None] + j
+    pb = sa[r + 1].long()[:, None] + j
+    a = torch.where(pa < n, text[pa.clamp(max=n - 1)], -1)
+    b = torch.where(pb < n, text[pb.clamp(max=n - 1)], -1)
+    differ = a != b
+    first = torch.argmax(differ.int(), dim=1)
+    decided = differ.any(dim=1)
+    rows = torch.arange(N_LOCATE, device=sa.device)
+    ok = a[rows, first] < b[rows, first]
+    check(bool((ok | ~decided).all()),
+          "adjacent rows of sa are out of suffix order")
+    return int((~decided).sum())
+
+
 def phase_main(record, rng):
     """The port's main path at full size, through the user entry points,
     with the kernels' launch counts read around it."""
@@ -578,6 +854,7 @@ def phase_main(record, rng):
 
     import femto_tpu_torch as tt
     from femto_tpu_torch import kernels
+    from femto_tpu_torch import suffix as TS
     from femto_tpu_torch.alphabet import pattern_to_alpha
 
     n_docs = (MAIN_MIB << 20) // DOC_SIZE
@@ -585,6 +862,9 @@ def phase_main(record, rng):
     docs = zipf_docs(rng, n_docs)
     prepared = tt.prepare_documents(docs)
     n = prepared.n
+    # the twin corpus: document 1 a copy of document 0
+    twin_docs = [docs[0] if d == 1 else doc for d, doc in enumerate(docs)]
+    twin_prepared = tt.prepare_documents(twin_docs)
     t_data = time.perf_counter() - t0
     pd = rng.integers(0, n_docs, size=N_PATTERNS)
     po = rng.integers(0, DOC_SIZE - PATLEN - 2, size=N_PATTERNS)
@@ -592,8 +872,9 @@ def phase_main(record, rng):
     loc_rows = rng.integers(0, n, size=N_LOCATE).astype(np.int32)
     ext_docs = [int(d) for d in rng.choice(n_docs - 1, 7, replace=False)]
     ext_docs.append(n_docs - 1)
-    log(f"[4] corpus: {MAIN_MIB} MiB zipf English, {n_docs} docs, n={n} "
-        f"(made in {t_data:.1f}s)")
+    log(f"[4] corpus: {MAIN_MIB} MiB zipf English, {n_docs} docs, n={n}, and "
+        f"its twin with document 1 a copy of document 0 (made in "
+        f"{t_data:.1f}s)")
 
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
@@ -603,6 +884,8 @@ def phase_main(record, rng):
                            locate="direct", device="cuda")
     torch.cuda.synchronize()
     t_build = time.perf_counter() - t0
+    sort_stats = dict(TS.last_stats)
+    build_launches = dict(kernels.launches)
     walk = dataclasses.replace(index, sa_direct=None)
     t0 = time.perf_counter()
     first, last = tt.count_ranges(walk, patterns)
@@ -615,16 +898,41 @@ def phase_main(record, rng):
             break
         matches += [(p, d, o) for d, o in tt.locate(walk, p)]
     extracted = {d: tt.extract_document(walk, d) for d in ext_docs}
+    peak = torch.cuda.max_memory_allocated()  # the main corpus's build
+    twin = tt.build_index(twin_prepared, seg=256, mark_period=20,
+                          locate="direct", device="cuda")
+    twin_stats = dict(TS.last_stats)
+    twin_pattern = docs[0][1000: 1000 + 2 * PATLEN]
+    twin_matches = sorted(tt.locate(twin, twin_pattern))
     torch.cuda.synchronize()
     launches = dict(kernels.launches)
-    peak = torch.cuda.max_memory_allocated()
     log(f"    main path: build {t_build:.2f}s (first call), count "
         f"{t_count:.3f}s, peak device memory {peak / 2**30:.2f} GiB; "
         f"launches {launches}")
+    for what, stats in (("main corpus", sort_stats), ("twin corpus",
+                                                      twin_stats)):
+        log(f"    suffix sort, {what}: {stats['ext_rounds']} extension and "
+            f"{stats['dbl_rounds']} doubling rounds, tied after each step "
+            f"{stats['tied']} ({stats})")
+    idle = [k for k in SORT_KERNELS if not build_launches[k]]
+    log(f"    the main corpus's build alone launched {build_launches}; not "
+        f"launched there: {idle}"
+        + (f" (its {sort_stats['tied'][0]} ties after the first sort were "
+           f"gone after {sort_stats['ext_rounds']} extension round(s), so "
+           f"the doubling regime was not reached; the twin corpus's build "
+           f"reaches it)" if idle else ""))
 
     counts = last - first
     check((counts >= 1).all(), "a pattern sliced from the text has count 0")
     text = text_tensor(prepared, torch.device("cuda"))
+    undecided = check_suffix_order(text, index.sa_direct, rng)
+    twin_text = text_tensor(twin_prepared, torch.device("cuda"))
+    twin_undecided = check_suffix_order(twin_text, twin.sa_direct, rng)
+    del twin_text, twin
+    check(twin_matches[:2] == [(0, 1000), (1, 1000)],
+          f"twin corpus: a pattern of document 0 located at {twin_matches}")
+    check(twin_stats["dbl_rounds"] >= 1,
+          "the twin corpus's sort ran no doubling round")
     for i in rng.choice(N_PATTERNS, 32, replace=False):
         want = direct_count(text, pattern_to_alpha(patterns[i]))
         check(int(counts[i]) == want,
@@ -639,16 +947,23 @@ def phase_main(record, rng):
     for name in PATH_KERNELS["full"]:
         check(launches[name] >= 1,
               f"kernel {name} was not launched on the main path")
-    log(f"    checks: counts >= 1, 32 sampled counts == text scan, walk == "
-        f"direct on {N_LOCATE} rows, 256 matches in the text, "
-        f"{len(ext_docs)} documents extracted exactly")
+    log(f"    checks: sa is a permutation in suffix order on {N_LOCATE} "
+        f"adjacent row pairs ({undecided} equal over 64 symbols; the twin "
+        f"corpus's too, {twin_undecided} equal, and its duplicate is "
+        f"located in documents 0 and 1), counts >= "
+        f"1, 32 sampled counts == text scan, walk == direct on {N_LOCATE} "
+        f"rows, 256 matches in the text, {len(ext_docs)} documents "
+        f"extracted exactly")
     record["main_path"] = {
         "mib": MAIN_MIB, "n": n, "ndocs": n_docs, "seg": 256,
         "mark_period": 20,
         "first_build_s": t_build, "peak_device_bytes": peak,
         "n_marks": index.meta.n_marks, "launches": launches,
+        "launches_of_the_first_build": build_launches,
+        "suffix_sort": sort_stats, "suffix_sort_twin": twin_stats,
     }
-    return dict(prepared=prepared, docs=docs, index=index, walk=walk,
+    return dict(prepared=prepared, twin_prepared=twin_prepared, docs=docs,
+                index=index, walk=walk,
                 text=text, patterns=patterns, loc_rows=loc_rows,
                 ext_docs=ext_docs, launches=launches, first=first, last=last,
                 offs_direct=offs_direct)
@@ -667,6 +982,7 @@ def phase_tiers(record, rng, st):
 
     prepared, docs, walk = st["prepared"], st["docs"], st["walk"]
     n = prepared.n
+    twin_pattern = docs[0][1000: 1000 + 2 * PATLEN]
     sa = st["index"].sa_direct
     first, last = st["first"], st["last"]
     patterns, loc_rows, ext_docs = (st["patterns"], st["loc_rows"],
@@ -710,13 +1026,20 @@ def phase_tiers(record, rng, st):
         rf, rl = tt.count_ranges(ix, rd_pats)
         r["rd_ranges"] = (rf, rl)
         r["rd"] = [tt.range_docs(ix, int(f), int(l)) for f, l in zip(rf, rl)]
+    peak = torch.cuda.max_memory_allocated()  # the main corpus's builds
+    twin = tt.build_index(st["twin_prepared"], seg=256, mark_period=20,
+                          tier="compact", device="cuda")
+    twin_matches = sorted(tt.locate(twin, twin_pattern))
+    del twin
     torch.cuda.synchronize()
     launches = dict(kernels.launches)
-    peak = torch.cuda.max_memory_allocated()
     log(f"[4b] compact + packed build {t_build:.2f}s (first calls); .ftpu "
         f"{file_bytes} B, save {t_save:.2f}s, load {t_load:.2f}s; peak "
         f"device memory {peak / 2**30:.2f} GiB; launches {launches}")
 
+    check(twin_matches[:2] == [(0, 1000), (1, 1000)],
+          f"twin corpus, compact: a pattern of document 0 located at "
+          f"{twin_matches}")
     # the .ftpu round trip is exact
     for k, v in packed.arrays._asdict().items():
         w = getattr(loaded.arrays, k)
@@ -762,7 +1085,8 @@ def phase_tiers(record, rng, st):
     log(f"    checks: .ftpu round trip exact; both tiers' ranges, {N_LOCATE} "
         f"walk offsets and {len(ext_docs)} extracts equal the full tier's; "
         f"{N_CONTEXT} contexts and {N_RANGES} range_docs equal the "
-        f"documents' on all three tiers")
+        f"documents' on all three tiers; the twin corpus's compact index "
+        f"locates its duplicate in documents 0 and 1")
     log(f"    index bytes per character: {bpc}")
     record["tiers_path"] = {
         "first_build_s_compact_and_packed": t_build, "ftpu_bytes": file_bytes,
@@ -773,6 +1097,111 @@ def phase_tiers(record, rng, st):
     }
     return dict(compact=compact, packed=loaded, ctx_rows=ctx_rows,
                 launches=launches)
+
+
+def sort_kernel_rows(record, kernel_row, text, ds, sa, sa_direct, rows, *,
+                     n, ndocs, mark_period):
+    """Kernels G-L at the main path's shapes: the state after the first
+    sort of the main corpus, one extension and one doubling round over its
+    tied slots, the payload and the two gathers."""
+    import torch
+
+    from femto_tpu_torch import suffix as TS
+    from femto_tpu_torch.ops import build_ops as BO
+    from femto_tpu_torch.ops import sort_ops as SO
+
+    dev = text.device
+    used = TS.text_alphabet(text)
+    bits, per = TS.key_widths(len(used))
+    lut = torch.from_numpy(TS.alpha_lut(used)).to(dev)
+    key0 = SO.sa_keys(text, lut, bits=bits, per=per)
+    skey, sa0 = SO.radix_sort_pairs(key0, None, 0, per * bits)
+    flags = SO.group_flags(skey)
+    slots, base, m, _ = SO.tied_compact(flags)
+    check(m > 0, "the main corpus should leave ties after the first sort")
+    rank = SO.rank_init(sa0, slots, base)
+    base_bits = (n - 1).bit_length()
+    e = min(per, (63 - base_bits) // bits)
+    ext = dict(shift=e * bits, base=base, key0=key0, w=per,
+               drop=(per - e) * bits)
+    dbl = dict(shift=n.bit_length(), rank=rank, h=per)
+    bounds = {k: bound_ms(v)
+              for k, v in bound_sort_kernels(n, ndocs, m).items()}
+    record["sort_shapes"] = {"n": n, "K": len(used), "bits": bits,
+                             "per": per, "e": e, "tied_after_first_sort": m}
+    log(f"    suffix sort kernels at n={n}, K={len(used)} ({per} codes of "
+        f"{bits} bits), {m} tied slots after the first sort")
+
+    kernel_row("sym_hist", lambda: [SO.sym_hist(text)],
+               lambda: [SO.sym_hist_plain(text)], bounds["sym_hist"],
+               library=lambda: torch.bincount(text, minlength=512))
+    kernel_row("sa_keys",
+               lambda: [SO.sa_keys(text, lut, bits=bits, per=per)],
+               lambda: [SO.sa_keys_plain(text, lut, bits=bits, per=per)],
+               bounds["sa_keys"])
+    kernel_row("radix_sort_pairs",
+               lambda: SO.radix_sort_pairs(key0, None, 0, per * bits),
+               lambda: SO.radix_sort_pairs_plain(key0, None, 0, per * bits),
+               bounds["radix_sort_pairs"],
+               library=lambda: torch.sort(key0, stable=True))
+    kernel_row("group_flags", lambda: [SO.group_flags(skey)],
+               lambda: [SO.group_flags_plain(skey)], bounds["group_flags"])
+    del skey
+    kernel_row("tied_compact", lambda: SO.tied_compact(flags)[:2],
+               lambda: SO.tied_compact_plain(flags)[:2],
+               bounds["tied_compact"])
+    del flags
+    kernel_row("rank_init", lambda: [SO.rank_init(sa0, slots, base)],
+               lambda: [SO.rank_init_plain(sa0, slots, base)],
+               bounds["rank_init"])
+    # one extension and one doubling round's keys from the same state
+    for mode, kw in (("extension", ext), ("doubling", dbl)):
+        kernel_row(f"round_keys[{mode}]",
+                   lambda: SO.round_keys(sa0, slots, **kw),
+                   lambda: SO.round_keys_plain(sa0, slots, **kw),
+                   bounds[f"round_keys[{mode}]"])
+    # the doubling round's write-back, into copies of the state
+    pos, key = SO.round_keys(sa0, slots, **dbl)
+    skey, spos = SO.radix_sort_pairs(key, pos, 0,
+                                     dbl["shift"] + base_bits)
+    base_all = SO.tied_compact(SO.group_flags(skey), slots, want_all=True)[3]
+    state = {who: (sa0.clone(), rank.clone()) for who in ("kernel", "plain")}
+
+    def commit(fn, who):
+        fn(*state[who], slots, spos, base_all)
+        return list(state[who])
+
+    def commit_plain(sa_, rank_, *rest):
+        SO.round_commit_plain(sa_, rank_, *rest, skey=skey,
+                              shift=dbl["shift"], base=base)
+
+    kernel_row("round_commit", lambda: commit(SO.round_commit, "kernel"),
+               lambda: commit(commit_plain, "plain"), bounds["round_commit"])
+    del key0, rank, state, skey, spos, base_all, sa0
+    kw = dict(n=n, mark_period=mark_period, ndocs=ndocs)
+    kernel_row("sa_payload", lambda: [BO.build_sa_payload(text, ds, **kw)],
+               lambda: [BO.sa_payload_plain(text, ds, **kw)],
+               bounds["sa_payload"])
+    # L at its two shapes: the pull of the payload (the row) and the
+    # direct locate tier's 65536 rows
+    payload = BO.build_sa_payload(text, ds, **kw)
+    kernel_row("gather_rows", lambda: [SO.gather_rows(payload, sa)],
+               lambda: [SO.gather_rows_plain(payload, sa)],
+               bounds["gather_rows"],
+               library=lambda: torch.index_select(payload, 0, sa))
+    del payload
+    max_abs_err("gather_rows(direct tier)",
+                [SO.gather_rows(sa_direct, rows)],
+                [SO.gather_rows_plain(sa_direct, rows)])
+    B = rows.shape[0]
+    direct = {
+        "rows": B, "ms": cuda_ms(lambda: SO.gather_rows(sa_direct, rows)),
+        "bound_ms": bound_ms((4 + SECTOR + 4) * B),
+        "library_ms": cuda_ms(
+            lambda: torch.index_select(sa_direct, 0, rows)),
+    }
+    record["gather_rows_direct_tier"] = direct
+    log(f"    gather_rows at the direct tier's shape: {direct}")
 
 
 def phase_numbers(record, st, st2):
@@ -800,6 +1229,10 @@ def phase_numbers(record, st, st2):
     build = wall_runs(lambda: tt.build_index(prepared, seg=seg,
                                              mark_period=mp, device="cuda"))
     rates["build_mib_per_s"] = summary([mib / t for t in build])
+    # the twin corpus (one document twice): rank_init and doubling rounds too
+    rates["build_twin_mib_per_s"] = summary(
+        [mib / t for t in wall_runs(lambda: tt.build_index(
+            st["twin_prepared"], seg=seg, mark_period=mp, device="cuda"))])
     box = {}
 
     def sort():
@@ -923,10 +1356,13 @@ def phase_numbers(record, st, st2):
         lambda: BO.marks_build_plain(sa, a_row, **kw),
         bound_marks_build(n, n_seg, seg, index.meta.n_marks,
                           arrays.mark_vals.shape[0], ndocs))
+    del a_row
+    rt = torch.from_numpy(rows).to(dev)
+    sort_kernel_rows(record, kernel_row, text, ds, sa, index.sa_direct, rt,
+                     n=n, ndocs=ndocs, mark_period=mp)
     pt = torch.from_numpy(pack_patterns(
         [pattern_to_alpha(p) for p in patterns],
         pad_b=len(patterns))[0]).to(dev)
-    rt = torch.from_numpy(rows).to(dev)
     isa = torch.empty(n, dtype=torch.int64, device=dev)
     isa[index.sa_direct.long()] = torch.arange(n, device=dev)
     ct = torch.from_numpy(ctx_rows.astype(np.int32)).to(dev)
@@ -967,11 +1403,18 @@ def phase_profile(record, st, st2):
     from torch.profiler import ProfilerActivity, profile
 
     import femto_tpu_torch as tt
+    from femto_tpu_torch import kernels
 
+    own_kernels = sorted({
+        m for src in kernels.SOURCES
+        for m in re.findall(r"__global__\s+void\s+(\w+)", open(
+            os.path.join(kernels.CSRC, src + ".cu")).read())})
     prepared, walk = st["prepared"], st["walk"]
     steps = {
         "build": lambda: tt.build_index(prepared, seg=256, mark_period=20,
                                         device="cuda"),
+        "twin_build": lambda: tt.build_index(
+            st["twin_prepared"], seg=256, mark_period=20, device="cuda"),
         "count": lambda: tt.count(walk, st["patterns"]),
         "locate_walk": lambda: tt.locate_rows_array(walk, st["loc_rows"]),
         "extract": lambda: tt.extract_document(walk, st["ext_docs"][0]),
@@ -1012,6 +1455,29 @@ def phase_profile(record, st, st2):
             f"{out[name]['busy_share']}")
         for o in out[name]["top"][:4]:
             log(f"      {o['ms']:.3f} ms x{o['calls']} {o['op'][:90]}")
+        if name.endswith("build") and ops:
+            # nothing fell back: no library sort or scan among the build's
+            # device items, and what lies outside the port's own kernels
+            # and copies is named
+            library = [k for k, _, _ in ops
+                       if any(s in k for s in LIBRARY_SORT_NAMES)]
+            check(not library, f"{name} ran a library sort or scan on the "
+                               f"card: {library}")
+            outside = [(k, ms, c) for k, ms, c in ops
+                       if not any(own in k for own in own_kernels)
+                       and "memcpy" not in k.lower()
+                       and "memset" not in k.lower()]
+            out[name]["outside_port_kernels_ms"] = sum(o[1] for o in outside)
+            out[name]["outside_port_kernels"] = [
+                {"op": k[:160], "ms": ms, "calls": c} for k, ms, c in outside]
+            out[name]["by_port_kernel_ms"] = {
+                own: sum(ms for k, ms, _ in ops if own in k)
+                for own in own_kernels if any(own in k for k, _, _ in ops)}
+            log(f"      no library sort or scan; outside the port's kernels "
+                f"and copies: {out[name]['outside_port_kernels_ms']:.3f} ms")
+            for k, ms, c in outside:
+                log(f"        {ms:.3f} ms x{c} {k[:100]}")
+            log(f"      by port kernel: {out[name]['by_port_kernel_ms']}")
     record["profile"] = out
 
 

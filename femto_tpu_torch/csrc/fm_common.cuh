@@ -169,4 +169,67 @@ int dispatch_layout(const FmView& ix, F&& launch) {
   return static_cast<int>(cudaGetLastError());
 }
 
+// Block-wide scans of one int per thread for the build kernels' stream
+// compactions and count tables.  kT threads (whole warps, at most 1024) all
+// call; `warp_vals` is an int[32] in shared memory.  Returns the combination
+// of the values of the threads before this one (0 or `none` for thread 0)
+// and sets *total to the whole block's.
+template <int kT>
+__device__ __forceinline__ int block_exclusive_sum(int v, int* warp_vals,
+                                                   int* total) {
+  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+  int x = v;
+  for (int d = 1; d < 32; d <<= 1) {
+    const int y = __shfl_up_sync(0xffffffffu, x, d);
+    if (lane >= d) x += y;
+  }
+  if (lane == 31) warp_vals[warp] = x;
+  __syncthreads();
+  if (warp == 0) {
+    int w = lane < kT / 32 ? warp_vals[lane] : 0;
+    for (int d = 1; d < 32; d <<= 1) {
+      const int y = __shfl_up_sync(0xffffffffu, w, d);
+      if (lane >= d) w += y;
+    }
+    warp_vals[lane] = w;  // inclusive over warps
+  }
+  __syncthreads();
+  const int before = (warp > 0 ? warp_vals[warp - 1] : 0) + x - v;
+  *total = warp_vals[kT / 32 - 1];
+  __syncthreads();
+  return before;
+}
+
+// The same with max in place of +: the largest value of the threads before
+// this one, `none` (a value below every input) for thread 0.
+template <int kT>
+__device__ __forceinline__ int block_exclusive_max(int v, int none,
+                                                   int* warp_vals,
+                                                   int* total) {
+  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+  int x = v;
+  for (int d = 1; d < 32; d <<= 1) {
+    const int y = __shfl_up_sync(0xffffffffu, x, d);
+    if (lane >= d) x = max(x, y);
+  }
+  if (lane == 31) warp_vals[warp] = x;
+  // the largest value of the lanes before this one in its warp
+  int before = __shfl_up_sync(0xffffffffu, x, 1);
+  if (lane == 0) before = none;
+  __syncthreads();
+  if (warp == 0) {
+    int w = lane < kT / 32 ? warp_vals[lane] : none;
+    for (int d = 1; d < 32; d <<= 1) {
+      const int y = __shfl_up_sync(0xffffffffu, w, d);
+      if (lane >= d) w = max(w, y);
+    }
+    warp_vals[lane] = w;  // inclusive over warps
+  }
+  __syncthreads();
+  if (warp > 0) before = max(before, warp_vals[warp - 1]);
+  *total = warp_vals[kT / 32 - 1];
+  __syncthreads();
+  return before;
+}
+
 }  // namespace femto

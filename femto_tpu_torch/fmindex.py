@@ -363,7 +363,8 @@ def build_index(
     device: locate = one gather).  sa: optional precomputed suffix array
     (skips the sort)."""
     from .ops.build_ops import build_fm_arrays_device, build_sa_payload
-    from .suffix import suffix_array
+    from .ops.sort_ops import gather_rows
+    from .suffix import suffix_array, text_alphabet
 
     if tier is None:
         tier = "compact" if compact else "full"
@@ -407,17 +408,20 @@ def build_index(
         prepared.text.astype(np.uint16, copy=False)).view(np.int16)
     ).to(dev).to(torch.int32)
     doc_starts = _to_device(prepared.doc_starts.astype(np.int32), dev)
+    # one histogram of the text serves the sort's keys and the packed
+    # tier's dense alphabet; a caller's sa on another tier needs neither
+    alpha = text_alphabet(text) if sa is None or tier == "packed" else None
     payload = build_sa_payload(text, doc_starts, n=n, mark_period=mark_period,
                                ndocs=ndocs)
     if sa is None:
-        sa_dev, pull = suffix_array(text, payload=payload)
+        sa_dev, pull = suffix_array(text, payload=payload, alpha=alpha)
     else:
         sa_dev = _to_device(np.asarray(sa, dtype=np.int32), dev)
-        pull = payload[sa_dev.long()]
+        pull = gather_rows(payload, sa_dev)
     del payload
     arrays, n_marks, alpha_used = build_fm_arrays_device(
         text, sa_dev, doc_starts, n=n, seg=seg, mark_period=mark_period,
-        ndocs=ndocs, tier=tier, pull=pull)
+        ndocs=ndocs, tier=tier, pull=pull, alpha=alpha)
     meta = FMMeta(n=n, seg=seg, mark_period=mark_period, num_docs=ndocs,
                   n_marks=int(n_marks), n_seg=arrays.occ_ckpt.shape[0],
                   alpha_used=alpha_used, n_rows=n, row0=0)

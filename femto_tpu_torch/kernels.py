@@ -66,22 +66,43 @@ ENTRIES: Dict[str, Tuple[str, List]] = {
     "lf_locate": ("lf_walk", [_V, _P, _I, _P, _P, _P, _L, _P, _I, _P]),
     "lf_extract": ("lf_walk", [_V, _P, _I, _I, _P, _P]),
     "psi_walk": ("psi_walk", [_V, _P, _I, _I, _P]),
+    # the suffix sort (ops/sort_ops.py) and its payload
+    "sym_hist": ("sa_keys", [_P, _L, _P]),
+    "sa_keys": ("sa_keys", [_P, _L, _P, _I, _I, _P]),
+    "radix_sort_pairs": ("radix_sort", [_P, _P, _P, _P, _P, _P, _L, _I, _I,
+                                        _P, _P]),
+    "group_flags": ("sa_groups", [_P, _L, _P]),
+    "tied_compact": ("sa_groups", [_P, _P, _L, _I, _P, _P, _P, _P, _P, _P]),
+    "rank_init": ("sa_rounds", [_P, _L, _P, _P, _L, _P]),
+    "round_keys": ("sa_rounds", [_P, _P, _L, _L, _P, _L, _P, _P, _L, _I, _I,
+                                 _P, _P]),
+    "round_commit": ("sa_rounds", [_P, _P, _P, _P, _P, _L]),
+    "sa_payload": ("sa_payload", [_P, _L, _P, _I, _I, _P]),
+    "gather_rows": ("sa_payload", [_P, _L, _I, _P, _L, _P]),
 }
 # entries that take an FmView: one count per layout
 LAYOUT_ENTRIES = ("backward_search", "lf_locate", "lf_extract", "psi_walk")
+# entries with modes that do different work: one count per mode
+MODE_ENTRIES = {"round_keys": ("extension", "doubling")}
 SOURCES = sorted({src for src, _ in ENTRIES.values()})
 
 
 def counter(entry: str, layout: Optional[str] = None) -> str:
-    """Name of the launch count of an entry (and layout)."""
+    """Name of the launch count of an entry (and layout or mode)."""
     return entry if layout is None else f"{entry}[{layout}]"
 
 
-# Launches per entry point (and layout) since the last reset_launches().
+def counters(entry: str) -> List[str]:
+    """Names of the launch counts of an entry: one per layout or mode."""
+    kinds = LAYOUTS if entry in LAYOUT_ENTRIES else MODE_ENTRIES.get(
+        entry, (None,))
+    return [counter(entry, kind) for kind in kinds]
+
+
+# Launches per entry point (and layout or mode) since the last
+# reset_launches().
 launches: Dict[str, int] = {
-    counter(name, layout): 0
-    for name in ENTRIES
-    for layout in (LAYOUTS if name in LAYOUT_ENTRIES else (None,))}
+    name: 0 for entry in ENTRIES for name in counters(entry)}
 # nvcc output (register and shared-memory use) of the last build, by source.
 build_logs: Dict[str, str] = {}
 
@@ -166,7 +187,7 @@ def _lib(src: str) -> ctypes.CDLL:
 def launch(entry: str, *args, layout: Optional[str] = None) -> None:
     """Call one C entry point on the current CUDA stream; raise if it
     reports a CUDA error, else count the launch (under its layout for the
-    entries that take an FmView)."""
+    entries that take an FmView, under its mode for MODE_ENTRIES)."""
     name = counter(entry, layout)
     if name not in launches:
         raise ValueError(f"no kernel entry {name!r}")

@@ -2,10 +2,10 @@
 wrappers + plain versions.
 
 The counterpart of femto_tpu/ops/build_ops.py for those tiers.  The aux
-word and the suffix-sort payload are elementwise torch; the split of the
-pulled words with the occ histogram and checkpoints is kernel A (absolute
-int32 checkpoints) or A' (uint16 relative ones + L1 rows over the used
-columns), both in csrc/occ_build.cu; the mark bitmap, checkpoints, doc
+word and the suffix-sort payload are kernel K (csrc/sa_payload.cu); the
+split of the pulled words with the occ histogram and checkpoints is kernel
+A (absolute int32 checkpoints) or A' (uint16 relative ones + L1 rows over
+the used columns), both in csrc/occ_build.cu; the mark bitmap, checkpoints, doc
 SEOF rows and bit-packed mark values are kernel B (csrc/marks_build.cu);
 the packed tier's BWT words are kernel F (csrc/pack_build.cu).  Each
 wrapper launches its kernel for tensors on the card and takes the plain
@@ -22,7 +22,9 @@ import torch
 from .. import kernels
 from ..alphabet import ALPHA_SIZE, INVALID_ALPHA
 from ..fmindex import FMArrays, l1_group_for
+from ..suffix import text_alphabet
 from .rank import i32_to_u16, i64_to_u32, u16_to_i32
+from .sort_ops import gather_rows
 
 
 def mark_cap(n: int, ndocs: int, mark_period: int, seg: int) -> int:
@@ -55,12 +57,12 @@ def mark_pack_geom(n: int, mark_period: int, ndocs: int, cap: int):
     return bits, exc_base, exc_cap, n_words
 
 
-def _aux_positions(doc_starts: torch.Tensor, *, n: int, mark_period: int,
-                   ndocs: int) -> torch.Tensor:
-    """Per-position aux word (int64[n]): bit 0 = the position is mark
-    sampled (doc start, doc SEOF, or on the global period grid), bits 1.. =
-    doc id + 1 at the doc's SEOF position.  Empty (degenerate) docs are
-    dropped from the SEOF scatter."""
+def sa_payload_plain(text: torch.Tensor, doc_starts: torch.Tensor, *, n: int,
+                     mark_period: int, ndocs: int) -> torch.Tensor:
+    """payload[p] = text[p-1 mod n] | aux[p] << 9 with the per-position aux
+    word: bit 0 = the position is mark sampled (doc start, doc SEOF, or on
+    the global period grid), bits 1.. = doc id + 1 at the doc's SEOF
+    position.  Empty (degenerate) docs are dropped from the SEOF scatter."""
     dev = doc_starts.device
     ds = doc_starts.long()
     nonempty = ds[1:] > ds[:-1]
@@ -69,22 +71,33 @@ def _aux_positions(doc_starts: torch.Tensor, *, n: int, mark_period: int,
     tag[seof_pos] = torch.arange(1, ndocs + 1, dtype=torch.int64, device=dev)
     tag = tag[:n]
     if mark_period == 0:
-        return tag << 1
-    marked = torch.zeros(n + 1, dtype=torch.bool, device=dev)
-    marked[ds[:-1]] = True
-    idx = torch.arange(n, dtype=torch.int64, device=dev)
-    marked = marked[:n] | (tag > 0) | (idx % mark_period == 0)
-    return marked.long() | (tag << 1)
+        aux = tag << 1
+    else:
+        marked = torch.zeros(n + 1, dtype=torch.bool, device=dev)
+        marked[ds[:-1]] = True
+        idx = torch.arange(n, dtype=torch.int64, device=dev)
+        marked = marked[:n] | (tag > 0) | (idx % mark_period == 0)
+        aux = marked.long() | (tag << 1)
+    return torch.roll(text.long(), 1) | (aux << 9)
 
 
 def build_sa_payload(text: torch.Tensor, doc_starts: torch.Tensor, *, n: int,
                      mark_period: int, ndocs: int) -> torch.Tensor:
     """Suffix-sort payload (int64[n]) whose pull is the BWT + aux word:
-    payload[p] = text[p-1 mod n] | aux[p] << 9, so payload[sa[r]] holds
-    row r's BWT symbol in the low 9 bits and its mark/SEOF word above."""
-    aux = _aux_positions(doc_starts, n=n, mark_period=mark_period,
-                         ndocs=ndocs)
-    return torch.roll(text.long(), 1) | (aux << 9)
+    payload[sa[r]] holds row r's BWT symbol in the low 9 bits and its
+    mark/SEOF word above (see sa_payload_plain).  text int32[n], doc_starts
+    int32[ndocs + 1].  Kernel K on the card."""
+    kernels.check(text, "text", torch.int32, 1, (n,))
+    kernels.check(doc_starts, "doc_starts", torch.int32, 1, (ndocs + 1,))
+    if mark_period < 0:
+        raise ValueError("mark_period must be >= 0")
+    if not kernels.on_card(text, doc_starts):
+        return sa_payload_plain(text, doc_starts, n=n,
+                                mark_period=mark_period, ndocs=ndocs)
+    payload = torch.empty(n, dtype=torch.int64, device=text.device)
+    kernels.launch("sa_payload", text.data_ptr(), n, doc_starts.data_ptr(),
+                   ndocs, mark_period, payload.data_ptr())
+    return payload
 
 
 # ---------------------------------------------------------------------------
@@ -358,25 +371,27 @@ def marks_build(sa: torch.Tensor, a_row: torch.Tensor, *, n_seg: int,
 def build_fm_arrays_device(text: torch.Tensor, sa: torch.Tensor,
                            doc_starts: torch.Tensor, *, n: int, seg: int,
                            mark_period: int, ndocs: int, tier: str = "full",
-                           pull: torch.Tensor | None = None
+                           pull: torch.Tensor | None = None,
+                           alpha: np.ndarray | None = None
                            ) -> Tuple[FMArrays, torch.Tensor, int]:
     """Assemble FMArrays of tier "full", "compact" or "packed" on the
     tensors' device.  Returns (arrays, n_marks scalar tensor, alpha_used:
     K on the packed tier, else 0).
 
-    pull: the BWT + aux words suffix_array carried for build_sa_payload's
-    payload (int64[n]); gathered here through sa when not given.  The
-    packed tier's dense alphabet is the set of symbols in the text, found
-    by one histogram of the text on its device (a host np.bincount of the
+    pull: the BWT + aux words suffix_array pulled from build_sa_payload's
+    payload (int64[n]); gathered here through sa when not given.  alpha:
+    the symbols in the text, ascending, as suffix.text_alphabet gives them
+    (the packed tier's dense alphabet); found here by that one histogram
+    of the text on its device when not given (a host np.bincount of the
     text, femto_tpu's way, made a 256 MiB build on the H100's host take
     1.71 s instead of 0.25 s, PERF.md)."""
     if tier not in ("full", "compact", "packed"):
         raise NotImplementedError(
             f"tier={tier!r} is not ported yet (ROADMAP.md Q1 item 6)")
     if pull is None:
-        pull = build_sa_payload(text, doc_starts, n=n,
-                                mark_period=mark_period,
-                                ndocs=ndocs)[sa.long()]
+        pull = gather_rows(
+            build_sa_payload(text, doc_starts, n=n, mark_period=mark_period,
+                             ndocs=ndocs), sa)
     dev = text.device
     n_seg = n // seg + 1
     ident = torch.arange(ALPHA_SIZE, dtype=torch.int32, device=dev)
@@ -389,8 +404,10 @@ def build_fm_arrays_device(text: torch.Tensor, sa: torch.Tensor,
         grp = l1_group_for(seg)
         n_seg = -(-n_seg // grp) * grp
         if tier == "packed":
-            hist = torch.bincount(text, minlength=ALPHA_SIZE)
-            used = torch.nonzero(hist).flatten().to(torch.int32).cpu().numpy()
+            used = np.asarray(text_alphabet(text) if alpha is None else alpha,
+                              dtype=np.int32)
+            if used.size and used.max() >= ALPHA_SIZE:
+                raise ValueError("symbols must lie in [0, 261)")
             alpha_used = len(used)
             amap = np.full(ALPHA_SIZE, -1, np.int32)
             amap[used] = np.arange(alpha_used, dtype=np.int32)

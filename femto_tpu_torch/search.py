@@ -4,8 +4,8 @@ compact and packed tiers).
 The counterpart of femto_tpu/search.py.  Patterns are byte strings; every
 query runs on the index's device, through kernel C (count), kernel D
 (locate walk, extract, context before the match) and kernel E (context
-from the match on) on the card.  The direct locate tier is one tensor
-gather, sa_direct[rows].
+from the match on) on the card.  The direct locate tier is one gather,
+sa_direct[rows], through kernel L.
 """
 
 from __future__ import annotations
@@ -19,6 +19,7 @@ from .alphabet import CHARACTER_OFFSET, pattern_to_alpha
 from .fmindex import FMIndex
 from .metrics import metrics
 from .ops import search_ops as S
+from .ops import sort_ops as SO
 
 
 def _bucket(x: int, minimum: int = 8) -> int:
@@ -79,7 +80,7 @@ def count(index: FMIndex, patterns: Sequence[bytes]) -> np.ndarray:
 
 def _locate_rows_dispatch(index: FMIndex, rows: torch.Tensor) -> torch.Tensor:
     if index.sa_direct is not None:
-        return index.sa_direct[rows.long()]
+        return SO.gather_rows(index.sa_direct, rows)
     return S.locate_rows(index.arrays, index.meta.mark_period, rows)
 
 

@@ -15,7 +15,10 @@ import pytest
 import torch
 
 import femto_tpu_torch as tt
+from femto_tpu_torch import kernels
+from femto_tpu_torch.ops import build_ops as TB
 from femto_tpu_torch.ops import search_ops as TS
+from femto_tpu_torch.ops import sort_ops as SO
 
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 PKG = os.path.join(ROOT, "femto_tpu_torch")
@@ -34,7 +37,7 @@ def _port_sources():
 
 def test_import_pulls_in_neither_jax_nor_femto_tpu():
     code = ("import sys, femto_tpu_torch, femto_tpu_torch.ops.build_ops, "
-            "femto_tpu_torch.kernels; "
+            "femto_tpu_torch.ops.sort_ops, femto_tpu_torch.kernels; "
             "print('jax' in sys.modules, 'femto_tpu' in sys.modules)")
     out = subprocess.run([sys.executable, "-c", code], cwd=ROOT,
                          capture_output=True, text=True, timeout=120)
@@ -48,6 +51,64 @@ def test_no_jax_or_femto_tpu_import_in_source(path):
     with open(path) as f:
         hits = FORBIDDEN.findall(f.read())
     assert not hits, f"{path} imports {hits}"
+
+
+def _cuda_sources():
+    csrc = os.path.join(PKG, "csrc")
+    return sorted(os.path.join(csrc, f) for f in os.listdir(csrc))
+
+
+@pytest.mark.parametrize("path", _cuda_sources(),
+                         ids=lambda p: os.path.relpath(p, ROOT))
+def test_cuda_sources_include_only_the_runtime_and_fm_common(path):
+    """No CUB, Thrust, CUTLASS or PyTorch header: a source builds in
+    seconds with nvcc alone and every kernel in it is the port's own."""
+    with open(path) as f:
+        text = f.read()
+    includes = re.findall(r'^\s*#\s*include\s*[<"]([^>"]+)[>"]', text, re.M)
+    assert includes, path
+    allowed = {"fm_common.cuh", "cstdint", "type_traits", "cuda_runtime.h"}
+    assert set(includes) <= allowed, (path, includes)
+    assert not re.search(r"\b(cub|thrust|cutlass|cute)::", text), path
+
+
+def test_every_kernel_source_is_an_entry_and_is_built():
+    stems = {os.path.basename(p)[:-3] for p in _cuda_sources()
+             if p.endswith(".cu")}
+    assert stems == set(kernels.SOURCES)
+    assert {"sa_keys", "radix_sort", "sa_groups", "sa_rounds",
+            "sa_payload"} <= stems
+
+
+# entries whose plain version is not named <entry>_plain
+PLAIN_NAMES = {"lf_locate": "locate_rows_plain",
+               "lf_extract": "extract_backward_plain"}
+
+
+@pytest.mark.parametrize("entry", sorted(kernels.ENTRIES))
+def test_every_entry_has_a_plain_version_and_a_smoke_row(entry):
+    """kernels.ENTRIES against the ops modules and chip_smoke.KERNELS."""
+    import chip_smoke
+
+    name = PLAIN_NAMES.get(entry, entry + "_plain")
+    homes = [m for m in (TB, TS, SO) if hasattr(m, name)]
+    assert len(homes) == 1, (entry, name)
+    assert callable(getattr(homes[0], name))
+    src, argtypes = kernels.ENTRIES[entry]
+    rows = [k for k in chip_smoke.KERNELS
+            if k == entry or k.startswith(entry + "[")]
+    # one row per launch count: per layout, per mode, else one
+    assert sorted(rows) == sorted(kernels.counters(entry)), (entry, rows)
+    for k in rows:
+        source, replaces = chip_smoke.KERNELS[k]
+        assert source == f"femto_tpu_torch/csrc/{src}.cu"
+        assert os.path.exists(os.path.join(ROOT, source))
+        ref, line = replaces.split(":")
+        assert ref.startswith("femto_tpu/") and int(line) > 0
+        assert os.path.exists(os.path.join(ROOT, ref))
+        assert any(k in path for path in chip_smoke.PATH_KERNELS.values())
+    with open(os.path.join(ROOT, f"femto_tpu_torch/csrc/{src}.cu")) as f:
+        assert f'extern "C" int femto_{entry}(' in f.read()
 
 
 def test_forbidden_pattern_catches_imports():
@@ -83,6 +144,12 @@ def test_wrappers_refuse_mixed_devices():
     rows = torch.zeros(2, dtype=torch.int32, device="meta")
     with pytest.raises(ValueError, match="devices"):
         TS.locate_rows(ix.arrays, 4, rows)
+    with pytest.raises(ValueError, match="devices"):
+        SO.gather_rows(torch.zeros(4, dtype=torch.int32), rows)
+    with pytest.raises(ValueError, match="devices"):
+        SO.sym_hist(rows)
+    with pytest.raises(ValueError, match="devices"):
+        SO.radix_sort_pairs(torch.zeros(2, dtype=torch.int64), rows, 0, 8)
     with pytest.raises(ValueError, match="int32"):
         TS.extract_backward(ix.arrays, torch.zeros(2, dtype=torch.int64), 3)
 
