@@ -13,8 +13,11 @@ non-zero):
    seeded corpus (zipf English with one document twice, a repeat-heavy, a
    binary and an empty doc): the suffix sort's kernels one by one and the
    sort as a whole in each of its regimes against the plain versions on
-   the CPU, the builds of every tier, and the search kernels on each layout
-   (full, compact, packed; the packed one also at a 31-symbol alphabet);
+   the CPU, kernels M and N one by one at the shapes vseg and vrle builds
+   give them (that corpus, its zipf documents alone, 8 MiB of prose at
+   seg 2048), the builds of every tier, and the search kernels on each
+   layout (full, compact, packed, vseg, vrle; the packed one also at a
+   31-symbol alphabet, vseg and vrle also on the prose);
 4. the first main path at full size (a 256 MiB zipf-English corpus in
    64 KiB documents): build_index(tier="full", seg=256, mark_period=20),
    count of 32768 16-symbol patterns, locate of 65536 rows (walk and
@@ -33,6 +36,15 @@ non-zero):
    64 pattern ranges, each checked against the full tier and the
    documents, and one compact build of the twin corpus, with its own
    launch counts; each tier's index bytes per character;
+4c. the third main path: build_index of the vseg and vrle tiers (a) on
+   phase 4's corpus and (b) on real English prose
+   (english_prose: examples/corpus_real's sources, walked so that one
+   installation gives the same bytes; 64 KiB documents, seg 2048), each
+   served through count, locate, extract, context and range_docs and held
+   to the full tier of the same corpus (prose counts also to a text
+   scan), the prose vrle index through a .ftpu file and back; it fails
+   unless the prose vrle index holds run-length and continued segments;
+   segments by mode and bytes per character of each tier;
 5. numbers: medians of 3 runs, per-kernel times beside their bounds, their
    plain versions and a one-call PyTorch yardstick where one exists; the
    kernels at the main paths' shapes are compared with their plain
@@ -40,8 +52,10 @@ non-zero):
    "kernels" line has one row per kernel and main path that launched it,
    with that path's own launch count;
 6. where the time goes: device time by kernel and the device's busy share
-   over one build, count, locate and extract of the full tier and one
-   build, count, locate and context of the packed tier (torch.profiler);
+   over one build, count, locate and extract of the full tier, one
+   build, count, locate and context of the packed tier, the vseg and vrle
+   builds, and one build, count, locate and context of the prose vrle
+   index (torch.profiler);
    a build whose device items include a library sort or scan fails, and
    the build's device time outside the port's own kernels and copies is
    printed by name.
@@ -76,11 +90,21 @@ CTX = (32, PATLEN, 48)
 N_RANGES = 64     # range_docs ranges, of 6-symbol patterns
 MAIN_MIB = 256  # the main path's corpus size
 ZIPF_LETTERS = b"etaoin shrdlucmfwypvbgkqjxz.,\n"
-LAYOUTS = ("full", "compact", "packed")
-# the kernels each main path must launch: phase 4 (full tier) and 4b
-# the suffix sort and its payload (kernels G-L): every build runs them; the
-# main corpus ends in the extension rounds, the twin corpus (one document
-# twice), built once on each path, goes on to rank_init and doubling
+TIER_LAYOUTS = ("full", "compact", "packed")   # phase 4b
+ROW_LAYOUTS = ("vseg", "vrle")                 # phase 4c
+LAYOUTS = TIER_LAYOUTS + ROW_LAYOUTS
+PROSE_MIB = 32    # english_prose budget (phase 4c)
+PROSE_MIN_MIB = 4
+PROSE_SEG = 2048  # the real-text leg's segment size
+PARITY_PROSE_MIB = 8
+EXTRACT_STEPS = 8192  # phase 5's extract rows: steps of one walk
+ROW_KERNELS = ("seg_syms", "vseg_rows", "side_rows", "vrle_slot_count",
+               "vrle_pack", "cont_flatten")
+# the kernels each main path must launch: phase 4 (full tier), 4b
+# (compact, packed) and 4c (vseg, vrle).  The suffix sort and its payload
+# (kernels G-L): every build runs them; the main corpus ends in the
+# extension rounds, the twin corpus (one document twice), built once on
+# the first two paths, goes on to rank_init and doubling
 SORT_KERNELS = ("sym_hist", "sa_keys", "radix_sort_pairs", "group_flags",
                 "tied_compact", "rank_init", "round_keys[extension]",
                 "round_keys[doubling]", "round_commit", "sa_payload",
@@ -93,7 +117,15 @@ PATH_KERNELS = {
         "occ_build_compact", "marks_build", "pack_build")
     + tuple(f"{k}[{lay}]" for k in ("backward_search", "lf_locate",
                                     "lf_extract", "psi_walk")
-            for lay in LAYOUTS),
+            for lay in TIER_LAYOUTS),
+    # phase 4c builds no twin: rank_init and doubling run only when the
+    # prose repeats itself at length, so they are not required
+    "rows": tuple(k for k in SORT_KERNELS
+                  if k not in ("rank_init", "round_keys[doubling]"))
+    + ("occ_build_compact", "marks_build") + ROW_KERNELS
+    + tuple(f"{k}[{lay}]" for k in ("backward_search", "lf_locate",
+                                    "lf_extract", "psi_walk")
+            for lay in ROW_LAYOUTS),
 }
 KERNELS = {  # entry -> (source, the femto_tpu function it replaces)
     "occ_build": ("femto_tpu_torch/csrc/occ_build.cu",
@@ -124,19 +156,36 @@ KERNELS = {  # entry -> (source, the femto_tpu function it replaces)
                    "femto_tpu/ops/build_ops.py:82"),
     "gather_rows": ("femto_tpu_torch/csrc/sa_payload.cu",
                     "femto_tpu/search.py:71"),
+    "seg_syms": ("femto_tpu_torch/csrc/vseg_build.cu",
+                 "femto_tpu/ops/build_ops.py:211"),
+    "vseg_rows": ("femto_tpu_torch/csrc/vseg_build.cu",
+                  "femto_tpu/ops/build_ops.py:383"),
+    "side_rows": ("femto_tpu_torch/csrc/vseg_build.cu",
+                  "femto_tpu/ops/build_ops.py:269"),
+    "vrle_slot_count": ("femto_tpu_torch/csrc/vrle_build.cu",
+                        "femto_tpu/ops/build_ops.py:523"),
+    "vrle_pack": ("femto_tpu_torch/csrc/vrle_build.cu",
+                  "femto_tpu/ops/build_ops.py:582"),
+    "cont_flatten": ("femto_tpu_torch/csrc/vrle_build.cu",
+                     "femto_tpu/ops/build_ops.py:863"),
 }
 # device items that would mean a build fell back to a library sort or scan
 LIBRARY_SORT_NAMES = ("RadixSort", "Onesweep", "cub::", "thrust::")
 for _lay in LAYOUTS:
+    _row = _lay in ROW_LAYOUTS  # the row tiers' own steps (K11-K13)
     KERNELS.update({
-        f"backward_search[{_lay}]": ("femto_tpu_torch/csrc/backward_search.cu",
-                                     "femto_tpu/ops/search_ops.py:23"),
+        f"backward_search[{_lay}]": (
+            "femto_tpu_torch/csrc/backward_search.cu",
+            "femto_tpu/ops/rank.py:629" if _row
+            else "femto_tpu/ops/search_ops.py:23"),
         f"lf_locate[{_lay}]": ("femto_tpu_torch/csrc/lf_walk.cu",
-                               "femto_tpu/ops/search_ops.py:115"),
+                               "femto_tpu/ops/rank.py:895" if _row
+                               else "femto_tpu/ops/search_ops.py:115"),
         f"lf_extract[{_lay}]": ("femto_tpu_torch/csrc/lf_walk.cu",
                                 "femto_tpu/ops/search_ops.py:342"),
         f"psi_walk[{_lay}]": ("femto_tpu_torch/csrc/psi_walk.cu",
-                              "femto_tpu/ops/search_ops.py:399"),
+                              "femto_tpu/ops/rank.py:577" if _row
+                              else "femto_tpu/ops/search_ops.py:399"),
     })
 
 
@@ -297,20 +346,48 @@ def bound_marks_build(n, n_seg, seg, n_marks, mark_vals_len, ndocs):
             + 4 * mark_vals_len + 4 * ndocs) / HBM_BYTES_PER_S * 1e3
 
 
+def _row_prefix_bytes(arrays):
+    """Bytes of the code-area words a row-tier function must read to count
+    the first off rows of segments s (a tensor function of s and off): the
+    fixed-width or side words up to off, or the slot words up to the
+    first slot that starts at or past off, and one symbol-list word."""
+    import torch
+
+    from femto_tpu_torch.ops import rank as R
+
+    def prefix(s, off):
+        ctx = R.RowCtx(arrays, s)
+        g = ctx.g
+        off = off.long()
+        per_main, per_side = 32 // g.w_main, 32 // g.w_side
+        words = torch.where(ctx.is_side, (off + per_side - 1) // per_side,
+                            (off + per_main - 1) // per_main)
+        if ctx.sv is not None:
+            w_slot, _ = R.vrle_slot_geom(
+                arrays.seg_nsym.view(torch.uint8)[s.long()])
+            k = (ctx.sv[2] < off[:, None]).sum(dim=1)
+            words = torch.where(ctx.mode_rle, (k * w_slot + 31) // 32, words)
+        return 4 * words + 4
+    return prefix
+
+
 def _layout_bytes(arrays):
     """(bytes of one code read, of one checkpoint, of a row prefix of off
-    rows as a tensor function, of the symbol map per use) of an index's
-    layout."""
+    rows of segments s as a tensor function of (s, off), of the symbol map
+    per use) of an index's layout."""
     from femto_tpu_torch.ops import rank as R
 
     lay = R.layout(arrays)
     ckpt = 4 if lay == "full" else 6          # int32 | uint16 + L1 int32
     remap = 4 if R.is_remapped(arrays) else 0
+    if R.is_row_tier(arrays):
+        # the code word, the relative word + the L1 int, the prefix
+        return 4, 8, _row_prefix_bytes(arrays), remap
     if lay == "packed":
         per_word, _ = R.pack_geometry(arrays)
-        return 4, ckpt, lambda off: 4 * ((off + per_word - 1) // per_word), \
-            remap
-    return 2, ckpt, lambda off: 2 * off, remap
+        return 4, ckpt, \
+            lambda s, off: 4 * ((off + per_word - 1) // per_word), remap
+    return 2, ckpt, lambda s, off: 2 * off, remap
 
 
 def bound_backward_search(arrays, pats, n_rows, row0):
@@ -336,7 +413,9 @@ def bound_backward_search(arrays, pats, n_rows, row0):
         total += 4 * int(valid.sum())
         for r in (first, last):
             inside = valid & (r < n_seg * seg)
-            total += int((inside * (ckpt + prefix(r.long() % seg))).sum())
+            rs = torch.clamp(r.long(), max=n_seg * seg - 1)
+            total += int((inside * (ckpt + prefix(rs // seg, r.long() % seg))
+                          ).sum())
         nf, nl = R.backward_step_pair(arrays, col, first, last)
         first = torch.where(active, nf, first)
         last = torch.where(active, nl, last)
@@ -366,7 +445,8 @@ def bound_locate(arrays, mark_period, rows):
         miss = act & ~bit
         total += 4 * int(act.sum())
         total += int((hit * (4 * (off // 32) + 12)).sum())
-        total += int((miss * (code + 4 + ckpt + prefix(off))).sum())
+        total += int((miss * (code + 4 + ckpt + prefix(r.long() // seg, off))
+                      ).sum())
         done = done | hit
         r = torch.where(done, r, nxt)
     return total / HBM_BYTES_PER_S * 1e3
@@ -383,8 +463,9 @@ def bound_extract(arrays, isa, seof_pos, dlen):
     seg = R.seg_size(arrays)
     code, ckpt, prefix, remap = _layout_bytes(arrays)
     pos = seof_pos - torch.arange(dlen, device=isa.device)
-    off = isa[pos] % seg
-    total = 8 + int((code + 4 + ckpt + remap + 4 + prefix(off)).sum())
+    rows = isa[pos]
+    total = 8 + int((code + 4 + ckpt + remap + 4
+                     + prefix(rows // seg, rows % seg)).sum())
     return total / HBM_BYTES_PER_S * 1e3
 
 
@@ -402,7 +483,8 @@ def bound_psi(arrays, rows, num_steps):
     r = rows
     for _ in range(num_steps):
         r, _ = R.psi_step(arrays, r)
-        total += per_step * r.shape[0] + int(prefix(r.long() % seg + 1).sum())
+        total += per_step * r.shape[0] + int(
+            prefix(r.long() // seg, r.long() % seg + 1).sum())
     return total / HBM_BYTES_PER_S * 1e3
 
 
@@ -659,6 +741,429 @@ def parity_sort_kernels(rng, docs, prepared, text, ds, errs):
     return regimes
 
 
+# ---------------------------------------------------------------------------
+# the row tiers (vseg, vrle): real prose, kernels M and N at a build's shapes
+# ---------------------------------------------------------------------------
+
+_PROSE = {}
+
+
+PROSE_PACKAGES = ("numpy", "scipy", "pandas", "sklearn", "torch")
+
+
+def _walk_key(obj, path):
+    """Who an object is in the prose walk: a module by its name, a class
+    by its qualified name, anything else by the path it was reached by."""
+    import inspect
+
+    try:
+        if inspect.ismodule(obj):
+            return "module", obj.__name__
+        if inspect.isclass(obj):
+            return "class", f"{obj.__module__}.{obj.__qualname__}"
+    except Exception:
+        pass
+    return "path", path
+
+
+def english_prose(budget):
+    """Up to `budget` bytes of unique English prose from the sources of
+    examples/corpus_real.english_prose: the pydoc topics, then the
+    docstrings of the installed PROSE_PACKAGES, walked depth first in
+    name order, each object once by its _walk_key, each text once by its
+    hash, with warnings silenced only during the walk.  No object
+    identity enters the walk, and texts that change between processes
+    (examples marked "may vary", memory addresses) are left out, so that
+    one installation gives the same bytes in every process started with
+    the same PYTHONHASHSEED (sets print in hash order)."""
+    import hashlib
+    import importlib
+    import inspect
+    import warnings
+
+    import pydoc_data.topics as topics
+
+    parts, seen, total = [], set(), 0
+    volatile = re.compile(r"may vary|0x[0-9a-fA-F]{6,}")
+
+    def texts():
+        for k in sorted(topics.topics):
+            yield topics.topics[k]
+        for pkg in PROSE_PACKAGES:
+            try:
+                mod = importlib.import_module(pkg)
+            except Exception:
+                continue
+            visited = set()
+            stack = [(pkg, mod)]
+            while stack:
+                path, obj = stack.pop()
+                key = _walk_key(obj, path)
+                if key in visited:
+                    continue
+                visited.add(key)
+                try:
+                    doc = inspect.getdoc(obj)
+                except Exception:
+                    doc = None
+                if doc:
+                    yield doc
+                if key[0] == "module" and key[1].startswith(pkg):
+                    kids = dir(obj)
+                elif key[0] == "class":
+                    kids = dir(obj)
+                else:
+                    continue
+                for name in kids:
+                    try:
+                        a = getattr(obj, name)
+                    except Exception:
+                        continue
+                    if key[0] == "module" or callable(a):
+                        stack.append((f"{path}.{name}", a))
+
+    with warnings.catch_warnings():
+        warnings.simplefilter("ignore")
+        for text in texts():
+            if volatile.search(text):
+                continue
+            b = text.encode("utf-8", "replace")
+            h = hashlib.blake2b(b, digest_size=12).digest()
+            if len(b) >= 200 and h not in seen:
+                seen.add(h)
+                parts.append(b)
+                total += len(b) + 1
+            if total >= budget:
+                break
+    return b"\n".join(parts)[:budget]
+
+
+def prose_bytes():
+    """PROSE_MIB of unique English prose (english_prose), made once a run;
+    its blake2b digest names the text beside every prose number."""
+    import hashlib
+
+    if "bytes" not in _PROSE:
+        t0 = time.perf_counter()
+        # a process of its own, at a fixed hash seed: english_prose's text
+        # depends on neither this process's imports nor its seed
+        here = os.path.dirname(os.path.abspath(__file__))
+        buf = _PROSE["bytes"] = subprocess.run(
+            [sys.executable, "-c", "import sys, chip_smoke; sys.stdout."
+             f"buffer.write(chip_smoke.english_prose({PROSE_MIB << 20}))"],
+            cwd=here, env={**os.environ, "PYTHONHASHSEED": "0"},
+            stdout=subprocess.PIPE, stderr=subprocess.DEVNULL, check=True,
+            timeout=600).stdout
+        _PROSE["seconds"] = time.perf_counter() - t0
+        _PROSE["blake2b"] = hashlib.blake2b(buf, digest_size=16).hexdigest()
+        mib = len(buf) / 2**20
+        log(f"    prose corpus: {mib:.4f} MiB ({len(buf)} B) of unique "
+            f"English prose, blake2b {_PROSE['blake2b']} (made in "
+            f"{_PROSE['seconds']:.1f}s)")
+        check(mib >= PROSE_MIN_MIB,
+              f"the prose corpus is {mib:.2f} MiB, under {PROSE_MIN_MIB} "
+              f"MiB: too little installed documentation on this host")
+    return _PROSE["bytes"]
+
+
+def prose_docs(nbytes=None):
+    """The prose in documents of DOC_SIZE - 1 bytes (the last shorter)."""
+    buf = prose_bytes()[:nbytes]
+    step = DOC_SIZE - 1
+    return [buf[i: i + step] for i in range(0, len(buf), step)]
+
+
+def seg_modes(seg_woff):
+    """Segments by mode: seg_woff -1 RLE, < -1 RLE with a continuation, 0
+    fixed-width codes, > 0 side table."""
+    w = seg_woff.long()
+    return {"rle": int((w == -1).sum()), "continuation": int((w < -1).sum()),
+            "fixed": int((w == 0).sum()), "side": int((w > 0).sum())}
+
+
+def stream_edges(plan):
+    """Segments at the edges of a vrle build's slot walk: streams that end
+    exactly at the code area's last word, continued streams that end
+    exactly at a word boundary, and the continuation stored last in the
+    flat store (its window reads the guard granules)."""
+    from femto_tpu_torch.ops import build_ops as BO
+
+    woff = plan.seg_woff
+    w_slot, _ = BO.vrle_slot_geom_np(plan.nsym.cpu().numpy().astype(np.int32))
+    bits = plan.slots.astype(np.int64) * w_slot
+    last = (plan.cont_idx[np.argmax(plan.offs[:-1])[None]]
+            if len(plan.cont_idx) else plan.cont_idx)
+    return {"code_end": np.nonzero((woff == -1)
+                                   & (bits == 32 * plan.code_words))[0],
+            "cont_end": np.nonzero((woff < -1) & (bits % 32 == 0))[0],
+            "last_cont": last}
+
+
+def bound_row_kernels(st):
+    """Bytes each of kernels M and N must move at a row build's shapes:
+    every input once, every output once.  vseg_rows reads the BWT of the
+    fixed-width segments only (seg_woff 0: a side segment's code area is
+    zeros) and the slot words of the run-length ones; cont_flatten reads
+    each continuation word once and writes the whole store once."""
+    n_seg, seg = st["bwt"].shape
+    K = st["hist"].shape[1]
+    plan = st["plan"]
+    smax, s_store = plan.smax, plan.s_store
+    total = st["rows"].shape[1]
+    woff = st["extra"]["seg_woff"].long()
+    n_rle = int((woff < 0).sum())
+    n_fixed = int((woff == 0).sum())
+    code_words = plan.code_words
+    out = {
+        "seg_syms": 4 * n_seg * K + 4 * n_seg * smax + n_seg,
+        "vseg_rows": (2 * n_fixed * seg + 4 * n_rle * code_words
+                      + 4 * 261 + 4 * n_seg * s_store + n_seg + 4 * n_seg
+                      + 4 * n_seg * (seg // 32) + 4 * n_seg + 2 * n_seg * K
+                      + 4 * n_seg * total),
+        "vrle_slot_count": 2 * n_seg * seg + 4 * 261 + 4 * n_seg * smax
+        + n_seg + 4 * n_seg,
+    }
+    ovf = st.get("ovf")
+    if ovf is not None and ovf.numel():
+        Ws = st["extra"]["seg_ovf"].shape[1]
+        out["side_rows"] = (2 * ovf.numel() * seg + 4 * 261 + 4 * ovf.numel()
+                            + 4 * (ovf.numel() + 1) * Ws)
+    if st.get("words"):
+        out["vrle_pack"] = (2 * n_rle * seg + 4 * 261 + 4 * n_rle * smax
+                            + n_seg + 4 * n_seg + 4 * n_seg * st["words"])
+    if st.get("cwords") is not None:
+        m = st["cwords"].numel()
+        out["cont_flatten"] = (4 * int(st["cwords"].sum()) + 12 * m
+                               + 4 * st["extra"]["seg_cont"].numel())
+    return {k: bound_ms(v) for k, v in out.items()}
+
+
+def row_stage(prepared, seg, tier, mark_period=20):
+    """A build of `tier` on the card taken apart: the stages up to kernel
+    B, then build_row_tier, and each of kernels M and N (as that build
+    runs them) with its plain version: {"runs": {entry: (kernel, plain)},
+    and the stage's tensors}."""
+    import torch
+
+    import femto_tpu_torch as tt
+    from femto_tpu_torch.fmindex import l1_group_for
+    from femto_tpu_torch.ops import build_ops as BO
+    from femto_tpu_torch.ops import rank as R
+    from femto_tpu_torch.suffix import text_alphabet
+
+    dev = torch.device("cuda")
+    n, ndocs = prepared.n, prepared.num_docs
+    text = text_tensor(prepared, dev)
+    ds = torch.from_numpy(prepared.doc_starts.astype(np.int32)).to(dev)
+    used = np.asarray(text_alphabet(text), np.int32)
+    payload = BO.build_sa_payload(text, ds, n=n, mark_period=mark_period,
+                                  ndocs=ndocs)
+    sa, pull = tt.suffix_array(text, payload=payload, alpha=used)
+    del payload, text
+    grp = l1_group_for(seg)
+    n_seg = -(-(n // seg + 1) // grp) * grp
+    amap_np = np.full(261, -1, np.int32)
+    amap_np[used] = np.arange(len(used), dtype=np.int32)
+    amap = torch.from_numpy(amap_np).to(dev)
+    arev = torch.from_numpy(used).to(dev)
+    bwt, a_row, occ_rel, _, _, hist = BO.occ_build_compact(
+        pull, amap, arev, n_seg=n_seg, seg=seg, want_hist=True)
+    del pull
+    mark_bits, mark_ckpt = BO.marks_build(
+        sa, a_row, n_seg=n_seg, seg=seg, mark_period=mark_period,
+        ndocs=ndocs)[:2]
+    del a_row, sa
+    plan = BO.row_plan(tier, bwt, hist, amap)
+    rows, extra = BO.build_row_tier(plan, bwt, amap, occ_rel, mark_bits,
+                                    mark_ckpt)
+    st = dict(bwt=bwt, hist=hist, rows=rows, extra=extra, plan=plan)
+    smax, cw = plan.smax, plan.code_words
+    syms, nsym = plan.syms, plan.nsym
+    woff = extra["seg_woff"]
+    runs = {"seg_syms": (lambda: BO.seg_syms(hist, smax),
+                         lambda: BO.seg_syms_plain(hist, smax))}
+    rle = None
+    if tier == "vrle":
+        slot_args = (bwt, amap, syms, nsym)
+        runs["vrle_slot_count"] = (
+            lambda: [BO.vrle_slot_count(*slot_args)],
+            lambda: [BO.vrle_slot_count_plain(*slot_args)])
+        words = cw + plan.C_words
+        if plan.has_rle:
+            st["words"] = words
+            runs["vrle_pack"] = (
+                lambda: [BO.vrle_pack(*slot_args, woff, words=words)],
+                lambda: [BO.vrle_pack_plain(*slot_args, woff, words=words)])
+            rle = BO.vrle_pack(*slot_args, woff, words=words)
+        if len(plan.cont_idx):
+            cont, cwords, offs = (
+                torch.from_numpy(a.astype(np.int32)).to(dev)
+                for a in (plan.cont_idx, plan.cwords, plan.offs[:-1]))
+            st["cwords"] = cwords
+            kw = dict(first=cw, total=plan.cont_total)
+            runs["cont_flatten"] = (
+                lambda: [BO.cont_flatten(rle, cont, cwords, offs, **kw)],
+                lambda: [BO.cont_flatten_plain(rle, cont, cwords, offs,
+                                               **kw)])
+    row_args = (bwt, amap, syms, nsym, woff, mark_bits, mark_ckpt, occ_rel)
+    row_kw = dict(w_main=plan.w_main, code_words=cw, s_store=plan.s_store,
+                  wide=plan.wide, rle=rle)
+    runs["vseg_rows"] = (lambda: [BO.vseg_rows(*row_args, **row_kw)],
+                         lambda: [BO.vseg_rows_plain(*row_args, **row_kw)])
+    ovf = torch.nonzero(woff > 0).flatten().to(torch.int32)
+    st["ovf"] = ovf
+    if ovf.numel():
+        runs["side_rows"] = (
+            lambda: [BO.side_rows(bwt, amap, ovf, w_side=plan.w_side)],
+            lambda: [BO.side_rows_plain(bwt, amap, ovf, w_side=plan.w_side)])
+    st["runs"] = runs
+    return st
+
+
+def parity_row_kernels(prepared, prose, docs, errs):
+    """Kernels M and N one by one against their plain versions on the
+    card, at the shapes a vseg and a vrle build give them: of the 8 MiB
+    parity corpus (a near-full byte alphabet: u16 lists, side rows) and
+    its zipf documents alone (31 symbols) at seg 256, and of 8 MiB of
+    prose at seg PROSE_SEG; each build's rows equal the kernel's own
+    output."""
+    import torch
+
+    import femto_tpu_torch as tt
+
+    cases = (("parity", prepared, 256),
+             ("zipf", tt.prepare_documents(docs[:124]), 256),
+             ("prose", prose, PROSE_SEG))
+    seen = {}
+    for cname, prep, seg in cases:
+        for tier in ROW_LAYOUTS:
+            st = row_stage(prep, seg, tier)
+            for name, (run_k, run_p) in st["runs"].items():
+                tag = f"{name}({cname}, {tier})"
+                got, want = run_k(), run_p()
+                torch.cuda.synchronize()
+                errs[tag] = max_abs_err(tag, got, want)
+                seen[name] = seen.get(name, 0) + 1
+            max_abs_err(f"build_row_tier({cname}, {tier}) rows",
+                        [st["rows"]], st["runs"]["vseg_rows"][0]())
+            modes = seg_modes(st["extra"]["seg_woff"])
+            p = st["plan"]
+            plan = {k: getattr(p, k) for k in (
+                "w_main", "code_words", "C_words", "s_store", "smax",
+                "w_side", "wide", "ngr", "has_rle")}
+            log(f"    {cname} {tier} (seg {seg}): plan {plan}, "
+                f"segments by mode {modes}")
+            if cname == "prose" and tier == "vrle":
+                check(modes["rle"] > 0 and modes["continuation"] > 0,
+                      f"8 MiB of prose gave no RLE or no continuation "
+                      f"segments: {modes}")
+                edges = stream_edges(p)
+                edges["seg_woff"] = p.seg_woff
+            del st
+    check(set(seen) == set(ROW_KERNELS),
+          f"kernels M and N not all held: {sorted(seen)}")
+    return edges
+
+
+def parity_prose_search(prose, ix, rng, errs, edges):
+    """Kernels C, D and E on the vseg and vrle indexes of 8 MiB of prose
+    (seg PROSE_SEG: run-length, continued, fixed and side segments)
+    against their plain versions, and the answers against the full tier
+    and the text.  D's locate also starts from every offset of the
+    segments at the slot walk's edges (stream_edges), its extract from
+    every fourth, and E's psi from the rows one text position before
+    those, so that its select lands there."""
+    import torch
+
+    import femto_tpu_torch as tt
+    from femto_tpu_torch.alphabet import pattern_to_alpha
+    from femto_tpu_torch.ops import search_ops as S
+    from femto_tpu_torch.search import pack_patterns
+
+    dev = torch.device("cuda")
+    n = prose.n
+    text = text_tensor(prose, dev)
+    sa = ix["full"].sa_direct
+    docs = prose_docs(int(PARITY_PROSE_MIB * 2**20))
+    pats = []
+    for _ in range(2000):
+        d = int(rng.integers(0, len(docs)))
+        L = int(rng.integers(1, 33))
+        if len(docs[d]) > L:
+            o = int(rng.integers(0, len(docs[d]) - L))
+            pats.append(docs[d][o: o + L])
+    pats += [b"", b"\x00absent\xff", b"the ", b"e" * 40]
+    packed, B = pack_patterns([pattern_to_alpha(p) for p in pats])
+    pt = torch.from_numpy(packed).to(dev)
+    check(np.array_equal(edges["seg_woff"],
+                         ix["vrle"].arrays.seg_woff.cpu().numpy()),
+          "prose vrle: the build's plan and the index disagree on seg_woff")
+    kinds = {k: len(v) for k, v in edges.items() if k != "seg_woff"}
+    check(kinds["code_end"] + kinds["cont_end"] > 0
+          and kinds["last_cont"] == 1,
+          f"8 MiB of prose: no stream ends at a word boundary, or no "
+          f"continuation ({kinds})")
+    picked = np.unique(np.concatenate([
+        edges["code_end"][:2], edges["cont_end"][:2], edges["last_cont"]]))
+    edge_rows = (picked[:, None] * PROSE_SEG
+                 + np.arange(PROSE_SEG)).ravel()
+    edge_rows = torch.from_numpy(
+        edge_rows[edge_rows < n].astype(np.int32)).to(dev)
+    isa = torch.empty(n, dtype=torch.int64, device=dev)
+    isa[sa.long()] = torch.arange(n, device=dev)
+    # LF of each edge row: psi from there steps into the edge segment
+    before = isa[(sa[edge_rows.long()].long() - 1) % n].to(torch.int32)
+    del isa
+    log(f"    prose vrle slot-walk edges: segments {picked.tolist()} of "
+        f"{kinds} (segments of each kind)")
+    rows = torch.cat([
+        torch.from_numpy(rng.integers(0, n, size=16384).astype(np.int32)),
+        torch.arange(0, 512, dtype=torch.int32),
+        torch.arange(n - 512, n, dtype=torch.int32)]).to(dev)
+    rows = torch.cat([rows, edge_rows])
+    want_c = S.backward_search(ix["full"].arrays, n, pt)
+    for lay in ROW_LAYOUTS:
+        arrays = ix[lay].arrays
+        c_k = S.backward_search(arrays, n, pt)
+        c_p = S.backward_search_plain(arrays, n, pt)
+        d_k = S.locate_rows(arrays, 20, rows)
+        d_p = S.locate_rows_plain(arrays, 20, rows)
+        er = torch.cat([rows[:256], edge_rows[::4]]).contiguous()
+        pr = torch.cat([rows[:256], before[::4]]).contiguous()
+        e_k = S.extract_backward(arrays, er, 200)
+        e_p = S.extract_backward_plain(arrays, er, 200)
+        p_k = S.psi_walk(arrays, pr, 40)
+        p_p = S.psi_walk_plain(arrays, pr, 40)
+        torch.cuda.synchronize()
+        for name, got, want in (("backward_search", c_k, c_p),
+                                ("lf_locate", [d_k], [d_p]),
+                                ("lf_extract", e_k, e_p),
+                                ("psi_walk", [p_k], [p_p])):
+            tag = f"{name}[{lay}](prose)"
+            errs[tag] = max_abs_err(tag, got, want)
+        # absent symbols give (0, 0) on a remapped tier: compare counts
+        check(torch.equal(c_k[1] - c_k[0], want_c[1] - want_c[0]),
+              f"prose {lay}: counts differ from the full tier's")
+        check(torch.equal(d_k, sa[rows.long()]),
+              f"prose {lay}: walk locate != suffix array")
+        pos = sa[pr.long()].long()[:, None] + torch.arange(40, device=dev)
+        want = text[pos.clamp(max=n - 1)]
+        seof = (want == 2).int()
+        upto = (torch.cumsum(seof, dim=1) - seof) == 0
+        check(torch.equal(p_k[upto], want[upto]),
+              f"prose {lay}: psi walk != the text after each row")
+        for d in (0, len(docs) - 1):
+            check(tt.extract_document(ix[lay], d) == docs[d],
+                  f"prose {lay}: extract doc {d}")
+    modes = seg_modes(ix["vrle"].arrays.seg_woff)
+    check(modes["rle"] > 0 and modes["continuation"] > 0,
+          f"8 MiB of prose: no RLE or continuation segments ({modes})")
+    log(f"    8 MiB prose (n={n}, seg {PROSE_SEG}): C, D, E on vseg and "
+        f"vrle equal their plain versions; vrle segments by mode {modes}")
+    return {"edge_segments": picked.tolist(), "edge_kinds": kinds,
+            "edge_rows": int(edge_rows.numel()), "modes_vrle": modes}
+
+
 def phase_parity(record, rng):
     """Every kernel against its plain version on an 8 MiB corpus."""
     import torch
@@ -717,21 +1222,29 @@ def phase_parity(record, rng):
         errs[f"pack_build({tag})"] = max_abs_err(f"pack_build({tag})",
                                                  [f_k], [f_p])
 
-    # the whole build of each tier on the card against the one on the CPU;
-    # packed31 is the packed tier at the main path's 31-symbol alphabet
+    # M and N alone, then the whole build of each tier on the card against
+    # the one on the CPU; packed31 is the packed tier at the main path's
+    # 31-symbol alphabet; the prose builds are held below
+    prose = tt.prepare_documents(prose_docs(int(PARITY_PROSE_MIB * 2**20)))
+    edges = parity_row_kernels(prepared, prose, docs, errs)
     small = tt.prepare_documents(docs[:32])
     builds = {
-        "full": (prepared, dict(locate="direct")),
-        "compact": (prepared, {}),
-        "packed": (prepared, {}),
-        "packed31": (small, {}),
+        "full": (prepared, seg, dict(locate="direct")),
+        "compact": (prepared, seg, {}),
+        "packed": (prepared, seg, {}),
+        "packed31": (small, seg, {}),
+        "vseg": (prepared, seg, {}),
+        "vrle": (prepared, seg, {}),
+        "prose_full": (prose, PROSE_SEG, dict(locate="direct")),
+        "prose_vseg": (prose, PROSE_SEG, {}),
+        "prose_vrle": (prose, PROSE_SEG, {}),
     }
     indexes = {}
-    for name, (prep, extra) in builds.items():
-        tier = name[:6] if name.startswith("packed") else name
-        ix = tt.build_index(prep, seg=seg, mark_period=20, tier=tier,
+    for name, (prep, bseg, extra) in builds.items():
+        tier = name.split("_")[-1].rstrip("0123456789")
+        ix = tt.build_index(prep, seg=bseg, mark_period=20, tier=tier,
                             device="cuda", **extra)
-        ix_cpu = tt.build_index(prep, seg=seg, mark_period=20, tier=tier,
+        ix_cpu = tt.build_index(prep, seg=bseg, mark_period=20, tier=tier,
                                 device="cpu")
         for k, v in ix_cpu.arrays._asdict().items():
             w = getattr(ix.arrays, k)
@@ -745,6 +1258,10 @@ def phase_parity(record, rng):
     check(torch.equal(indexes["full"].sa_direct, sa), "sa_direct differs")
     check(indexes["packed31"].meta.alpha_used == 31,
           "the zipf corpus should have 31 symbols")
+    check(indexes["vseg"].meta.alpha_used > 256,
+          "the parity corpus should need u16 symbol lists")
+    prose_ix = {k[6:]: indexes.pop(k) for k in list(indexes)
+                if k.startswith("prose_")}
 
     pats = []
     for _ in range(4000):
@@ -800,8 +1317,9 @@ def phase_parity(record, rng):
                       len(docs) - 1):
                 check(tt.extract_document(ix, d) == docs[d],
                       f"{name}: extract doc {d}")
+    prose_rec = parity_prose_search(prose, prose_ix, rng, errs, edges)
     record["parity_8mib"] = {"n": n, "ndocs": ndocs, "max_abs_err": errs,
-                             "sort_regimes": regimes}
+                             "sort_regimes": regimes, "prose": prose_rec}
     log(f"[3] 8 MiB parity (n={n}): every kernel equals its plain version "
         f"bit for bit: {sorted(errs)}")
 
@@ -1087,7 +1605,8 @@ def phase_tiers(record, rng, st):
         f"{N_CONTEXT} contexts and {N_RANGES} range_docs equal the "
         f"documents' on all three tiers; the twin corpus's compact index "
         f"locates its duplicate in documents 0 and 1")
-    log(f"    index bytes per character: {bpc}")
+    log(f"    index bytes per character: {bpc} (prose blake2b "
+        f"{_PROSE['blake2b']})")
     record["tiers_path"] = {
         "first_build_s_compact_and_packed": t_build, "ftpu_bytes": file_bytes,
         "ftpu_save_s": t_save, "ftpu_load_s": t_load,
@@ -1097,6 +1616,220 @@ def phase_tiers(record, rng, st):
     }
     return dict(compact=compact, packed=loaded, ctx_rows=ctx_rows,
                 launches=launches)
+
+
+def _serve_row_tiers(tiers, patterns, loc_rows, ext_docs, ctx_rows,
+                     rd_pats):
+    """count ranges, walk locate, extracts, contexts and range_docs of
+    each index in tiers (name -> FMIndex)."""
+    import femto_tpu_torch as tt
+
+    got = {}
+    for name, ix in tiers.items():
+        r = got[name] = {}
+        r["ranges"] = tt.count_ranges(ix, patterns)
+        r["offs"] = tt.locate_rows_array(ix, loc_rows)
+        r["extracted"] = {d: tt.extract_document(ix, d) for d in ext_docs}
+        r["ctx"] = tt.extract_context_batch(ix, ctx_rows, *CTX)
+        rf, rl = tt.count_ranges(ix, rd_pats)
+        r["rd"] = [tt.range_docs(ix, int(f), int(l)) for f, l in zip(rf, rl)]
+    return got
+
+
+def _check_row_answers(what, got, ref, docs):
+    """The row tiers' answers equal the reference tier's (and the
+    extracts the documents)."""
+    for name, r in got.items():
+        if name == ref:
+            continue
+        w = got[ref]
+        check(np.array_equal(r["ranges"][0], w["ranges"][0])
+              and np.array_equal(r["ranges"][1], w["ranges"][1]),
+              f"{what} {name}: count ranges differ from the {ref} tier's")
+        check(np.array_equal(r["offs"], w["offs"]),
+              f"{what} {name}: walk locate differs from the {ref} tier's")
+        for d, b in r["extracted"].items():
+            check(b == docs[d], f"{what} {name}: extract_document({d})")
+        check(r["ctx"] == w["ctx"],
+              f"{what} {name}: contexts differ from the {ref} tier's")
+        check(all(np.array_equal(a, b) for a, b in zip(r["rd"], w["rd"])),
+              f"{what} {name}: range_docs differ from the {ref} tier's")
+
+
+def phase_rows(record, rng, st, st2):
+    """The third main path (4c): the vseg and vrle tiers built on the card
+    (a) from phase 4's 256 MiB zipf corpus and (b) from real prose at
+    seg PROSE_SEG, each served through count, locate, extract, context
+    and range_docs and held to the full tier; the prose vrle index
+    through a .ftpu file and back.  The kernels' launch counts are read
+    around this phase."""
+    import torch
+
+    import femto_tpu_torch as tt
+    from femto_tpu_torch import kernels
+    from femto_tpu_torch.alphabet import pattern_to_alpha
+    from femto_tpu_torch.ops import search_ops as S
+    from femto_tpu_torch.search import pack_patterns
+
+    prepared, docs = st["prepared"], st["docs"]
+    n = prepared.n
+    rd_docs = rng.integers(0, len(docs), size=N_RANGES)
+    rd_offs = rng.integers(0, DOC_SIZE - 8, size=N_RANGES)
+    rd_pats = [docs[d][o: o + 6] for d, o in zip(rd_docs, rd_offs)]
+    # the prose: its bytes are made outside the counted region
+    pdocs = prose_docs()
+    pprep = tt.prepare_documents(pdocs)
+    pn = pprep.n
+    pp_d = rng.integers(0, len(pdocs) - 1, size=N_PATTERNS)
+    pp_o = rng.integers(0, DOC_SIZE - PATLEN - 2, size=N_PATTERNS)
+    ppats = [pdocs[d][o: o + PATLEN] for d, o in zip(pp_d, pp_o)]
+    ploc = rng.integers(0, pn, size=N_LOCATE).astype(np.int32)
+    pext = [0, len(pdocs) // 2, len(pdocs) - 1]
+    prd = [pdocs[d][o: o + 6] for d, o in zip(
+        rng.integers(0, len(pdocs) - 1, size=N_RANGES),
+        rng.integers(0, DOC_SIZE - 8, size=N_RANGES))]
+    log(f"[4c] prose corpus: {pn / 2**20:.4f} MiB in {len(pdocs)} documents "
+        f"(seg {PROSE_SEG}, blake2b {_PROSE['blake2b']}), zipf corpus: "
+        f"phase 4's")
+    # the full tier's answers, the reference, before the counted region
+    ctx_rows = st2["ctx_rows"]
+    zref = _serve_row_tiers({"full": st["walk"]}, [], [], [], ctx_rows,
+                            rd_pats)["full"]
+    pfull = tt.build_index(pprep, seg=PROSE_SEG, mark_period=20,
+                           locate="direct", device="cuda")
+    pwalk = dataclasses.replace(pfull, sa_direct=None)
+    pfirst, plast = tt.count_ranges(pwalk, ppats)
+    pick = rng.integers(0, 1 << 30, size=N_CONTEXT)
+    pctx = pfirst[:N_CONTEXT] + pick % np.maximum(
+        (plast - pfirst)[:N_CONTEXT], 1)
+    pgot = _serve_row_tiers({"full": pwalk}, ppats, ploc, pext, pctx, prd)
+
+    peaks = {}
+
+    def builds(corpus, prep, seg):
+        """Each row tier of prep built once; each build's own peak device
+        memory above what was allocated before it."""
+        out = {}
+        for tier in ROW_LAYOUTS:
+            torch.cuda.synchronize()
+            before = torch.cuda.memory_allocated()
+            torch.cuda.reset_peak_memory_stats()
+            out[tier] = tt.build_index(prep, seg=seg, mark_period=20,
+                                       tier=tier, device="cuda")
+            torch.cuda.synchronize()
+            peaks[f"{corpus}_{tier}"] = (torch.cuda.max_memory_allocated()
+                                         - before)
+        return out
+
+    torch.cuda.synchronize()
+    kernels.reset_launches()
+    t0 = time.perf_counter()
+    zrows = builds("zipf", prepared, 256)
+    t_build = time.perf_counter() - t0
+    first, last = st["first"], st["last"]
+    zgot = _serve_row_tiers(zrows, st["patterns"], st["loc_rows"],
+                            st["ext_docs"][:1], ctx_rows, rd_pats)
+    t0 = time.perf_counter()
+    prows = builds("prose", pprep, PROSE_SEG)
+    t_pbuild = time.perf_counter() - t0
+    pgot.update(_serve_row_tiers(prows, ppats, ploc, pext, pctx, prd))
+    with tempfile.TemporaryDirectory() as tmp:
+        path = os.path.join(tmp, "prose_vrle.ftpu")
+        prows["vrle"].save_flat(path)
+        file_bytes = os.path.getsize(path)
+        loaded = tt.FMIndex.load(path, device="cuda")
+    torch.cuda.synchronize()
+    launches = dict(kernels.launches)
+    log(f"    builds: zipf vseg + vrle {t_build:.2f}s, prose vseg + vrle "
+        f"{t_pbuild:.2f}s (first calls); each build's peak device memory "
+        f"above what was allocated before it: "
+        f"{ {k: f'{v / 2**30:.3f} GiB' for k, v in peaks.items()} }; "
+        f"launches {launches}")
+    # C and D on the 256 MiB row tiers against their plain versions, on a
+    # share of phase 4's patterns and rows
+    pz = st["patterns"][:2048]
+    ptz, _ = pack_patterns([pattern_to_alpha(p) for p in pz],
+                           pad_b=len(pz))
+    ptz = torch.from_numpy(ptz).to(torch.device("cuda"))
+    rz = torch.from_numpy(st["loc_rows"][:4096]).to(torch.device("cuda"))
+    for lay, ix in zrows.items():
+        A = ix.arrays
+        max_abs_err(f"backward_search[{lay}](zipf 256 MiB)",
+                    S.backward_search(A, n, ptz),
+                    S.backward_search_plain(A, n, ptz))
+        max_abs_err(f"lf_locate[{lay}](zipf 256 MiB)",
+                    [S.locate_rows(A, 20, rz)],
+                    [S.locate_rows_plain(A, 20, rz)])
+    log(f"    zipf 256 MiB: backward_search and lf_locate on vseg and vrle "
+        f"equal their plain versions ({len(pz)} patterns, {rz.numel()} "
+        f"rows)")
+
+    # (a) zipf: the full tier's answers (phase 4 / 4b)
+    zgot["full"] = {"ranges": (first, last), "offs": st["offs_direct"],
+                    "extracted": {}, "ctx": zref["ctx"], "rd": zref["rd"]}
+    _check_row_answers("zipf", zgot, "full", docs)
+    zmodes = {t: seg_modes(ix.arrays.seg_woff) for t, ix in zrows.items()}
+    log(f"    zipf: both row tiers answer as the full tier; segments by "
+        f"mode {zmodes}; vrle found "
+        f"{'RLE rows' if zrows['vrle'].arrays.seg_rle.shape[0] > 1 else 'no RLE rows'}"
+        f" (marker {tuple(zrows['vrle'].arrays.seg_rle.shape)})")
+    # (b) prose: the full tier's answers, counts against a text scan
+    _check_row_answers("prose", pgot, "full", pdocs)
+    ptext = text_tensor(pprep, torch.device("cuda"))
+    pcounts = plast - pfirst
+    check((pcounts >= 1).all(), "prose: a pattern of the text has count 0")
+    for i in rng.choice(N_PATTERNS, 32, replace=False):
+        want = direct_count(ptext, pattern_to_alpha(ppats[i]))
+        check(int(pcounts[i]) == want,
+              f"prose count of pattern {i}: {int(pcounts[i])} != scan {want}")
+    check(np.array_equal(pgot["full"]["offs"],
+                         pfull.sa_direct[torch.from_numpy(ploc).to(
+                             ptext.device).long()].cpu().numpy()),
+          "prose: walk locate differs from sa_direct[rows]")
+    del ptext
+    for k, v in prows["vrle"].arrays._asdict().items():
+        w = getattr(loaded.arrays, k)
+        check((v is None) == (w is None), f"prose .ftpu field {k}")
+        if v is not None:
+            max_abs_err(f"prose .ftpu field {k}", [w], [v])
+    check(loaded.meta == prows["vrle"].meta, "prose .ftpu meta differs")
+    pmodes = {t: seg_modes(prows[t].arrays.seg_woff) for t in ROW_LAYOUTS}
+    check(pmodes["vrle"]["rle"] > 0 and pmodes["vrle"]["continuation"] > 0,
+          f"the prose vrle index has no RLE or no continuation segments: "
+          f"{pmodes['vrle']}")
+    for name in PATH_KERNELS["rows"]:
+        check(launches[name] >= 1,
+              f"kernel {name} was not launched on the third main path")
+    bpc = {"zipf": {"full": index_bytes(st["walk"].arrays) / n,
+                    "packed": index_bytes(st2["packed"].arrays) / n,
+                    **{t: index_bytes(ix.arrays) / n
+                       for t, ix in zrows.items()}},
+           "prose": {"full": index_bytes(pfull.arrays) / pn,
+                     **{t: index_bytes(ix.arrays) / pn
+                        for t, ix in prows.items()}}}
+    log(f"    prose: full, vseg and vrle answer alike ({N_PATTERNS} counts, "
+        f"32 equal to a text scan, {N_LOCATE} locates, {len(pext)} "
+        f"extracts, {N_CONTEXT} contexts, {N_RANGES} range_docs); .ftpu "
+        f"round trip of vrle exact ({file_bytes} B); segments by mode "
+        f"{pmodes}")
+    log(f"    index bytes per character: {bpc}")
+    record["rows_path"] = {
+        "prose_mib": pn / 2**20, "prose_docs": len(pdocs),
+        "prose_seconds": _PROSE.get("seconds"), "prose_seg": PROSE_SEG,
+        "prose_blake2b": _PROSE.get("blake2b"),
+        "first_build_s_zipf": t_build, "first_build_s_prose": t_pbuild,
+        "peak_device_bytes_per_build": peaks, "launches": launches,
+        "bytes_per_char": bpc, "modes_zipf": zmodes, "modes_prose": pmodes,
+        "row_shapes_prose": {t: dict(zip(("n_seg", "total_words"),
+                                         ix.arrays.bwt.shape))
+                             for t, ix in prows.items()},
+        "vrle_marker_zipf": list(zrows["vrle"].arrays.seg_rle.shape),
+        "vrle_marker_prose": list(prows["vrle"].arrays.seg_rle.shape),
+        "ftpu_bytes_prose_vrle": file_bytes,
+    }
+    return dict(zrows=zrows, prows=prows, pprep=pprep, ppats=ppats,
+                ploc=ploc, pctx=pctx, pext=pext, launches=launches,
+                pwalk=pwalk, pfull=pfull)
 
 
 def sort_kernel_rows(record, kernel_row, text, ds, sa, sa_direct, rows, *,
@@ -1204,7 +1937,65 @@ def sort_kernel_rows(record, kernel_row, text, ds, sa, sa_direct, rows, *,
     log(f"    gather_rows at the direct tier's shape: {direct}")
 
 
-def phase_numbers(record, st, st2):
+def row_kernel_rows(kernel_row, st3):
+    """Kernels M and N at the shapes the prose builds give them (M on the
+    vseg build, N on the vrle one), and C, D and E on the prose vseg and
+    vrle indexes (run-length, continued, fixed and side segments)."""
+    import torch
+
+    from femto_tpu_torch.alphabet import pattern_to_alpha
+    from femto_tpu_torch.ops import search_ops as S
+    from femto_tpu_torch.search import pack_patterns
+
+    pprep = st3["pprep"]
+    for tier, names in (("vseg", ("seg_syms", "vseg_rows", "side_rows")),
+                        ("vrle", ("vrle_slot_count", "vrle_pack",
+                                  "cont_flatten"))):
+        rs = row_stage(pprep, PROSE_SEG, tier)
+        bounds = bound_row_kernels(rs)
+        for name in names:
+            check(name in rs["runs"], f"{name} does not run on the prose "
+                                      f"{tier} build")
+            run_k, run_p = rs["runs"][name]
+            kernel_row(name, run_k, run_p, bounds[name])
+        del rs
+    dev = torch.device("cuda")
+    n, mp = pprep.n, 20
+    pt = torch.from_numpy(pack_patterns(
+        [pattern_to_alpha(p) for p in st3["ppats"]],
+        pad_b=len(st3["ppats"]))[0]).to(dev)
+    rt = torch.from_numpy(st3["ploc"]).to(dev)
+    ct = torch.from_numpy(st3["pctx"].astype(np.int32)).to(dev)
+    sa = st3["pfull"].sa_direct
+    isa = torch.empty(n, dtype=torch.int64, device=dev)
+    isa[sa.long()] = torch.arange(n, device=dev)
+    fwd = CTX[1] + CTX[2]
+    d0 = st3["pext"][1]
+    seof = int(pprep.doc_starts[d0 + 1]) - 1
+    steps = min(EXTRACT_STEPS, int(pprep.doc_starts[d0 + 1]
+                                   - pprep.doc_starts[d0]) - 1)
+    for lay in ROW_LAYOUTS:
+        A = st3["prows"][lay].arrays
+        kernel_row(f"backward_search[{lay}]",
+                   lambda: S.backward_search(A, n, pt),
+                   lambda: S.backward_search_plain(A, n, pt),
+                   bound_backward_search(A, pt, n, 0))
+        kernel_row(f"lf_locate[{lay}]",
+                   lambda: [S.locate_rows(A, mp, rt)],
+                   lambda: [S.locate_rows_plain(A, mp, rt)],
+                   bound_locate(A, mp, rt))
+        er = A.doc_seof_rows[d0: d0 + 1].contiguous()
+        kernel_row(f"lf_extract[{lay}]",
+                   lambda: S.extract_backward(A, er, steps),
+                   lambda: S.extract_backward_plain(A, er, steps),
+                   bound_extract(A, isa, seof, steps))
+        kernel_row(f"psi_walk[{lay}]",
+                   lambda: [S.psi_walk(A, ct, fwd)],
+                   lambda: [S.psi_walk_plain(A, ct, fwd)],
+                   bound_psi(A, ct, fwd))
+
+
+def phase_numbers(record, st, st2, st3):
     """End-to-end rates (medians of 3) and each kernel at the main paths'
     shapes against its bound, its plain version and a library call."""
     import torch
@@ -1278,17 +2069,52 @@ def phase_numbers(record, st, st2):
         rates[f"context_{name}_rows_per_s"] = summary(
             [len(ctx_rows) / t for t in wall_runs(
                 lambda: tt.extract_context_batch(ix, ctx_rows, *CTX))])
+    # the row tiers on both corpora (phase 4c)
+    pprep, prows, pwalk = st3["pprep"], st3["prows"], st3["pwalk"]
+    pmib = pprep.n / 2**20
+    psteps = len(st3["ppats"]) * PATLEN
+    for tier in ROW_LAYOUTS:
+        ix = st3["zrows"][tier]
+        rates[f"build_{tier}_mib_per_s"] = summary(
+            [mib / t for t in wall_runs(lambda: tt.build_index(
+                prepared, seg=seg, mark_period=mp, tier=tier,
+                device="cuda"))])
+        rates[f"count_{tier}_steps_per_s"] = summary(
+            [steps / t for t in wall_runs(lambda: tt.count(ix, patterns))])
+        rates[f"locate_walk_{tier}_rows_per_s"] = summary(
+            [len(rows) / t
+             for t in wall_runs(lambda: tt.locate_rows_array(ix, rows))])
+        rates[f"context_{tier}_rows_per_s"] = summary(
+            [len(ctx_rows) / t for t in wall_runs(
+                lambda: tt.extract_context_batch(ix, ctx_rows, *CTX))])
+    for tier in ("full",) + ROW_LAYOUTS:
+        ix = pwalk if tier == "full" else prows[tier]
+        rates[f"prose_build_{tier}_mib_per_s"] = summary(
+            [pmib / t for t in wall_runs(lambda: tt.build_index(
+                pprep, seg=PROSE_SEG, mark_period=mp, tier=tier,
+                device="cuda"))])
+        rates[f"prose_count_{tier}_steps_per_s"] = summary(
+            [psteps / t
+             for t in wall_runs(lambda: tt.count(ix, st3["ppats"]))])
+        rates[f"prose_locate_walk_{tier}_rows_per_s"] = summary(
+            [len(st3["ploc"]) / t for t in wall_runs(
+                lambda: tt.locate_rows_array(ix, st3["ploc"]))])
+        rates[f"prose_context_{tier}_rows_per_s"] = summary(
+            [len(st3["pctx"]) / t for t in wall_runs(
+                lambda: tt.extract_context_batch(ix, st3["pctx"], *CTX))])
     record["rates"] = rates
     for k, v in rates.items():
+        on = f", prose blake2b {_PROSE['blake2b']}" if "prose" in k else ""
         log(f"[5] {k}: {v['median']:.6g} (min {v['min']:.6g}, max "
-            f"{v['max']:.6g}, {v['runs']} runs)")
+            f"{v['max']:.6g}, {v['runs']} runs{on})")
 
     # kernels at the main path's shapes
     arrays = walk.arrays
     sa, pull = box["sa"], box["pull"]
     a_row = BO.occ_build(pull, n_seg=n_seg, seg=seg)[1]
     kern = []
-    path_launches = {"full": st["launches"], "tiers": st2["launches"]}
+    path_launches = {"full": st["launches"], "tiers": st2["launches"],
+                     "rows": st3["launches"]}
 
     def kernel_row(name, run_k, run_p, bound_ms, library=None):
         """One kernel against its plain version at these shapes; plain_ms
@@ -1383,19 +2209,21 @@ def phase_numbers(record, st, st2):
         er = A.doc_seof_rows[d0: d0 + 1].contiguous()
         kernel_row(
             f"lf_extract[{lay}]",
-            lambda: S.extract_backward(A, er, DOC_SIZE - 1),
-            lambda: S.extract_backward_plain(A, er, DOC_SIZE - 1),
+            lambda: S.extract_backward(A, er, EXTRACT_STEPS),
+            lambda: S.extract_backward_plain(A, er, EXTRACT_STEPS),
             bound_extract(A, isa, int(prepared.doc_starts[d0 + 1]) - 1,
-                          DOC_SIZE - 1))
+                          EXTRACT_STEPS))
         kernel_row(
             f"psi_walk[{lay}]",
             lambda: [S.psi_walk(A, ct, fwd)],
             lambda: [S.psi_walk_plain(A, ct, fwd)],
             bound_psi(A, ct, fwd))
+    del isa
+    row_kernel_rows(kernel_row, st3)
     record["kernels"] = kern
 
 
-def phase_profile(record, st, st2):
+def phase_profile(record, st, st2, st3):
     """Device time by kernel (torch.profiler, CUPTI) and the device's busy
     share over one call of each main-path step, for PERF.md's breakdown;
     "not measured" where the profiler reports no device time."""
@@ -1425,6 +2253,19 @@ def phase_profile(record, st, st2):
                                                            st["loc_rows"]),
         "packed_context": lambda: tt.extract_context_batch(
             st2["packed"], st2["ctx_rows"], *CTX),
+        "vseg_build": lambda: tt.build_index(
+            prepared, seg=256, mark_period=20, tier="vseg", device="cuda"),
+        "vrle_build": lambda: tt.build_index(
+            prepared, seg=256, mark_period=20, tier="vrle", device="cuda"),
+        "prose_vrle_build": lambda: tt.build_index(
+            st3["pprep"], seg=PROSE_SEG, mark_period=20, tier="vrle",
+            device="cuda"),
+        "prose_vrle_count": lambda: tt.count(st3["prows"]["vrle"],
+                                             st3["ppats"]),
+        "prose_vrle_locate_walk": lambda: tt.locate_rows_array(
+            st3["prows"]["vrle"], st3["ploc"]),
+        "prose_vrle_context": lambda: tt.extract_context_batch(
+            st3["prows"]["vrle"], st3["pctx"], *CTX),
     }
     out = {}
     for name, fn in steps.items():
@@ -1501,8 +2342,9 @@ def main(argv=None):
         phase_parity(record, rng)
         st = phase_main(record, rng)
         st2 = phase_tiers(record, rng, st)
-        phase_numbers(record, st, st2)
-        phase_profile(record, st, st2)
+        st3 = phase_rows(record, rng, st, st2)
+        phase_numbers(record, st, st2, st3)
+        phase_profile(record, st, st2, st3)
     except SmokeError as e:
         print(f"chip_smoke: FAILED: {e}", file=sys.stderr)
         return 1

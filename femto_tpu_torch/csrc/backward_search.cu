@@ -1,5 +1,5 @@
 // Kernel C, backward_search: batched FM count ranges over the full,
-// compact and packed layouts (one instantiation each).
+// compact, packed, vseg and vrle layouts (one instantiation each).
 //
 // Replaces femto_tpu/ops/search_ops.py backward_search (23) with its step
 // ops/rank.py backward_step_pair (681), map_char (97) and _occ_dense (649)
@@ -9,7 +9,11 @@
 // grid); here one thread owns one pattern and runs every step itself,
 // skipping the left -1 padding, and reads only the prefix of the segment
 // row that the rank needs (packed words are compared field-wise in
-// registers, fm_common.cuh count_prefix).
+// registers, fm_common.cuh count_prefix).  On the row tiers (K11, K12) a
+// step maps c to its rank in the segment's symbol list and counts that
+// local code in the row's code area (SWAR), its side row, or its
+// run-length slots (a clamp-sum that stops at the offset), as
+// femto_tpu's _occ_dense_vseg (ops/rank.py 629) does.
 //
 // Bound on the H100: bytes.  Each step reads, for first and for last, the
 // checkpoint (one int, or a uint16 and an L1 int) and the row prefix:

@@ -1,5 +1,5 @@
 // Shared device helpers of the port's FM-index kernels: one view of the
-// index over the three row layouts it serves.
+// index over the five row layouts it serves.
 //
 // Layouts (femto_tpu_torch/fmindex.py FMArrays, identical to femto_tpu's):
 //   full     bwt uint16[n_seg, seg] symbols, INVALID_ALPHA past row n;
@@ -9,6 +9,19 @@
 //   packed   the compact checkpoints over K dense codes, and bwt
 //            uint32[n_seg, W] holding per_word codes of `bits` bits per
 //            word (pad code all ones in `bits`, >= K)
+//   vseg     bwt uint32[n_seg, row_words], one serving row per segment
+//            (ops/rank.py VsegGeom): [code area code_words | symbol list
+//            (S u8 or u16 entries, sorted, pads the dtype's max) | mark
+//            words seg/32 | mark checkpoint | uint16 relative checkpoints
+//            in pairs] over occ_l1; the code area holds LOCAL codes (ranks
+//            in the list) at w_main bits; seg_woff[s] > 0 sends segment s
+//            to row seg_woff[s] of the side table seg_ovf (GLOBAL codes at
+//            w_side bits)
+//   vrle     the vseg row; a segment with seg_woff < 0 holds run-length
+//            slots (local code << lenbits | length, 6/8/10 bits by its
+//            symbol count seg_nsym) in its code area, continued, when
+//            seg_woff < -1, in the flat store seg_cont uint32[X, G] from
+//            granule row (-seg_woff - 2) / G on (ngr rows are one fetch)
 //   C int32[K+1], C[c] = number of codes < c.  K = 261 on the identity
 //   tiers; alpha_map (symbol -> dense code or -1) and alpha_rev (dense
 //   code -> symbol) are non-null when the index is remapped.
@@ -26,7 +39,13 @@ namespace femto {
 constexpr int kAlpha = 261;         // alphabet.ALPHA_SIZE
 constexpr int kInvalidAlpha = 511;  // alphabet.INVALID_ALPHA (pad rows)
 
-enum Layout : int { kFull = 0, kCompact = 1, kPacked = 2 };
+enum Layout : int { kFull = 0, kCompact = 1, kPacked = 2, kVseg = 3,
+                    kVrle = 4 };
+
+template <int L>
+__host__ __device__ constexpr bool is_row() {
+  return L == kVseg || L == kVrle;
+}
 
 // Mirrored field for field by kernels.FmView (ctypes).
 struct FmView {
@@ -44,6 +63,26 @@ struct FmView {
   int per_word;  // codes per word (packed)
   int bits;      // bits per code (packed)
   int layout;    // Layout
+  // row tiers (vseg, vrle)
+  const unsigned* seg_ovf;        // uint32[n_side, side_words]
+  const unsigned char* seg_nsym;  // uint8[n_seg]
+  const int* seg_woff;            // int32[n_seg]
+  const unsigned* seg_cont;       // uint32[X, G] or null (ngr == 0)
+  int row_words;   // words per serving row
+  int code_words;  // words of the code area (the slot stream's main part)
+  int w_main;      // bits per fixed-width local code
+  int off_syms;    // row offsets of the symbol list, the mark words, the
+  int off_mk;      // mark checkpoint and the relative checkpoints
+  int off_mck;
+  int off_rel;
+  int S;           // symbol-list entries
+  int wide;        // u16 entries (else u8)
+  int w_side;      // bits per side-table code
+  int side_words;
+  int n_side;      // rows of seg_ovf (1: none but the dummy)
+  int G;           // words per continuation granule row
+  int ngr;         // granule rows a segment's continuation window reads
+  long long X;     // granule rows in seg_cont
 };
 
 // Occurrences of symbol c among the first `off` symbols of one uint16
@@ -82,10 +121,226 @@ __device__ __forceinline__ unsigned zero_fields(unsigned x, int bits,
   return ~t & lsbs;
 }
 
+// Fields of `w` bits equal to lq among the first `off` fields of words
+// (ops/rank.py count_eq_packed): XOR with lq in every field, zero fields
+// to their bit 0, popcount.  lq outside [0, 2^w) counts nothing.
+__device__ __forceinline__ int swar_count(const unsigned* __restrict__ words,
+                                          int w, int lq, int off) {
+  if (lq < 0 || lq >= (1 << w)) return 0;
+  const int per = 32 / w;
+  const unsigned lsbs = field_lsbs(w, per);
+  const unsigned rep = static_cast<unsigned>(lq) * lsbs;
+  const int nfull = off / per;
+  const int rem = off - nfull * per;
+  int cnt = 0;
+  for (int i = 0; i < nfull; ++i)
+    cnt += __popc(zero_fields(__ldg(words + i) ^ rep, w, lsbs));
+  if (rem > 0)
+    cnt += __popc(zero_fields(__ldg(words + nfull) ^ rep, w, lsbs) & lsbs &
+                  ((1u << (rem * w)) - 1u));
+  return cnt;
+}
+
+// The w-bit field at position off of words.
+__device__ __forceinline__ int field_at(const unsigned* __restrict__ words,
+                                        int w, int off) {
+  const int per = 32 / w;
+  const int wi = off / per;
+  return static_cast<int>((__ldg(words + wi) >> ((off - wi * per) * w)) &
+                          ((1u << w) - 1u));
+}
+
+// ---- row tiers (vseg, vrle): ops/rank.py VsegGeom, RowCtx ----
+
+// ops/rank.py vrle_slot_geom: the slot width (6/8/10 bits) and length bits
+// of a segment with n symbols (symbol width ceil(log2(max(n, 2))), <= 6).
+__device__ __forceinline__ void slot_geom(int n, int* w_slot, int* lenbits) {
+  const int ws = 1 + (n > 2) + (n > 4) + (n > 8) + (n > 16) + (n > 32);
+  *w_slot = 6 + 2 * ((ws > 2) + (ws > 4));
+  *lenbits = *w_slot - ws;
+}
+
+// The build kernels' symbol -> local code table of one segment, filled by
+// its warp: the number of the segment's listed dense codes (list: smax
+// sorted entries, pads above every code) below the symbol's dense code
+// amap[sym] -- its rank when listed; 0 for symbols outside the alphabet.
+__device__ __forceinline__ void local_code_table(
+    unsigned char* tab, const int* amap, const int* __restrict__ list,
+    int smax, int lane) {
+  for (int sym = lane; sym < kAlpha; sym += 32) {
+    const int d = amap[sym];
+    int lo = 0, hi = smax;
+    while (lo < hi) {
+      const int mid = (lo + hi) >> 1;
+      if (__ldg(list + mid) < d) lo = mid + 1; else hi = mid;
+    }
+    tab[sym] = static_cast<unsigned char>(d < 0 ? 0 : lo);
+  }
+  __syncwarp();
+}
+
+__device__ __forceinline__ const unsigned* row_of(const FmView& ix,
+                                                  long long s) {
+  return static_cast<const unsigned*>(ix.bwt) + s * ix.row_words;
+}
+
+// Entry k of the row's sorted symbol list.
+__device__ __forceinline__ int row_sym(const FmView& ix,
+                                       const unsigned* __restrict__ row,
+                                       int k) {
+  if (ix.wide)
+    return static_cast<int>(
+        (__ldg(row + ix.off_syms + (k >> 1)) >> ((k & 1) * 16)) & 0xFFFFu);
+  return static_cast<int>(
+      (__ldg(row + ix.off_syms + (k >> 2)) >> ((k & 3) * 8)) & 0xFFu);
+}
+
+// Local code of dense code c in the row's list (the number of entries
+// below c), -1 when the entry there is not c (ops/rank.py query_code).
+__device__ __forceinline__ int row_query_code(const FmView& ix,
+                                              const unsigned* row, int c) {
+  int lo = 0, hi = ix.S;
+  while (lo < hi) {
+    const int mid = (lo + hi) >> 1;
+    if (row_sym(ix, row, mid) < c) lo = mid + 1; else hi = mid;
+  }
+  return row_sym(ix, row, min(lo, ix.S - 1)) == c ? lo : -1;
+}
+
+// Dense code of local code lc (the list entry, lc clipped to the list).
+__device__ __forceinline__ int row_global(const FmView& ix,
+                                          const unsigned* row, int lc) {
+  return row_sym(ix, row, min(max(lc, 0), ix.S - 1));
+}
+
+__device__ __forceinline__ const unsigned* side_of(const FmView& ix,
+                                                   int woff) {
+  return ix.seg_ovf +
+         static_cast<long long>(min(max(woff, 0), ix.n_side - 1)) *
+             ix.side_words;
+}
+
+// One run-length segment's slot stream: the code area's words, then the
+// ngr granule rows of the flat continuation store from the segment's
+// offset (rows clamped to the store; a segment without a continuation
+// reads offset 0).  Every slot past the segment's true stream starts at
+// >= seg (the true lengths sum to seg), so a walk that stops at the
+// position it looks for never reads it as data.
+struct SlotStream {
+  const unsigned* row;
+  const unsigned* cont;  // granule row g0 of seg_cont, or null
+  long long cont_rows;   // granule rows left from g0 (>= 1 when cont)
+  int G, code_words, nwords, w, lenbits;
+};
+
+__device__ __forceinline__ SlotStream slot_stream(const FmView& ix,
+                                                  const unsigned* row,
+                                                  long long s, int woff) {
+  SlotStream st;
+  st.row = row;
+  st.code_words = ix.code_words;
+  st.G = ix.G;
+  st.cont = nullptr;
+  st.cont_rows = 0;
+  st.nwords = ix.code_words + ix.ngr * ix.G;
+  if (ix.ngr > 0) {
+    const long long g0 = static_cast<long long>(max(-woff - 2, 0)) / ix.G;
+    const long long g = min(g0, ix.X - 1);
+    st.cont = ix.seg_cont + g * ix.G;
+    st.cont_rows = ix.X - g;
+  }
+  slot_geom(__ldg(ix.seg_nsym + s), &st.w, &st.lenbits);
+  return st;
+}
+
+__device__ __forceinline__ unsigned stream_word(const SlotStream& st, int t) {
+  if (t < st.code_words) return __ldg(st.row + t);
+  t -= st.code_words;
+  const long long g = min(static_cast<long long>(t / st.G), st.cont_rows - 1);
+  return __ldg(st.cont + g * st.G + (t % st.G));
+}
+
+// Walk the slots in order: visit(lsym, start, len) returns false to stop.
+template <class F>
+__device__ __forceinline__ void walk_slots(const SlotStream& st, F&& visit) {
+  const int kmax = (st.nwords * 32) / st.w;
+  const unsigned mask = (1u << st.w) - 1u;
+  const unsigned lmask = (1u << st.lenbits) - 1u;
+  int start = 0;
+  for (int k = 0; k < kmax; ++k) {
+    const int bit = k * st.w;
+    const int wi = bit >> 5, sh = bit & 31;
+    unsigned v = stream_word(st, wi) >> sh;
+    if (sh + st.w > 32) v |= stream_word(st, wi + 1) << (32 - sh);
+    v &= mask;
+    const int len = static_cast<int>(v & lmask);
+    if (!visit(static_cast<int>(v >> st.lenbits), start, len)) return;
+    start += len;
+  }
+}
+
+// Occurrences of local code lq among the first off positions (a clamp-sum
+// over the slots that start before off).
+__device__ __forceinline__ int slots_count(const SlotStream& st, int lq,
+                                           int off) {
+  int cnt = 0;
+  walk_slots(st, [&](int lsym, int start, int len) {
+    if (start >= off) return false;
+    if (lsym == lq) cnt += min(off - start, len);
+    return true;
+  });
+  return cnt;
+}
+
+// Local code at position off (0 past the stream).
+__device__ __forceinline__ int slots_code_at(const SlotStream& st, int off) {
+  int code = 0;
+  walk_slots(st, [&](int lsym, int start, int len) {
+    if (start > off) return false;
+    if (off < start + len) {
+      code = lsym;
+      return false;
+    }
+    return true;
+  });
+  return code;
+}
+
+// Per-lane code at offset off of row-tier segment s: local on main lanes,
+// global on side lanes (*side set); ops/rank.py RowCtx.code_at.
+template <int L>
+__device__ __forceinline__ int row_lane_code(const FmView& ix,
+                                             const unsigned* row, long long s,
+                                             int woff, int off) {
+  if (woff > 0) return field_at(side_of(ix, woff), ix.w_side, off);
+  if constexpr (L == kVrle) {
+    if (woff < 0) return slots_code_at(slot_stream(ix, row, s, woff), off);
+  }
+  return field_at(row, ix.w_main, off);
+}
+
+// Occurrences of per-lane code lq among the first off positions of
+// segment s (ops/rank.py RowCtx.within).
+template <int L>
+__device__ __forceinline__ int row_within(const FmView& ix,
+                                          const unsigned* row, long long s,
+                                          int woff, int lq, int off) {
+  if (woff > 0) return swar_count(side_of(ix, woff), ix.w_side, lq, off);
+  if constexpr (L == kVrle) {
+    if (woff < 0) return slots_count(slot_stream(ix, row, s, woff), lq, off);
+  }
+  return swar_count(row, ix.w_main, lq, off);
+}
+
 template <int L>
 __device__ __forceinline__ int code_at(const FmView& ix, long long s,
                                        int off) {
-  if constexpr (L == kPacked) {
+  if constexpr (is_row<L>()) {
+    const unsigned* row = row_of(ix, s);
+    const int woff = __ldg(ix.seg_woff + s);
+    const int lc = row_lane_code<L>(ix, row, s, woff, off);
+    return woff > 0 ? lc : row_global(ix, row, lc);
+  } else if constexpr (L == kPacked) {
     const unsigned* row = static_cast<const unsigned*>(ix.bwt) + s * ix.W;
     const int wi = off / ix.per_word;
     const int f = off - wi * ix.per_word;
@@ -102,6 +357,10 @@ __device__ __forceinline__ int ckpt_base(const FmView& ix, long long s,
                                          int c) {
   if constexpr (L == kFull) {
     return __ldg(static_cast<const int*>(ix.occ_ckpt) + s * ix.K + c);
+  } else if constexpr (is_row<L>()) {
+    const unsigned w = __ldg(row_of(ix, s) + ix.off_rel + (c >> 1));
+    return __ldg(ix.occ_l1 + (s / ix.grp) * ix.K + c) +
+           static_cast<int>((w >> ((c & 1) * 16)) & 0xFFFFu);
   } else {
     const int rel = __ldg(static_cast<const uint16_t*>(ix.occ_ckpt) +
                           s * ix.K + c);
@@ -113,7 +372,12 @@ __device__ __forceinline__ int ckpt_base(const FmView& ix, long long s,
 template <int L>
 __device__ __forceinline__ int count_prefix(const FmView& ix, long long s,
                                             int off, int c) {
-  if constexpr (L == kPacked) {
+  if constexpr (is_row<L>()) {
+    const unsigned* row = row_of(ix, s);
+    const int woff = __ldg(ix.seg_woff + s);
+    const int lq = woff > 0 ? c : row_query_code(ix, row, c);
+    return row_within<L>(ix, row, s, woff, lq, off);
+  } else if constexpr (L == kPacked) {
     const unsigned* row = static_cast<const unsigned*>(ix.bwt) + s * ix.W;
     const unsigned lsbs = field_lsbs(ix.bits, ix.per_word);
     const unsigned rep = static_cast<unsigned>(c) * lsbs;
@@ -164,6 +428,8 @@ int dispatch_layout(const FmView& ix, F&& launch) {
     case kFull: launch(std::integral_constant<int, kFull>{}); break;
     case kCompact: launch(std::integral_constant<int, kCompact>{}); break;
     case kPacked: launch(std::integral_constant<int, kPacked>{}); break;
+    case kVseg: launch(std::integral_constant<int, kVseg>{}); break;
+    case kVrle: launch(std::integral_constant<int, kVrle>{}); break;
     default: return static_cast<int>(cudaErrorInvalidValue);
   }
   return static_cast<int>(cudaGetLastError());

@@ -1,5 +1,5 @@
-// Kernel D, lf_walk: LF-mapping walks over the full, compact and packed
-// layouts (one instantiation each), two entry points.
+// Kernel D, lf_walk: LF-mapping walks over the full, compact, packed,
+// vseg and vrle layouts (one instantiation each), two entry points.
 //
 // locate replaces femto_tpu/ops/search_ops.py locate_rows (115) with
 // ops/rank.py lf_grank_step (883), mark_rank (821) and mark_offset (842):
@@ -14,7 +14,11 @@
 // whole [B, seg] rows per step; here each thread walks its own row and
 // stops at its own mark, so there is no lockstep tail (the reason
 // femto_tpu's locate_rows_pyramid exists), and each step reads only the
-// segment prefix it counts.
+// segment prefix it counts.  On the row tiers (vseg, vrle; K11-K13) one
+// serving row gives the code, the symbol list, the checkpoint, the count
+// and the marks, as femto_tpu's one-row walk step (ops/rank.py
+// lf_grank_step 895-911) does; a run-length segment is read by a walk
+// over its slots that stops at the position it needs.
 //
 // Bound on the H100: bytes of dependent random gathers.  Per step: one
 // mark word, one symbol (word), the checkpoint and the counted row prefix;
@@ -33,6 +37,18 @@ __device__ __forceinline__ long long lf_step(const femto::FmView& ix,
                                              long long r, int* code) {
   const long long s = r / ix.seg;
   const int off = static_cast<int>(r - s * ix.seg);
+  if constexpr (femto::is_row<L>()) {
+    // the count is of the row's own (local) code, as the JAX step does
+    const unsigned* row = femto::row_of(ix, s);
+    const int woff = __ldg(ix.seg_woff + s);
+    const int lc = femto::row_lane_code<L>(ix, row, s, woff, off);
+    const int c = woff > 0 ? lc : femto::row_global(ix, row, lc);
+    *code = c;
+    if (c >= ix.K) return -1;
+    return static_cast<long long>(__ldg(ix.C + c)) +
+           femto::ckpt_base<L>(ix, s, c) +
+           femto::row_within<L>(ix, row, s, woff, lc, off);
+  }
   const int c = femto::code_at<L>(ix, s, off);
   *code = c;
   if (c >= ix.K) return -1;
@@ -79,11 +95,16 @@ __global__ void lf_locate_kernel(femto::FmView ix,
   for (int i = 0; i <= mark_period && r >= 0; ++i) {
     const long long s = r / ix.seg;
     const int wl = static_cast<int>(r - s * ix.seg) >> 5;
-    const unsigned* words = mark_bits + s * words_per_seg;
+    // the row tiers keep the segment's mark words and checkpoint in its row
+    const unsigned* words = femto::is_row<L>()
+                                ? femto::row_of(ix, s) + ix.off_mk
+                                : mark_bits + s * words_per_seg;
     const unsigned w = __ldg(words + wl);
     const unsigned bit = static_cast<unsigned>(r & 31);
     if ((w >> bit) & 1u) {
-      int g = __ldg(mark_ckpt + s);
+      int g = femto::is_row<L>()
+                  ? static_cast<int>(__ldg(femto::row_of(ix, s) + ix.off_mck))
+                  : __ldg(mark_ckpt + s);
       for (int k = 0; k < wl; ++k) g += __popc(__ldg(words + k));
       g += __popc(w & ((1u << bit) - 1u));
       result = mark_offset(mark_vals, mark_vals_len, mark_meta, g) + i;

@@ -1,5 +1,5 @@
-// Kernel E, psi_walk: forward (psi) walks over the full, compact and
-// packed layouts (one instantiation each).
+// Kernel E, psi_walk: forward (psi) walks over the full, compact, packed,
+// vseg and vrle layouts (one instantiation each).
 //
 // Replaces femto_tpu/ops/search_ops.py psi_step (399) and its select
 // _select_char (361), scanned by search.py _psi_scan_jit (243) for
@@ -12,6 +12,11 @@
 //   3. psi(r) = the row of the (k+1)-th c, found by a scan of segment s
 //      (s*seg + seg when no row of the segment hits, as in JAX).
 // The step emits c, unmapped through alpha_rev on a remapped index.
+// On the row tiers step 3 is K13's counterpart (femto_tpu decodes the
+// whole row to codes, ops/rank.py _gather_segments_vseg 577): the scan
+// compares local codes with c's rank in the segment's symbol list, a
+// word at a time (SWAR) on fixed-width and side rows, a slot at a time on
+// run-length rows.
 //
 // The TPU ran this as a lax.scan of lockstep batched steps: a fixed-count
 // fori_loop bisect over [B] checkpoint gathers, then a [B, seg] cumsum of
@@ -27,6 +32,61 @@
 #include "fm_common.cuh"
 
 namespace {
+
+// Position of the (want+1)-th field equal to q among the first seg fields
+// of w-bit words, seg when there is none.
+__device__ __forceinline__ int swar_select(const unsigned* __restrict__ words,
+                                           int w, int q, int want, int seg) {
+  if (q < 0 || q >= (1 << w)) return seg;
+  const int per = 32 / w;
+  const unsigned lsbs = femto::field_lsbs(w, per);
+  const unsigned rep = static_cast<unsigned>(q) * lsbs;
+  const int nw = (seg + per - 1) / per;
+  for (int i = 0; i < nw; ++i) {
+    unsigned m = femto::zero_fields(__ldg(words + i) ^ rep, w, lsbs);
+    const int left = seg - i * per;  // fields of this word inside the row
+    if (left < per) m &= (1u << (left * w)) - 1u;
+    const int cnt = __popc(m);
+    if (want < cnt) {
+      for (; want > 0; --want) m &= m - 1u;
+      return i * per + (__ffs(m) - 1) / w;
+    }
+    want -= cnt;
+  }
+  return seg;
+}
+
+// Row-tier select: the (want+1)-th occurrence of dense code c in segment
+// s, by its per-lane code (the global code on a side row).
+template <int L>
+__device__ __forceinline__ int row_select(const femto::FmView& ix,
+                                          long long s, int c, int want) {
+  const unsigned* row = femto::row_of(ix, s);
+  const int woff = __ldg(ix.seg_woff + s);
+  if (woff > 0)
+    return swar_select(femto::side_of(ix, woff), ix.w_side, c, want, ix.seg);
+  const int lq = femto::row_query_code(ix, row, c);
+  if constexpr (L == femto::kVrle) {
+    if (woff < 0) {
+      int col = ix.seg;
+      if (lq < 0) return col;
+      femto::walk_slots(femto::slot_stream(ix, row, s, woff),
+                        [&](int lsym, int start, int len) {
+                          if (start >= ix.seg) return false;
+                          if (lsym == lq) {
+                            if (want < len) {
+                              col = start + want;
+                              return false;
+                            }
+                            want -= len;
+                          }
+                          return true;
+                        });
+      return col;
+    }
+  }
+  return swar_select(row, ix.w_main, lq, want, ix.seg);
+}
 
 template <int L>
 __device__ __forceinline__ long long psi_step(const femto::FmView& ix,
@@ -50,7 +110,9 @@ __device__ __forceinline__ long long psi_step(const femto::FmView& ix,
   // 3. the (k - base + 1)-th occurrence of c in segment s
   int want = static_cast<int>(k - femto::ckpt_base<L>(ix, s, c));
   int col = ix.seg;
-  if constexpr (L == femto::kPacked) {
+  if constexpr (femto::is_row<L>()) {
+    col = row_select<L>(ix, s, c, want);
+  } else if constexpr (L == femto::kPacked) {
     const unsigned* row = static_cast<const unsigned*>(ix.bwt) + s * ix.W;
     const unsigned mask = (1u << ix.bits) - 1u;
     for (int wi = 0; wi < ix.W && col == ix.seg; ++wi) {

@@ -1,12 +1,17 @@
 """FM-index container, persistence and the single-device build (PyTorch).
 
-The counterpart of femto_tpu/fmindex.py for the full, compact and packed
-tiers: the same array fields with the same dtypes and shapes (bit for bit
-what femto_tpu builds), held as torch tensors on one device:
+The counterpart of femto_tpu/fmindex.py for its five storage tiers (full,
+compact, packed, vseg, vrle): the same array fields with the same dtypes
+and shapes (bit for bit what femto_tpu builds), held as torch tensors on
+one device:
 
   * bwt       uint16[n_seg, seg] BWT symbols, INVALID_ALPHA past row n
               (full, compact) | uint32[n_seg, W] dense codes bit-packed
-              32 // bits to a word, pad code all ones (packed);
+              32 // bits to a word, pad code all ones (packed) |
+              uint32[n_seg, total] one serving row per segment (vseg,
+              vrle; ops/rank.VsegGeom): the code area, the segment's
+              sorted symbol list, its mark words, its mark checkpoint and
+              its uint16-relative occ checkpoints;
   * occ_ckpt  int32[n_seg, 261] occurrences of c in BWT[0 : s*seg) (full)
               | uint16[n_seg, K] relative to occ_l1 int32[n_seg/grp, K],
               the checkpoint of every grp-th segment (compact, packed;
@@ -18,7 +23,16 @@ what femto_tpu builds), held as torch tensors on one device:
   * mark_bits uint32[n_seg, seg/32], mark_ckpt int32[n_seg]: sampled rows;
   * mark_vals uint32[...] + mark_meta int32[5]: bit-packed mark values
     (ops/build_ops.mark_pack_geom);
-  * doc_starts int32[ndocs+1], doc_seof_rows int32[ndocs].
+  * doc_starts int32[ndocs+1], doc_seof_rows int32[ndocs];
+  * row tiers only: seg_nsym uint8[n_seg] symbols per segment (255 above
+    the list's capacity); seg_woff int32[n_seg]: 0 fixed-width codes,
+    > 0 the 1-based row of the side table seg_ovf uint32[n_ovf+1, Ws]
+    (global codes; row 0 zeros), -1 RLE slots, -(2 + word offset) RLE
+    slots continued in the flat store seg_cont uint32[X, 16]; seg_syms
+    a [1, S] u8/u16 marker (list length and symbol dtype), seg_rle a
+    [scheme, w_main] int32 marker of the vrle tier.  occ_ckpt,
+    mark_bits and mark_ckpt are one-row dummies there: their rows live
+    inside bwt.
 
 Indexes persist as femto_tpu's .npz directories (save / load) and its
 single-file .ftpu format (save_flat / parse_flat / load_flat), byte for
@@ -43,12 +57,11 @@ from .alphabet import ALPHA_SIZE, PreparedText
 DEFAULT_SEG = 256
 DEFAULT_MARK_PERIOD = 20
 L1_GROUP = 16  # segments per L1 checkpoint group (compact tiers)
-TIERS = ("full", "compact", "packed")
+TIERS = ("full", "compact", "packed", "vseg", "vrle")
 
-# Fields of the vseg, vrle and paged tiers, which this port does not serve.
-_OTHER_TIER_FIELDS = ("seg_ovf", "seg_nsym", "seg_woff", "seg_syms",
-                      "seg_rle", "seg_cont", "seg_slot")
-_ROADMAP_TIERS = "ROADMAP.md Q1 item 6 (compressed tiers)"
+# Fields of paged serving, which this port does not serve yet.
+_OTHER_TIER_FIELDS = ("seg_slot",)
+_ROADMAP_PAGED = "ROADMAP.md Q1 item 9 (paged serving)"
 
 
 def l1_group_for(seg: int) -> int:
@@ -81,26 +94,28 @@ def resolve_device(device: Union[str, torch.device]) -> torch.device:
 class FMArrays(NamedTuple):
     """Device tensors of the index (femto_tpu.fmindex.FMArrays' fields).
 
-    The fields of the vseg, vrle and paged tiers stay None in this port."""
+    seg_slot (paged serving) stays None in this port."""
 
     bwt: torch.Tensor        # uint16[n_seg, seg] | uint32[n_seg, W] packed
+    #                          | uint32[n_seg, total] rows (vseg, vrle)
     occ_ckpt: torch.Tensor   # int32[n_seg, 261] | uint16[n_seg, K] relative
+    #                          | uint16[1, K] marker (vseg, vrle)
     occ_l1: torch.Tensor     # int32[n_seg/grp, K] | int32[1, 261] dummy
     C: torch.Tensor          # int32[K+1]
-    mark_bits: torch.Tensor  # uint32[n_seg, seg//32]
-    mark_ckpt: torch.Tensor  # int32[n_seg]
+    mark_bits: torch.Tensor  # uint32[n_seg, seg//32] | [1, seg//32]
+    mark_ckpt: torch.Tensor  # int32[n_seg] | [1]
     mark_vals: torch.Tensor  # uint32[n_words + exc_cap]
     doc_starts: torch.Tensor     # int32[ndocs+1]
     doc_seof_rows: torch.Tensor  # int32[ndocs]
     alpha_map: torch.Tensor  # int32[261] symbol -> dense code | -1
     alpha_rev: torch.Tensor  # int32[K] dense code -> symbol
-    seg_ovf: Optional[torch.Tensor] = None
-    seg_nsym: Optional[torch.Tensor] = None
-    seg_woff: Optional[torch.Tensor] = None
-    seg_syms: Optional[torch.Tensor] = None
+    seg_ovf: Optional[torch.Tensor] = None   # uint32[n_ovf+1, Ws]
+    seg_nsym: Optional[torch.Tensor] = None  # uint8[n_seg]
+    seg_woff: Optional[torch.Tensor] = None  # int32[n_seg]
+    seg_syms: Optional[torch.Tensor] = None  # uint8|uint16[1, S] marker
     mark_meta: Optional[torch.Tensor] = None  # int32[5]
-    seg_rle: Optional[torch.Tensor] = None
-    seg_cont: Optional[torch.Tensor] = None
+    seg_rle: Optional[torch.Tensor] = None   # int32[scheme, w_main] marker
+    seg_cont: Optional[torch.Tensor] = None  # uint32[X, G] flat store
     seg_slot: Optional[torch.Tensor] = None
 
 
@@ -277,6 +292,33 @@ def _to_device(a: np.ndarray, dev: torch.device) -> torch.Tensor:
     return torch.from_numpy(np.require(a, requirements=["C", "W"])).to(dev)
 
 
+def _check_row_tier_layout(arrays: Mapping[str, np.ndarray]) -> None:
+    """Refuse the row-tier layouts this port does not serve, with a clear
+    error: the obsolete vseg layout (femto_tpu's _check_layout), u8 vrle
+    slots (marker leading dim 2) and the per-row continuation table
+    (marker dim 3 with a many-row seg_cont)."""
+    if "seg_nsym" not in arrays:
+        return
+    if "seg_ovf" not in arrays or arrays["bwt"].ndim != 2:
+        raise ValueError("this vseg index uses an obsolete on-disk layout; "
+                         "rebuild it with the current version (tier='vseg')")
+    for k in ("seg_woff", "seg_syms"):
+        if k not in arrays:
+            raise ValueError(f"row-tier index without {k!r}")
+    if "seg_rle" not in arrays:
+        return
+    scheme = arrays["seg_rle"].shape[0]
+    if scheme == 2:
+        raise ValueError("this vrle index stores u8 RLE slots (a legacy "
+                         "layout); rebuild it with the current version "
+                         "(tier='vrle')")
+    if "seg_cont" not in arrays or (scheme == 3
+                                    and arrays["seg_cont"].shape[0] > 1):
+        raise ValueError("this vrle index keeps a per-row continuation "
+                         "table (a legacy layout); rebuild it with the "
+                         "current version (tier='vrle')")
+
+
 def arrays_from_numpy(arrays: Mapping[str, np.ndarray], meta: Any, *,
                       device: Union[str, torch.device] = "cuda",
                       infos: Optional[List[bytes]] = None) -> FMIndex:
@@ -284,9 +326,9 @@ def arrays_from_numpy(arrays: Mapping[str, np.ndarray], meta: Any, *,
     fields (plus the .npz host entries doc_starts_np, header_lens_np,
     chunk_doc_offsets_np, chunk_docs_np, sa_direct where present) and the
     FMMeta fields (a mapping, or any object with those attributes) -> the
-    port's FMIndex on ``device``.  Full, compact and packed indexes are
-    taken; bits are kept as they are: uint16 and uint32 arrays stay uint16
-    and uint32 tensors.  ``infos`` defaults to meta["infos"] (a .npz
+    port's FMIndex on ``device``.  Indexes of every storage tier are
+    taken (paged ones are refused); bits are kept as they are: uint8,
+    uint16 and uint32 arrays stay uint8, uint16 and uint32 tensors.  ``infos`` defaults to meta["infos"] (a .npz
     directory's meta.json) or doc<i> names."""
     dev = resolve_device(device)
     if not isinstance(meta, Mapping):
@@ -296,14 +338,14 @@ def arrays_from_numpy(arrays: Mapping[str, np.ndarray], meta: Any, *,
     for k in _OTHER_TIER_FIELDS:
         if k in arrays:
             raise NotImplementedError(
-                f"index field {k!r} belongs to a tier not ported yet "
-                f"({_ROADMAP_TIERS}); build femto_tpu indexes with "
-                "tier='full', 'compact' or 'packed' to serve them here")
+                f"index field {k!r} belongs to paged serving, not ported "
+                f"yet ({_ROADMAP_PAGED})")
     layout = (arrays["bwt"].dtype, arrays["occ_ckpt"].dtype)
     if layout not in ((np.uint16, np.int32), (np.uint16, np.uint16),
                       (np.uint32, np.uint16)):
         raise ValueError(f"unknown index layout (bwt, occ_ckpt) dtypes "
                          f"{layout}")
+    _check_row_tier_layout(arrays)
     if "mark_meta" not in arrays:
         raise ValueError("this index stores raw int32 mark values (a legacy "
                          "layout); rebuild it with the current version")
@@ -357,12 +399,16 @@ def build_index(
     (femto_tpu.fmindex.build_index, the same positional parameters).
 
     tier: "full" (default), "compact" (uint16 relative checkpoints;
-    compact=True spells it too) or "packed" (compact checkpoints over the
-    corpus's dense alphabet and a bit-packed BWT).  locate: "walk"
+    compact=True spells it too), "packed" (compact checkpoints over the
+    corpus's dense alphabet and a bit-packed BWT), "vseg" (one serving
+    row per segment: local codes at one width, overflow segments in a
+    side table) or "vrle" (the vseg row with run-length slots where they
+    are smaller).  locate: "walk"
     (mark-sampled LF walk) or "direct" (keep the suffix array on the
     device: locate = one gather).  sa: optional precomputed suffix array
     (skips the sort)."""
     from .ops.build_ops import build_fm_arrays_device, build_sa_payload
+    from .ops.rank import n_segments
     from .ops.sort_ops import gather_rows
     from .suffix import suffix_array, text_alphabet
 
@@ -372,9 +418,6 @@ def build_index(
         raise NotImplementedError(
             "device_build=False (the host packaging path build_fm_arrays) "
             "is not ported (ROADMAP.md Q1 item 5)")
-    if tier in ("vseg", "vrle"):
-        raise NotImplementedError(
-            f"tier={tier!r} is not ported yet ({_ROADMAP_TIERS})")
     if tier not in TIERS:
         raise ValueError(f"unknown tier {tier!r}")
     if pad_shape is not None:
@@ -408,9 +451,10 @@ def build_index(
         prepared.text.astype(np.uint16, copy=False)).view(np.int16)
     ).to(dev).to(torch.int32)
     doc_starts = _to_device(prepared.doc_starts.astype(np.int32), dev)
-    # one histogram of the text serves the sort's keys and the packed
-    # tier's dense alphabet; a caller's sa on another tier needs neither
-    alpha = text_alphabet(text) if sa is None or tier == "packed" else None
+    # one histogram of the text serves the sort's keys and the remapped
+    # tiers' dense alphabet; a caller's sa on another tier needs neither
+    remapped = tier in ("packed", "vseg", "vrle")
+    alpha = text_alphabet(text) if sa is None or remapped else None
     payload = build_sa_payload(text, doc_starts, n=n, mark_period=mark_period,
                                ndocs=ndocs)
     if sa is None:
@@ -423,7 +467,7 @@ def build_index(
         text, sa_dev, doc_starts, n=n, seg=seg, mark_period=mark_period,
         ndocs=ndocs, tier=tier, pull=pull, alpha=alpha)
     meta = FMMeta(n=n, seg=seg, mark_period=mark_period, num_docs=ndocs,
-                  n_marks=int(n_marks), n_seg=arrays.occ_ckpt.shape[0],
+                  n_marks=int(n_marks), n_seg=n_segments(arrays),
                   alpha_used=alpha_used, n_rows=n, row0=0)
     return FMIndex(
         arrays=arrays, meta=meta,

@@ -10,8 +10,8 @@ Each C entry point launches its kernels on the stream it is given,
 allocates nothing, and returns ``cudaGetLastError()``; :func:`launch` raises
 when that is not 0 and otherwise adds one to the entry's launch count.  The
 search entries take the index as an :class:`FmView` and run one kernel
-instantiation per row layout (full, compact, packed); their launches are
-counted per layout, as ``"entry[layout]"``.  Nothing here is built for CPU
+instantiation per row layout (full, compact, packed, vseg, vrle); their
+launches are counted per layout, as ``"entry[layout]"``.  Nothing here is built for CPU
 tensors: the wrappers in ``ops/`` check their inputs with :func:`check` and
 take their plain PyTorch versions where :func:`on_card` says the tensors lie
 on the CPU.
@@ -39,7 +39,8 @@ _P = ctypes.c_void_p
 _I = ctypes.c_int
 _L = ctypes.c_longlong
 
-LAYOUTS = ("full", "compact", "packed")  # csrc/fm_common.cuh Layout
+# csrc/fm_common.cuh Layout
+LAYOUTS = ("full", "compact", "packed", "vseg", "vrle")
 
 
 class FmView(ctypes.Structure):
@@ -49,7 +50,14 @@ class FmView(ctypes.Structure):
     _fields_ = [("bwt", _P), ("occ_ckpt", _P), ("occ_l1", _P), ("C", _P),
                 ("alpha_map", _P), ("alpha_rev", _P), ("n_seg", _L),
                 ("seg", _I), ("K", _I), ("grp", _I), ("W", _I),
-                ("per_word", _I), ("bits", _I), ("layout", _I)]
+                ("per_word", _I), ("bits", _I), ("layout", _I),
+                # the row tiers (vseg, vrle)
+                ("seg_ovf", _P), ("seg_nsym", _P), ("seg_woff", _P),
+                ("seg_cont", _P), ("row_words", _I), ("code_words", _I),
+                ("w_main", _I), ("off_syms", _I), ("off_mk", _I),
+                ("off_mck", _I), ("off_rel", _I), ("S", _I), ("wide", _I),
+                ("w_side", _I), ("side_words", _I), ("n_side", _I),
+                ("G", _I), ("ngr", _I), ("X", _L)]
 
 
 _V = ctypes.POINTER(FmView)
@@ -62,6 +70,15 @@ ENTRIES: Dict[str, Tuple[str, List]] = {
     "marks_build": ("marks_build", [_P, _P, _L, _L, _I, _I, _L, _I, _I, _I,
                                     _L, _P, _P, _P, _P, _P, _P, _P, _P, _P]),
     "pack_build": ("pack_build", [_P, _L, _I, _P, _I, _I, _I, _P]),
+    # the row tiers: kernel M (vseg_build.cu) and N (vrle_build.cu)
+    "seg_syms": ("vseg_build", [_P, _L, _I, _I, _P, _P]),
+    "vseg_rows": ("vseg_build", [_P, _L, _I, _P, _P, _I, _P, _P, _I, _I,
+                                 _P, _I, _I, _I, _P, _P, _P, _I, _I, _P]),
+    "side_rows": ("vseg_build", [_P, _L, _I, _P, _P, _I, _I, _I, _P]),
+    "vrle_slot_count": ("vrle_build", [_P, _L, _I, _P, _P, _I, _P, _P]),
+    "vrle_pack": ("vrle_build", [_P, _L, _I, _P, _P, _I, _P, _P, _I, _P]),
+    "cont_flatten": ("vrle_build", [_P, _L, _I, _I, _P, _P, _P, _I, _L,
+                                    _P]),
     "backward_search": ("backward_search", [_V, _P, _I, _I, _I, _I, _P, _P]),
     "lf_locate": ("lf_walk", [_V, _P, _I, _P, _P, _P, _L, _P, _I, _P]),
     "lf_extract": ("lf_walk", [_V, _P, _I, _I, _P, _P]),

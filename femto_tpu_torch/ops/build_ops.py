@@ -1,19 +1,24 @@
-"""On-device index packaging (full, compact and packed tiers): kernel
-wrappers + plain versions.
+"""On-device index packaging (all five storage tiers): kernel wrappers +
+plain versions.
 
-The counterpart of femto_tpu/ops/build_ops.py for those tiers.  The aux
-word and the suffix-sort payload are kernel K (csrc/sa_payload.cu); the
-split of the pulled words with the occ histogram and checkpoints is kernel
-A (absolute int32 checkpoints) or A' (uint16 relative ones + L1 rows over
-the used columns), both in csrc/occ_build.cu; the mark bitmap, checkpoints, doc
+The counterpart of femto_tpu/ops/build_ops.py.  The aux word and the
+suffix-sort payload are kernel K (csrc/sa_payload.cu); the split of the
+pulled words with the occ histogram and checkpoints is kernel A (absolute
+int32 checkpoints) or A' (uint16 relative ones + L1 rows over the used
+columns), both in csrc/occ_build.cu; the mark bitmap, checkpoints, doc
 SEOF rows and bit-packed mark values are kernel B (csrc/marks_build.cu);
-the packed tier's BWT words are kernel F (csrc/pack_build.cu).  Each
+the packed tier's BWT words are kernel F (csrc/pack_build.cu).  The row
+tiers (vseg, vrle) take A's histogram and B's marks into kernel M
+(csrc/vseg_build.cu: symbol lists, serving rows, side table) and, on
+vrle, kernel N (csrc/vrle_build.cu: slot counts, packed slots, the flat
+continuation store), around femto_tpu's host plan (vrle_plan).  Each
 wrapper launches its kernel for tensors on the card and takes the plain
 PyTorch version beside it for tensors on the CPU.
 """
 
 from __future__ import annotations
 
+from dataclasses import dataclass
 from typing import Tuple
 
 import numpy as np
@@ -23,7 +28,7 @@ from .. import kernels
 from ..alphabet import ALPHA_SIZE, INVALID_ALPHA
 from ..fmindex import FMArrays, l1_group_for
 from ..suffix import text_alphabet
-from .rank import i32_to_u16, i64_to_u32, u16_to_i32
+from .rank import i32_to_u16, i64_to_u32, u16_to_i32, u32_to_i64
 from .sort_ops import gather_rows
 
 
@@ -164,24 +169,30 @@ def occ_build(pull: torch.Tensor, *, n_seg: int, seg: int):
 
 
 def occ_build_compact_plain(pull: torch.Tensor, alpha_rev: torch.Tensor, *,
-                            n_seg: int, seg: int):
+                            n_seg: int, seg: int, want_hist: bool = False):
     """(bwt uint16[n_seg, seg], a_row int32[n], occ_ckpt uint16[n_seg, K],
     occ_l1 int32[n_seg/grp, K], C int32[K+1]) over the K used symbols
     alpha_rev (int32[K], ascending; every symbol on the compact tier):
-    femto_tpu's _ckpt_stage(compact=True) of the used columns."""
+    femto_tpu's _ckpt_stage(compact=True) of the used columns.  With
+    want_hist, the per-segment counts of those columns (int32[n_seg, K],
+    the row tiers' input) come last."""
     grp = l1_group_for(seg)
     bwt, a_row, per_seg = _split_hist(pull, n_seg=n_seg, seg=seg)
-    occ, C = _checkpoints(per_seg[:, alpha_rev.long()])
+    used = per_seg[:, alpha_rev.long()]
+    occ, C = _checkpoints(used)
     occ_l1 = occ[::grp]
     rel = occ - torch.repeat_interleave(occ_l1, grp, dim=0)
-    return (bwt, a_row, i32_to_u16(rel.to(torch.int32)),
-            occ_l1.to(torch.int32), C)
+    out = (bwt, a_row, i32_to_u16(rel.to(torch.int32)),
+           occ_l1.to(torch.int32), C)
+    return out + (used.to(torch.int32),) if want_hist else out
 
 
 def occ_build_compact(pull: torch.Tensor, alpha_map: torch.Tensor,
-                      alpha_rev: torch.Tensor, *, n_seg: int, seg: int):
+                      alpha_rev: torch.Tensor, *, n_seg: int, seg: int,
+                      want_hist: bool = False):
     """Kernel A' on the card (see occ_build_compact_plain for the
-    outputs); alpha_map int32[261] maps each symbol to its column or -1."""
+    outputs); alpha_map int32[261] maps each symbol to its column or -1.
+    The histogram is the kernel's own scratch, returned with want_hist."""
     kernels.check(pull, "pull", torch.int64, 1)
     kernels.check(alpha_map, "alpha_map", torch.int32, 1, (ALPHA_SIZE,))
     kernels.check(alpha_rev, "alpha_rev", torch.int32, 1)
@@ -191,7 +202,8 @@ def occ_build_compact(pull: torch.Tensor, alpha_map: torch.Tensor,
         raise ValueError("need seg % 32 == 0, n_seg * seg > n and n_seg a "
                          "multiple of the L1 group")
     if not kernels.on_card(pull, alpha_map, alpha_rev):
-        return occ_build_compact_plain(pull, alpha_rev, n_seg=n_seg, seg=seg)
+        return occ_build_compact_plain(pull, alpha_rev, n_seg=n_seg, seg=seg,
+                                       want_hist=want_hist)
     dev = pull.device
     K = alpha_rev.shape[0]
 
@@ -209,7 +221,8 @@ def occ_build_compact(pull: torch.Tensor, alpha_map: torch.Tensor,
                    alpha_map.data_ptr(), K, grp, bwt.data_ptr(),
                    a_row.data_ptr(), occ.data_ptr(), occ_l1.data_ptr(),
                    C.data_ptr(), hist.data_ptr(), tiles.data_ptr())
-    return bwt, a_row, occ, occ_l1, C
+    out = (bwt, a_row, occ, occ_l1, C)
+    return out + (hist,) if want_hist else out
 
 
 # ---------------------------------------------------------------------------
@@ -368,26 +381,597 @@ def marks_build(sa: torch.Tensor, a_row: torch.Tensor, *, n_seg: int,
             totals[0], doc_seof_rows)
 
 
+# ---------------------------------------------------------------------------
+# The row tiers (vseg, vrle): host geometry and plan
+# ---------------------------------------------------------------------------
+
+VSEG_SMAX = 32   # vseg symbol-list capacity; more symbols -> nsym 255
+VRLE_SMAX = 64   # vrle symbol-list capacity (w_s <= 6 keeps 4 length bits)
+VRLE_CONT_G = 16  # words per granule row of the flat continuation store
+SYM_PAD = 1 << 20  # symbol-list pad before the stored lists clip it
+
+
+def vseg_width_for(seg: int, w: int):
+    """(effective width, words per row) for candidate width w: the query
+    side re-derives the width as 32 // ceil(seg / W), so the build
+    canonicalises w up to that value (femto_tpu's _vseg_width_for)."""
+    W = -(-seg // (32 // w))
+    per_word = -(-seg // W)
+    return 32 // per_word, W
+
+
+def vseg_width_candidates(seg: int):
+    """Deduped (w_eff, W) candidate main widths."""
+    out, seen = [], set()
+    for w in (1, 2, 3, 4, 5):
+        w_eff, W = vseg_width_for(seg, w)
+        if W not in seen:
+            seen.add(W)
+            out.append((w_eff, W))
+    return out
+
+
+def vseg_sym_store(w_main: int, wide: bool) -> int:
+    """Stored symbol-list length: min(SMAX, 2^w_main) rounded up to the
+    per-word packing unit (4 u8 / 2 u16 symbols per uint32)."""
+    per = 2 if wide else 4
+    return -(-min(VSEG_SMAX, 1 << w_main) // per) * per
+
+
+def vrle_ws_np(nsym: np.ndarray) -> np.ndarray:
+    """Per-segment RLE symbol width ceil(log2(max(nsym, 2))), capped at 6."""
+    n = nsym.astype(np.int64)
+    return (1 + (n > 2) + (n > 4) + (n > 8) + (n > 16) + (n > 32)).astype(
+        np.int32)
+
+
+def vrle_slot_geom_np(nsym: np.ndarray):
+    """(w_slot, lenbits) per segment: 6/8/10-bit slots for symbol widths
+    1-2/3-4/5-6, lenbits = w_slot - ws."""
+    ws = vrle_ws_np(nsym)
+    w_slot = 6 + 2 * ((ws > 2).astype(np.int32) + (ws > 4).astype(np.int32))
+    return w_slot, w_slot - ws
+
+
+def vrle_plan(nsym_np: np.ndarray, slots_np: np.ndarray, *, seg: int,
+              n_seg: int, wide: bool, Wside: int):
+    """Host argmin over (w_main, A_words, C_words) -- femto_tpu's
+    vrle_plan, line for line: per-segment mode = RLE slots if the
+    segment's slot bits fit the main code area, RLE plus a continuation
+    if they fit A + C words, else fixed w_main-bit codes if its alphabet
+    fits, else the side table.  Returns (w_main, A_words, C_words,
+    s_store, rle_np, cont_np, wfit_np)."""
+    sym_b = 2 if wide else 1
+    per = 2 if wide else 4
+    rle_alpha = (nsym_np <= VRLE_SMAX) & (nsym_np < 255)
+    w_slot_np, _ = vrle_slot_geom_np(nsym_np)
+    bits_np = slots_np.astype(np.int64) * w_slot_np
+    best = None
+    pcts = np.percentile(bits_np / 32.0,
+                         [30, 40, 50, 60, 70, 80, 90, 95, 99]) \
+        if n_seg else np.array([seg])
+    for w_eff, Wm in vseg_width_candidates(seg):
+        wfit = (nsym_np <= (1 << w_eff)) & (nsym_np < 255)
+        a_cands = {Wm}
+        for p in pcts:
+            a_cands.add(max(int(np.ceil(p)), Wm))
+        a_cands.add(seg // 4)
+        for A in sorted(a_cands):
+            if A > max(seg // 2, Wm):
+                continue
+            for C in (0, A // 2, A, 2 * A):
+                if C > seg // 4 and C > A:
+                    continue
+                rle = rle_alpha & (bits_np <= A * 32)
+                cont = (rle_alpha & ~rle
+                        & (bits_np <= (A + C) * 32)) if C else \
+                    np.zeros_like(rle)
+                cov = rle | cont | wfit
+                n_cov = int(cov.sum())
+                smax_cov = int(nsym_np[cov].max()) if n_cov else 2
+                s_store = -(-min(max(smax_cov, 2), VRLE_SMAX) // per) * per
+                cont_words = int(np.sum(
+                    (-(-bits_np[cont] // 32)) - A)) if cont.any() else 0
+                bytes_w = (n_seg * (A * 4 + s_store * sym_b)
+                           + cont_words * 4
+                           + int((~cov).sum()) * Wside * 4)
+                if best is None or bytes_w < best[0]:
+                    best = (bytes_w, w_eff, A, C, s_store, rle, cont, wfit)
+    _, w_main, A_words, C_words, s_store, rle_np, cont_np, wfit_np = best
+    return w_main, A_words, C_words, s_store, rle_np, cont_np, wfit_np
+
+
+# ---------------------------------------------------------------------------
+# Kernel M: symbol lists and row assembly (vseg, and vrle's rows)
+# ---------------------------------------------------------------------------
+
+
+def seg_syms_plain(hist: torch.Tensor, smax: int):
+    """(syms int32[n_seg, smax] the sorted present codes of each segment,
+    pad SYM_PAD; nsym uint8[n_seg], 255 above smax) from the per-segment
+    histogram over the dense codes (femto_tpu's _stats_from_hist)."""
+    n_seg, K = hist.shape
+    pres = hist > 0
+    nsym = pres.sum(dim=1)
+    rank = torch.cumsum(pres.long(), dim=1) - 1
+    tgt = torch.where(pres & (rank < smax), rank, smax)
+    codes = torch.arange(K, dtype=torch.int32, device=hist.device)
+    syms = torch.full((n_seg, smax + 1), SYM_PAD, dtype=torch.int32,
+                      device=hist.device)
+    syms.scatter_(1, tgt, codes.expand(n_seg, K).contiguous())
+    return (syms[:, :smax].contiguous(),
+            torch.where(nsym > smax, 255, nsym).to(torch.uint8))
+
+
+def seg_syms(hist: torch.Tensor, smax: int):
+    """Kernel M's symbol lists on the card (see seg_syms_plain)."""
+    kernels.check(hist, "hist", torch.int32, 2)
+    if not 1 <= smax <= 255:
+        raise ValueError("smax must lie in [1, 255]")
+    if not kernels.on_card(hist):
+        return seg_syms_plain(hist, smax)
+    n_seg, K = hist.shape
+    syms = torch.empty((n_seg, smax), dtype=torch.int32, device=hist.device)
+    nsym = torch.empty(n_seg, dtype=torch.uint8, device=hist.device)
+    kernels.launch("seg_syms", hist.data_ptr(), n_seg, K, smax,
+                   syms.data_ptr(), nsym.data_ptr())
+    return syms, nsym
+
+
+def _dense_codes(bwt: torch.Tensor, alpha_map: torch.Tensor) -> torch.Tensor:
+    """int64[n_seg, seg] dense code of each BWT symbol; the pad rows past
+    n (INVALID_ALPHA) get a code above every symbol-list entry."""
+    sym = u16_to_i32(bwt).long()
+    valid = sym < ALPHA_SIZE
+    return torch.where(valid, alpha_map[torch.where(valid, sym, 0)].long(),
+                       SYM_PAD + 7)
+
+
+def _local_codes(bwt: torch.Tensor, alpha_map: torch.Tensor,
+                 syms: torch.Tensor) -> torch.Tensor:
+    """int64[n_seg, seg] local code of each position: the number of the
+    segment's listed symbols below its dense code (its rank in the list
+    when listed); 0 on the pad rows."""
+    codes = _dense_codes(bwt, alpha_map)
+    lc = torch.searchsorted(syms.long().contiguous(), codes.contiguous())
+    return torch.where(codes < SYM_PAD, lc, 0)
+
+
+def _pack_fields(vals: torch.Tensor, w: int) -> torch.Tensor:
+    """int64[R, seg] values of w bits -> int64[R, ceil(seg / (32 // w))]
+    words, 32 // w fields to a word from bit 0 up, zero fields past seg."""
+    per = 32 // w
+    R, seg = vals.shape
+    W = -(-seg // per)
+    full = vals.new_zeros((R, W * per))
+    full[:, :seg] = vals
+    shifts = torch.arange(per, device=vals.device) * w
+    return (full.view(R, W, per) << shifts).sum(dim=2)
+
+
+def vseg_rows_plain(bwt: torch.Tensor, alpha_map: torch.Tensor,
+                    syms: torch.Tensor, nsym: torch.Tensor,
+                    seg_woff: torch.Tensor, mark_bits: torch.Tensor,
+                    mark_ckpt: torch.Tensor, occ_rel: torch.Tensor, *,
+                    w_main: int, code_words: int, s_store: int, wide: bool,
+                    rle: torch.Tensor | None = None) -> torch.Tensor:
+    """uint32[n_seg, total] serving rows: [code area | symbol list | mark
+    words | mark checkpoint | uint16-relative checkpoints in pairs].
+
+    The code area (code_words words) holds each segment's local codes at
+    w_main bits where its alphabet fits (nsym <= 2^w_main, not 255), else
+    zeros (its codes live in the side table); a segment with seg_woff < 0
+    takes the first code_words words of its row of rle (vrle).  The list
+    holds the first s_store symbols, pads clipped to 0xFF (u8) or 0xFFFF
+    (wide: u16), 4 or 2 to a word."""
+    n_seg, _ = bwt.shape
+    lc = _local_codes(bwt, alpha_map, syms)
+    fits = (nsym.long() <= (1 << w_main)) & (nsym.long() < 255)
+    packed = _pack_fields(torch.where(fits[:, None], lc, 0), w_main)
+    code = packed.new_zeros((n_seg, code_words))
+    code[:, :packed.shape[1]] = packed
+    if rle is not None:
+        code = torch.where((seg_woff < 0)[:, None],
+                           u32_to_i64(rle[:, :code_words]), code)
+    per = 2 if wide else 4
+    sv = torch.clamp(syms[:, :s_store].long(), max=0xFFFF if wide else 0xFF)
+    shifts = torch.arange(per, device=bwt.device) * (32 // per)
+    sym_words = (sv.view(n_seg, s_store // per, per) << shifts).sum(dim=2)
+    rel = u16_to_i32(occ_rel).long()
+    if rel.shape[1] % 2:
+        rel = torch.cat([rel, rel.new_zeros((n_seg, 1))], dim=1)
+    rel_words = rel[:, 0::2] | (rel[:, 1::2] << 16)
+    return i64_to_u32(torch.cat(
+        [code, sym_words, u32_to_i64(mark_bits),
+         (mark_ckpt.long() & 0xFFFFFFFF)[:, None], rel_words], dim=1))
+
+
+def vseg_rows(bwt: torch.Tensor, alpha_map: torch.Tensor, syms: torch.Tensor,
+              nsym: torch.Tensor, seg_woff: torch.Tensor,
+              mark_bits: torch.Tensor, mark_ckpt: torch.Tensor,
+              occ_rel: torch.Tensor, *, w_main: int, code_words: int,
+              s_store: int, wide: bool, rle: torch.Tensor | None = None
+              ) -> torch.Tensor:
+    """Kernel M's row assembly on the card (see vseg_rows_plain)."""
+    kernels.check(bwt, "bwt", torch.uint16, 2)
+    n_seg, seg = bwt.shape
+    kernels.check(alpha_map, "alpha_map", torch.int32, 1, (ALPHA_SIZE,))
+    kernels.check(syms, "syms", torch.int32, 2)
+    kernels.check(nsym, "nsym", torch.uint8, 1, (n_seg,))
+    kernels.check(seg_woff, "seg_woff", torch.int32, 1, (n_seg,))
+    kernels.check(mark_bits, "mark_bits", torch.uint32, 2, (n_seg, seg // 32))
+    kernels.check(mark_ckpt, "mark_ckpt", torch.int32, 1, (n_seg,))
+    kernels.check(occ_rel, "occ_rel", torch.uint16, 2)
+    per = 2 if wide else 4
+    if (w_main not in range(1, 17) or s_store % per
+            or not 0 < s_store <= syms.shape[1]
+            or code_words < -(-seg // (32 // w_main))
+            or occ_rel.shape[0] != n_seg or syms.shape[0] != n_seg):
+        raise ValueError("inconsistent row geometry")
+    if rle is not None:
+        kernels.check(rle, "rle", torch.uint32, 2)
+        if rle.shape[0] != n_seg or rle.shape[1] < code_words:
+            raise ValueError("rle must be [n_seg, >= code_words]")
+    tensors = (bwt, alpha_map, syms, nsym, seg_woff, mark_bits, mark_ckpt,
+               occ_rel) + ((rle,) if rle is not None else ())
+    if not kernels.on_card(*tensors):
+        return vseg_rows_plain(bwt, alpha_map, syms, nsym, seg_woff,
+                               mark_bits, mark_ckpt, occ_rel, w_main=w_main,
+                               code_words=code_words, s_store=s_store,
+                               wide=wide, rle=rle)
+    K = occ_rel.shape[1]
+    total = code_words + s_store // per + seg // 32 + 1 + -(-K // 2)
+    out = torch.empty((n_seg, total), dtype=torch.uint32, device=bwt.device)
+    kernels.launch("vseg_rows", bwt.data_ptr(), n_seg, seg,
+                   alpha_map.data_ptr(), syms.data_ptr(), syms.shape[1],
+                   nsym.data_ptr(), seg_woff.data_ptr(), w_main, code_words,
+                   rle.data_ptr() if rle is not None else None,
+                   rle.shape[1] if rle is not None else 0, s_store, int(wide),
+                   mark_bits.data_ptr(), mark_ckpt.data_ptr(),
+                   occ_rel.data_ptr(), K, total, out.data_ptr())
+    return out
+
+
+def side_rows_plain(bwt: torch.Tensor, alpha_map: torch.Tensor,
+                    ovf_idx: torch.Tensor, *, w_side: int) -> torch.Tensor:
+    """uint32[n_ovf + 1, Ws] side table: row 0 zeros, then each listed
+    segment's GLOBAL dense codes at w_side bits (0 on the pad rows)."""
+    codes = _dense_codes(bwt.view(torch.int16)[ovf_idx.long()], alpha_map)
+    words = _pack_fields(torch.where(codes < SYM_PAD, codes, 0), w_side)
+    return i64_to_u32(torch.cat([words.new_zeros((1, words.shape[1])),
+                                 words]))
+
+
+def side_rows(bwt: torch.Tensor, alpha_map: torch.Tensor,
+              ovf_idx: torch.Tensor, *, w_side: int) -> torch.Tensor:
+    """Kernel M's side table on the card (see side_rows_plain)."""
+    kernels.check(bwt, "bwt", torch.uint16, 2)
+    kernels.check(alpha_map, "alpha_map", torch.int32, 1, (ALPHA_SIZE,))
+    kernels.check(ovf_idx, "ovf_idx", torch.int32, 1)
+    if w_side not in range(1, 17):
+        raise ValueError("w_side must lie in [1, 16]")
+    if not kernels.on_card(bwt, alpha_map, ovf_idx):
+        return side_rows_plain(bwt, alpha_map, ovf_idx, w_side=w_side)
+    n_seg, seg = bwt.shape
+    Ws = -(-seg // (32 // w_side))
+    novf = ovf_idx.shape[0]
+    out = torch.empty((novf + 1, Ws), dtype=torch.uint32, device=bwt.device)
+    kernels.launch("side_rows", bwt.data_ptr(), n_seg, seg,
+                   alpha_map.data_ptr(), ovf_idx.data_ptr(), novf, w_side,
+                   Ws, out.data_ptr())
+    return out
+
+
+# ---------------------------------------------------------------------------
+# Kernel N: vrle slots
+# ---------------------------------------------------------------------------
+
+
+def _slot_starts(lc: torch.Tensor, nsym: torch.Tensor):
+    """(is_slot bool[n_seg, seg], lenbits int64[n_seg]): slot starts of
+    each segment's runs of local codes, runs split at 2^lenbits - 1."""
+    from .rank import vrle_slot_geom
+
+    seg = lc.shape[1]
+    _, lenbits = vrle_slot_geom(nsym)
+    maxlen = (1 << lenbits) - 1
+    iota = torch.arange(seg, device=lc.device).expand_as(lc)
+    brk = torch.ones_like(lc, dtype=torch.bool)
+    brk[:, 1:] = lc[:, 1:] != lc[:, :-1]
+    run_start = torch.cummax(torch.where(brk, iota, 0), dim=1).values
+    return brk | ((iota - run_start) % maxlen[:, None] == 0), lenbits
+
+
+def vrle_slot_count_plain(bwt: torch.Tensor, alpha_map: torch.Tensor,
+                          syms: torch.Tensor,
+                          nsym: torch.Tensor) -> torch.Tensor:
+    """int32[n_seg] RLE slots per segment at its own slot geometry
+    (femto_tpu's _vrle_slot_stats)."""
+    is_slot, _ = _slot_starts(_local_codes(bwt, alpha_map, syms), nsym)
+    return is_slot.sum(dim=1).to(torch.int32)
+
+
+def vrle_slot_count(bwt: torch.Tensor, alpha_map: torch.Tensor,
+                    syms: torch.Tensor, nsym: torch.Tensor) -> torch.Tensor:
+    """Kernel N's slot counts on the card (see vrle_slot_count_plain)."""
+    kernels.check(bwt, "bwt", torch.uint16, 2)
+    n_seg, seg = bwt.shape
+    kernels.check(alpha_map, "alpha_map", torch.int32, 1, (ALPHA_SIZE,))
+    kernels.check(syms, "syms", torch.int32, 2)
+    kernels.check(nsym, "nsym", torch.uint8, 1, (n_seg,))
+    if not kernels.on_card(bwt, alpha_map, syms, nsym):
+        return vrle_slot_count_plain(bwt, alpha_map, syms, nsym)
+    out = torch.empty(n_seg, dtype=torch.int32, device=bwt.device)
+    kernels.launch("vrle_slot_count", bwt.data_ptr(), n_seg, seg,
+                   alpha_map.data_ptr(), syms.data_ptr(), syms.shape[1],
+                   nsym.data_ptr(), out.data_ptr())
+    return out
+
+
+def vrle_pack_plain(bwt: torch.Tensor, alpha_map: torch.Tensor,
+                    syms: torch.Tensor, nsym: torch.Tensor,
+                    seg_woff: torch.Tensor, *, words: int) -> torch.Tensor:
+    """uint32[n_seg, words]: the RLE slots (local code << lenbits | run
+    length) of each segment with seg_woff < 0, bit-packed from bit 0 at
+    its 6/8/10-bit slot width (femto_tpu's _vrle_pack_slots, slots past
+    the words dropped); zeros for the other segments."""
+    from .rank import vrle_slot_geom
+
+    n_seg, seg = bwt.shape
+    lc = _local_codes(bwt, alpha_map, syms)
+    is_slot, lenbits = _slot_starts(lc, nsym)
+    w_slot, _ = vrle_slot_geom(nsym)
+    iota = torch.arange(seg, device=bwt.device).expand_as(lc)
+    slot_idx = torch.cumsum(is_slot.long(), dim=1) - 1
+    # a slot ends where the next one starts: suffix-min of the starts
+    idxs = torch.where(is_slot, iota, seg)
+    nxt = torch.full_like(idxs, seg)
+    nxt[:, :-1] = torch.flip(torch.cummin(torch.flip(idxs, [1]), dim=1)
+                             .values, [1])[:, 1:]
+    val = (lc << lenbits[:, None]) | (nxt - iota)
+    keep = (is_slot & (slot_idx < ((words * 32) // w_slot)[:, None])
+            & (seg_woff < 0)[:, None])
+    bp = slot_idx * w_slot[:, None]
+    wi = bp >> 5
+    sh = bp & 31
+    rowbase = torch.arange(n_seg, device=bwt.device)[:, None] * (words + 2)
+    out = torch.zeros(n_seg * (words + 2), dtype=torch.int64,
+                      device=bwt.device)
+    out.index_add_(0, (rowbase + wi)[keep], ((val << sh) & 0xFFFFFFFF)[keep])
+    hi = torch.where(sh > 0, val >> (32 - sh), 0)
+    out.index_add_(0, (rowbase + wi + 1)[keep], hi[keep])
+    return i64_to_u32(out.view(n_seg, words + 2)[:, :words])
+
+
+def vrle_pack(bwt: torch.Tensor, alpha_map: torch.Tensor, syms: torch.Tensor,
+              nsym: torch.Tensor, seg_woff: torch.Tensor, *,
+              words: int) -> torch.Tensor:
+    """Kernel N's slot packing on the card (see vrle_pack_plain)."""
+    kernels.check(bwt, "bwt", torch.uint16, 2)
+    n_seg, seg = bwt.shape
+    kernels.check(alpha_map, "alpha_map", torch.int32, 1, (ALPHA_SIZE,))
+    kernels.check(syms, "syms", torch.int32, 2)
+    kernels.check(nsym, "nsym", torch.uint8, 1, (n_seg,))
+    kernels.check(seg_woff, "seg_woff", torch.int32, 1, (n_seg,))
+    if words < 1:
+        raise ValueError("words must be >= 1")
+    if not kernels.on_card(bwt, alpha_map, syms, nsym, seg_woff):
+        return vrle_pack_plain(bwt, alpha_map, syms, nsym, seg_woff,
+                               words=words)
+    out = torch.empty((n_seg, words), dtype=torch.uint32, device=bwt.device)
+    kernels.launch("vrle_pack", bwt.data_ptr(), n_seg, seg,
+                   alpha_map.data_ptr(), syms.data_ptr(), syms.shape[1],
+                   nsym.data_ptr(), seg_woff.data_ptr(), words,
+                   out.data_ptr())
+    return out
+
+
+def cont_flatten_plain(rle: torch.Tensor, cont_idx: torch.Tensor,
+                       cwords: torch.Tensor, offs: torch.Tensor, *,
+                       first: int, total: int) -> torch.Tensor:
+    """uint32[total] flat continuation store: the words from column first
+    on of rle's row cont_idx[k], cwords[k] of them, at offs[k]; zeros
+    elsewhere (femto_tpu's _flatten_ragged with fill 0)."""
+    cols = rle.shape[1] - first
+    j = torch.arange(cols, device=rle.device)
+    valid = j[None, :] < cwords.long()[:, None]
+    idx = offs.long()[:, None] + j[None, :]
+    src = rle.view(torch.int32)[cont_idx.long(), first:]
+    out = torch.zeros(total, dtype=torch.int32, device=rle.device)
+    out[idx[valid]] = src[valid]
+    return out.view(torch.uint32)
+
+
+def cont_flatten(rle: torch.Tensor, cont_idx: torch.Tensor,
+                 cwords: torch.Tensor, offs: torch.Tensor, *, first: int,
+                 total: int) -> torch.Tensor:
+    """Kernel N's continuation store on the card (see
+    cont_flatten_plain)."""
+    kernels.check(rle, "rle", torch.uint32, 2)
+    kernels.check(cont_idx, "cont_idx", torch.int32, 1)
+    m = cont_idx.shape[0]
+    kernels.check(cwords, "cwords", torch.int32, 1, (m,))
+    kernels.check(offs, "offs", torch.int32, 1, (m,))
+    if not 0 <= first <= rle.shape[1]:
+        raise ValueError("first must lie in [0, rle.shape[1]]")
+    if not kernels.on_card(rle, cont_idx, cwords, offs):
+        return cont_flatten_plain(rle, cont_idx, cwords, offs, first=first,
+                                  total=total)
+    out = torch.empty(total, dtype=torch.uint32, device=rle.device)
+    kernels.launch("cont_flatten", rle.data_ptr(), rle.shape[0],
+                   rle.shape[1], first, cont_idx.data_ptr(),
+                   cwords.data_ptr(), offs.data_ptr(), m, total,
+                   out.data_ptr())
+    return out
+
+
+def _host_i32(a: np.ndarray, dev: torch.device) -> torch.Tensor:
+    return torch.from_numpy(np.ascontiguousarray(a, dtype=np.int32)).to(dev)
+
+
+def _side_table(bwt, alpha_map, cov: np.ndarray, w_side: int):
+    """(seg_ovf, ovf_idx) of the segments cov leaves out."""
+    ovf_idx = np.nonzero(~cov)[0].astype(np.int32)
+    if not len(ovf_idx):
+        return torch.zeros((1, 1), dtype=torch.int32,
+                           device=bwt.device).view(torch.uint32), ovf_idx
+    return side_rows(bwt, alpha_map, _host_i32(ovf_idx, bwt.device),
+                     w_side=w_side), ovf_idx
+
+
+def _sym_marker(s_store: int, wide: bool, dev) -> torch.Tensor:
+    """seg_syms: a [1, s_store] marker whose dtype says u8 or u16 lists."""
+    z = torch.zeros((1, s_store), dtype=torch.int16 if wide else torch.uint8,
+                    device=dev)
+    return z.view(torch.uint16) if wide else z
+
+
+@dataclass
+class RowPlan:
+    """What a row-tier build decides on the host from the symbol counts
+    (and, on vrle, the slot counts): the row geometry, each segment's mode
+    and the continuations' place in the flat store.  Kernel M's symbol
+    lists ride along for the assembly."""
+    tier: str
+    w_main: int
+    code_words: int        # words of the code area (vrle: A)
+    C_words: int           # vrle: the continuation budget C; vseg: 0
+    s_store: int           # symbol-list entries stored in a row
+    smax: int              # VSEG_SMAX or VRLE_SMAX
+    w_side: int
+    wide: bool             # K > 256: u16 symbol lists
+    syms: torch.Tensor     # int32[n_seg, smax] (kernel M)
+    nsym: torch.Tensor     # uint8[n_seg] (kernel M)
+    slots: np.ndarray | None    # vrle: RLE slots per segment (kernel N)
+    seg_woff: np.ndarray   # int32[n_seg]: -(2 + off), -1, 0 or side row
+    cont_idx: np.ndarray   # int32[m]: the continued segments
+    cwords: np.ndarray     # int64[m]: their continuation words
+    offs: np.ndarray       # int64[m + 1]: their offsets, the end last
+    ngr: int               # granule rows a continuation window reads
+    has_rle: bool
+
+    @property
+    def cont_total(self) -> int:
+        """Words of the flat continuation store, ngr guard granules
+        included."""
+        return int(self.offs[-1]) + self.ngr * VRLE_CONT_G
+
+
+def row_plan(tier: str, bwt: torch.Tensor, hist: torch.Tensor,
+             alpha_map: torch.Tensor) -> RowPlan:
+    """The host plan of a "vseg" or "vrle" build from kernel A''s BWT and
+    histogram -- femto_tpu's width choice (_build_vseg) and vrle_plan
+    (_build_vrle).  Kernel M makes the symbol lists and, on vrle, kernel N
+    the slot counts; only those counts cross to the host."""
+    n_seg, seg = bwt.shape
+    wide = hist.shape[1] > 256
+    w_side, Wside = vseg_width_for(seg, 9 if wide else 8)
+    smax = VSEG_SMAX if tier == "vseg" else VRLE_SMAX
+    syms, nsym = seg_syms(hist, smax)
+    nsym_np = nsym.cpu().numpy().astype(np.int32)
+    woff = np.zeros(n_seg, np.int32)
+    C_words, slots_np, ngr, has_rle = 0, None, 1, False
+    cont_idx = np.zeros(0, np.int32)
+    cwords = np.zeros(0, np.int64)
+    offs = np.zeros(1, np.int64)
+    if tier == "vseg":
+        best = None
+        for w_eff, Wm in vseg_width_candidates(seg):
+            cov = (nsym_np <= (1 << w_eff)) & (nsym_np < 255)
+            nbytes = n_seg * Wm * 4 + int((~cov).sum()) * Wside * 4
+            if best is None or nbytes < best[0]:
+                best = (nbytes, w_eff, cov)
+        _, w_main, cov = best
+        s_store = vseg_sym_store(w_main, wide)
+        code_words = -(-seg // (32 // w_main))
+    else:
+        slots_np = vrle_slot_count(bwt, alpha_map, syms, nsym).cpu().numpy()
+        (w_main, code_words, C_words, s_store, rle_np, cont_np,
+         wfit_np) = vrle_plan(nsym_np, slots_np, seg=seg, n_seg=n_seg,
+                              wide=wide, Wside=Wside)
+        cov = rle_np | cont_np | wfit_np
+        cont_idx = np.nonzero(cont_np)[0].astype(np.int32)
+        woff[rle_np] = -1
+        has_rle = bool((rle_np | cont_np).any())
+        if len(cont_idx):
+            w_slot_np, _ = vrle_slot_geom_np(nsym_np)
+            bits_np = slots_np.astype(np.int64) * w_slot_np
+            cwords = (-(-bits_np[cont_idx] // 32) - code_words)
+            G = VRLE_CONT_G
+            offs = np.zeros(len(cont_idx) + 1, np.int64)
+            np.cumsum((-(-cwords // G)) * G, out=offs[1:])
+            ngr = max(1, -(-C_words // G))
+            woff[cont_idx] = -(2 + offs[:-1].astype(np.int32))
+    woff[~cov] = np.arange(1, int((~cov).sum()) + 1, dtype=np.int32)
+    return RowPlan(tier=tier, w_main=w_main, code_words=code_words,
+                   C_words=C_words, s_store=s_store, smax=smax,
+                   w_side=w_side, wide=wide, syms=syms, nsym=nsym,
+                   slots=slots_np, seg_woff=woff, cont_idx=cont_idx,
+                   cwords=cwords, offs=offs, ngr=ngr, has_rle=has_rle)
+
+
+def build_row_tier(plan: RowPlan, bwt: torch.Tensor, alpha_map: torch.Tensor,
+                   occ_rel: torch.Tensor, mark_bits: torch.Tensor,
+                   mark_ckpt: torch.Tensor):
+    """(serving rows, the row-tier fields) of a "vseg" or "vrle" index
+    from kernel A' (bwt, the relative checkpoints), kernel B (the marks)
+    and the build's row_plan -- femto_tpu's _build_vseg and _build_vrle:
+    kernel N packs the run-length slots and the continuation store, kernel
+    M the rows and the side table."""
+    dev = bwt.device
+    syms, nsym = plan.syms, plan.nsym
+    seg_woff = _host_i32(plan.seg_woff, dev)
+    extra = {}
+    rle = None
+    if plan.tier == "vrle":
+        if plan.has_rle:
+            rle = vrle_pack(bwt, alpha_map, syms, nsym, seg_woff,
+                            words=plan.code_words + plan.C_words)
+        m = len(plan.cont_idx)
+        if m:
+            flat = cont_flatten(
+                rle, _host_i32(plan.cont_idx, dev),
+                _host_i32(plan.cwords, dev), _host_i32(plan.offs[:-1], dev),
+                first=plan.code_words, total=plan.cont_total)
+            extra["seg_cont"] = flat.view(-1, VRLE_CONT_G)
+        else:
+            extra["seg_cont"] = torch.zeros(
+                (1, 1), dtype=torch.int32, device=dev).view(torch.uint32)
+        scheme = (3 + plan.ngr if m else 3) if plan.has_rle else 1
+        extra["seg_rle"] = torch.zeros((scheme, plan.w_main),
+                                       dtype=torch.int32, device=dev)
+    rows = vseg_rows(bwt, alpha_map, syms, nsym, seg_woff, mark_bits,
+                     mark_ckpt, occ_rel, w_main=plan.w_main,
+                     code_words=plan.code_words, s_store=plan.s_store,
+                     wide=plan.wide, rle=rle)
+    del rle
+    seg_ovf, _ = _side_table(bwt, alpha_map, plan.seg_woff <= 0,
+                             plan.w_side)
+    extra.update(seg_ovf=seg_ovf, seg_nsym=nsym, seg_woff=seg_woff,
+                 seg_syms=_sym_marker(plan.s_store, plan.wide, dev))
+    return rows, extra
+
+
 def build_fm_arrays_device(text: torch.Tensor, sa: torch.Tensor,
                            doc_starts: torch.Tensor, *, n: int, seg: int,
                            mark_period: int, ndocs: int, tier: str = "full",
                            pull: torch.Tensor | None = None,
                            alpha: np.ndarray | None = None
                            ) -> Tuple[FMArrays, torch.Tensor, int]:
-    """Assemble FMArrays of tier "full", "compact" or "packed" on the
-    tensors' device.  Returns (arrays, n_marks scalar tensor, alpha_used:
-    K on the packed tier, else 0).
+    """Assemble FMArrays of tier "full", "compact", "packed", "vseg" or
+    "vrle" on the tensors' device.  Returns (arrays, n_marks scalar
+    tensor, alpha_used: K on the remapped tiers, else 0).
 
     pull: the BWT + aux words suffix_array pulled from build_sa_payload's
     payload (int64[n]); gathered here through sa when not given.  alpha:
     the symbols in the text, ascending, as suffix.text_alphabet gives them
-    (the packed tier's dense alphabet); found here by that one histogram
+    (the remapped tiers' dense alphabet); found here by that one histogram
     of the text on its device when not given (a host np.bincount of the
     text, femto_tpu's way, made a 256 MiB build on the H100's host take
     1.71 s instead of 0.25 s, PERF.md)."""
-    if tier not in ("full", "compact", "packed"):
-        raise NotImplementedError(
-            f"tier={tier!r} is not ported yet (ROADMAP.md Q1 item 6)")
+    if tier not in ("full", "compact", "packed", "vseg", "vrle"):
+        raise ValueError(f"unknown tier {tier!r}")
+    row_tier = tier in ("vseg", "vrle")
     if pull is None:
         pull = gather_rows(
             build_sa_payload(text, doc_starts, n=n, mark_period=mark_period,
@@ -403,7 +987,7 @@ def build_fm_arrays_device(text: torch.Tensor, sa: torch.Tensor,
         # compact tiers: uint16 relative checkpoints need whole L1 groups
         grp = l1_group_for(seg)
         n_seg = -(-n_seg // grp) * grp
-        if tier == "packed":
+        if tier != "compact":
             used = np.asarray(text_alphabet(text) if alpha is None else alpha,
                               dtype=np.int32)
             if used.size and used.max() >= ALPHA_SIZE:
@@ -413,18 +997,32 @@ def build_fm_arrays_device(text: torch.Tensor, sa: torch.Tensor,
             amap[used] = np.arange(alpha_used, dtype=np.int32)
             alpha_map = torch.from_numpy(amap).to(dev)
             alpha_rev = torch.from_numpy(used).to(dev)
-        bwt, a_row, occ_ckpt, occ_l1, C = occ_build_compact(
-            pull, alpha_map, alpha_rev, n_seg=n_seg, seg=seg)
+        bwt, a_row, occ_ckpt, occ_l1, C, *hist = occ_build_compact(
+            pull, alpha_map, alpha_rev, n_seg=n_seg, seg=seg,
+            want_hist=row_tier)
         if tier == "packed":
             per_word, bits = pack_widths(alpha_used)
             bwt = pack_build(bwt, alpha_map, per_word=per_word, bits=bits)
     mark_bits, mark_ckpt, mark_vals, mark_meta, n_marks, doc_seof_rows = \
         marks_build(sa, a_row, n_seg=n_seg, seg=seg, mark_period=mark_period,
                     ndocs=ndocs)
+    del a_row
+    extra = {}
+    if row_tier:
+        # kernel M (and N on vrle) after B: the rows carry the marks and
+        # checkpoints, which stay behind as one-row dummies
+        plan = row_plan(tier, bwt, hist[0], alpha_map)
+        del hist
+        bwt, extra = build_row_tier(plan, bwt, alpha_map, occ_ckpt,
+                                    mark_bits, mark_ckpt)
+        del plan
+        occ_ckpt = occ_ckpt[:1].clone()
+        mark_bits = mark_bits[:1].clone()
+        mark_ckpt = mark_ckpt[:1].clone()
     arrays = FMArrays(
         bwt=bwt, occ_ckpt=occ_ckpt, occ_l1=occ_l1, C=C, mark_bits=mark_bits,
         mark_ckpt=mark_ckpt, mark_vals=mark_vals, doc_starts=doc_starts,
         doc_seof_rows=doc_seof_rows, alpha_map=alpha_map,
-        alpha_rev=alpha_rev, mark_meta=mark_meta,
+        alpha_rev=alpha_rev, mark_meta=mark_meta, **extra,
     )
     return arrays, n_marks, alpha_used

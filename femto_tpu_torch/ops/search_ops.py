@@ -1,5 +1,6 @@
 """Backward search, locate, extraction and psi walks: kernel wrappers +
-plain versions, over the full, compact and packed tiers.
+plain versions, over every storage tier (full, compact, packed, vseg,
+vrle).
 
 The counterparts of femto_tpu/ops/search_ops.py backward_search,
 locate_rows, extract_backward and psi_step (scanned as search.py
@@ -29,9 +30,11 @@ def fm_view(arrays: FMArrays):
     n_seg = arrays.bwt.shape[0]
     seg = R.seg_size(arrays)
     K = R.alpha_count(arrays)
+    row_tier = R.is_row_tier(arrays)
     kernels.check(arrays.C, "C", torch.int32, 1)
+    # the row tiers keep their marks in the rows: one-row dummies here
     kernels.check(arrays.mark_bits, "mark_bits", torch.uint32, 2,
-                  (n_seg, seg // 32))
+                  (1 if row_tier else n_seg, seg // 32))
     if seg % 32 != 0 or arrays.bwt.data_ptr() % 16 != 0:
         raise ValueError("bwt rows must be 16-byte aligned (seg % 32 == 0)")
     view = kernels.FmView(
@@ -43,7 +46,7 @@ def fm_view(arrays: FMArrays):
         kernels.check(arrays.occ_ckpt, "occ_ckpt", torch.int32, 2, (n_seg, K))
     else:
         kernels.check(arrays.occ_ckpt, "occ_ckpt", torch.uint16, 2,
-                      (n_seg, K))
+                      (1 if row_tier else n_seg, K))
         grp = R.l1_grp(arrays)
         kernels.check(arrays.occ_l1, "occ_l1", torch.int32, 2,
                       (n_seg // grp, K))
@@ -58,6 +61,8 @@ def fm_view(arrays: FMArrays):
         view.W, view.per_word, view.bits = arrays.bwt.shape[1], per_word, bits
     elif lay == "compact":
         kernels.check(arrays.bwt, "bwt", torch.uint16, 2, (n_seg, seg))
+    elif row_tier:
+        _row_view(arrays, view)
     if R.is_remapped(arrays):
         kernels.check(arrays.alpha_map, "alpha_map", torch.int32, 1,
                       (ALPHA_SIZE,))
@@ -67,9 +72,43 @@ def fm_view(arrays: FMArrays):
     return view, lay
 
 
+def _row_view(arrays: FMArrays, view) -> None:
+    """Fill the row tiers' part of a view from ops/rank.VsegGeom, after
+    checking the row-tier fields."""
+    g = R.VsegGeom(arrays)
+    n_seg = arrays.bwt.shape[0]
+    kernels.check(arrays.bwt, "bwt", torch.uint32, 2)
+    kernels.check(arrays.seg_nsym, "seg_nsym", torch.uint8, 1, (n_seg,))
+    kernels.check(arrays.seg_woff, "seg_woff", torch.int32, 1, (n_seg,))
+    kernels.check(arrays.seg_ovf, "seg_ovf", torch.uint32, 2)
+    if g.W < g.Wmode or g.w_main not in range(1, 17) or not 1 <= g.S <= 255:
+        raise ValueError("row geometry does not fit the row's shape")
+    if g.n_side > 1 and g.Ws != -(-g.seg // (32 // g.w_side)):
+        raise ValueError("side rows do not hold seg codes")
+    view.seg_ovf = arrays.seg_ovf.data_ptr()
+    view.seg_nsym = arrays.seg_nsym.data_ptr()
+    view.seg_woff = arrays.seg_woff.data_ptr()
+    view.row_words, view.code_words, view.w_main = g.total, g.W, g.w_main
+    view.off_syms, view.off_mk = g.off_syms, g.off_mk
+    view.off_mck, view.off_rel = g.off_mck, g.off_rel
+    view.S, view.wide = g.S, int(g.wide)
+    view.w_side, view.side_words, view.n_side = g.w_side, g.Ws, g.n_side
+    if R.vrle_flat_cont(arrays):
+        kernels.check(arrays.seg_cont, "seg_cont", torch.uint32, 2)
+        view.seg_cont = arrays.seg_cont.data_ptr()
+        view.G = arrays.seg_cont.shape[1]
+        view.ngr = arrays.seg_rle.shape[0] - 3
+        view.X = arrays.seg_cont.shape[0]
+
+
 def _index_tensors(arrays: FMArrays):
-    return (arrays.bwt, arrays.occ_ckpt, arrays.occ_l1, arrays.C,
-            arrays.alpha_map, arrays.alpha_rev)
+    ts = (arrays.bwt, arrays.occ_ckpt, arrays.occ_l1, arrays.C,
+          arrays.alpha_map, arrays.alpha_rev)
+    if R.is_row_tier(arrays):
+        ts += (arrays.seg_ovf, arrays.seg_nsym, arrays.seg_woff)
+        if arrays.seg_cont is not None:
+            ts += (arrays.seg_cont,)
+    return ts
 
 
 # ---------------------------------------------------------------------------

@@ -201,7 +201,7 @@ def test_marks_build_plain_matches_jax(corpus, seg, mark_period):
 
 
 @pytest.mark.parametrize("kwargs", [
-    {"tier": "vseg"}, {"tier": "vrle"}, {"device_build": False},
+    {"device_build": False},
     {"pad_shape": (100, 4)}, {"text_dev16": torch.zeros(1)},
     {"checkpoint_dir": "unused"}, {"doc_chunks": True},
 ])

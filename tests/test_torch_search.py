@@ -268,7 +268,8 @@ def test_flat_files_are_not_ported_yet(tmp_path):
 
 
 def test_other_tiers_are_refused():
+    """Paged serving (a seg_slot row-cache map) is not ported yet."""
     jix = ft.build_index(ft.prepare_documents(_graft_docs()), seg=64,
                          mark_period=8, tier="vseg")
     with pytest.raises(NotImplementedError, match="ROADMAP"):
-        _carry(jix)
+        _carry(jix, seg_slot=np.zeros(jix.meta.n_seg, np.int32))
