@@ -17,7 +17,15 @@ non-zero):
    give them (that corpus, its zipf documents alone, 8 MiB of prose at
    seg 2048), the builds of every tier, and the search kernels on each
    layout (full, compact, packed, vseg, vrle; the packed one also at a
-   31-symbol alphabet, vseg and vrle also on the prose);
+   31-symbol alphabet, vseg and vrle also on the prose); the query
+   engine's kernels on each of those indexes: kernel C's backward_step
+   (with -1, absent and out-of-alphabet lanes) and backward_search_steps,
+   one layer of kernel R's regex_fork, H and regex_merge from fixed
+   frontiers (exact, approximate, an NFA too wide for shared memory; the
+   merge also at capacities that overflow), and on the five layouts a
+   whole run_regexp_device on the card against the same search on a CPU
+   copy of the index (the plain versions) and the host engine, with a
+   forced capacity retry;
 4. the first main path at full size (a 256 MiB zipf-English corpus in
    64 KiB documents): build_index(tier="full", seg=256, mark_period=20),
    count of 32768 16-symbol patterns, locate of 65536 rows (walk and
@@ -45,18 +53,34 @@ non-zero):
    scan), the prose vrle index through a .ftpu file and back; it fails
    unless the prose vrle index holds run-length and continued segments;
    segments by mode and bytes per character of each tier;
+4d. the fourth main path, the query engine: bench.py's two regex
+   queries through run_regexp_device on phase 4's zipf full, compact and
+   packed indexes, and ten regex, approximate, Boolean and icase queries
+   through count_query, docs_query and find_strings on the prose vseg and
+   vrle indexes, backward_search_steps on all five; every answer held to
+   the host engine on the same index (which must not have run during the
+   device part: no query may take term_ranges' fallback), exact regexes
+   to a text scan with Python re, Boolean document sets to scans of
+   their terms; per query the median of 3 latencies, layers, the widest
+   live frontier, match ranges and host reads of the device (syncs); the
+   launch counts of the device part (path "query") and of the host
+   engine's run (path "query_host") are read apart;
 5. numbers: medians of 3 runs, per-kernel times beside their bounds, their
    plain versions and a one-call PyTorch yardstick where one exists; the
    kernels at the main paths' shapes are compared with their plain
    versions again (that one comparison run times the plain version); the
    "kernels" line has one row per kernel and main path that launched it,
-   with that path's own launch count;
+   with that path's own launch count; kernel R's fork and merge and H are
+   also held to their plain versions at the widest layers of APPROX 2
+   parameter and 0{1,64}1 on the prose vrle index;
 6. where the time goes: device time by kernel and the device's busy share
    over one build, count, locate and extract of the full tier, one
    build, count, locate and context of the packed tier, the vseg and vrle
-   builds, and one build, count, locate and context of the prose vrle
-   index (torch.profiler);
-   a build whose device items include a library sort or scan fails, and
+   builds, one build, count, locate and context of the prose vrle
+   index, and one APPROX 1 ther query on the zipf full and the prose vrle
+   index (with the host time per layer) (torch.profiler);
+   a build or query whose device items include a library sort or scan
+   fails, and
    the build's device time outside the port's own kernels and copies is
    printed by name.
 
@@ -126,6 +150,20 @@ PATH_KERNELS = {
     + tuple(f"{k}[{lay}]" for k in ("backward_search", "lf_locate",
                                     "lf_extract", "psi_walk")
             for lay in ROW_LAYOUTS),
+    # phase 4d: the device frontier on all five layouts (zipf full,
+    # compact, packed; prose vseg, vrle), H between its fork and merge,
+    # the too-few-matches report on all five, and on the prose the
+    # literal terms (C), documents (D) and strings (E); no backward_step,
+    # which only the host engine runs
+    "query": ("radix_sort_pairs", "regex_merge")
+    + tuple(f"{k}[{lay}]" for k in ("regex_fork", "backward_search_steps")
+            for lay in LAYOUTS)
+    + tuple(f"{k}[{lay}]" for k in ("backward_search", "lf_locate",
+                                    "psi_walk")
+            for lay in ROW_LAYOUTS),
+    # phase 4d's reference: the host engine (term_ranges' answer past the
+    # frontier's largest capacities) on the same queries and indexes
+    "query_host": tuple(f"backward_step[{lay}]" for lay in LAYOUTS),
 }
 KERNELS = {  # entry -> (source, the femto_tpu function it replaces)
     "occ_build": ("femto_tpu_torch/csrc/occ_build.cu",
@@ -169,11 +207,21 @@ KERNELS = {  # entry -> (source, the femto_tpu function it replaces)
     "cont_flatten": ("femto_tpu_torch/csrc/vrle_build.cu",
                      "femto_tpu/ops/build_ops.py:863"),
 }
-# device items that would mean a build fell back to a library sort or scan
+KERNELS["regex_merge"] = ("femto_tpu_torch/csrc/regex_frontier.cu",
+                          "femto_tpu/query/regexp_device.py:197")
+# device items that would mean a build or a query fell back to a library
+# sort or scan
 LIBRARY_SORT_NAMES = ("RadixSort", "Onesweep", "cub::", "thrust::")
 for _lay in LAYOUTS:
     _row = _lay in ROW_LAYOUTS  # the row tiers' own steps (K11-K13)
     KERNELS.update({
+        f"backward_step[{_lay}]": ("femto_tpu_torch/csrc/backward_search.cu",
+                                   "femto_tpu/ops/rank.py:681"),
+        f"backward_search_steps[{_lay}]": (
+            "femto_tpu_torch/csrc/backward_search.cu",
+            "femto_tpu/ops/search_ops.py:87"),
+        f"regex_fork[{_lay}]": ("femto_tpu_torch/csrc/regex_frontier.cu",
+                                "femto_tpu/query/regexp_device.py:142"),
         f"backward_search[{_lay}]": (
             "femto_tpu_torch/csrc/backward_search.cu",
             "femto_tpu/ops/rank.py:629" if _row
@@ -390,10 +438,10 @@ def _layout_bytes(arrays):
     return 2, ckpt, lambda s, off: 2 * off, remap
 
 
-def bound_backward_search(arrays, pats, n_rows, row0):
-    """Patterns + outputs + per valid step the symbol map, C[c] and, for
-    first and last, one checkpoint and the bytes of segment prefix
-    counted."""
+def _step_bytes(arrays, c, first, last, active):
+    """Bytes one FM step moves on the lanes where `active`: the symbol
+    map (c in the alphabet), C[c] (c present) and, for first and last
+    inside the segments, one checkpoint and the counted prefix."""
     import torch
 
     from femto_tpu_torch.ops import rank as R
@@ -401,21 +449,36 @@ def bound_backward_search(arrays, pats, n_rows, row0):
     seg = R.seg_size(arrays)
     n_seg = R.n_segments(arrays)
     _, ckpt, prefix, remap = _layout_bytes(arrays)
+    total = remap * int((active & (c < 261)).sum())
+    valid = active & (R.map_char(arrays, c) >= 0)
+    total += 4 * int(valid.sum())
+    for r in (first, last):
+        inside = valid & (r < n_seg * seg)
+        rs = torch.clamp(r.long(), max=n_seg * seg - 1)
+        total += int((inside * (ckpt + prefix(rs // seg, r.long() % seg))
+                      ).sum())
+    return total
+
+
+def bound_backward_search(arrays, pats, n_rows, row0, steps=False):
+    """Patterns + outputs + per valid step the symbol map, C[c] and, for
+    first and last, one checkpoint and the bytes of segment prefix
+    counted (steps: backward_search_steps, whose lanes stop once their
+    range is empty, with three more outputs)."""
+    import torch
+
+    from femto_tpu_torch.ops import rank as R
+
     B, P = pats.shape
     first = torch.full((B,), row0, dtype=torch.int32, device=pats.device)
     last = torch.full((B,), n_rows, dtype=torch.int32, device=pats.device)
-    total = 4 * B * P + 8 * B
+    total = 4 * B * P + (20 if steps else 8) * B
     for j in range(P - 1, -1, -1):
         col = pats[:, j]
         active = col >= 0
-        total += remap * int((active & (col < 261)).sum())
-        valid = active & (R.map_char(arrays, col) >= 0)
-        total += 4 * int(valid.sum())
-        for r in (first, last):
-            inside = valid & (r < n_seg * seg)
-            rs = torch.clamp(r.long(), max=n_seg * seg - 1)
-            total += int((inside * (ckpt + prefix(rs // seg, r.long() % seg))
-                          ).sum())
+        if steps:
+            active = active & (last > first)
+        total += _step_bytes(arrays, col, first, last, active)
         nf, nl = R.backward_step_pair(arrays, col, first, last)
         first = torch.where(active, nf, first)
         last = torch.where(active, nl, last)
@@ -1164,6 +1227,215 @@ def parity_prose_search(prose, ix, rng, errs, edges):
             "edge_rows": int(edge_rows.numel()), "modes_vrle": modes}
 
 
+# ---------------------------------------------------------------------------
+# the query engine: kernel C's step entries and kernel R (K1, K15)
+# ---------------------------------------------------------------------------
+
+# bench.py's two regex queries (bench.py:330-334) with its frontier caps
+ZIPF_QUERIES = {
+    "alternation": ('("the "|"and "|"ing "|"ion ")', 256),
+    "approx1": ("APPROX 1 ther", 1024),
+}
+# phase 4d (b) on the prose vseg and vrle indexes: name -> (query, the
+# Python re of an exact term or of an approximate term's word, or None,
+# icase); Booleans are scanned from their terms.  A bare space separates terms that concatenate, so a space
+# of the pattern is escaped.
+PROSE_QUERIES = {
+    "classes": (r"[Tt]he\ [a-z]{2,4}s\ ", rb"[Tt]he [a-z]{2,4}s ", False),
+    "alternation": (r"(return|yield|raise)\ ", rb"(?:return|yield|raise) ",
+                    False),
+    "repeat64": ("0{1,64}1", rb"0{1,64}1", False),
+    "approx1": ("APPROX 1 function", rb"function", False),
+    "approx2": ("APPROX 2 parameter", rb"parameter", False),
+    "and": ("array AND matrix", None, False),
+    "not": ("tensor NOT gradient", None, False),
+    "then": ("default THEN 20 None", None, False),
+    "within": ("shape WITHIN 10 array", None, False),
+    "icase": ("NumPy", rb"numpy", True),
+}
+# entries of a frontier whose forks regex_fork_plain takes at once in
+# phase 5's comparisons at the widest layers
+FORK_CHUNK = 256
+# the regex whose NFA does not fit the fork kernel's shared memory
+# (784 states, 9088 transitions)
+WIDE_NFA_QUERY = "(a|b|c|d|e|f|g|h|i|j|k|l){1,64}"
+
+
+def cpu_copy(ix):
+    """The index with its tensors on the CPU: the wrappers there take the
+    plain versions."""
+    from femto_tpu_torch.fmindex import FMArrays
+
+    return dataclasses.replace(
+        ix, arrays=FMArrays(*(None if a is None else a.cpu()
+                              for a in ix.arrays)),
+        sa_direct=None)
+
+
+def match_tuples(ms):
+    return sorted((m.first, m.last, m.cost, m.match) for m in ms)
+
+
+def term_nfa(term):
+    """The NFA of a term, as term_ranges compiles it."""
+    from femto_tpu_torch import query as Q
+    from femto_tpu_torch.query.planning import streamline
+
+    return Q.compile_nfa(streamline(term.regexp))
+
+
+def query_nfa(q):
+    """(parsed term, its NFA) of a one-term query."""
+    from femto_tpu_torch import query as Q
+
+    node = Q.parse_query(q)
+    return node, term_nfa(node)
+
+
+def fixed_frontier(ix, pt, nd, cfg, rng, n_live, F):
+    """A frontier of n_live live entries (capacity F): the ranges of
+    suffixes of 2 to 4 symbols of the patterns pt, costs drawn from
+    {0, ..., cost_bound - 1, NO_COST} per state (state 0 live)."""
+    import torch
+
+    from femto_tpu_torch.ops import regex_ops as RO
+    from femto_tpu_torch.ops import search_ops as S
+
+    dev = pt.device
+    cut = pt.clone()
+    cut[:, : pt.shape[1] - int(rng.integers(2, 5))] = -1
+    f, l = S.backward_search(ix.arrays, ix.meta.n_rows, cut,
+                             row0=ix.meta.row0)
+    live = torch.nonzero(l > f).flatten()
+    check(live.numel() > 0, "no non-empty pattern range")
+    live = live.repeat(-(-n_live // live.numel()))[:n_live]
+    first = torch.zeros(F, dtype=torch.int32, device=dev)
+    last = torch.zeros(F, dtype=torch.int32, device=dev)
+    first[:n_live], last[:n_live] = f[live], l[live]
+    vals = np.append(np.arange(cfg.cost_bound), RO.NO_COST)
+    c = vals[rng.integers(0, len(vals), size=(F, nd.S))].astype(np.int32)
+    c[:, 0] = 0
+    costs = torch.from_numpy(c).to(dev)
+    return first, last, costs
+
+
+def parity_query_layer(ix, tag, pt, rng, errs):
+    """One layer of regex_fork + H + regex_merge from fixed frontiers,
+    kernel against plain, exact, approximate and over the wide NFA; the
+    merge also at capacities that overflow."""
+    import torch
+
+    from femto_tpu_torch.ops import regex_ops as RO
+    from femto_tpu_torch.ops import sort_ops as SO
+    from femto_tpu_torch.query import regexp_device as RD
+
+    dev = pt.device
+    for kind, q, n_live, F, depth in (
+            ("exact", '(the|and|[a-z]i)n[gd] ', 300, 512, 1),
+            ("approx", "APPROX 2 there", 300, 512, 2),
+            ("approx1 depth0", "APPROX 1 ther", 200, 256, 0),
+            ("wide", WIDE_NFA_QUERY, 6, 8, 3)):
+        node, nfa = query_nfa(q)
+        nd, cfg, _ = RD._initial_state(ix, nfa, node.approx, F, 64)
+        first, last, costs = fixed_frontier(ix, pt, nd, cfg, rng, n_live, F)
+        name = f"regex_fork[{tag}]({kind})"
+        got = RO.regex_fork(ix.arrays, first, last, costs, n_live, nd, cfg,
+                            depth > 0)
+        want = RO.regex_fork_plain(ix.arrays, first, last, costs, n_live,
+                                   nd, cfg, depth > 0)
+        torch.cuda.synchronize()
+        errs[name] = max_abs_err(name, got, want)
+        keys, fcosts = got
+        skeys, sidx = SO.radix_sort_pairs(keys, None, 0, 2 * cfg.half_bits)
+        for F2, R2 in ((F, 4096), (4, 3)):
+            bufs = {who: [first[:F2].clone(), last[:F2].clone(),
+                          costs[:F2].clone(),
+                          torch.full((4, R2), 7, dtype=torch.int32,
+                                     device=dev),
+                          torch.tensor([2, 0, 0, 0, 0, 0, 0, 0],
+                                       dtype=torch.int32, device=dev)]
+                    for who in ("kernel", "plain")}
+            RO.regex_merge(skeys, sidx, fcosts, nd, cfg, depth,
+                           *bufs["kernel"])
+            RO.regex_merge_plain(skeys, sidx, fcosts, nd, cfg, depth,
+                                 *bufs["plain"])
+            torch.cuda.synchronize()
+            mname = f"regex_merge[{tag}]({kind}, F={F2}, R={R2})"
+            errs[mname] = max_abs_err(mname, bufs["kernel"], bufs["plain"])
+        if kind == "exact":
+            check(int(bufs["kernel"][4][1]) == 1,
+                  f"{tag}: the merge at capacity 4 did not overflow")
+
+
+def parity_query_kernels(indexes, pt, rng, errs, whole):
+    """Kernel C's backward_step and backward_search_steps and kernel R on
+    every index of the parity phase, each against its plain version bit
+    for bit; on the indexes in `whole`, a whole run_regexp_device on the
+    card against the same search on a CPU copy of the index (the plain
+    versions), exact and approximate, with a forced capacity retry."""
+    import torch
+
+    from femto_tpu_torch import query as Q
+    from femto_tpu_torch.ops import search_ops as S
+    from femto_tpu_torch.query import regexp_device as RD
+
+    dev = pt.device
+    for name, ix in indexes.items():
+        A, nn = ix.arrays, ix.meta.n_rows
+        B = 8192
+        c = rng.integers(-1, 300, size=B).astype(np.int32)
+        c[: B // 8] = -1                      # the host engine's pad lanes
+        ends = np.sort(rng.integers(0, nn + 1, size=(B, 2)), axis=1)
+        ends[: 64] = (0, nn)
+        ct = torch.from_numpy(c).to(dev)
+        ft = torch.from_numpy(ends[:, 0].astype(np.int32)).to(dev)
+        lt = torch.from_numpy(ends[:, 1].astype(np.int32)).to(dev)
+        got = S.backward_step_pair(A, ct, ft, lt)
+        want = S.backward_step_plain(A, ct, ft, lt)
+        torch.cuda.synchronize()
+        errs[f"backward_step[{name}]"] = max_abs_err(
+            f"backward_step[{name}]", got, want)
+        valid = (c >= 0) & (c < 261)
+        check(not bool((got[1][torch.from_numpy(~valid).to(dev)]
+                        != 0).any()),
+              f"{name}: a pad or out-of-alphabet lane gave a range")
+        got = S.backward_search_steps(A, nn, pt)
+        want = S.backward_search_steps_plain(A, nn, pt)
+        torch.cuda.synchronize()
+        errs[f"backward_search_steps[{name}]"] = max_abs_err(
+            f"backward_search_steps[{name}]", got, want)
+        c_f, c_l = S.backward_search(A, nn, pt)
+        ne = got[1] > got[0]
+        check(torch.equal(got[0][ne], c_f[ne])
+              and torch.equal(got[1][ne], c_l[ne])
+              and bool((c_l[~ne] <= c_f[~ne]).all()),
+              f"{name}: backward_search_steps' range differs from C's")
+        parity_query_layer(ix, name, pt, rng, errs)
+    runs = {}
+    for name in whole:
+        ix = indexes[name]
+        cpu = cpu_copy(ix)
+        for q, fcap in (('("the "|"and "|"ing "|"ion ")', 2),
+                        ("APPROX 1 ther", 4)):
+            node, nfa = query_nfa(q)
+            kw = dict(frontier_cap=fcap, results_cap=64, with_strings=True)
+            got = RD.run_regexp_device(ix, nfa, node.approx, **kw)
+            stats = dict(RD.last_stats)
+            want = RD.run_regexp_device(cpu, nfa, node.approx, **kw)
+            check(match_tuples(got) == match_tuples(want),
+                  f"run_regexp_device on {name} ({q}) differs from its "
+                  f"plain version")
+            check(stats["retries"] >= 1, f"{name} {q}: no capacity retry")
+            host = Q.run_regexp(ix, nfa, node.approx)
+            check(match_tuples(got) == match_tuples(host),
+                  f"{name} {q}: the device frontier differs from the host "
+                  f"engine")
+            runs[f"{name} {q}"] = {"matches": len(got), **stats}
+    log(f"    query kernels equal their plain versions on {sorted(indexes)}"
+        f"; whole device searches with capacity retries: {runs}")
+    return runs
+
+
 def phase_parity(record, rng):
     """Every kernel against its plain version on an 8 MiB corpus."""
     import torch
@@ -1318,8 +1590,12 @@ def phase_parity(record, rng):
                 check(tt.extract_document(ix, d) == docs[d],
                       f"{name}: extract doc {d}")
     prose_rec = parity_prose_search(prose, prose_ix, rng, errs, edges)
+    query_runs = parity_query_kernels(
+        {**indexes, **{f"prose_{k}": v for k, v in prose_ix.items()}}, pt,
+        rng, errs, whole=LAYOUTS)
     record["parity_8mib"] = {"n": n, "ndocs": ndocs, "max_abs_err": errs,
-                             "sort_regimes": regimes, "prose": prose_rec}
+                             "sort_regimes": regimes, "prose": prose_rec,
+                             "query_runs": query_runs}
     log(f"[3] 8 MiB parity (n={n}): every kernel equals its plain version "
         f"bit for bit: {sorted(errs)}")
 
@@ -1832,6 +2108,267 @@ def phase_rows(record, rng, st, st2):
                 pwalk=pwalk, pfull=pfull)
 
 
+def scan_starts(docs, pattern, flags=0):
+    """{doc: [offsets]} of the distinct match starts of a Python re in each
+    document: a lookahead finditer meets every start once."""
+    pat = re.compile(b"(?=" + pattern + b")", re.DOTALL | flags)
+    out = {}
+    for d, doc in enumerate(docs):
+        offs = [m.start() for m in pat.finditer(doc)]
+        if offs:
+            out[d] = offs
+    return out
+
+
+def scan_boolean(node, docs):
+    """The documents of a Boolean query over literal terms, from text
+    scans of its terms (THEN / WITHIN: a start of the left term with a
+    start of the right one within the distance after it, or either side
+    for WITHIN; results.then_within's semantics)."""
+    import bisect
+
+    from femto_tpu_torch import query as Q
+    from femto_tpu_torch.query.ast import as_literal
+    from femto_tpu_torch.query.planning import streamline
+
+    def offsets(n):
+        lit = as_literal(streamline(n.regexp))
+        check(lit is not None, "a Boolean scan needs literal terms")
+        return scan_starts(docs, re.escape(lit))
+
+    a, b = offsets(node.left), offsets(node.right)
+    if isinstance(node, Q.QAnd):
+        return sorted(set(a) & set(b))
+    if isinstance(node, Q.QNot):
+        return sorted(set(a) - set(b))
+    lo = 0 if isinstance(node, Q.QThen) else -node.distance
+    keep = []
+    for d in sorted(set(a) & set(b)):
+        bo = b[d]
+        if any(bisect.bisect_right(bo, o + node.distance)
+               > bisect.bisect_left(bo, max(o + lo, 0)) for o in a[d]):
+            keep.append(d)
+    return keep
+
+
+def query_terms(node):
+    from femto_tpu_torch import query as Q
+
+    if isinstance(node, Q.QTerm):
+        return [node]
+    return query_terms(node.left) + query_terms(node.right)
+
+
+def row_count(matches):
+    from femto_tpu_torch.query.regexp import match_rows
+
+    return sum(l - f for f, l in match_rows(matches))
+
+
+def steps_patterns(patterns, dev):
+    """The patterns with a NUL head, absent from both corpora: the range
+    empties at the last step, so backward_search_steps reports the
+    pattern's own range as the previous one and its length as matched."""
+    import torch
+
+    from femto_tpu_torch.alphabet import pattern_to_alpha
+    from femto_tpu_torch.search import pack_patterns
+
+    return torch.from_numpy(pack_patterns(
+        [pattern_to_alpha(b"\x00" + p) for p in patterns],
+        pad_b=len(patterns))[0]).to(dev)
+
+
+def phase_query(record, rng, st, st2, st3):
+    """The fourth main path (4d): the query engine at full size.  (a)
+    bench.py's two regex queries through run_regexp_device on phase 4's
+    256 MiB zipf full, compact and packed indexes; (b) regex, approximate
+    and Boolean queries through count_query, docs_query and find_strings
+    on the prose vseg and vrle indexes; the too-few-matches report of
+    backward_search_steps on all five.  The device answers are held to
+    the host engine on the same index (after the fallback check: the
+    device part must launch no backward_step), exact regexes to a text
+    scan with Python re, Boolean document sets to scans of their terms.
+    The kernels' launch counts are read around the device part (the
+    "query" path) and around the host engine's run ("query_host")."""
+    import torch
+
+    import femto_tpu_torch as tt
+    from femto_tpu_torch import kernels
+    from femto_tpu_torch import ops as O
+    from femto_tpu_torch import query as Q
+    from femto_tpu_torch.query import regexp_device as RD
+    from femto_tpu_torch.query.engine import apply_icase, term_ranges
+
+    dev = st["walk"].device
+    zipf = {"full": st["walk"], "compact": st2["compact"],
+            "packed": st2["packed"]}
+    prows = st3["prows"]
+    docs, pdocs = st["docs"], prose_docs()
+    # the references, made outside the counted region
+    t0 = time.perf_counter()
+    zscan = scan_starts(docs, rb"(?:the |and |ing |ion )")
+    pref = {}
+    for name, (q, pyre, icase) in PROSE_QUERIES.items():
+        node = Q.parse_query(q)
+        if pyre is not None:
+            pref[name] = scan_starts(pdocs, pyre,
+                                     re.IGNORECASE if icase else 0)
+        elif not isinstance(node, Q.QTerm):
+            pref[name] = scan_boolean(node, pdocs)
+    t_scan = time.perf_counter() - t0
+    nz = len(st["patterns"]) // 8
+    zpat, ppat = st["patterns"][:nz], st3["ppats"][:nz]
+    zsteps, psteps = steps_patterns(zpat, dev), steps_patterns(ppat, dev)
+    pf_ref = tt.count_ranges(prows["vseg"], ppat)
+    log(f"[4d] query path: text scans of the references {t_scan:.1f}s "
+        f"(zipf {MAIN_MIB} MiB, prose {len(pdocs)} documents)")
+
+    torch.cuda.synchronize()
+    kernels.reset_launches()
+    out = {}
+    answers = {}
+    # (a) bench.py's regex queries on the zipf indexes
+    for lay, ix in zipf.items():
+        for name, (q, fcap) in ZIPF_QUERIES.items():
+            node, nfa = query_nfa(q)
+
+            def run():
+                return RD.run_regexp_device(ix, nfa, node.approx,
+                                            frontier_cap=fcap)
+            ms = run()
+            stats = dict(RD.last_stats)
+            lat = wall_runs(run)
+            answers[("zipf", lay, name)] = (ix, nfa, node, ms)
+            out[f"zipf {lay} {name}"] = {
+                "query": q, "latency_s": summary(lat), "ranges": len(ms),
+                "rows": row_count(ms), **stats}
+    # (b) the prose queries through the user entry points
+    for tier in ROW_LAYOUTS:
+        ix = prows[tier]
+        for name, (q, _, icase) in PROSE_QUERIES.items():
+            node = Q.parse_query(q)
+            if icase:
+                node = apply_icase(node)
+            RD.last_stats.clear()
+            count = Q.count_query(ix, q, icase=icase)
+            stats = dict(RD.last_stats)
+            got_docs = [d for d, _, _ in Q.docs_query(
+                ix, q, with_offsets=False, icase=icase)]
+            strings = (Q.find_strings(ix, q, icase=icase)
+                       if isinstance(node, Q.QTerm) else None)
+            terms = [(t, term_ranges(ix, t)) for t in query_terms(node)]
+            lat = wall_runs(lambda: Q.count_query(ix, q, icase=icase))
+            answers[("prose", tier, name)] = (ix, node, count, got_docs,
+                                              strings, terms)
+            out[f"prose {tier} {name}"] = {
+                "query": q, "latency_s": summary(lat), "count": count,
+                "docs": len(got_docs), "ranges": sum(len(r) for _, r in
+                                                     terms), **stats}
+    steps = {lay: O.backward_search_steps(ix.arrays, ix.meta.n_rows, zsteps)
+             for lay, ix in zipf.items()}
+    steps.update({lay: O.backward_search_steps(ix.arrays, ix.meta.n_rows,
+                                               psteps)
+                  for lay, ix in prows.items()})
+    torch.cuda.synchronize()
+    device_launches = dict(kernels.launches)
+    fallback = {k: v for k, v in device_launches.items()
+                if k.startswith("backward_step[") and v}
+    check(not fallback, f"a query took the host engine's fallback: "
+                        f"{fallback}")
+    # the host engine on the same indexes, a path of its own: kernel C's
+    # backward_step
+    kernels.reset_launches()
+    host_s = {}
+    for key, val in answers.items():
+        t0 = time.perf_counter()
+        if key[0] == "zipf":
+            ix, nfa, node, ms = val
+            host = Q.run_regexp(ix, nfa, node.approx)
+            check([(m.first, m.last, m.cost) for m in ms]
+                  == [(m.first, m.last, m.cost) for m in host],
+                  f"{key}: the device frontier differs from the host engine")
+        else:
+            ix, node, count, got_docs, strings, terms = val
+            for term, ranges in terms:
+                nfa = term_nfa(term)
+                host = Q.run_regexp(ix, nfa, term.approx)
+                check(ranges == [(m.first, m.last, m.cost) for m in host],
+                      f"{key}: a term's ranges differ from the host engine")
+                if strings is not None:
+                    check(match_tuples(strings) == match_tuples(host),
+                          f"{key}: find_strings differs from the host "
+                          f"engine")
+        host_s[" ".join(key)] = time.perf_counter() - t0
+    torch.cuda.synchronize()
+    host_launches = dict(kernels.launches)
+    # the answers against the text
+    for lay in zipf:
+        ms = answers[("zipf", lay, "alternation")][3]
+        check(row_count(ms) == sum(len(v) for v in zscan.values()),
+              f"zipf {lay}: the alternation's rows differ from a text scan")
+    for (corpus, tier, name), val in answers.items():
+        if corpus != "prose":
+            continue
+        ix, node, count, got_docs, strings, terms = val
+        ref = pref.get(name)
+        if isinstance(ref, dict) and name.startswith("approx"):
+            # every exact occurrence lies in the union of the match rows
+            check(count >= sum(len(v) for v in ref.values())
+                  and set(got_docs) >= set(ref),
+                  f"prose {tier} {name}: the word's own occurrences are "
+                  f"not all matched")
+        elif isinstance(ref, dict):
+            check(count == sum(len(v) for v in ref.values()),
+                  f"prose {tier} {name}: count {count} != text scan")
+            check(got_docs == sorted(ref),
+                  f"prose {tier} {name}: documents differ from a text scan")
+            pyre = PROSE_QUERIES[name][1]
+            flags = re.IGNORECASE if PROSE_QUERIES[name][2] else 0
+            check(all(re.fullmatch(pyre, m.match, re.DOTALL | flags)
+                      for m in strings),
+                  f"prose {tier} {name}: a found string does not match")
+        else:
+            check(got_docs == ref,
+                  f"prose {tier} {name}: Boolean documents differ from a "
+                  f"scan of the terms")
+    for lay, (f, l, pf, pl, matched) in steps.items():
+        ref_f, ref_l = ((st["first"][:nz], st["last"][:nz]) if lay in zipf
+                        else pf_ref)
+        check(bool((l <= f).all())
+              and np.array_equal(pf.cpu().numpy(), ref_f)
+              and np.array_equal(pl.cpu().numpy(), ref_l)
+              and bool((matched == PATLEN).all()),
+              f"{lay}: backward_search_steps' report differs from the "
+              f"patterns' own ranges")
+    for path, launches in (("query", device_launches),
+                           ("query_host", host_launches)):
+        for name in PATH_KERNELS[path]:
+            check(launches[name] >= 1,
+                  f"kernel {name} was not launched on the {path} path")
+    for k, v in out.items():
+        lat = v["latency_s"]
+        log(f"    {k}: {v['query']!r} median {lat['median'] * 1e3:.3f} ms "
+            f"(min {lat['min'] * 1e3:.3f}, max {lat['max'] * 1e3:.3f}); "
+            f"layers {v.get('layers', '-')}, widest live frontier "
+            f"{v.get('max_live', '-')}, ranges {v['ranges']}, syncs "
+            f"{v.get('reads', '-')}, retries {v.get('retries', '-')}"
+            + (f", count {v['count']}, docs {v['docs']}" if "count" in v
+               else f", rows {v['rows']}"))
+    log(f"    checks: every device answer equals the host engine's (host "
+        f"seconds {host_s}); the zipf alternation's rows and the prose "
+        f"exact regexes' counts and documents equal a text scan with "
+        f"Python re, Boolean documents a scan of their terms; "
+        f"backward_search_steps reports each NUL-headed pattern's own "
+        f"range on all five layouts; no query took the host engine "
+        f"(launches {device_launches}; the host engine's {host_launches})")
+    record["query_path"] = {"queries": out, "host_engine_s": host_s,
+                            "scan_s": t_scan, "launches": device_launches,
+                            "host_launches": host_launches}
+    return dict(launches=device_launches, host_launches=host_launches,
+                zipf=zipf, zsteps=zsteps, psteps=psteps)
+
+
 def sort_kernel_rows(record, kernel_row, text, ds, sa, sa_direct, rows, *,
                      n, ndocs, mark_period):
     """Kernels G-L at the main path's shapes: the state after the first
@@ -1876,7 +2413,8 @@ def sort_kernel_rows(record, kernel_row, text, ds, sa, sa_direct, rows, *,
                lambda: SO.radix_sort_pairs(key0, None, 0, per * bits),
                lambda: SO.radix_sort_pairs_plain(key0, None, 0, per * bits),
                bounds["radix_sort_pairs"],
-               library=lambda: torch.sort(key0, stable=True))
+               library=lambda: torch.sort(key0, stable=True),
+               paths=("full", "tiers", "rows"))
     kernel_row("group_flags", lambda: [SO.group_flags(skey)],
                lambda: [SO.group_flags_plain(skey)], bounds["group_flags"])
     del skey
@@ -1995,7 +2533,209 @@ def row_kernel_rows(kernel_row, st3):
                    bound_psi(A, ct, fwd))
 
 
-def phase_numbers(record, st, st2, st3):
+def bound_backward_step(arrays, c, first, last):
+    """Lanes in and ranges out (20 bytes a lane); per valid lane the
+    symbol map, C[c] and, for first and last, one checkpoint and the
+    bytes of segment prefix counted."""
+    return (20 * c.shape[0] + _step_bytes(arrays, c, first, last,
+                                          c >= 0)) / HBM_BYTES_PER_S * 1e3
+
+
+def bound_regex_fork(arrays, first, last, costs, n_live, nd, cfg):
+    """Each live entry's range and cost row in; the NFA once; every
+    fork's key and cost row out; per fork that its entry reaches (the
+    plain version's reach), its FM step's bytes as backward_step's."""
+    import torch
+
+    from femto_tpu_torch.ops import regex_ops as RO
+
+    A, S_ = 261, nd.S
+    cl = costs[:n_live]
+    reach = ((cl[:, nd.src] < cfg.cost_bound)[:, :, None]
+             & nd.mask[None]).any(dim=1)
+    if cfg.cost_bound > 1:
+        any_live = (cl.min(dim=1).values + min(cfg.subst, cfg.insert)
+                    < cfg.cost_bound)
+        reach |= any_live[:, None] & (torch.arange(A, device=cl.device)
+                                      >= 5)[None, :]
+    c = torch.arange(A, dtype=torch.int32, device=cl.device).repeat(n_live)
+    step = _step_bytes(arrays, c, first[:n_live].repeat_interleave(A),
+                       last[:n_live].repeat_interleave(A),
+                       reach.reshape(-1))
+    total = (n_live * (8 + 4 * S_) + 4 * (S_ + 1)
+             + 4 * (1 + RO.MASK_WORDS) * nd.T
+             + A * n_live * (8 + 4 * S_) + step)
+    return total / HBM_BYTES_PER_S * 1e3
+
+
+def bound_regex_merge(skeys, state, nd, cfg):
+    """The live forks' keys, rows and cost rows in (and the first dead
+    key); the kept runs' frontier rows and the hits' result rows out."""
+    live = int((skeys != cfg.dead).sum())
+    n_keep = int(state[2])
+    n_hits = int(state[0]) - int(state[4])
+    total = (live * (8 + 4 + 4 * nd.S) + 8 + n_keep * (8 + 4 * nd.S)
+             + 16 * n_hits + 2 * 4 * 8)
+    return total / HBM_BYTES_PER_S * 1e3
+
+
+def widest_frontier(ix, q, fcap):
+    """The device search of q on ix (run_regexp_device from frontier cap
+    fcap, its retries included), with the frontier before the widest layer
+    of the run that answered: (nfa arrays, layer settings, depth, n_live,
+    [first, last, costs])."""
+    from femto_tpu_torch.query import regexp_device as RD
+
+    node, nfa = query_nfa(q)
+    box = {}
+
+    def snap(depth, n_live, nd, cfg, bufs):
+        if depth == 0:  # a run starts (again, after a retry)
+            box.clear()
+        if n_live > box.get("n_live", 0):
+            box.update(n_live=n_live, depth=depth, nd=nd, cfg=cfg,
+                       fr=[b.clone() for b in bufs[:3]])
+
+    RD.run_regexp_device(ix, nfa, node.approx, frontier_cap=fcap,
+                         on_layer=snap)
+    return box["nd"], box["cfg"], box["depth"], box["n_live"], box["fr"]
+
+
+def hold_layer(ix, q, fcap):
+    """regex_fork, H and regex_merge at the widest layer of q on ix, each
+    held bit for bit against its plain version on the same inputs (raises
+    unless equal) and timed: the shape, the errors and the kernels' ms."""
+    import torch
+
+    from femto_tpu_torch.ops import regex_ops as RO
+    from femto_tpu_torch.ops import sort_ops as SO
+
+    nd, cfg, depth, n_live, (first, last, costs) = widest_frontier(ix, q,
+                                                                   fcap)
+    A, sub, bits = ix.arrays, depth > 0, 2 * cfg.half_bits
+    keys, fcosts = RO.regex_fork(A, first, last, costs, n_live, nd, cfg, sub)
+    # the plain version over slices of FORK_CHUNK entries (an entry's
+    # forks depend on its own range and costs alone): at once, its row
+    # decodes over every fork's lanes would not fit beside the indexes
+    want = [RO.regex_fork_plain(A, first[i:], last[i:], costs[i:],
+                                min(FORK_CHUNK, n_live - i), nd, cfg, sub)
+            for i in range(0, n_live, FORK_CHUNK)]
+    errs = {}
+    errs["regex_fork"] = max_abs_err(
+        f"regex_fork {q}", (keys, fcosts),
+        [torch.cat(parts) for parts in zip(*want)])
+    del want
+    skeys, sidx = SO.radix_sort_pairs(keys, None, 0, bits)
+    errs["radix_sort_pairs"] = max_abs_err(
+        f"radix_sort_pairs {q}", (skeys, sidx),
+        SO.radix_sort_pairs_plain(keys, None, 0, bits))
+    bufs = {who: [b.clone() for b in (first, last, costs)]
+            + [torch.zeros((4, 1 << 16), dtype=torch.int32,
+                           device=first.device),
+               torch.zeros(8, dtype=torch.int32, device=first.device)]
+            for who in ("kernel", "plain")}
+    RO.regex_merge(skeys, sidx, fcosts, nd, cfg, depth, *bufs["kernel"])
+    RO.regex_merge_plain(skeys, sidx, fcosts, nd, cfg, depth,
+                         *bufs["plain"])
+    errs["regex_merge"] = max_abs_err(f"regex_merge {q}", bufs["kernel"],
+                                      bufs["plain"])
+    return {
+        "query": q, "depth": depth, "n_live": n_live, "S": nd.S, "T": nd.T,
+        "forks": keys.shape[0], "sort_bits": bits, "max_abs_err": errs,
+        "regex_fork_ms": cuda_ms(lambda: RO.regex_fork(
+            A, first, last, costs, n_live, nd, cfg, sub)),
+        "radix_sort_pairs_ms": cuda_ms(lambda: SO.radix_sort_pairs(
+            keys, None, 0, bits)),
+        "regex_merge_ms": cuda_ms(lambda: RO.regex_merge(
+            skeys, sidx, fcosts, nd, cfg, depth, *bufs["kernel"])),
+    }
+
+
+def query_kernel_rows(kernel_row, st, st3, st4):
+    """Kernel C's step entries and kernel R at the query path's shapes:
+    the widest layer of APPROX 1 ther (frontier cap 1024) on each of the
+    zipf full, compact and packed and the prose vseg and vrle indexes
+    (regex_fork; backward_step over the same forks' lanes, as the host
+    engine steps them), backward_search_steps over the path's NUL-headed
+    patterns, and, on zipf full, H and regex_merge after that layer's
+    forks, H beside torch.sort on the same keys.  Then fork, H and merge
+    held to their plain versions at the widest layers of APPROX 2
+    parameter and 0{1,64}1 on prose vrle."""
+    import torch
+
+    from femto_tpu_torch.ops import regex_ops as RO
+    from femto_tpu_torch.ops import search_ops as S
+    from femto_tpu_torch.ops import sort_ops as SO
+
+    indexes = {**st4["zipf"], **st3["prows"]}
+    shapes = {}
+    for lay, ix in indexes.items():
+        A, n = ix.arrays, ix.meta.n_rows
+        nd, cfg, depth, n_live, (first, last, costs) = widest_frontier(
+            ix, ZIPF_QUERIES["approx1"][0], ZIPF_QUERIES["approx1"][1])
+        shapes[lay] = {"depth": depth, "n_live": n_live, "S": nd.S,
+                       "T": nd.T}
+        sub = depth > 0
+        kernel_row(f"regex_fork[{lay}]",
+                   lambda: RO.regex_fork(A, first, last, costs, n_live, nd,
+                                         cfg, sub),
+                   lambda: RO.regex_fork_plain(A, first, last, costs,
+                                               n_live, nd, cfg, sub),
+                   bound_regex_fork(A, first, last, costs, n_live, nd, cfg))
+        c = torch.arange(261, dtype=torch.int32,
+                         device=first.device).repeat(n_live)
+        f = first[:n_live].repeat_interleave(261)
+        l = last[:n_live].repeat_interleave(261)
+        kernel_row(f"backward_step[{lay}]",
+                   lambda: S.backward_step_pair(A, c, f, l),
+                   lambda: S.backward_step_plain(A, c, f, l),
+                   bound_backward_step(A, c, f, l))
+        pt = st4["zsteps"] if lay in st4["zipf"] else st4["psteps"]
+        kernel_row(f"backward_search_steps[{lay}]",
+                   lambda: S.backward_search_steps(A, n, pt),
+                   lambda: S.backward_search_steps_plain(A, n, pt),
+                   bound_backward_search(A, pt, n, 0, steps=True))
+        if lay != "full":
+            continue
+        keys, fcosts = RO.regex_fork(A, first, last, costs, n_live, nd, cfg,
+                                     sub)
+        bits = 2 * cfg.half_bits
+        E = keys.shape[0]
+        kernel_row("radix_sort_pairs",
+                   lambda: SO.radix_sort_pairs(keys, None, 0, bits),
+                   lambda: SO.radix_sort_pairs_plain(keys, None, 0, bits),
+                   bound_ms(20 * E), paths=("query",),
+                   library=lambda: torch.sort(keys, stable=True))
+        skeys, sidx = SO.radix_sort_pairs(keys, None, 0, bits)
+        bufs = {who: [b.clone() for b in (first, last, costs)]
+                + [torch.zeros((4, 1 << 16), dtype=torch.int32,
+                               device=first.device),
+                   torch.zeros(8, dtype=torch.int32, device=first.device)]
+                for who in ("kernel", "plain", "bound")}
+        RO.regex_merge_plain(skeys, sidx, fcosts, nd, cfg, depth,
+                             *bufs["bound"])
+
+        def merge(fn, who):
+            fn(skeys, sidx, fcosts, nd, cfg, depth, *bufs[who])
+            return bufs[who]
+
+        kernel_row("regex_merge", lambda: merge(RO.regex_merge, "kernel"),
+                   lambda: merge(RO.regex_merge_plain, "plain"),
+                   bound_regex_merge(skeys, bufs["bound"][4], nd, cfg))
+        shapes[lay].update(forks=E, sort_bits=bits)
+    log(f"    query kernels at APPROX 1 ther's widest layer: {shapes}")
+    # the path's widest layers and largest NFA, on prose vrle: held to
+    # the plain versions bit for bit, timed apart from the rows above
+    ix = st3["prows"]["vrle"]
+    for name in ("approx2", "repeat64"):
+        q = PROSE_QUERIES[name][0]
+        shapes[f"prose vrle {name}"] = held = hold_layer(ix, q, 256)
+        log(f"    prose vrle {q!r} at its widest layer, each kernel equal "
+            f"to its plain version: {held}")
+    return shapes
+
+
+def phase_numbers(record, st, st2, st3, st4):
     """End-to-end rates (medians of 3) and each kernel at the main paths'
     shapes against its bound, its plain version and a library call."""
     import torch
@@ -2114,12 +2854,14 @@ def phase_numbers(record, st, st2, st3):
     a_row = BO.occ_build(pull, n_seg=n_seg, seg=seg)[1]
     kern = []
     path_launches = {"full": st["launches"], "tiers": st2["launches"],
-                     "rows": st3["launches"]}
+                     "rows": st3["launches"], "query": st4["launches"],
+                     "query_host": st4["host_launches"]}
 
-    def kernel_row(name, run_k, run_p, bound_ms, library=None):
+    def kernel_row(name, run_k, run_p, bound_ms, library=None, paths=None):
         """One kernel against its plain version at these shapes; plain_ms
         is the time of that one comparison run.  One row per main path
-        that launched the kernel, with that path's own count."""
+        that launched the kernel (of `paths`, where given: a kernel timed
+        at two paths' shapes), with that path's own count."""
         a, b = torch.cuda.Event(enable_timing=True), \
             torch.cuda.Event(enable_timing=True)
         got = run_k()
@@ -2134,7 +2876,8 @@ def phase_numbers(record, st, st2, st3):
         lib_ms = cuda_ms(library) if library is not None else None
         src, replaces = KERNELS[name]
         per_path = {p: c.get(name, 0) for p, c in path_launches.items()
-                    if c.get(name, 0) or name in PATH_KERNELS[p]}
+                    if (c.get(name, 0) or name in PATH_KERNELS[p])
+                    and (paths is None or p in paths)}
         for path, launches in per_path.items():
             kern.append({
                 "name": name, "path": path, "route": "cuda", "source": src,
@@ -2220,10 +2963,11 @@ def phase_numbers(record, st, st2, st3):
             bound_psi(A, ct, fwd))
     del isa
     row_kernel_rows(kernel_row, st3)
+    record["query_shapes"] = query_kernel_rows(kernel_row, st, st3, st4)
     record["kernels"] = kern
 
 
-def phase_profile(record, st, st2, st3):
+def phase_profile(record, st, st2, st3, st4):
     """Device time by kernel (torch.profiler, CUPTI) and the device's busy
     share over one call of each main-path step, for PERF.md's breakdown;
     "not measured" where the profiler reports no device time."""
@@ -2232,10 +2976,12 @@ def phase_profile(record, st, st2, st3):
 
     import femto_tpu_torch as tt
     from femto_tpu_torch import kernels
+    from femto_tpu_torch.query import regexp_device as RD
 
     own_kernels = sorted({
         m for src in kernels.SOURCES
-        for m in re.findall(r"__global__\s+void\s+(\w+)", open(
+        for m in re.findall(r"__global__\s+void\s+(?:__launch_bounds__"
+                            r"\([^)]*\)\s+)?(\w+)", open(
             os.path.join(kernels.CSRC, src + ".cu")).read())})
     prepared, walk = st["prepared"], st["walk"]
     steps = {
@@ -2267,6 +3013,12 @@ def phase_profile(record, st, st2, st3):
         "prose_vrle_context": lambda: tt.extract_context_batch(
             st3["prows"]["vrle"], st3["pctx"], *CTX),
     }
+    # one APPROX 1 ther query on the zipf full and the prose vrle index
+    node, nfa = query_nfa(ZIPF_QUERIES["approx1"][0])
+    for name, ix in (("query_approx1_zipf_full", walk),
+                     ("query_approx1_prose_vrle", st3["prows"]["vrle"])):
+        steps[name] = (lambda ix=ix: RD.run_regexp_device(
+            ix, nfa, node.approx, frontier_cap=ZIPF_QUERIES["approx1"][1]))
     out = {}
     for name, fn in steps.items():
         torch.cuda.synchronize()
@@ -2291,12 +3043,20 @@ def phase_profile(record, st, st2, st3):
             "top": [{"op": k[:120], "ms": ms, "calls": c}
                     for k, ms, c in ops[:8]],
         }
+        if name.startswith("query"):
+            layers = RD.last_stats["layers"]
+            out[name].update(layers=layers, reads=RD.last_stats["reads"],
+                             host_ms_per_layer=(wall_ms - dev_ms) / layers
+                             if ops else "not measured")
         log(f"[6] {name}: wall {wall_ms:.3f} ms, device "
             f"{out[name]['device_ms']} ms, busy share "
-            f"{out[name]['busy_share']}")
+            f"{out[name]['busy_share']}"
+            + (f", {out[name]['layers']} layers, host ms per layer "
+               f"{out[name]['host_ms_per_layer']}"
+               if name.startswith("query") else ""))
         for o in out[name]["top"][:4]:
             log(f"      {o['ms']:.3f} ms x{o['calls']} {o['op'][:90]}")
-        if name.endswith("build") and ops:
+        if (name.endswith("build") or name.startswith("query")) and ops:
             # nothing fell back: no library sort or scan among the build's
             # device items, and what lies outside the port's own kernels
             # and copies is named
@@ -2343,8 +3103,9 @@ def main(argv=None):
         st = phase_main(record, rng)
         st2 = phase_tiers(record, rng, st)
         st3 = phase_rows(record, rng, st, st2)
-        phase_numbers(record, st, st2, st3)
-        phase_profile(record, st, st2, st3)
+        st4 = phase_query(record, rng, st, st2, st3)
+        phase_numbers(record, st, st2, st3, st4)
+        phase_profile(record, st, st2, st3, st4)
     except SmokeError as e:
         print(f"chip_smoke: FAILED: {e}", file=sys.stderr)
         return 1

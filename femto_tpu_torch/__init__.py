@@ -1,10 +1,13 @@
 """femto_tpu_torch: the FM-index of femto_tpu on PyTorch and CUDA (H100).
 
-The port of femto_tpu's single-device full, compact and packed tiers:
-document preparation, suffix sort and index packaging on the card, .npz
-and .ftpu persistence, and count / locate / extract / context served by
-hand-written CUDA kernels (csrc/, built and bound by kernels.py).  It
-imports torch and numpy only; femto_tpu stays the JAX reference.
+The port of femto_tpu's single-device index in all five storage tiers
+(full, compact, packed, vseg, vrle): document preparation, suffix sort
+and index packaging on the card, .npz and .ftpu persistence, count /
+locate / extract / context / range_docs, and the query engine
+(femto_tpu_torch.query: regex, approximate and Boolean queries, the
+device regex frontier), served by hand-written CUDA kernels (csrc/, built
+and bound by kernels.py).  It imports torch and numpy only; femto_tpu
+stays the JAX reference.
 """
 
 from .alphabet import (

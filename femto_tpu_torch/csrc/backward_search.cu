@@ -1,5 +1,14 @@
-// Kernel C, backward_search: batched FM count ranges over the full,
-// compact, packed, vseg and vrle layouts (one instantiation each).
+// Kernel C: batched FM count ranges over the full, compact, packed, vseg
+// and vrle layouts (one instantiation each), in three entries:
+//   backward_search        P steps per pattern -> (first, last);
+//   backward_search_steps  the same steps, stopping once the range is
+//                          empty, with the last non-empty range and the
+//                          matched length (femto_tpu/ops/search_ops.py
+//                          backward_search_steps, 87);
+//   backward_step          one step per lane (c, first, last) -> the new
+//                          range (ops/rank.py backward_step_pair, 681, on
+//                          free lanes: the host regex engine's layer).
+// All three share one device step, fm_step below.
 //
 // Replaces femto_tpu/ops/search_ops.py backward_search (23) with its step
 // ops/rank.py backward_step_pair (681), map_char (97) and _occ_dense (649)
@@ -27,31 +36,91 @@
 
 namespace {
 
+// One FM backward step for alphabet symbol sym over [first, last): the new
+// range, (0, 0) for a symbol outside the alphabet or absent from it
+// (ops/rank.py backward_step_pair).
 template <int L>
+__device__ __forceinline__ void fm_step(const femto::FmView& ix, int sym,
+                                        int* first, int* last) {
+  const int c = femto::map_char(ix, sym);
+  if (c < 0) {
+    *first = 0;
+    *last = 0;
+    return;
+  }
+  const int base = __ldg(ix.C + c);
+  *first = base + femto::occ<L>(ix, c, *first);
+  *last = base + femto::occ<L>(ix, c, *last);
+}
+
+// kSteps false: femto_tpu's backward_search, every column but the left -1
+// padding steps.  kSteps true: backward_search_steps, a column steps only
+// while the range is non-empty, and prev_first / prev_last / matched
+// follow the last step that left it non-empty.
+template <int L, bool kSteps>
 __global__ void backward_search_kernel(femto::FmView ix,
                                        const int* __restrict__ pats, int B,
                                        int P, int n_rows, int row0,
                                        int* __restrict__ first_out,
-                                       int* __restrict__ last_out) {
+                                       int* __restrict__ last_out,
+                                       int* __restrict__ pf_out,
+                                       int* __restrict__ pl_out,
+                                       int* __restrict__ matched_out) {
   const int b = blockIdx.x * blockDim.x + threadIdx.x;
   if (b >= B) return;
   const int* p = pats + static_cast<long long>(b) * P;
   int first = row0, last = n_rows;
+  int pf = row0, pl = n_rows, matched = 0;
   for (int j = P - 1; j >= 0; --j) {
     const int sym = p[j];
     if (sym < 0) continue;  // left padding of a right-aligned pattern
-    const int c = femto::map_char(ix, sym);
-    if (c < 0) {  // outside the alphabet or absent: empty range
-      first = 0;
-      last = 0;
-      continue;
+    if (kSteps && last <= first) break;  // empty stays as it is
+    fm_step<L>(ix, sym, &first, &last);
+    if (kSteps && last > first) {
+      pf = first;
+      pl = last;
+      ++matched;
     }
-    const int base = __ldg(ix.C + c);
-    first = base + femto::occ<L>(ix, c, first);
-    last = base + femto::occ<L>(ix, c, last);
   }
   first_out[b] = first;
   last_out[b] = last;
+  if (kSteps) {
+    pf_out[b] = pf;
+    pl_out[b] = pl;
+    matched_out[b] = matched;
+  }
+}
+
+// One thread per lane; the host engine pads its layers with c = -1 lanes.
+template <int L>
+__global__ void backward_step_kernel(femto::FmView ix,
+                                     const int* __restrict__ cs,
+                                     const int* __restrict__ firsts,
+                                     const int* __restrict__ lasts, int B,
+                                     int* __restrict__ first_out,
+                                     int* __restrict__ last_out) {
+  const int b = blockIdx.x * blockDim.x + threadIdx.x;
+  if (b >= B) return;
+  int first = firsts[b], last = lasts[b];
+  fm_step<L>(ix, cs[b], &first, &last);
+  first_out[b] = first;
+  last_out[b] = last;
+}
+
+template <bool kSteps>
+int launch_search(const femto::FmView* ix, const void* pats, int B, int P,
+                  int n_rows, int row0, void* first, void* last, void* pf,
+                  void* pl, void* matched, void* stream) {
+  if (B <= 0) return static_cast<int>(cudaGetLastError());
+  return femto::dispatch_layout(*ix, [&](auto layout) {
+    constexpr int L = decltype(layout)::value;
+    backward_search_kernel<L, kSteps><<<(B + 127) / 128, 128, 0,
+                                        static_cast<cudaStream_t>(stream)>>>(
+        *ix, static_cast<const int*>(pats), B, P, n_rows, row0,
+        static_cast<int*>(first), static_cast<int*>(last),
+        static_cast<int*>(pf), static_cast<int*>(pl),
+        static_cast<int*>(matched));
+  });
 }
 
 }  // namespace
@@ -60,12 +129,33 @@ __global__ void backward_search_kernel(femto::FmView ix,
 extern "C" int femto_backward_search(const femto::FmView* ix, const void* pats,
                                      int B, int P, int n_rows, int row0,
                                      void* first, void* last, void* stream) {
+  return launch_search<false>(ix, pats, B, P, n_rows, row0, first, last,
+                              nullptr, nullptr, nullptr, stream);
+}
+
+// pats as above -> first, last, prev_first, prev_last, matched int32[B].
+extern "C" int femto_backward_search_steps(const femto::FmView* ix,
+                                           const void* pats, int B, int P,
+                                           int n_rows, int row0, void* first,
+                                           void* last, void* prev_first,
+                                           void* prev_last, void* matched,
+                                           void* stream) {
+  return launch_search<true>(ix, pats, B, P, n_rows, row0, first, last,
+                             prev_first, prev_last, matched, stream);
+}
+
+// c, first, last int32[B] -> the stepped first, last int32[B].
+extern "C" int femto_backward_step(const femto::FmView* ix, const void* c,
+                                   const void* first, const void* last, int B,
+                                   void* first_out, void* last_out,
+                                   void* stream) {
   if (B <= 0) return static_cast<int>(cudaGetLastError());
   return femto::dispatch_layout(*ix, [&](auto layout) {
     constexpr int L = decltype(layout)::value;
-    backward_search_kernel<L><<<(B + 127) / 128, 128, 0,
-                                static_cast<cudaStream_t>(stream)>>>(
-        *ix, static_cast<const int*>(pats), B, P, n_rows, row0,
-        static_cast<int*>(first), static_cast<int*>(last));
+    backward_step_kernel<L><<<(B + 127) / 128, 128, 0,
+                              static_cast<cudaStream_t>(stream)>>>(
+        *ix, static_cast<const int*>(c), static_cast<const int*>(first),
+        static_cast<const int*>(last), B, static_cast<int*>(first_out),
+        static_cast<int*>(last_out));
   });
 }

@@ -80,6 +80,9 @@ ENTRIES: Dict[str, Tuple[str, List]] = {
     "cont_flatten": ("vrle_build", [_P, _L, _I, _I, _P, _P, _P, _I, _L,
                                     _P]),
     "backward_search": ("backward_search", [_V, _P, _I, _I, _I, _I, _P, _P]),
+    "backward_search_steps": ("backward_search", [_V, _P, _I, _I, _I, _I,
+                                                  _P, _P, _P, _P, _P]),
+    "backward_step": ("backward_search", [_V, _P, _P, _P, _I, _P, _P]),
     "lf_locate": ("lf_walk", [_V, _P, _I, _P, _P, _P, _L, _P, _I, _P]),
     "lf_extract": ("lf_walk", [_V, _P, _I, _I, _P, _P]),
     "psi_walk": ("psi_walk", [_V, _P, _I, _I, _P]),
@@ -96,9 +99,22 @@ ENTRIES: Dict[str, Tuple[str, List]] = {
     "round_commit": ("sa_rounds", [_P, _P, _P, _P, _P, _L]),
     "sa_payload": ("sa_payload", [_P, _L, _P, _I, _I, _P]),
     "gather_rows": ("sa_payload", [_P, _L, _I, _P, _L, _P]),
+    # the device regex frontier (ops/regex_ops.py, K15)
+    "regex_fork": ("regex_frontier", [_V, _P, _P, _P, _I, _I, _I, _P, _P,
+                                      _P, _I, _I, _I, _I, _I, _I, _I, _P,
+                                      _P, _P]),
+    "regex_merge": ("regex_frontier", [_P, _P, _P, _L, _I, _P, _I, _I, _I,
+                                       _I, _I, _P, _P, _P, _P, _P, _P, _P]),
+}
+# scratch sizes a source reports for its entries (no launch, not counted):
+# name -> (source stem, argument types); each returns int32 elements
+SIZES: Dict[str, Tuple[str, List]] = {
+    "regex_fork_scratch": ("regex_frontier", [_I, _I]),
+    "regex_merge_tiles": ("regex_frontier", [_L]),
 }
 # entries that take an FmView: one count per layout
-LAYOUT_ENTRIES = ("backward_search", "lf_locate", "lf_extract", "psi_walk")
+LAYOUT_ENTRIES = ("backward_search", "backward_search_steps", "backward_step",
+                  "lf_locate", "lf_extract", "psi_walk", "regex_fork")
 # entries with modes that do different work: one count per mode
 MODE_ENTRIES = {"round_keys": ("extension", "doubling")}
 SOURCES = sorted({src for src, _ in ENTRIES.values()})
@@ -197,6 +213,11 @@ def _lib(src: str) -> ctypes.CDLL:
                     fn = getattr(lib, "femto_" + entry)
                     fn.argtypes = argtypes + [_P]
                     fn.restype = _I
+            for name, (s, argtypes) in SIZES.items():
+                if s == src:
+                    fn = getattr(lib, "femto_" + name)
+                    fn.argtypes = argtypes
+                    fn.restype = _L
             _libs[src] = lib
         return lib
 
@@ -215,6 +236,13 @@ def launch(entry: str, *args, layout: Optional[str] = None) -> None:
     if rc != 0:
         raise RuntimeError(f"CUDA kernel {name} failed: cudaError_t {rc}")
     launches[name] += 1
+
+
+def size(name: str, *args) -> int:
+    """A scratch size (int32 elements) from the source that uses it
+    (SIZES), so that the wrappers repeat none of its constants."""
+    src, _ = SIZES[name]
+    return int(getattr(_lib(src), "femto_" + name)(*args))
 
 
 def on_card(*tensors: torch.Tensor) -> bool:

@@ -3,8 +3,9 @@ plain versions, over every storage tier (full, compact, packed, vseg,
 vrle).
 
 The counterparts of femto_tpu/ops/search_ops.py backward_search,
-locate_rows, extract_backward and psi_step (scanned as search.py
-_psi_scan_jit).  Each wrapper launches its CUDA kernel (csrc/
+backward_search_steps, locate_rows, extract_backward and psi_step
+(scanned as search.py _psi_scan_jit), and of ops/rank.py
+backward_step_pair on free lanes (the host regex engine's step).  Each wrapper launches its CUDA kernel (csrc/
 backward_search.cu, csrc/lf_walk.cu, csrc/psi_walk.cu; one instantiation
 per layout, picked from dtypes and shapes as ops/rank.py does) for tensors
 on the card and takes the plain PyTorch version beside it for tensors on
@@ -147,6 +148,74 @@ def backward_search(arrays: FMArrays, n: int, pats: torch.Tensor,
     kernels.launch("backward_search", view, pats.data_ptr(), B, P, n, row0,
                    first.data_ptr(), last.data_ptr(), layout=lay)
     return first, last
+
+
+def backward_search_steps_plain(arrays: FMArrays, n: int,
+                                pats: torch.Tensor, row0: int = 0):
+    """femto_tpu's backward_search_steps scan: a column steps only while
+    the range is non-empty; the previous range and the matched count
+    follow each step that leaves it non-empty."""
+    B = pats.shape[0]
+    first = torch.full((B,), row0, dtype=torch.int32, device=pats.device)
+    last = torch.full((B,), n, dtype=torch.int32, device=pats.device)
+    pf, pl = first.clone(), last.clone()
+    matched = torch.zeros(B, dtype=torch.int32, device=pats.device)
+    for j in range(pats.shape[1] - 1, -1, -1):
+        col = pats[:, j]
+        active = (col >= 0) & (last > first)
+        nf, nl = R.backward_step_pair(arrays, col, first, last)
+        keep_prev = active & (nl > nf)
+        pf = torch.where(keep_prev, nf, pf)
+        pl = torch.where(keep_prev, nl, pl)
+        matched = matched + keep_prev.to(torch.int32)
+        first = torch.where(active, nf, first)
+        last = torch.where(active, nl, last)
+    return first, last, pf, pl, matched
+
+
+def backward_search_steps(arrays: FMArrays, n: int, pats: torch.Tensor,
+                          row0: int = 0):
+    """backward_search that also returns, per pattern, the last non-empty
+    range and how many symbols matched before the range emptied (the
+    reference's "too few matches" report).  pats as backward_search.
+    Returns (first, last, prev_first, prev_last, matched), int32[B] each.
+    Kernel C on the card."""
+    kernels.check(pats, "pats", torch.int32, 2)
+    if not kernels.on_card(pats, *_index_tensors(arrays)):
+        return backward_search_steps_plain(arrays, n, pats, row0)
+    view, lay = fm_view(arrays)
+    B, P = pats.shape
+    outs = [torch.empty(B, dtype=torch.int32, device=pats.device)
+            for _ in range(5)]
+    kernels.launch("backward_search_steps", view, pats.data_ptr(), B, P, n,
+                   row0, *(o.data_ptr() for o in outs), layout=lay)
+    return tuple(outs)
+
+
+def backward_step_plain(arrays: FMArrays, c: torch.Tensor,
+                        first: torch.Tensor, last: torch.Tensor):
+    """ops/rank.py backward_step_pair, femto_tpu's step."""
+    return R.backward_step_pair(arrays, c, first, last)
+
+
+def backward_step_pair(arrays: FMArrays, c: torch.Tensor,
+                       first: torch.Tensor, last: torch.Tensor):
+    """One FM backward step on free lanes: alphabet symbols c and ranges
+    [first, last), int32[B] each -> the new (first, last).  A symbol
+    outside the alphabet or absent from it (the -1 pad lanes included)
+    gives (0, 0).  Kernel C on the card."""
+    B = c.shape[0]
+    for name, t in (("c", c), ("first", first), ("last", last)):
+        kernels.check(t, name, torch.int32, 1, (B,))
+    if not kernels.on_card(c, first, last, *_index_tensors(arrays)):
+        return backward_step_plain(arrays, c, first, last)
+    view, lay = fm_view(arrays)
+    nf = torch.empty_like(first)
+    nl = torch.empty_like(last)
+    kernels.launch("backward_step", view, c.data_ptr(), first.data_ptr(),
+                   last.data_ptr(), B, nf.data_ptr(), nl.data_ptr(),
+                   layout=lay)
+    return nf, nl
 
 
 # ---------------------------------------------------------------------------

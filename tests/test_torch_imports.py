@@ -5,6 +5,7 @@ of femto_tpu, and its entry points must raise rather than fall back to the
 CPU when the card is asked for and absent (this host has no card).
 """
 
+import dataclasses
 import os
 import re
 import subprocess
@@ -16,7 +17,9 @@ import torch
 
 import femto_tpu_torch as tt
 from femto_tpu_torch import kernels
+from femto_tpu_torch import query as TQ
 from femto_tpu_torch.ops import build_ops as TB
+from femto_tpu_torch.ops import regex_ops as RO
 from femto_tpu_torch.ops import search_ops as TS
 from femto_tpu_torch.ops import sort_ops as SO
 
@@ -37,7 +40,13 @@ def _port_sources():
 
 def test_import_pulls_in_neither_jax_nor_femto_tpu():
     code = ("import sys, femto_tpu_torch, femto_tpu_torch.ops.build_ops, "
-            "femto_tpu_torch.ops.sort_ops, femto_tpu_torch.kernels; "
+            "femto_tpu_torch.ops.sort_ops, femto_tpu_torch.ops.regex_ops, "
+            "femto_tpu_torch.kernels, femto_tpu_torch.query, "
+            "femto_tpu_torch.query.ast, femto_tpu_torch.query.parser, "
+            "femto_tpu_torch.query.planning, femto_tpu_torch.query.nfa, "
+            "femto_tpu_torch.query.results, femto_tpu_torch.query.regexp, "
+            "femto_tpu_torch.query.regexp_device, "
+            "femto_tpu_torch.query.engine; "
             "print('jax' in sys.modules, 'femto_tpu' in sys.modules)")
     out = subprocess.run([sys.executable, "-c", code], cwd=ROOT,
                          capture_output=True, text=True, timeout=120)
@@ -77,7 +86,7 @@ def test_every_kernel_source_is_an_entry_and_is_built():
              if p.endswith(".cu")}
     assert stems == set(kernels.SOURCES)
     assert {"sa_keys", "radix_sort", "sa_groups", "sa_rounds",
-            "sa_payload"} <= stems
+            "sa_payload", "regex_frontier"} <= stems
 
 
 # entries whose plain version is not named <entry>_plain
@@ -91,7 +100,7 @@ def test_every_entry_has_a_plain_version_and_a_smoke_row(entry):
     import chip_smoke
 
     name = PLAIN_NAMES.get(entry, entry + "_plain")
-    homes = [m for m in (TB, TS, SO) if hasattr(m, name)]
+    homes = [m for m in (TB, TS, SO, RO) if hasattr(m, name)]
     assert len(homes) == 1, (entry, name)
     assert callable(getattr(homes[0], name))
     src, argtypes = kernels.ENTRIES[entry]
@@ -136,6 +145,28 @@ def test_entry_points_raise_without_a_card(tmp_path):
         tt.arrays_from_numpy(arrays, ix.meta)
     with pytest.raises(ValueError, match="device"):
         tt.build_index(prepared, device="mps")
+
+
+def test_query_engine_raises_without_a_card(tmp_path):
+    """An index asked for the card cannot be had here, and a query on an
+    index off both the card and the CPU raises in its first wrapper: no
+    entry point of the query engine answers on the CPU in its place."""
+    assert not torch.cuda.is_available()
+    prepared = tt.prepare_documents([b"banana bandana", b"abc"])
+    ix = tt.build_index(prepared, seg=64, mark_period=4, device="cpu")
+    ix.save(str(tmp_path / "ix"))
+    with pytest.raises(RuntimeError, match="cuda"):
+        TQ.count_query(tt.FMIndex.load(str(tmp_path / "ix")), "ban(a|da)")
+    meta = dataclasses.replace(ix, arrays=type(ix.arrays)(
+        *(None if a is None else torch.empty_like(a, device="meta")
+          for a in ix.arrays)))
+    for call in (lambda: TQ.count_query(meta, "ban(a|da)"),
+                 lambda: TQ.count_query(meta, "APPROX 1 banana"),
+                 lambda: TQ.find_strings(meta, "b.n"),
+                 lambda: TQ.docs_query(meta, "ban AND abc")):
+        with pytest.raises(ValueError, match="devices"):
+            call()
+    assert TQ.count_query(ix, "ban(a|da)") == 2
 
 
 def test_wrappers_refuse_mixed_devices():
