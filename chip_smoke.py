@@ -25,7 +25,32 @@ non-zero):
    merge also at capacities that overflow), and on the five layouts a
    whole run_regexp_device on the card against the same search on a CPU
    copy of the index (the plain versions) and the host engine, with a
-   forced capacity retry;
+   forced capacity retry; the chunked path's kernels: P's doc_lists and
+   flatten_ragged at seg 64, 256, 2048 and 65504 (the largest
+   l1_group_for takes: its rows sort in global memory), Q's expand_u8 on
+   documents with headers, bytes 0 and 255 and an empty document, G's
+   sa_keys with n_real and K on a padded text, a whole padded suffix sort
+   against the CPU's and the unpadded one, bwt_from_sa, a pad_shape build
+   with doc lists, four-chunk build_chunked_prepared runs (uniform and
+   prefetch both ways) against the CPU's, merge_indexes and
+   IncrementalIndex against a direct build;
+4e. run right after phase 3, while the card holds nothing else: the
+   chunked path at full size, build_chunked_prepared of 129 zipf
+   documents of 2^24 symbols (n = 2,164,260,864, past 2^31) in chunks of
+   at most 2^28 symbols (full tier, seg 256, mark_period 20, doc lists,
+   the uint8 upload, prefetch: 9 chunks, the last one document padded to
+   row0 251,658,240); the needle's locate and count, 32768 patterns cut
+   from the text (each >= 1, the MultiIndex count the sum over the
+   chunks), located offsets held to the text and match rows' contexts to
+   the patterns, a Boolean docs_query held to its terms' documents,
+   sampled doc lists of every chunk held to their plain version, the
+   padded tail chunk held to an unpadded build of its document (counts,
+   locate, a 65536-step backward extract, range_docs, contexts over its
+   real rows, all past n); MiB/s, ms per chunk, peak device memory, the
+   tail chunk's sort with and without n_real; the launch counts of this
+   path alone (path "chunked"); its kernels' phase 5 rows at its shapes;
+   one two-chunk build profiled for phase 6 (busy share, how much of the
+   pinned uploads ran under kernels, no library sort or scan);
 4. the first main path at full size (a 256 MiB zipf-English corpus in
    64 KiB documents): build_index(tier="full", seg=256, mark_period=20),
    count of 32768 16-symbol patterns, locate of 65536 rows (walk and
@@ -70,7 +95,8 @@ non-zero):
    kernels at the main paths' shapes are compared with their plain
    versions again (that one comparison run times the plain version); the
    "kernels" line has one row per kernel and main path that launched it,
-   with that path's own launch count; kernel R's fork and merge and H are
+   with that path's own launch count and the card's name and power
+   limit; kernel R's fork and merge and H are
    also held to their plain versions at the widest layers of APPROX 2
    parameter and 0{1,64}1 on the prose vrle index;
 6. where the time goes: device time by kernel and the device's busy share
@@ -79,8 +105,8 @@ non-zero):
    builds, one build, count, locate and context of the prose vrle
    index, and one APPROX 1 ther query on the zipf full and the prose vrle
    index (with the host time per layer) (torch.profiler);
-   a build or query whose device items include a library sort or scan
-   fails, and
+   the two-chunk build of phase 4e joins these; a build or query whose
+   device items include a library sort or scan fails, and
    the build's device time outside the port's own kernels and copies is
    printed by name.
 
@@ -122,6 +148,19 @@ PROSE_MIN_MIB = 4
 PROSE_SEG = 2048  # the real-text leg's segment size
 PARITY_PROSE_MIB = 8
 EXTRACT_STEPS = 8192  # phase 5's extract rows: steps of one walk
+# phase 4e, the chunked path: the corpus of tests/test_big_corpus.py's
+# test_over_2to31_symbols, 129 documents of 2^24 symbols (SEOF included),
+# each body its own zipf draw, built in chunks of at most 2^28 symbols
+CHUNK_DOC = 1 << 24
+CHUNK_NDOCS = 129            # n = 2,164,260,864 > 2^31
+CHUNK_MAX = 1 << 28          # 16 documents a chunk: 9 chunks, the last one
+#                              document padded to the chunks' shape
+CHUNK_NEEDLE = b"NEEDLE-XYZZY"
+CHUNK_NEEDLE_DOCS = (0, 64, 128)   # planted at offset 1000 + d
+CHUNK_TAIL_STEPS = 65536     # backward extract from the tail document's end
+N_CHUNK_SEGS = 64            # sampled segments of each chunk's doc lists
+# phase 3's doc-list segment sizes; 65504 is the largest l1_group_for takes
+DOC_LIST_SEGS = (64, 256, 2048, 65504)
 ROW_KERNELS = ("seg_syms", "vseg_rows", "side_rows", "vrle_slot_count",
                "vrle_pack", "cont_flatten")
 # the kernels each main path must launch: phase 4 (full tier), 4b
@@ -164,6 +203,15 @@ PATH_KERNELS = {
     # phase 4d's reference: the host engine (term_ranges' answer past the
     # frontier's largest capacities) on the same queries and indexes
     "query_host": tuple(f"backward_step[{lay}]" for lay in LAYOUTS),
+    # phase 4e: every chunk uploaded as bytes (Q) and built with doc lists
+    # (P), the 8 whole chunks unpadded, the tail chunk padded (G's n_real);
+    # zipf documents that differ end in the extension rounds; count,
+    # locate, context (E) and a backward extract on the full tier
+    "chunked": tuple(k for k in SORT_KERNELS
+                     if k not in ("rank_init", "round_keys[doubling]"))
+    + ("sa_keys[n_real]", "expand_u8", "doc_lists", "flatten_ragged",
+       "occ_build", "marks_build", "backward_search[full]",
+       "lf_locate[full]", "lf_extract[full]", "psi_walk[full]"),
 }
 KERNELS = {  # entry -> (source, the femto_tpu function it replaces)
     "occ_build": ("femto_tpu_torch/csrc/occ_build.cu",
@@ -209,6 +257,16 @@ KERNELS = {  # entry -> (source, the femto_tpu function it replaces)
 }
 KERNELS["regex_merge"] = ("femto_tpu_torch/csrc/regex_frontier.cu",
                           "femto_tpu/query/regexp_device.py:197")
+KERNELS.update({
+    "sa_keys[n_real]": ("femto_tpu_torch/csrc/sa_keys.cu",
+                        "femto_tpu/suffix.py:99"),
+    "expand_u8": ("femto_tpu_torch/csrc/text_expand.cu",
+                  "femto_tpu/fmindex.py:80"),
+    "doc_lists": ("femto_tpu_torch/csrc/doc_lists.cu",
+                  "femto_tpu/ops/build_ops.py:834"),
+    "flatten_ragged": ("femto_tpu_torch/csrc/doc_lists.cu",
+                       "femto_tpu/ops/build_ops.py:863"),
+})
 # device items that would mean a build or a query fell back to a library
 # sort or scan
 LIBRARY_SORT_NAMES = ("RadixSort", "Onesweep", "cub::", "thrust::")
@@ -255,14 +313,45 @@ def log(msg):
 # ---------------------------------------------------------------------------
 
 
-def zipf_bytes(rng, n):
-    """n bytes of zipf-distributed English letters (p ~ 1/rank over 30
-    symbols), drawn through a 65536-entry quantile table."""
+def zipf_table():
+    """The 65536-entry quantile table of zipf-distributed English letters
+    (p ~ 1/rank over 30 symbols)."""
     p = 1.0 / np.arange(1, len(ZIPF_LETTERS) + 1)
     edges = np.round(np.cumsum(p / p.sum()) * 65536).astype(np.int64)
-    table = np.repeat(np.frombuffer(ZIPF_LETTERS, np.uint8),
-                      np.diff(np.concatenate([[0], edges])))
-    return table[rng.integers(0, 65536, size=n, dtype=np.int64)]
+    return np.repeat(np.frombuffer(ZIPF_LETTERS, np.uint8),
+                     np.diff(np.concatenate([[0], edges])))
+
+
+def zipf_bytes(rng, n):
+    """n bytes of zipf-distributed English letters, drawn through
+    zipf_table."""
+    return zipf_table()[rng.integers(0, 65536, size=n, dtype=np.int64)]
+
+
+def chunk_corpus(rng):
+    """Phase 4e's PreparedText: CHUNK_NDOCS documents of CHUNK_DOC symbols,
+    each body a zipf draw of its own (through uint16 indices: 2 bytes a
+    symbol of scratch, not 8), the needle planted at offset 1000 + d in
+    the documents CHUNK_NEEDLE_DOCS."""
+    from femto_tpu_torch.alphabet import (CHARACTER_OFFSET, SEOF,
+                                          PreparedText, bytes_to_alpha)
+
+    table = zipf_table()
+    needle = bytes_to_alpha(CHUNK_NEEDLE)
+    text = np.empty(CHUNK_NDOCS * CHUNK_DOC, np.uint16)
+    for d in range(CHUNK_NDOCS):
+        s = d * CHUNK_DOC
+        body = table[rng.integers(0, 65536, size=CHUNK_DOC - 1,
+                                  dtype=np.uint16)]
+        np.add(body, CHARACTER_OFFSET, out=text[s: s + CHUNK_DOC - 1],
+               dtype=np.uint16)
+        if d in CHUNK_NEEDLE_DOCS:
+            text[s + 1000 + d: s + 1000 + d + len(needle)] = needle
+        text[s + CHUNK_DOC - 1] = SEOF
+    return PreparedText(
+        text=text,
+        doc_starts=np.arange(CHUNK_NDOCS + 1, dtype=np.int64) * CHUNK_DOC,
+        infos=[b"doc%d" % d for d in range(CHUNK_NDOCS)])
 
 
 def zipf_docs(rng, n_docs):
@@ -802,6 +891,155 @@ def parity_sort_kernels(rng, docs, prepared, text, ds, errs):
         regimes[regime] = stats
         log(f"    suffix_array n={t.shape[0]}: {stats}")
     return regimes
+
+
+def same_index(name, got, want, lists=True):
+    """Every FMArrays field, the meta and (with lists) the doc lists of two
+    indexes bit for bit."""
+    for k, w in want.arrays._asdict().items():
+        g = getattr(got.arrays, k)
+        check((g is None) == (w is None), f"{name}: field {k}")
+        if w is not None:
+            max_abs_err(f"{name} field {k}", [g.cpu()], [w.cpu()])
+    check(dataclasses.asdict(got.meta) == dataclasses.asdict(want.meta),
+          f"{name}: meta {got.meta} != {want.meta}")
+    if lists:
+        for k in ("chunk_doc_offsets_np", "chunk_docs_np"):
+            g, w = getattr(got, k), getattr(want, k)
+            check(w is not None and g.dtype == w.dtype
+                  and np.array_equal(g, w), f"{name}: {k} differs")
+
+
+def parity_chunked(docs, prepared, sa, ds, errs):
+    """The chunked path's kernels against their plain versions on the card
+    (P's doc_lists and flatten_ragged at four segment sizes and on a
+    pad_shape build, Q's expand_u8, G's sa_keys with n_real and a whole
+    padded suffix sort, bwt_from_sa through L), then small chunked builds
+    on the card against the same on the CPU."""
+    import torch
+
+    import femto_tpu_torch as tt
+    from femto_tpu_torch import fmindex as TF
+    from femto_tpu_torch import multi as TM
+    from femto_tpu_torch import suffix as TS
+    from femto_tpu_torch.ops import build_ops as BO
+    from femto_tpu_torch.ops import sort_ops as SO
+
+    dev = sa.device
+    n = prepared.n
+
+    def hold(name, got, want):
+        torch.cuda.synchronize()
+        errs[name] = max_abs_err(name, got, want)
+
+    # P at four segment sizes (65504: the rows sort in global memory)
+    for seg in DOC_LIST_SEGS:
+        n_seg = n // seg + 1
+        vals, counts = BO.doc_lists(sa, ds, n_real=n, n_seg=n_seg, seg=seg)
+        want = BO.doc_lists_plain(sa, ds, n_real=n, n_seg=n_seg, seg=seg)
+        hold(f"doc_lists(seg={seg})", [vals.contiguous(), counts], want)
+        offsets = torch.zeros(n_seg + 1, dtype=torch.int64, device=dev)
+        offsets[1:] = torch.cumsum(counts.long(), 0)
+        hold(f"flatten_ragged(seg={seg})",
+             [BO.flatten_ragged(vals, counts, offsets)],
+             [BO.flatten_ragged_plain(vals, counts, offsets)])
+    # Q: headers, bytes 0 and 255, an empty document, a padded tail
+    headers = [b"hdr %d" % i if i % 5 == 0 else b"" for i in range(len(docs))]
+    hprep = tt.prepare_documents(docs, headers=headers)
+    check(any(len(d) == 0 for d in docs) and b"\x00" in docs[-2]
+          and b"\xff" in docs[-2], "the corpus needs an empty and a binary "
+                                   "document")
+    hn = hprep.n
+    for nb, nd in ((hn, hprep.num_docs), (hn + 4099, hprep.num_docs + 3)):
+        esc = TF._escape_positions(hprep, nd)
+        u8 = torch.from_numpy(TM._content_u8(hprep.text, nb)).to(dev)
+        pos = [torch.from_numpy(p).to(dev) for p in esc]
+        got = BO.expand_u8(u8, hn, *pos)
+        hold(f"expand_u8(n_build={nb})", [got],
+             [BO.expand_u8_plain(u8, hn, *pos)])
+        check(torch.equal(got[:hn].cpu(), torch.from_numpy(
+            hprep.text.astype(np.int32))) and not bool(got[hn:].any()),
+            "expand_u8 does not give the prepared text back")
+    # G with n_real, then the padded sort as a whole and bwt_from_sa
+    pad = 70001
+    t = torch.cat([text_tensor(prepared, dev),
+                   torch.zeros(pad, dtype=torch.int32, device=dev)])
+    used = TS.text_alphabet(t)
+    bits, per = TS.key_widths(len(used))
+    lut = torch.from_numpy(TS.alpha_lut(used)).to(dev)
+    hold("sa_keys[n_real]",
+         [SO.sa_keys(t, lut, bits=bits, per=per, n_real=n)],
+         [SO.sa_keys_plain(t, lut, bits=bits, per=per, n_real=n)])
+    # K on a padded text: the padded documents' starts are marked too
+    dsp = torch.cat([ds, torch.full((2,), n, dtype=torch.int32, device=dev)])
+    kw = dict(n=n + pad, mark_period=20, ndocs=dsp.shape[0] - 1)
+    hold("sa_payload(padded)", [BO.build_sa_payload(t, dsp, **kw)],
+         [BO.sa_payload_plain(t, dsp, **kw)])
+    sa_k = tt.suffix_array(t, n_real=n)
+    stats = dict(TS.last_stats)
+    sa_p = tt.suffix_array(t.cpu(), n_real=n)
+    check(stats == TS.last_stats, "padded sort: card and CPU rounds differ")
+    hold("suffix_array(n_real)", [sa_k.cpu()], [sa_p])
+    check(torch.equal(sa_k[:pad].cpu(), torch.arange(
+        n + pad - 1, n - 1, -1, dtype=torch.int32)),
+        "the pad suffixes do not lead, shortest first")
+    check(torch.equal(sa_k[pad:].cpu(), sa.cpu()),
+          "the padded SA's real rows differ from the unpadded SA")
+    hold("bwt_from_sa", [tt.bwt_from_sa(t, sa_k).cpu()],
+         [tt.bwt_from_sa(t.cpu(), sa_k.cpu())])
+    del t, sa_k, sa_p
+    # a pad_shape build with doc lists: card against CPU
+    sub = tt.prepare_documents(docs[:40], headers=headers[:40])
+    kw = dict(seg=256, mark_period=20, doc_chunks=True,
+              pad_shape=(sub.n + 5000, sub.num_docs + 2))
+    same_index("pad_shape build", tt.build_index(sub, device="cuda", **kw),
+               tt.build_index(sub, device="cpu", **kw))
+    # small chunked builds (four chunks, the last one padded), card against
+    # CPU; merge_indexes and IncrementalIndex against direct builds
+    cdocs = docs[2:20] + docs[-4:]
+    cheaders = headers[2:20] + headers[-4:]
+    cprep = tt.prepare_documents(cdocs, headers=cheaders)
+    cmax = 6 * DOC_SIZE + 64
+    kw = dict(max_chunk_symbols=cmax, seg=256, mark_period=20)
+    runs = {}
+    for uniform in (True, False):
+        want = TM.build_chunked_prepared(cprep, uniform=uniform,
+                                         prefetch=False, device="cpu", **kw)
+        check(len(want.indexes) == 4, "the small chunked corpus should "
+              "give four chunks")
+        for prefetch in (True, False):
+            got = TM.build_chunked_prepared(cprep, uniform=uniform,
+                                            prefetch=prefetch,
+                                            device="cuda", **kw)
+            for i, (g, w) in enumerate(zip(got.indexes, want.indexes)):
+                same_index(f"chunk {i} (uniform={uniform}, "
+                           f"prefetch={prefetch})", g, w)
+            runs[uniform, prefetch] = got
+    padded = runs[True, True].indexes[-1].meta.row0
+    check(padded > 0, "the uniform build's last chunk should be padded")
+    mi = runs[True, True]
+    pats = [cdocs[d][o: o + 12] for d, o in ((0, 100), (7, 2000), (17, 9))]
+    pats += [b"\x00\xff", b"hdr 5"]
+    direct = tt.build_index(cprep, seg=256, mark_period=20, device="cuda")
+    check(np.array_equal(mi.count(pats), tt.count(direct, pats)),
+          "chunked counts differ from the direct build's")
+    same_index("merge_indexes", TM.merge_indexes(
+        mi.indexes, seg=256, mark_period=20, device="cuda"), direct,
+        lists=False)
+    inc = TM.IncrementalIndex(max_shards=2, seg=256, mark_period=20,
+                              device="cuda")
+    for i in range(0, len(cdocs), 8):
+        inc.add_documents(cdocs[i: i + 8])
+    check(len(inc.multi.indexes) == 2 and inc.num_docs == len(cdocs),
+          "IncrementalIndex should hold two shards of every document")
+    # (add_documents takes no headers: the header pattern is left out)
+    check(np.array_equal(inc.count(pats[:-1]), tt.count(direct, pats[:-1])),
+          "IncrementalIndex counts differ from the direct build's")
+    log(f"    chunked parity: doc lists at seg {DOC_LIST_SEGS}, expand_u8 "
+        f"with headers and pads, sa_keys and suffix_array with n_real "
+        f"(rounds {stats}), bwt_from_sa, a pad_shape build with doc lists, "
+        f"four-chunk builds (uniform and prefetch both ways; the last chunk "
+        f"has row0 {padded}), merge_indexes and IncrementalIndex")
 
 
 # ---------------------------------------------------------------------------
@@ -1458,6 +1696,7 @@ def phase_parity(record, rng):
     regimes = parity_sort_kernels(rng, docs, prepared, text, ds, errs)
     payload = BO.build_sa_payload(text, ds, n=n, mark_period=20, ndocs=ndocs)
     sa, pull = tt.suffix_array(text, payload=payload)
+    parity_chunked(docs, prepared, sa, ds, errs)
     a_k = BO.occ_build(pull, n_seg=n_seg, seg=seg)
     a_p = BO.occ_build_plain(pull, n_seg=n_seg, seg=seg)
     torch.cuda.synchronize()
@@ -2369,6 +2608,380 @@ def phase_query(record, rng, st, st2, st3):
                 zipf=zipf, zsteps=zsteps, psteps=psteps)
 
 
+def interval_overlap(spans, others):
+    """Microseconds of the intervals ``spans`` that lie under the union of
+    the intervals ``others`` ((start, end) pairs)."""
+    merged = []
+    for a, b in sorted(others):
+        if merged and a <= merged[-1][1]:
+            merged[-1][1] = max(merged[-1][1], b)
+        else:
+            merged.append([a, b])
+    total = 0.0
+    for a, b in spans:
+        for c, d in merged:
+            total += max(0.0, min(b, d) - max(a, c))
+    return total
+
+
+def chunk_rows_sa(ix, rows):
+    """sa[rows] of a chunk index: a located offset for each real row, the
+    pad position n_rows - 1 - r for each pad row r < row0 (the pad
+    suffixes lead, shortest first), -1 past n_rows."""
+    import femto_tpu_torch as tt
+
+    out = np.full(len(rows), -1, np.int64)
+    real = (rows >= ix.meta.row0) & (rows < ix.meta.n_rows)
+    padr = rows < ix.meta.row0
+    out[real] = tt.locate_rows_array(ix, rows[real])
+    out[padr] = ix.meta.n_rows - 1 - rows[padr]
+    return out
+
+
+def chunked_kernel_rows(prepared, tail_text, tail_n, seg, launches, card):
+    """Phase 5's rows of the chunked path's own kernels, at the shapes of
+    phase 4e (P and Q on the first chunk, G with n_real on the padded
+    tail chunk), each held to its plain version on the same inputs."""
+    import torch
+
+    from femto_tpu_torch import fmindex as TF
+    from femto_tpu_torch import multi as TM
+    from femto_tpu_torch import suffix as TS
+    from femto_tpu_torch.alphabet import PreparedText
+    from femto_tpu_torch.ops import build_ops as BO
+    from femto_tpu_torch.ops import sort_ops as SO
+
+    dev = tail_text.device
+    rows = []
+
+    def row(name, run_k, run_p, nbytes, library=None):
+        a, b = torch.cuda.Event(enable_timing=True), \
+            torch.cuda.Event(enable_timing=True)
+        got = run_k()
+        a.record()
+        want = run_p()
+        b.record()
+        torch.cuda.synchronize()
+        err = max_abs_err(name, got, want)
+        del got, want
+        r = {"name": name, "path": "chunked", "route": "cuda",
+             "source": KERNELS[name][0], "replaces": KERNELS[name][1],
+             "launches": launches.get(name, 0), "max_abs_err": err,
+             "ms": cuda_ms(run_k), "plain_ms": a.elapsed_time(b),
+             "bound_ms": bound_ms(nbytes), "bound_by": "bytes",
+             "library_ms": cuda_ms(library) if library else None,
+             "card": card}
+        rows.append(r)
+        log(f"    {name}: {r['ms']:.4g} ms (bound {r['bound_ms']:.4g} ms, "
+            f"plain {r['plain_ms']:.4g} ms, library {r['library_ms']}); "
+            f"launches on the chunked path {r['launches']}")
+
+    d1 = CHUNK_MAX // CHUNK_DOC
+    sub = PreparedText(
+        text=prepared.text[:CHUNK_MAX],
+        doc_starts=prepared.doc_starts[: d1 + 1].copy(),
+        infos=prepared.infos[:d1])
+    n = sub.n
+    esc = [torch.from_numpy(p).to(dev)
+           for p in TF._escape_positions(sub, d1)]
+    u8 = torch.from_numpy(TM._content_u8(sub.text, n)).to(dev)
+    row("expand_u8", lambda: [BO.expand_u8(u8, n, *esc)],
+        lambda: [BO.expand_u8_plain(u8, n, *esc)],
+        n + sum(4 * p.shape[0] for p in esc) + 4 * n)
+    text = BO.expand_u8(u8, n, *esc)
+    del u8
+    sa = TS.suffix_array(text)
+    ds = torch.from_numpy(sub.doc_starts.astype(np.int32)).to(dev)
+    n_seg = n // seg + 1
+    tile = torch.full((n_seg * seg,), 2**31 - 1, dtype=torch.int32,
+                      device=dev)
+    tile[:n] = (torch.searchsorted(ds.long(), sa.long(), right=True) - 1
+                ).to(torch.int32)
+    tile = tile.reshape(n_seg, seg)
+    row("doc_lists",
+        lambda: list(BO.doc_lists(sa, ds, n_real=n, n_seg=n_seg, seg=seg)),
+        lambda: BO.doc_lists_plain(sa, ds, n_real=n, n_seg=n_seg, seg=seg),
+        4 * n + 4 * ds.shape[0] + 4 * n_seg * seg + 4 * n_seg,
+        library=lambda: torch.sort(tile, dim=1))
+    del tile
+    vals, counts = BO.doc_lists(sa, ds, n_real=n, n_seg=n_seg, seg=seg)
+    offsets = torch.zeros(n_seg + 1, dtype=torch.int64, device=dev)
+    offsets[1:] = torch.cumsum(counts.long(), 0)
+    total = int(offsets[-1])
+    row("flatten_ragged",
+        lambda: [BO.flatten_ragged(vals, counts, offsets)],
+        lambda: [BO.flatten_ragged_plain(vals, counts, offsets)],
+        4 * n_seg + 8 * (n_seg + 1) + 4 * total + 4 * total)
+    del vals, counts, offsets, sa, text
+    used = TS.text_alphabet(tail_text)
+    bits, per = TS.key_widths(len(used))
+    lut = torch.from_numpy(TS.alpha_lut(used)).to(dev)
+    nt = tail_text.shape[0]
+    row("sa_keys[n_real]",
+        lambda: [SO.sa_keys(tail_text, lut, bits=bits, per=per,
+                            n_real=tail_n)],
+        lambda: [SO.sa_keys_plain(tail_text, lut, bits=bits, per=per,
+                                  n_real=tail_n)],
+        4 * tail_n + 4 * 512 + 8 * nt)
+    return rows
+
+
+def phase_chunked(record, rng):
+    """Phase 4e, the chunked path at full size, run first on an empty
+    card: build_chunked_prepared of 129 zipf documents of 2^24 symbols
+    (n = 2,164,260,864) in chunks of at most 2^28 symbols, full tier, doc
+    lists, the uint8 upload and prefetch; the needle, 32768 patterns and
+    the located offsets checked, the padded tail chunk held to an unpadded
+    build of its document, sampled doc lists of every chunk held to their
+    plain version, a Boolean docs_query held to its terms' documents; the
+    tail chunk's sort timed with and without n_real; the chunked kernels'
+    rows for phase 5; one two-chunk build profiled for phase 6."""
+    import torch
+
+    import femto_tpu_torch as tt
+    from femto_tpu_torch import fmindex as TF
+    from femto_tpu_torch import kernels
+    from femto_tpu_torch import multi as TM
+    from femto_tpu_torch import suffix as TS
+    from femto_tpu_torch.alphabet import PreparedText
+    from femto_tpu_torch.ops import build_ops as BO
+    from femto_tpu_torch.ops import search_ops as S
+
+    dev = torch.device("cuda")
+    seg, mp = 256, 20
+    t0 = time.perf_counter()
+    prepared = chunk_corpus(rng)
+    n = prepared.n
+    check(n == CHUNK_NDOCS * CHUNK_DOC and n > 2**31, "chunk corpus size")
+    starts = (rng.integers(0, CHUNK_NDOCS, size=N_PATTERNS) * CHUNK_DOC
+              + rng.integers(0, CHUNK_DOC - PATLEN - 1, size=N_PATTERNS))
+    codes = prepared.text[starts[:, None] + np.arange(PATLEN)]
+    patterns = [r.tobytes() for r in (codes - 5).astype(np.uint8)]
+    t_data = time.perf_counter() - t0
+    card = record["toolchain"]["card"]
+    log(f"[4e] corpus: {CHUNK_NDOCS} zipf documents of {CHUNK_DOC} symbols, "
+        f"n={n} (made in {t_data:.1f}s); card {card}")
+
+    done = []
+    real_build = TM.build_index
+
+    def timed_build(*a, **k):
+        # build_index returns once its doc lists are on the host, so the
+        # gap between two returns is one chunk's staging and build
+        ix = real_build(*a, **k)
+        done.append(time.perf_counter())
+        return ix
+
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    kernels.reset_launches()
+    TM.build_index = timed_build
+    try:
+        t0 = time.perf_counter()
+        mi = TM.build_chunked_prepared(prepared, max_chunk_symbols=CHUNK_MAX,
+                                       seg=seg, mark_period=mp,
+                                       device="cuda")
+        torch.cuda.synchronize()
+        t_build = time.perf_counter() - t0
+    finally:
+        TM.build_index = real_build
+    peak = torch.cuda.max_memory_allocated()
+    resident = torch.cuda.memory_allocated()
+    chunk_ms = (np.diff([t0] + done) * 1e3).tolist()
+    nchunks = len(mi.indexes)
+    check(nchunks == 9, f"expected 9 chunks, got {nchunks}")
+    tail = mi.indexes[-1]
+    check(tail.meta.row0 == CHUNK_MAX - CHUNK_DOC == 251658240
+          and tail.meta.n_rows == CHUNK_MAX, f"tail chunk meta {tail.meta}")
+    check(all(ix.meta.row0 == 0 for ix in mi.indexes[:-1]),
+          "whole chunks should carry no pad rows")
+    # the queries of the path
+    t0 = time.perf_counter()
+    needle_at = mi.locate(CHUNK_NEEDLE)
+    needle_count = int(mi.count([CHUNK_NEEDLE])[0])
+    counts = mi.count(patterns)
+    t_count = time.perf_counter() - t0
+    per_chunk = sum(tt.count(ix, patterns) for ix in mi.indexes)
+    sample = [int(i) for i in rng.choice(N_PATTERNS, 16, replace=False)]
+    located = {i: mi.locate(patterns[i], max_matches=8) for i in sample}
+    # a 20-symbol string of document 64, likely found there alone
+    t2 = prepared.text[64 * CHUNK_DOC + 2000: 64 * CHUNK_DOC + 2020]
+    term2 = (t2 - 5).astype(np.uint8).tobytes()
+    query = f"'{CHUNK_NEEDLE.decode()}' AND '{term2.decode()}'"
+    got_docs = sorted(d for d, _, _ in mi.docs_query(query,
+                                                     with_offsets=False))
+    want_docs = sorted(set(mi.docs(CHUNK_NEEDLE)) & set(mi.docs(term2)))
+    ctx = {}
+    for i in sample[:4]:
+        ix_i = mi.indexes[int(starts[i] // CHUNK_MAX)]
+        f, l = tt.count_ranges(ix_i, [patterns[i]])
+        ctx[i] = tt.extract_context_batch(
+            ix_i, np.arange(f[0], l[0]), 0, PATLEN, 0)
+    # the last CHUNK_TAIL_STEPS symbols of the tail chunk's document, by a
+    # backward walk from its SEOF row
+    tail_walk = S.extract_backward(tail.arrays, tail.arrays.doc_seof_rows[
+        :1].contiguous(), CHUNK_TAIL_STEPS)[0]
+    torch.cuda.synchronize()
+    launches = dict(kernels.launches)
+    log(f"    built {nchunks} chunks in {t_build:.2f}s "
+        f"({n / 2**20 / t_build:.1f} MiB/s); ms per chunk (staging + "
+        f"build) {[round(x, 1) for x in chunk_ms]}; peak device memory "
+        f"{peak / 1e9:.3f} GB, {resident / 1e9:.3f} GB resident after; "
+        f"count of {N_PATTERNS} patterns {t_count:.3f}s; launches "
+        f"{launches}")
+
+    # checks
+    check(needle_at == [(0, 1000), (64, 1064), (128, 1128)]
+          and needle_count == 3, f"needle: {needle_at}, {needle_count}")
+    check((counts >= 1).all(), "a pattern cut from the text has count 0")
+    check(np.array_equal(counts, per_chunk),
+          "the MultiIndex count differs from the sum over the chunks")
+    for i, locs in located.items():
+        check(len(locs) >= 1, f"pattern {i} not located")
+        for d, o in locs:
+            s0 = d * CHUNK_DOC + o
+            check(prepared.text[s0: s0 + PATLEN].tobytes()
+                  == codes[i].tobytes(), f"located {d}:{o} is not pattern "
+                                         f"{i}")
+    for i, got in ctx.items():
+        check(got and all(c == patterns[i] for c in got),
+              f"the match rows of pattern {i} extract other bytes")
+    check(got_docs == want_docs and 64 in got_docs,
+          f"docs_query {query!r}: {got_docs} != {want_docs}")
+    for name in PATH_KERNELS["chunked"]:
+        check(launches[name] >= 1,
+              f"kernel {name} was not launched on the chunked path")
+
+    # sampled doc lists of every chunk against their plain version
+    for c, ix in enumerate(mi.indexes):
+        segs = np.unique(np.concatenate([
+            [0, ix.meta.n_seg - 1],
+            rng.integers(0, ix.meta.n_seg, size=N_CHUNK_SEGS)]))
+        rows = (segs[:, None] * seg + np.arange(seg)).reshape(-1)
+        sa_rows = torch.from_numpy(chunk_rows_sa(ix, rows).astype(np.int32))
+        vals, cnt = BO.doc_lists_plain(sa_rows, ix.arrays.doc_starts.cpu(),
+                                       n_real=ix.meta.n, n_seg=len(segs),
+                                       seg=seg)
+        o = ix.chunk_doc_offsets_np
+        for j, sg in enumerate(segs):
+            want = ix.chunk_docs_np[o[sg]: o[sg + 1]]
+            check(np.array_equal(vals[j, : int(cnt[j])].numpy(), want),
+                  f"chunk {c} segment {sg}: doc list differs")
+
+    # the padded tail chunk against an unpadded build of its document
+    d_tail = CHUNK_NDOCS - 1
+    tail_prep = PreparedText(text=prepared.text[d_tail * CHUNK_DOC:],
+                             doc_starts=np.array([0, CHUNK_DOC], np.int64),
+                             infos=[prepared.infos[d_tail]])
+    plain_tail = tt.build_index(tail_prep, seg=seg, mark_period=mp,
+                                doc_chunks=True, device="cuda")
+    row0 = tail.meta.row0
+    tpats = [CHUNK_NEEDLE] + [
+        (tail_prep.text[o: o + PATLEN] - 5).astype(np.uint8).tobytes()
+        for o in rng.integers(0, CHUNK_DOC - PATLEN - 1, size=1024)]
+    check(np.array_equal(tt.count(tail, tpats), tt.count(plain_tail, tpats)),
+          "tail chunk: counts differ from the unpadded build")
+    check(tt.locate(tail, CHUNK_NEEDLE) == tt.locate(plain_tail, CHUNK_NEEDLE)
+          == [(0, 1128)], "tail chunk: the needle's locate differs")
+    walks = [tail_walk, S.extract_backward(
+        plain_tail.arrays, plain_tail.arrays.doc_seof_rows[:1].contiguous(),
+        CHUNK_TAIL_STEPS)[0]]
+    want_tail = torch.from_numpy(tail_prep.text[
+        CHUNK_DOC - 1 - CHUNK_TAIL_STEPS: CHUNK_DOC - 1][::-1].astype(
+        np.int32).copy())
+    check(torch.equal(walks[0], walks[1])
+          and torch.equal(walks[0][0].cpu(), want_tail),
+          "tail chunk: the backward extract differs")
+    f, l = tt.count_ranges(tail, tpats[:64])
+    rd = [(int(a), int(b)) for a, b in zip(f, l) if b > a]
+    rd += [(row0, row0 + 5 * seg + 17), (row0 + 3, tail.meta.n_rows)]
+    for a, b in rd:
+        check(np.array_equal(tt.range_docs(tail, a, b),
+                             tt.range_docs(plain_tail, a - row0, b - row0)),
+              f"tail chunk: range_docs({a}, {b}) differs")
+    # the real rows [row0, n_rows) all lie past n here: the rows a bound
+    # of n refused (ROADMAP Q3); their first and last 1024 and 2048 more
+    nr = tail.meta.n_rows
+    top = np.concatenate([np.arange(row0, row0 + 1024),
+                          np.arange(nr - 1024, nr),
+                          rng.integers(row0, nr, size=2048)])
+    check(tt.extract_context_batch(tail, top, *CTX)
+          == tt.extract_context_batch(plain_tail, top - row0, *CTX),
+          "tail chunk: contexts over its real rows differ")
+    log(f"    checks: needle {needle_at} (count {needle_count}), "
+        f"{N_PATTERNS} patterns each >= 1 and == the sum over chunks, "
+        f"{sum(map(len, located.values()))} located offsets in the text, "
+        f"match rows' contexts, {query!r} -> {got_docs}, sampled doc lists "
+        f"of all {nchunks} chunks, the tail chunk (row0 {row0}) against an "
+        f"unpadded build: {len(tpats)} counts, locate, a "
+        f"{CHUNK_TAIL_STEPS}-step extract, {len(rd)} range_docs, "
+        f"{len(top)} contexts over rows in [row0, n_rows), all past n")
+    del plain_tail, walks, tail_walk
+    tail_n = tail.meta.n
+    del mi, tail, ix
+
+    # the tail chunk's suffix sort with and without n_real
+    esc = [torch.from_numpy(p).to(dev)
+           for p in TF._escape_positions(tail_prep, 16)]
+    tail_text = BO.expand_u8(torch.from_numpy(TM._content_u8(
+        tail_prep.text, CHUNK_MAX)).to(dev), tail_n, *esc)
+    alpha = TS.text_alphabet(tail_text)
+    sorts = {}
+    for tag, nr in (("n_real", tail_n), ("no_n_real", None)):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        sa_t = TS.suffix_array(tail_text, alpha=alpha, n_real=nr)
+        torch.cuda.synchronize()
+        sorts[tag] = {"s": time.perf_counter() - t0,
+                      "stats": dict(TS.last_stats)}
+        sorts[tag]["sa"] = sa_t
+        log(f"    tail chunk's sort {tag}: {sorts[tag]['s']:.3f}s, "
+            f"{sorts[tag]['stats']}")
+    check(torch.equal(sorts["n_real"].pop("sa"), sorts["no_n_real"].pop(
+        "sa")), "the tail chunk's SA differs with and without n_real")
+    rows5 = chunked_kernel_rows(prepared, tail_text, tail_n, seg, launches,
+                                card)
+    del tail_text
+
+    # phase 6's two-chunk build, profiled
+    two = PreparedText(text=prepared.text[: 2 * CHUNK_MAX],
+                       doc_starts=prepared.doc_starts[
+                           : 2 * (CHUNK_MAX // CHUNK_DOC) + 1].copy(),
+                       infos=prepared.infos[: 2 * (CHUNK_MAX // CHUNK_DOC)])
+    del prepared
+    entry, prof = profile_step(
+        "chunked_two_chunk_build",
+        lambda: TM.build_chunked_prepared(two, max_chunk_symbols=CHUNK_MAX,
+                                          seg=seg, mark_period=mp,
+                                          device="cuda"),
+        own_kernel_names())
+    cuda = torch.autograd.DeviceType.CUDA
+    evs = [e for e in prof.events() if e.device_type == cuda]
+    copies = [(e.time_range.start, e.time_range.end) for e in evs
+              if "HtoD" in e.name and "Pinned" in e.name]
+    kerns = [(e.time_range.start, e.time_range.end) for e in evs
+             if "memcpy" not in e.name.lower()
+             and "memset" not in e.name.lower()]
+    copy_us = sum(b - a for a, b in copies)
+    entry["pinned_upload_us"] = copy_us
+    entry["pinned_upload_under_kernels_us"] = interval_overlap(copies, kerns)
+    entry["pinned_uploads"] = len(copies)
+    log(f"      pinned uploads: {len(copies)}, {copy_us:.1f} us, of which "
+        f"{entry['pinned_upload_under_kernels_us']:.1f} us ran while a "
+        f"kernel ran")
+    record["chunked_path"] = {
+        "n": n, "ndocs": CHUNK_NDOCS, "chunks": nchunks,
+        "max_chunk_symbols": CHUNK_MAX, "seg": seg, "mark_period": mp,
+        "tail_row0": row0, "card": card, "build_s": t_build,
+        "mib_per_s": n / 2**20 / t_build, "chunk_ms": chunk_ms,
+        "peak_device_bytes": peak, "resident_after_build_bytes": resident,
+        "count_s": t_count, "launches": launches,
+        "tail_sort": sorts, "query": query, "query_docs": got_docs,
+    }
+    return {"launches": launches, "kernel_rows": rows5,
+            "profile": {"chunked_two_chunk_build": entry}}
+
+
 def sort_kernel_rows(record, kernel_row, text, ds, sa, sa_direct, rows, *,
                      n, ndocs, mark_period):
     """Kernels G-L at the main path's shapes: the state after the first
@@ -2414,7 +3027,7 @@ def sort_kernel_rows(record, kernel_row, text, ds, sa, sa_direct, rows, *,
                lambda: SO.radix_sort_pairs_plain(key0, None, 0, per * bits),
                bounds["radix_sort_pairs"],
                library=lambda: torch.sort(key0, stable=True),
-               paths=("full", "tiers", "rows"))
+               paths=("full", "tiers", "rows", "chunked"))
     kernel_row("group_flags", lambda: [SO.group_flags(skey)],
                lambda: [SO.group_flags_plain(skey)], bounds["group_flags"])
     del skey
@@ -2735,7 +3348,7 @@ def query_kernel_rows(kernel_row, st, st3, st4):
     return shapes
 
 
-def phase_numbers(record, st, st2, st3, st4):
+def phase_numbers(record, st, st2, st3, st4, st5):
     """End-to-end rates (medians of 3) and each kernel at the main paths'
     shapes against its bound, its plain version and a library call."""
     import torch
@@ -2855,7 +3468,8 @@ def phase_numbers(record, st, st2, st3, st4):
     kern = []
     path_launches = {"full": st["launches"], "tiers": st2["launches"],
                      "rows": st3["launches"], "query": st4["launches"],
-                     "query_host": st4["host_launches"]}
+                     "query_host": st4["host_launches"],
+                     "chunked": st5["launches"]}
 
     def kernel_row(name, run_k, run_p, bound_ms, library=None, paths=None):
         """One kernel against its plain version at these shapes; plain_ms
@@ -2884,7 +3498,7 @@ def phase_numbers(record, st, st2, st3, st4):
                 "replaces": replaces, "launches": launches,
                 "max_abs_err": err, "ms": ms, "plain_ms": plain_ms,
                 "bound_ms": bound_ms, "bound_by": "bytes",
-                "library_ms": lib_ms,
+                "library_ms": lib_ms, "card": record["toolchain"]["card"],
             })
         log(f"    {name}: {ms:.4g} ms (bound {bound_ms:.4g} ms, plain "
             f"{plain_ms:.4g} ms, library {lib_ms}); launches {per_path}")
@@ -2964,25 +3578,90 @@ def phase_numbers(record, st, st2, st3, st4):
     del isa
     row_kernel_rows(kernel_row, st3)
     record["query_shapes"] = query_kernel_rows(kernel_row, st, st3, st4)
-    record["kernels"] = kern
+    # the chunked path's own kernels, timed in phase 4e at its shapes
+    record["kernels"] = kern + st5["kernel_rows"]
 
 
-def phase_profile(record, st, st2, st3, st4):
-    """Device time by kernel (torch.profiler, CUPTI) and the device's busy
-    share over one call of each main-path step, for PERF.md's breakdown;
-    "not measured" where the profiler reports no device time."""
-    import torch
-    from torch.profiler import ProfilerActivity, profile
-
-    import femto_tpu_torch as tt
+def own_kernel_names():
+    """Names of the port's own __global__ kernels, from the CUDA sources."""
     from femto_tpu_torch import kernels
-    from femto_tpu_torch.query import regexp_device as RD
 
-    own_kernels = sorted({
+    return sorted({
         m for src in kernels.SOURCES
         for m in re.findall(r"__global__\s+void\s+(?:__launch_bounds__"
                             r"\([^)]*\)\s+)?(\w+)", open(
             os.path.join(kernels.CSRC, src + ".cu")).read())})
+
+
+def profile_step(name, fn, own_kernels):
+    """One call of fn under torch.profiler: (record entry, profiler).  The
+    entry has the wall and device ms, the busy share and the top device
+    items; a build's or query's device items must hold no library sort or
+    scan, and what lies outside the port's kernels and copies is named."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        fn()
+        torch.cuda.synchronize()
+        wall_ms = (time.perf_counter() - t0) * 1e3
+    # device-side events only (kernels, copies): aten ops would count
+    # their kernels a second time
+    ops = sorted(((e.key, e.self_device_time_total / 1e3, e.count)
+                  for e in prof.key_averages()
+                  if e.device_type == torch.autograd.DeviceType.CUDA
+                  and e.self_device_time_total > 0),
+                 key=lambda o: -o[1])
+    dev_ms = sum(o[1] for o in ops)
+    out = {
+        "wall_ms": wall_ms,
+        "device_ms": dev_ms if ops else "not measured",
+        "busy_share": dev_ms / wall_ms if ops else "not measured",
+        "top": [{"op": k[:120], "ms": ms, "calls": c}
+                for k, ms, c in ops[:8]],
+    }
+    log(f"[6] {name}: wall {wall_ms:.3f} ms, device {out['device_ms']} ms, "
+        f"busy share {out['busy_share']}")
+    for o in out["top"][:4]:
+        log(f"      {o['ms']:.3f} ms x{o['calls']} {o['op'][:90]}")
+    if ("build" in name or name.startswith("query")) and ops:
+        # nothing fell back: no library sort or scan among the build's
+        # device items, and what lies outside the port's own kernels and
+        # copies is named
+        library = [k for k, _, _ in ops
+                   if any(s in k for s in LIBRARY_SORT_NAMES)]
+        check(not library, f"{name} ran a library sort or scan on the "
+                           f"card: {library}")
+        outside = [(k, ms, c) for k, ms, c in ops
+                   if not any(own in k for own in own_kernels)
+                   and "memcpy" not in k.lower()
+                   and "memset" not in k.lower()]
+        out["outside_port_kernels_ms"] = sum(o[1] for o in outside)
+        out["outside_port_kernels"] = [
+            {"op": k[:160], "ms": ms, "calls": c} for k, ms, c in outside]
+        out["by_port_kernel_ms"] = {
+            own: sum(ms for k, ms, _ in ops if own in k)
+            for own in own_kernels if any(own in k for k, _, _ in ops)}
+        log(f"      no library sort or scan; outside the port's kernels "
+            f"and copies: {out['outside_port_kernels_ms']:.3f} ms")
+        for k, ms, c in outside:
+            log(f"        {ms:.3f} ms x{c} {k[:100]}")
+        log(f"      by port kernel: {out['by_port_kernel_ms']}")
+    return out, prof
+
+
+def phase_profile(record, st, st2, st3, st4, st5):
+    """Device time by kernel (torch.profiler, CUPTI) and the device's busy
+    share over one call of each main-path step, for PERF.md's breakdown;
+    "not measured" where the profiler reports no device time.  The
+    two-chunk build of phase 4e was profiled there (st5)."""
+    import femto_tpu_torch as tt
+    from femto_tpu_torch.query import regexp_device as RD
+
+    own_kernels = own_kernel_names()
     prepared, walk = st["prepared"], st["walk"]
     steps = {
         "build": lambda: tt.build_index(prepared, seg=256, mark_period=20,
@@ -3021,64 +3700,17 @@ def phase_profile(record, st, st2, st3, st4):
             ix, nfa, node.approx, frontier_cap=ZIPF_QUERIES["approx1"][1]))
     out = {}
     for name, fn in steps.items():
-        torch.cuda.synchronize()
-        with profile(activities=[ProfilerActivity.CPU,
-                                 ProfilerActivity.CUDA]) as prof:
-            t0 = time.perf_counter()
-            fn()
-            torch.cuda.synchronize()
-            wall_ms = (time.perf_counter() - t0) * 1e3
-        # device-side events only (kernels, copies): aten ops would count
-        # their kernels a second time
-        ops = sorted(((e.key, e.self_device_time_total / 1e3, e.count)
-                      for e in prof.key_averages()
-                      if e.device_type == torch.autograd.DeviceType.CUDA
-                      and e.self_device_time_total > 0),
-                     key=lambda o: -o[1])
-        dev_ms = sum(o[1] for o in ops)
-        out[name] = {
-            "wall_ms": wall_ms,
-            "device_ms": dev_ms if ops else "not measured",
-            "busy_share": dev_ms / wall_ms if ops else "not measured",
-            "top": [{"op": k[:120], "ms": ms, "calls": c}
-                    for k, ms, c in ops[:8]],
-        }
+        out[name] = profile_step(name, fn, own_kernels)[0]
         if name.startswith("query"):
             layers = RD.last_stats["layers"]
-            out[name].update(layers=layers, reads=RD.last_stats["reads"],
-                             host_ms_per_layer=(wall_ms - dev_ms) / layers
-                             if ops else "not measured")
-        log(f"[6] {name}: wall {wall_ms:.3f} ms, device "
-            f"{out[name]['device_ms']} ms, busy share "
-            f"{out[name]['busy_share']}"
-            + (f", {out[name]['layers']} layers, host ms per layer "
-               f"{out[name]['host_ms_per_layer']}"
-               if name.startswith("query") else ""))
-        for o in out[name]["top"][:4]:
-            log(f"      {o['ms']:.3f} ms x{o['calls']} {o['op'][:90]}")
-        if (name.endswith("build") or name.startswith("query")) and ops:
-            # nothing fell back: no library sort or scan among the build's
-            # device items, and what lies outside the port's own kernels
-            # and copies is named
-            library = [k for k, _, _ in ops
-                       if any(s in k for s in LIBRARY_SORT_NAMES)]
-            check(not library, f"{name} ran a library sort or scan on the "
-                               f"card: {library}")
-            outside = [(k, ms, c) for k, ms, c in ops
-                       if not any(own in k for own in own_kernels)
-                       and "memcpy" not in k.lower()
-                       and "memset" not in k.lower()]
-            out[name]["outside_port_kernels_ms"] = sum(o[1] for o in outside)
-            out[name]["outside_port_kernels"] = [
-                {"op": k[:160], "ms": ms, "calls": c} for k, ms, c in outside]
-            out[name]["by_port_kernel_ms"] = {
-                own: sum(ms for k, ms, _ in ops if own in k)
-                for own in own_kernels if any(own in k for k, _, _ in ops)}
-            log(f"      no library sort or scan; outside the port's kernels "
-                f"and copies: {out[name]['outside_port_kernels_ms']:.3f} ms")
-            for k, ms, c in outside:
-                log(f"        {ms:.3f} ms x{c} {k[:100]}")
-            log(f"      by port kernel: {out[name]['by_port_kernel_ms']}")
+            dev_ms = out[name]["device_ms"]
+            out[name].update(
+                layers=layers, reads=RD.last_stats["reads"],
+                host_ms_per_layer=(out[name]["wall_ms"] - dev_ms) / layers
+                if dev_ms != "not measured" else "not measured")
+            log(f"      {layers} layers, host ms per layer "
+                f"{out[name]['host_ms_per_layer']}")
+    out.update(st5["profile"])
     record["profile"] = out
 
 
@@ -3100,12 +3732,14 @@ def main(argv=None):
         phase_toolchain(record)
         phase_build(record)
         phase_parity(record, rng)
+        # the chunked path first, while the card holds nothing else
+        st5 = phase_chunked(record, rng)
         st = phase_main(record, rng)
         st2 = phase_tiers(record, rng, st)
         st3 = phase_rows(record, rng, st, st2)
         st4 = phase_query(record, rng, st, st2, st3)
-        phase_numbers(record, st, st2, st3, st4)
-        phase_profile(record, st, st2, st3, st4)
+        phase_numbers(record, st, st2, st3, st4, st5)
+        phase_profile(record, st, st2, st3, st4, st5)
     except SmokeError as e:
         print(f"chip_smoke: FAILED: {e}", file=sys.stderr)
         return 1

@@ -5,8 +5,9 @@ The port of femto_tpu's single-device index in all five storage tiers
 and index packaging on the card, .npz and .ftpu persistence, count /
 locate / extract / context / range_docs, and the query engine
 (femto_tpu_torch.query: regex, approximate and Boolean queries, the
-device regex frontier), served by hand-written CUDA kernels (csrc/, built
-and bound by kernels.py).  It imports torch and numpy only; femto_tpu
+device regex frontier), chunked builds past 2^31 symbols with per-segment
+doc lists (femto_tpu_torch.multi), served by hand-written CUDA kernels
+(csrc/, built and bound by kernels.py).  It imports torch and numpy only; femto_tpu
 stays the JAX reference.
 """
 
@@ -24,7 +25,7 @@ from .fmindex import (
     build_index,
     l1_group_for,
 )
-from .suffix import suffix_array
+from .suffix import bwt_from_sa, suffix_array
 from .search import (
     count,
     count_ranges,

@@ -11,6 +11,18 @@
 // keys: key[p] = sum_j lut[text[p + j]] << ((per - 1 - j) * bits), zeros
 // past the end, so a suffix that ends sorts before its extensions.
 //
+// Shape-padded texts (suffix.py n_real; femto_tpu/suffix.py 99's n_real):
+// the positions p >= n_real hold the pad symbol 0, and their suffixes are
+// 0^k, which differ only by length.  Their keys are n - 1 - p, below every
+// real key (a real suffix's first code is >= 1, so its key is at least
+// 1 << (per - 1) * bits >= 2^48 for any alphabet), so the first sort puts
+// the pad run first, shortest suffix first, and leaves no tie in it.  The
+// reference gives them the negative keys -1 - p for the same order; the
+// port's radix sort takes non-negative keys.  An extension round's fetch
+// key[pos + w] that lands in the pad reads (n - 1 - pos - w) >> drop,
+// below 2^((e - 1) * bits) and so below every real fetch: the encoding
+// holds there too, and sa_rounds.cu is unchanged.
+//
 // Bound on the H100 (3.35 TB/s): bytes.  sym_hist reads the text once (4n)
 // and writes 513 counts; sa_keys reads the text (4n) and the table and
 // writes the keys (8n): 3.2 GB, 0.96 ms at n = 2^28.  Each thread of
@@ -51,6 +63,7 @@ __global__ void sym_hist_kernel(const int* __restrict__ text, long long n,
 
 __global__ void sa_keys_kernel(const int* __restrict__ text, long long n,
                                const int* __restrict__ lut, int bits, int per,
+                               long long n_real,
                                long long* __restrict__ key) {
   __shared__ int sl[kSyms];
   for (int i = threadIdx.x; i < kSyms; i += blockDim.x) sl[i] = lut[i];
@@ -60,6 +73,10 @@ __global__ void sa_keys_kernel(const int* __restrict__ text, long long n,
   for (int it = 0; it < kKeyItems; ++it) {
     const long long p = base + it * kThreads + threadIdx.x;
     if (p >= n) return;
+    if (p >= n_real) {
+      key[p] = n - 1 - p;
+      continue;
+    }
     unsigned long long k = 0;
     for (int j = 0; j < per; ++j) {
       const long long q = p + j;
@@ -89,14 +106,16 @@ extern "C" int femto_sym_hist(const void* text, long long n, void* out,
 }
 
 // text int32[n], lut int32[512] (symbol -> dense code, 0 if absent) ->
-// key int64[n] of per codes of `bits` bits each (per * bits <= 63).
+// key int64[n] of per codes of `bits` bits each (per * bits <= 63); from
+// n_real on (n_real = n: none) the pad keys n - 1 - p.
 extern "C" int femto_sa_keys(const void* text, long long n, const void* lut,
-                             int bits, int per, void* key, void* stream) {
+                             int bits, int per, long long n_real, void* key,
+                             void* stream) {
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   const long long per_block = kThreads * kKeyItems;
   const long long blocks = (n + per_block - 1) / per_block;
   sa_keys_kernel<<<static_cast<unsigned>(blocks), kThreads, 0, st>>>(
       static_cast<const int*>(text), n, static_cast<const int*>(lut), bits,
-      per, static_cast<long long*>(key));
+      per, n_real, static_cast<long long*>(key));
   return static_cast<int>(cudaGetLastError());
 }

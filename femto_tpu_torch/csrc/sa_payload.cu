@@ -8,7 +8,9 @@
 // or on the period grid; never with mark_period 0); bits 1..: doc id + 1 at
 // the last position of each non-empty doc.  The reference scatters the doc
 // starts and tags into n-long arrays; here every position finds its
-// document by a bisect of doc_starts, which stays in cache.
+// document by a bisect of doc_starts, which stays in cache.  A doc start
+// is marked wherever it lies, the empty documents that pad a shape-padded
+// build (all starting at the first pad position) included.
 //
 // gather_rows replaces femto_tpu/search.py _locate_direct_jit (71), the
 // direct locate tier, and gives pull = payload[sa], which the reference
@@ -46,6 +48,10 @@ __global__ void sa_payload_kernel(const int* __restrict__ text, long long n,
     // start and is covered by `start`
     start = __ldg(doc_starts + d) == p;
     seof = __ldg(doc_starts + d + 1) == p + 1;
+  } else if (d == ndocs && ndocs > 0) {
+    // past the last document: the empty documents of a shape-padded build
+    // start at its real length n_real, the first pad position
+    start = __ldg(doc_starts + ndocs - 1) == p;
   }
   const long long tag = seof ? d + 1 : 0;
   const bool marked = period > 0 && (start || seof || p % period == 0);

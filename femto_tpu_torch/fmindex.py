@@ -52,7 +52,8 @@ from typing import Any, List, Mapping, NamedTuple, Optional, Tuple, Union
 import numpy as np
 import torch
 
-from .alphabet import ALPHA_SIZE, PreparedText
+from .alphabet import (ALPHA_SIZE, CHARACTER_OFFSET, EOH, SEOF, SOH,
+                       PreparedText)
 
 DEFAULT_SEG = 256
 DEFAULT_MARK_PERIOD = 20
@@ -61,7 +62,7 @@ TIERS = ("full", "compact", "packed", "vseg", "vrle")
 
 # Fields of paged serving, which this port does not serve yet.
 _OTHER_TIER_FIELDS = ("seg_slot",)
-_ROADMAP_PAGED = "ROADMAP.md Q1 item 9 (paged serving)"
+_ROADMAP_PAGED = "ROADMAP.md Q1 item 1 (paged serving, K16)"
 
 
 def l1_group_for(seg: int) -> int:
@@ -378,6 +379,103 @@ def arrays_from_numpy(arrays: Mapping[str, np.ndarray], meta: Any, *,
     )
 
 
+def compute_chunk_doc_lists(sa_np: np.ndarray, doc_starts: np.ndarray,
+                            seg: int, n_seg: int):
+    """Per-segment sorted unique doc ids, host numpy
+    (femto_tpu.fmindex.compute_chunk_doc_lists): (offsets int64[n_seg+1],
+    docs int32[total]).  The host oracle of build_doc_lists_device."""
+    n = len(sa_np)
+    doc_of = (
+        np.searchsorted(doc_starts.astype(np.int64), sa_np, side="right") - 1
+    )
+    pad = n_seg * seg - n
+    d2 = np.concatenate([doc_of, np.full(pad, -1, dtype=doc_of.dtype)])
+    d2 = np.sort(d2.reshape(n_seg, seg), axis=1)
+    uniq = np.ones_like(d2, dtype=bool)
+    uniq[:, 1:] = d2[:, 1:] != d2[:, :-1]
+    uniq &= d2 >= 0
+    counts = uniq.sum(axis=1)
+    offsets = np.zeros(n_seg + 1, dtype=np.int64)
+    np.cumsum(counts, out=offsets[1:])
+    return offsets, d2[uniq].astype(np.int32)
+
+
+def _escape_positions(prepared: PreparedText, ndocs_build: int):
+    """(seof_pos, soh_pos, eoh_pos) int32[ndocs_build] for the uint8 text
+    upload (femto_tpu.fmindex._escape_positions): each document's SEOF and
+    its header's SOH and EOH positions, padded with INT32_MAX (outside
+    every text, dropped by expand_u8).  None when the text holds escape
+    symbols that the document layout does not place (a PreparedText built
+    by hand): then the text cannot ship as content bytes, and the caller
+    uploads it as uint16."""
+    starts = prepared.doc_starts
+    ndocs = prepared.num_docs
+    seof = (starts[1:] - 1).astype(np.int64)
+    n_hdr = 0
+    soh = eoh = None
+    if prepared.header_lens is not None:
+        h = prepared.header_lens
+        hd = np.flatnonzero(h > 0)
+        n_hdr = len(hd)
+        soh = starts[hd]
+        eoh = starts[hd] + h[hd] - 1
+    text = prepared.text
+    if not (
+        np.all(text[seof] == SEOF)
+        and (n_hdr == 0 or (np.all(text[soh] == SOH)
+                            and np.all(text[eoh] == EOH)))
+        and int(np.count_nonzero(text < CHARACTER_OFFSET))
+        == ndocs + 2 * n_hdr
+    ):
+        return None
+
+    def pad(a):
+        out = np.full(ndocs_build, np.iinfo(np.int32).max, np.int32)
+        if a is not None:
+            out[: len(a)] = a.astype(np.int32)
+        return out
+
+    return pad(seof), pad(soh), pad(eoh)
+
+
+def _on_device(t: torch.Tensor, dev: torch.device) -> bool:
+    """t lies on dev ("cuda" stands for the current card)."""
+    return t.device.type == dev.type and (dev.index is None
+                                          or t.device.index == dev.index)
+
+
+def _device_text(prepared: PreparedText, n_build: int, dev: torch.device,
+                 text_dev16: Optional[torch.Tensor],
+                 text_dev32: Optional[torch.Tensor]) -> torch.Tensor:
+    """The build's int32[n_build] text on ``dev``: text_dev32 as it is,
+    text_dev16 widened, else the prepared text uploaded as its uint16 bits
+    (symbols < 261 fit int16) and widened, padded with 0 to n_build."""
+    if text_dev32 is not None:
+        if (tuple(text_dev32.shape) != (n_build,)
+                or text_dev32.dtype != torch.int32):
+            raise ValueError("text_dev32 must be int32[n_build]")
+        if not _on_device(text_dev32, dev):
+            raise ValueError(f"text_dev32 lies on {text_dev32.device}, the "
+                             f"build on {dev}")
+        return text_dev32.contiguous()
+    if text_dev16 is None:
+        t = prepared.text.astype(np.uint16, copy=False)
+        if n_build > prepared.n:
+            t = np.concatenate([t, np.zeros(n_build - prepared.n, np.uint16)])
+        text_dev16 = torch.from_numpy(
+            np.ascontiguousarray(t).view(np.int16)).to(dev)
+    elif (tuple(text_dev16.shape) != (n_build,)
+          or text_dev16.dtype not in (torch.uint16, torch.int16)):
+        raise ValueError("text_dev16 must be uint16[n_build]")
+    elif not _on_device(text_dev16, dev):
+        raise ValueError(f"text_dev16 lies on {text_dev16.device}, the "
+                         f"build on {dev}")
+    # the card has few uint16 ops: widen the int16 view of the same bits
+    if text_dev16.dtype == torch.uint16:
+        text_dev16 = text_dev16.view(torch.int16)
+    return text_dev16.to(torch.int32)
+
+
 def build_index(
     prepared: PreparedText,
     seg: int = DEFAULT_SEG,
@@ -406,8 +504,20 @@ def build_index(
     are smaller).  locate: "walk"
     (mark-sampled LF walk) or "direct" (keep the suffix array on the
     device: locate = one gather).  sa: optional precomputed suffix array
-    (skips the sort)."""
-    from .ops.build_ops import build_fm_arrays_device, build_sa_payload
+    (skips the sort).
+
+    checkpoint_dir: the suffix array is kept there as sa_{n}.npy (the
+    file femto_tpu writes and reads) and read back by later builds.
+    doc_chunks: also build the per-segment document lists
+    (chunk_doc_offsets_np, chunk_docs_np; kernel P).  pad_shape (n_pad,
+    ndocs_pad): build at that shape, the text padded with the symbol 0
+    and doc_starts with empty documents; the pad suffixes sort first and
+    the index keeps them as meta.row0 leading rows (queries run over
+    [row0, n_rows)).  text_dev16 (uint16 or int16[n_build]) / text_dev32
+    (int32[n_build], escapes in place, as expand_u8 gives it): the
+    (padded) text already on ``device``."""
+    from .ops.build_ops import (build_doc_lists_device,
+                                build_fm_arrays_device, build_sa_payload)
     from .ops.rank import n_segments
     from .ops.sort_ops import gather_rows
     from .suffix import suffix_array, text_alphabet
@@ -417,23 +527,12 @@ def build_index(
     if not device_build:
         raise NotImplementedError(
             "device_build=False (the host packaging path build_fm_arrays) "
-            "is not ported (ROADMAP.md Q1 item 5)")
+            "is not ported (ROADMAP.md Q1 item 5, the host packaging "
+            "path)")
     if tier not in TIERS:
         raise ValueError(f"unknown tier {tier!r}")
-    if pad_shape is not None:
-        raise NotImplementedError(
-            "pad_shape is not ported (ROADMAP.md Q1 item 8: only if a "
-            "measured compile cost calls for it)")
-    if text_dev16 is not None or text_dev32 is not None:
-        raise NotImplementedError(
-            "text_dev16/text_dev32 are not ported (ROADMAP.md Q1 item 8, "
-            "chunked builds)")
-    if checkpoint_dir is not None:
-        raise NotImplementedError(
-            "checkpoint_dir is not ported yet (ROADMAP.md Q1 item 8)")
-    if doc_chunks:
-        raise NotImplementedError(
-            "doc_chunks is not ported yet (ROADMAP.md Q1 item 6, K14)")
+    if text_dev16 is not None and text_dev32 is not None:
+        raise ValueError("pass at most one of text_dev16/text_dev32")
     if locate not in ("walk", "direct"):
         raise ValueError(f"unknown locate tier {locate!r}")
     if seg % 32 != 0 or seg <= 0:
@@ -442,37 +541,69 @@ def build_index(
     if n == 0:
         raise ValueError("cannot index an empty corpus")
     if n >= 2**31:
-        raise ValueError("single-index corpora are limited to 2^31 symbols "
-                         "(int32 row ids)")
-    dev = resolve_device(device)
+        raise ValueError(
+            "single-index corpora are limited to 2^31 symbols (int32 row "
+            "ids); use femto_tpu_torch.multi.build_chunked_prepared, which "
+            "composes per-chunk int32 indexes into global int64 results")
     ndocs = prepared.num_docs
-    # symbols < 261 fit int16, so the upload is the uint16 bits widened
-    text = torch.from_numpy(np.ascontiguousarray(
-        prepared.text.astype(np.uint16, copy=False)).view(np.int16)
-    ).to(dev).to(torch.int32)
-    doc_starts = _to_device(prepared.doc_starts.astype(np.int32), dev)
+    if pad_shape is not None:
+        n_build, ndocs_build = (int(x) for x in pad_shape)
+        if sa is not None or checkpoint_dir is not None:
+            raise ValueError("pad_shape is incompatible with a "
+                             "precomputed/checkpointed suffix array")
+        if n_build < n or ndocs_build < ndocs:
+            raise ValueError("pad_shape smaller than the corpus")
+        if n_build >= 2**31:
+            raise ValueError("pad_shape needs n_pad < 2^31")
+    else:
+        n_build, ndocs_build = n, ndocs
+    dev = resolve_device(device)
+    text = _device_text(prepared, n_build, dev, text_dev16, text_dev32)
+    del text_dev16, text_dev32
+    ds_np = prepared.doc_starts.astype(np.int32)
+    if ndocs_build > ndocs:
+        ds_np = np.concatenate(
+            [ds_np, np.full(ndocs_build - ndocs, n, np.int32)])
+    doc_starts = _to_device(ds_np, dev)
+    if checkpoint_dir is not None and sa is None:
+        ckpt_path = os.path.join(checkpoint_dir, f"sa_{n}.npy")
+        if os.path.exists(ckpt_path):
+            sa = np.load(ckpt_path)
+        else:
+            sa = suffix_array(text).cpu().numpy()
+            os.makedirs(checkpoint_dir, exist_ok=True)
+            np.save(ckpt_path, sa)
     # one histogram of the text serves the sort's keys and the remapped
-    # tiers' dense alphabet; a caller's sa on another tier needs neither
+    # tiers' dense alphabet; a caller's sa on another tier needs neither.
+    # A padded text holds the pad symbol 0, as femto_tpu's alphabet does.
     remapped = tier in ("packed", "vseg", "vrle")
     alpha = text_alphabet(text) if sa is None or remapped else None
-    payload = build_sa_payload(text, doc_starts, n=n, mark_period=mark_period,
-                               ndocs=ndocs)
+    payload = build_sa_payload(text, doc_starts, n=n_build,
+                               mark_period=mark_period, ndocs=ndocs_build)
     if sa is None:
-        sa_dev, pull = suffix_array(text, payload=payload, alpha=alpha)
+        sa_dev, pull = suffix_array(text, payload=payload, alpha=alpha,
+                                    n_real=n if n_build > n else None)
     else:
         sa_dev = _to_device(np.asarray(sa, dtype=np.int32), dev)
         pull = gather_rows(payload, sa_dev)
     del payload
     arrays, n_marks, alpha_used = build_fm_arrays_device(
-        text, sa_dev, doc_starts, n=n, seg=seg, mark_period=mark_period,
-        ndocs=ndocs, tier=tier, pull=pull, alpha=alpha)
+        text, sa_dev, doc_starts, n=n_build, seg=seg, mark_period=mark_period,
+        ndocs=ndocs_build, tier=tier, pull=pull, alpha=alpha)
+    del text, pull
     meta = FMMeta(n=n, seg=seg, mark_period=mark_period, num_docs=ndocs,
                   n_marks=int(n_marks), n_seg=n_segments(arrays),
-                  alpha_used=alpha_used, n_rows=n, row0=0)
-    return FMIndex(
+                  alpha_used=alpha_used, n_rows=n_build, row0=n_build - n)
+    index = FMIndex(
         arrays=arrays, meta=meta,
         doc_starts_np=prepared.doc_starts.astype(np.int64),
         infos=list(prepared.infos),
         header_lens_np=prepared.header_lens,
         sa_direct=sa_dev if locate == "direct" else None,
     )
+    if doc_chunks:
+        # pad rows (sa >= n) drop out
+        index.chunk_doc_offsets_np, index.chunk_docs_np = \
+            build_doc_lists_device(sa_dev, doc_starts, n=n,
+                                   n_seg=meta.n_seg, seg=seg)
+    return index

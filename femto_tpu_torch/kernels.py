@@ -88,7 +88,7 @@ ENTRIES: Dict[str, Tuple[str, List]] = {
     "psi_walk": ("psi_walk", [_V, _P, _I, _I, _P]),
     # the suffix sort (ops/sort_ops.py) and its payload
     "sym_hist": ("sa_keys", [_P, _L, _P]),
-    "sa_keys": ("sa_keys", [_P, _L, _P, _I, _I, _P]),
+    "sa_keys": ("sa_keys", [_P, _L, _P, _I, _I, _L, _P]),
     "radix_sort_pairs": ("radix_sort", [_P, _P, _P, _P, _P, _P, _L, _I, _I,
                                         _P, _P]),
     "group_flags": ("sa_groups", [_P, _L, _P]),
@@ -99,6 +99,11 @@ ENTRIES: Dict[str, Tuple[str, List]] = {
     "round_commit": ("sa_rounds", [_P, _P, _P, _P, _P, _L]),
     "sa_payload": ("sa_payload", [_P, _L, _P, _I, _I, _P]),
     "gather_rows": ("sa_payload", [_P, _L, _I, _P, _L, _P]),
+    # chunked builds: the uint8 text upload and the doc lists (K14)
+    "expand_u8": ("text_expand", [_P, _L, _L, _I, _P, _L, _I, _P, _L, _I,
+                                  _P, _L, _I, _P]),
+    "doc_lists": ("doc_lists", [_P, _L, _L, _P, _I, _I, _L, _P, _I, _P]),
+    "flatten_ragged": ("doc_lists", [_P, _I, _P, _P, _L, _P]),
     # the device regex frontier (ops/regex_ops.py, K15)
     "regex_fork": ("regex_frontier", [_V, _P, _P, _P, _I, _I, _I, _P, _P,
                                       _P, _I, _I, _I, _I, _I, _I, _I, _P,
@@ -111,12 +116,15 @@ ENTRIES: Dict[str, Tuple[str, List]] = {
 SIZES: Dict[str, Tuple[str, List]] = {
     "regex_fork_scratch": ("regex_frontier", [_I, _I]),
     "regex_merge_tiles": ("regex_frontier", [_L]),
+    "doc_lists_stride": ("doc_lists", [_I]),
 }
 # entries that take an FmView: one count per layout
 LAYOUT_ENTRIES = ("backward_search", "backward_search_steps", "backward_step",
                   "lf_locate", "lf_extract", "psi_walk", "regex_fork")
-# entries with modes that do different work: one count per mode
-MODE_ENTRIES = {"round_keys": ("extension", "doubling")}
+# entries with modes that do different work: one count per mode (None: the
+# entry's own name)
+MODE_ENTRIES = {"round_keys": ("extension", "doubling"),
+                "sa_keys": (None, "n_real")}
 SOURCES = sorted({src for src, _ in ENTRIES.values()})
 
 

@@ -11,7 +11,9 @@ the packed tier's BWT words are kernel F (csrc/pack_build.cu).  The row
 tiers (vseg, vrle) take A's histogram and B's marks into kernel M
 (csrc/vseg_build.cu: symbol lists, serving rows, side table) and, on
 vrle, kernel N (csrc/vrle_build.cu: slot counts, packed slots, the flat
-continuation store), around femto_tpu's host plan (vrle_plan).  Each
+continuation store), around femto_tpu's host plan (vrle_plan).  The
+per-segment document lists are kernel P (csrc/doc_lists.cu) and the uint8
+text upload's expansion kernel Q (csrc/text_expand.cu).  Each
 wrapper launches its kernel for tensors on the card and takes the plain
 PyTorch version beside it for tensors on the CPU.
 """
@@ -25,7 +27,8 @@ import numpy as np
 import torch
 
 from .. import kernels
-from ..alphabet import ALPHA_SIZE, INVALID_ALPHA
+from ..alphabet import (ALPHA_SIZE, CHARACTER_OFFSET, EOH, INVALID_ALPHA,
+                        SEOF, SOH)
 from ..fmindex import FMArrays, l1_group_for
 from ..suffix import text_alphabet
 from .rank import i32_to_u16, i64_to_u32, u16_to_i32, u32_to_i64
@@ -1026,3 +1029,146 @@ def build_fm_arrays_device(text: torch.Tensor, sa: torch.Tensor,
         alpha_rev=alpha_rev, mark_meta=mark_meta, **extra,
     )
     return arrays, n_marks, alpha_used
+
+
+# ---------------------------------------------------------------------------
+# Kernel P: per-segment document lists (K14)
+# ---------------------------------------------------------------------------
+
+
+def doc_lists_plain(sa: torch.Tensor, doc_starts: torch.Tensor, *,
+                    n_real: int, n_seg: int, seg: int):
+    n_rows = sa.shape[0]
+    v = sa.long()
+    doc = torch.searchsorted(doc_starts.long(), v, right=True) - 1
+    big = torch.iinfo(torch.int32).max
+    doc = torch.where((v >= 0) & (v < n_real), doc, big)
+    d = torch.full((n_seg * seg,), big, dtype=torch.int64, device=sa.device)
+    d[:n_rows] = doc
+    d2 = torch.sort(d.reshape(n_seg, seg), dim=1)[0]
+    uniq = torch.ones_like(d2, dtype=torch.bool)
+    uniq[:, 1:] = d2[:, 1:] != d2[:, :-1]
+    uniq &= d2 != big
+    counts = uniq.sum(dim=1).to(torch.int32)
+    # left-compacted: the unique ids move to the front of their row
+    order = torch.sort((~uniq).to(torch.uint8), dim=1, stable=True)[1]
+    vals = torch.gather(d2, 1, order)
+    j = torch.arange(seg, device=sa.device)[None, :]
+    vals = torch.where(j < counts[:, None].long(), vals, -1)
+    return vals.to(torch.int32), counts
+
+
+def doc_lists(sa: torch.Tensor, doc_starts: torch.Tensor, *, n_real: int,
+              n_seg: int, seg: int):
+    """(vals int32[n_seg, seg], counts int32[n_seg]): row s of vals holds
+    the sorted unique documents of the rows [s*seg, (s+1)*seg), then -1;
+    counts[s] is their number.  Row r's document is the last doc_starts
+    entry <= sa[r]; rows with sa[r] >= n_real (the pad rows of a
+    shape-padded build) and rows past sa's length hold none.  sa int32
+    [n_rows], doc_starts int32[ndocs + 1] (a padded build's extra entries
+    equal n_real).  Kernel P on the card (csrc/doc_lists.cu); there vals
+    may be a view of wider rows (segments above 8192 rows sort in global
+    memory)."""
+    kernels.check(sa, "sa", torch.int32, 1)
+    kernels.check(doc_starts, "doc_starts", torch.int32, 1)
+    if seg <= 0 or seg % 32 or n_seg * seg < sa.shape[0]:
+        raise ValueError("need seg a positive multiple of 32 and n_seg * "
+                         "seg >= len(sa)")
+    if not kernels.on_card(sa, doc_starts):
+        return doc_lists_plain(sa, doc_starts, n_real=n_real, n_seg=n_seg,
+                               seg=seg)
+    dev = sa.device
+    stride = kernels.size("doc_lists_stride", seg)
+    vals = torch.empty((n_seg, stride), dtype=torch.int32, device=dev)
+    counts = torch.empty(n_seg, dtype=torch.int32, device=dev)
+    kernels.launch("doc_lists", sa.data_ptr(), sa.shape[0], n_real,
+                   doc_starts.data_ptr(), doc_starts.shape[0], seg, n_seg,
+                   vals.data_ptr(), stride, counts.data_ptr())
+    return vals[:, :seg], counts
+
+
+def flatten_ragged_plain(vals: torch.Tensor, counts: torch.Tensor,
+                         offsets: torch.Tensor) -> torch.Tensor:
+    j = torch.arange(vals.shape[1], device=vals.device)[None, :]
+    return vals[j < counts[:, None].long()]
+
+
+def flatten_ragged(vals: torch.Tensor, counts: torch.Tensor,
+                   offsets: torch.Tensor) -> torch.Tensor:
+    """int32[offsets[-1]]: the first counts[s] entries of each row of vals
+    (int32[n_seg, W], rows may be strided), row after row, row s at
+    offsets[s] (int64[n_seg + 1], the running sum of counts).  Kernel P on
+    the card."""
+    n_seg = vals.shape[0]
+    if vals.dtype != torch.int32 or vals.dim() != 2 or vals.stride(1) != 1:
+        raise ValueError("vals must be int32[n_seg, W] with unit column "
+                         "stride")
+    kernels.check(counts, "counts", torch.int32, 1, (n_seg,))
+    kernels.check(offsets, "offsets", torch.int64, 1, (n_seg + 1,))
+    if not kernels.on_card(vals, counts, offsets):
+        return flatten_ragged_plain(vals, counts, offsets)
+    total = int(offsets[-1].item())
+    docs = torch.empty(total, dtype=torch.int32, device=vals.device)
+    if n_seg and total:
+        kernels.launch("flatten_ragged", vals.data_ptr(), vals.stride(0),
+                       counts.data_ptr(), offsets.data_ptr(), n_seg,
+                       docs.data_ptr())
+    return docs
+
+
+def build_doc_lists_device(sa: torch.Tensor, doc_starts: torch.Tensor, *,
+                           n: int, n_seg: int, seg: int):
+    """(offsets int64[n_seg+1], docs int32[total]) host arrays: the
+    segment lists of doc_lists, their counts summed on the host (as
+    femto_tpu's build_doc_lists_device does) and flattened by
+    flatten_ragged on the device; only the counts and the flat lists cross
+    to the host.  n is the real text length: pad rows drop out."""
+    vals, counts = doc_lists(sa, doc_starts, n_real=n, n_seg=n_seg, seg=seg)
+    offsets = np.zeros(n_seg + 1, np.int64)
+    np.cumsum(counts.cpu().numpy().astype(np.int64), out=offsets[1:])
+    flat = flatten_ragged(vals, counts,
+                          torch.from_numpy(offsets).to(sa.device))
+    return offsets, flat.cpu().numpy()
+
+
+# ---------------------------------------------------------------------------
+# Kernel Q: the uint8 text upload's expansion
+# ---------------------------------------------------------------------------
+
+
+def expand_u8_plain(u8: torch.Tensor, n_real: int, seof_pos: torch.Tensor,
+                    soh_pos: torch.Tensor, eoh_pos: torch.Tensor
+                    ) -> torch.Tensor:
+    n = u8.shape[0]
+    t = u8.to(torch.int32) + CHARACTER_OFFSET
+    t[n_real:] = 0
+    for pos, code in ((seof_pos, SEOF), (soh_pos, SOH), (eoh_pos, EOH)):
+        p = pos.long()
+        t[p[(p >= 0) & (p < n)]] = code
+    return t
+
+
+def expand_u8(u8: torch.Tensor, n_real: int, seof_pos: torch.Tensor,
+              soh_pos: torch.Tensor, eoh_pos: torch.Tensor) -> torch.Tensor:
+    """int32[n] alphabet codes from raw content bytes (femto_tpu.fmindex.
+    _expand_u8): u8 + CHARACTER_OFFSET below n_real, the pad symbol 0 from
+    there, then SEOF, SOH and EOH at their positions (int32 arrays; the
+    ones outside [0, n), such as the INT32_MAX pads of _escape_positions,
+    are dropped).  u8 uint8[n].  Kernel Q on the card
+    (csrc/text_expand.cu)."""
+    kernels.check(u8, "u8", torch.uint8, 1)
+    n = u8.shape[0]
+    if not 0 <= n_real <= n:
+        raise ValueError("need 0 <= n_real <= len(u8)")
+    pos = (seof_pos, soh_pos, eoh_pos)
+    for name, p in zip(("seof_pos", "soh_pos", "eoh_pos"), pos):
+        kernels.check(p, name, torch.int32, 1)
+    if not kernels.on_card(u8, *pos):
+        return expand_u8_plain(u8, n_real, *pos)
+    out = torch.empty(n, dtype=torch.int32, device=u8.device)
+    kernels.launch("expand_u8", u8.data_ptr(), n, n_real, CHARACTER_OFFSET,
+                   seof_pos.data_ptr(), seof_pos.shape[0], SEOF,
+                   soh_pos.data_ptr(), soh_pos.shape[0], SOH,
+                   eoh_pos.data_ptr(), eoh_pos.shape[0], EOH,
+                   out.data_ptr())
+    return out

@@ -59,7 +59,7 @@ def sym_hist(text: torch.Tensor) -> torch.Tensor:
 
 
 def sa_keys_plain(text: torch.Tensor, lut: torch.Tensor, *, bits: int,
-                  per: int) -> torch.Tensor:
+                  per: int, n_real: Optional[int] = None) -> torch.Tensor:
     n = text.shape[0]
     t = text.long()
     inside = (t >= 0) & (t < N_SYMS)
@@ -67,24 +67,35 @@ def sa_keys_plain(text: torch.Tensor, lut: torch.Tensor, *, bits: int,
     key = torch.zeros(n, dtype=torch.int64, device=text.device)
     for j in range(min(per, n)):
         key[: n - j] |= codes[j:] << ((per - 1 - j) * bits)
+    if n_real is not None and n_real < n:
+        key[n_real:] = torch.arange(n - 1 - n_real, -1, -1,
+                                    dtype=torch.int64, device=text.device)
     return key
 
 
 def sa_keys(text: torch.Tensor, lut: torch.Tensor, *, bits: int,
-            per: int) -> torch.Tensor:
+            per: int, n_real: Optional[int] = None) -> torch.Tensor:
     """int64[n] packed key of every suffix: the dense codes lut[text[p + j]]
     of its first ``per`` symbols, ``bits`` bits each, the first symbol
     highest, zeros past the end.  lut int32[512], 0 for absent symbols.
-    Kernel G on the card."""
+    n_real (a shape-padded text, pad symbols from n_real on): the pad
+    suffixes get the keys n - 1 - p, below every real key, in the order of
+    their lengths (csrc/sa_keys.cu).  Kernel G on the card, its launches
+    counted apart under "sa_keys[n_real]" for a padded text."""
     kernels.check(text, "text", torch.int32, 1)
     kernels.check(lut, "lut", torch.int32, 1, (N_SYMS,))
+    n = text.shape[0]
     if bits < 1 or per < 1 or per * bits > 63:
         raise ValueError("need bits >= 1, per >= 1 and per * bits <= 63")
+    if n_real is not None and not 0 < n_real <= n:
+        raise ValueError("need 0 < n_real <= n")
+    padded = n_real is not None and n_real < n
     if not kernels.on_card(text, lut):
-        return sa_keys_plain(text, lut, bits=bits, per=per)
-    key = _empty(text.device, torch.int64, text.shape[0])
-    kernels.launch("sa_keys", text.data_ptr(), text.shape[0], lut.data_ptr(),
-                   bits, per, key.data_ptr())
+        return sa_keys_plain(text, lut, bits=bits, per=per, n_real=n_real)
+    key = _empty(text.device, torch.int64, n)
+    kernels.launch("sa_keys", text.data_ptr(), n, lut.data_ptr(), bits, per,
+                   n_real if padded else n, key.data_ptr(),
+                   layout="n_real" if padded else None)
     return key
 
 

@@ -207,8 +207,8 @@ def extract_context_batch(
     B = len(rows)
     if B == 0:
         return []
-    if rows.min() < 0 or rows.max() >= index.meta.n:
-        raise ValueError("rows must lie in [0, n)")
+    if rows.min() < 0 or rows.max() >= index.meta.n_rows:
+        raise ValueError("rows must lie in [0, n_rows)")
     rr = torch.from_numpy(rows.astype(np.int32)).to(index.device)
     fwd_steps = pattern_len + after
     chars_fwd = (S.psi_walk(index.arrays, rr, fwd_steps).cpu().numpy()

@@ -30,6 +30,12 @@ the e = min(per, (63 - bits of n) // bits) leading symbols of ONE key word
 reference reads four 30-bit words.  The payload does not ride the sorts:
 pull = gather_rows(payload, sa) once at the end.
 
+A shape-padded text (``n_real``: pad symbols 0 from n_real on, as
+build_index(pad_shape=...) makes it) gets distinct keys for its pad
+suffixes in the first sort (csrc/sa_keys.cu), so the pad run settles there
+instead of tying until the doubling rounds see its lengths.  The SA is the
+padded text's own either way; only the work differs.
+
 ``last_stats`` records the regime and the tied count after each round of
 the last call.
 """
@@ -109,17 +115,18 @@ def suffix_array(text: torch.Tensor, payload: Optional[torch.Tensor] = None,
 
     alpha: optional host array of the symbols that occur in ``text``,
     ascending (a superset only weakens the key pack rate); when given, the
-    histogram of the text and its read-back are skipped.  n_real (the
-    reference's shape-padded builds) is not ported."""
-    if n_real is not None:
-        raise NotImplementedError(
-            "n_real (shape-padded texts) is not ported (ROADMAP.md Q1 "
-            "item 8)")
+    histogram of the text and its read-back are skipped.
+
+    n_real: the real length of a shape-padded text whose tail from n_real
+    on is the pad symbol 0 (femto_tpu.suffix.suffix_array's n_real): the
+    pad suffixes are settled by the first sort."""
     n = int(text.shape[0])
     if n == 0:
         raise ValueError("empty text")
     if n >= 2**31:
         raise ValueError("suffix_array needs n < 2^31")
+    if n_real is not None and not 0 < n_real <= n:
+        raise ValueError("need 0 < n_real <= n")
     if text.dtype != torch.int32 or not text.is_contiguous():
         text = text.to(torch.int32).contiguous()
     dev = text.device
@@ -127,7 +134,7 @@ def suffix_array(text: torch.Tensor, payload: Optional[torch.Tensor] = None,
     K = int(used.shape[0])
     bits, per = key_widths(K)
     lut = torch.from_numpy(alpha_lut(used)).to(dev)
-    key0 = SO.sa_keys(text, lut, bits=bits, per=per)
+    key0 = SO.sa_keys(text, lut, bits=bits, per=per, n_real=n_real)
     skey, sa = SO.radix_sort_pairs(key0, None, 0, per * bits)
     flags = SO.group_flags(skey)
     del skey
@@ -171,3 +178,15 @@ def suffix_array(text: torch.Tensor, payload: Optional[torch.Tensor] = None,
     if payload.dtype not in (torch.int32, torch.int64):
         payload = payload.to(torch.int64)
     return sa, SO.gather_rows(payload.contiguous(), sa)
+
+
+def bwt_from_sa(text: torch.Tensor, sa: torch.Tensor) -> torch.Tensor:
+    """The BWT, L[r] = text[(sa[r] - 1) mod n], as one gather through the
+    suffix array shifted by one (kernel L on the card;
+    femto_tpu.suffix.bwt_from_sa).  text int32 or int64[n], sa int32[n];
+    the result has text's dtype."""
+    n = int(text.shape[0])
+    if sa.dtype != torch.int32 or tuple(sa.shape) != (n,):
+        raise ValueError("sa must be int32[n]")
+    prev = torch.where(sa == 0, n - 1, sa - 1).to(torch.int32)
+    return SO.gather_rows(text.contiguous(), prev.contiguous())

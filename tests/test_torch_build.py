@@ -202,8 +202,6 @@ def test_marks_build_plain_matches_jax(corpus, seg, mark_period):
 
 @pytest.mark.parametrize("kwargs", [
     {"device_build": False},
-    {"pad_shape": (100, 4)}, {"text_dev16": torch.zeros(1)},
-    {"checkpoint_dir": "unused"}, {"doc_chunks": True},
 ])
 def test_options_outside_the_slice_raise(kwargs):
     prepared = tt.prepare_documents([b"abc"])

@@ -46,7 +46,7 @@ def test_import_pulls_in_neither_jax_nor_femto_tpu():
             "femto_tpu_torch.query.planning, femto_tpu_torch.query.nfa, "
             "femto_tpu_torch.query.results, femto_tpu_torch.query.regexp, "
             "femto_tpu_torch.query.regexp_device, "
-            "femto_tpu_torch.query.engine; "
+            "femto_tpu_torch.query.engine, femto_tpu_torch.multi; "
             "print('jax' in sys.modules, 'femto_tpu' in sys.modules)")
     out = subprocess.run([sys.executable, "-c", code], cwd=ROOT,
                          capture_output=True, text=True, timeout=120)
@@ -86,7 +86,8 @@ def test_every_kernel_source_is_an_entry_and_is_built():
              if p.endswith(".cu")}
     assert stems == set(kernels.SOURCES)
     assert {"sa_keys", "radix_sort", "sa_groups", "sa_rounds",
-            "sa_payload", "regex_frontier"} <= stems
+            "sa_payload", "regex_frontier", "doc_lists",
+            "text_expand"} <= stems
 
 
 # entries whose plain version is not named <entry>_plain

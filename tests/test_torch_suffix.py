@@ -115,10 +115,14 @@ def test_regimes_follow_the_tied_count():
 
 def test_suffix_array_arguments():
     t = _t(TEXTS["n2"]())
-    with pytest.raises(NotImplementedError, match="ROADMAP.md Q1 item 8"):
-        tt.suffix_array(t, None, None, 1)
-    with pytest.raises(NotImplementedError, match="item 8"):
-        tt.suffix_array(t, n_real=2)
+    # n_real, the fourth positional parameter as in femto_tpu, must lie in
+    # [1, n]; pad suffixes sort first, shortest first
+    with pytest.raises(ValueError, match="n_real"):
+        tt.suffix_array(t, None, None, 0)
+    with pytest.raises(ValueError, match="n_real"):
+        tt.suffix_array(t, n_real=3)
+    padded = _t(np.array([9, 7, 0, 0], np.int32))
+    assert tt.suffix_array(padded, None, None, 2).tolist() == [3, 2, 1, 0]
     with pytest.raises(ValueError, match="512"):
         tt.suffix_array(_t(np.array([3, 600], np.int32)))
     with pytest.raises(ValueError, match="512"):
