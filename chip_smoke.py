@@ -33,7 +33,16 @@ non-zero):
    against the CPU's and the unpadded one, bwt_from_sa, a pad_shape build
    with doc lists, four-chunk build_chunked_prepared runs (uniform and
    prefetch both ways) against the CPU's, merge_indexes and
-   IncrementalIndex against a direct build;
+   IncrementalIndex against a direct build; paged serving (K16): kernel
+   T's apply_faults (with evictions and dropped entries), C's masked step,
+   D's lf_walk_step, resolve_marks and the one-step extract on half-filled
+   caches with a random seg_slot of the 8 MiB vseg and vrle and the prose
+   vrle index, each also against itself on the resident index, and a
+   whole PagedIndex on the card against the same file opened on the CPU
+   (answers, stats, slot maps, clock, cache); kernel S's lcp_round and
+   lcp_compact round by round (W 32 up to 4096, its twin document's
+   pairs sharing 64 KiB) and with more slots than lanes, and lcp_array
+   against host Kasai (ft_kasai, or _kasai_np where make fails: printed);
 4e. run right after phase 3, while the card holds nothing else: the
    chunked path at full size, build_chunked_prepared of 129 zipf
    documents of 2^24 symbols (n = 2,164,260,864, past 2^31) in chunks of
@@ -90,6 +99,27 @@ non-zero):
    live frontier, match ranges and host reads of the device (syncs); the
    launch counts of the device part (path "query") and of the host
    engine's run (path "query_host") are read apart;
+4f. paged serving (K16): phase 4c's zipf vrle index (at a quarter and
+   half of its rows), its zipf vseg index (a quarter) and its prose vrle
+   index (a quarter, seg 2048) through save_flat and load_paged, each
+   cold (a fresh cache) and warm: count of phase 4's 32768 patterns, the
+   same count over 32768 draws from 64 of them, locate of 65536 rows,
+   phase 4d's prose queries through the engine (prose; a query whose
+   layer touches more segments than the cache holds is refused, as
+   femto_tpu refuses it, and recorded); extract_document of one 8191-byte
+   document of the prose in 8 KiB documents; every answer held to the
+   resident index's, warm repeats whose cold faults fit the cache held to
+   no fault; ms, faults, hits, fetched MiB, dispatches, the fault path's
+   GB/s, us per extracted character and the ratio to the resident call;
+   the paged path's launch counts; its kernels' phase 5 rows at the zipf
+   quarter's shapes; one cold count profiled for phase 6;
+4g. the LCP analytics (K17): lcp_array of phase 4's corpus and of its
+   twin from the suffix arrays built on the card, held to a host byte
+   compare at 65536 sampled ranks (lcp[0] == 0), and of the prose,
+   whose unique_lengths and suffix_similarity equal those from host
+   Kasai's LCP; ms, MiB/s, rounds, live lanes per round, the largest
+   LCP; kernel S's phase 5 rows at the first round's shape; one
+   lcp_array profiled for phase 6;
 5. numbers: medians of 3 runs, per-kernel times beside their bounds, their
    plain versions and a one-call PyTorch yardstick where one exists; the
    kernels at the main paths' shapes are compared with their plain
@@ -105,7 +135,9 @@ non-zero):
    builds, one build, count, locate and context of the prose vrle
    index, and one APPROX 1 ther query on the zipf full and the prose vrle
    index (with the host time per layer) (torch.profiler);
-   the two-chunk build of phase 4e joins these; a build or query whose
+   the two-chunk build of phase 4e, the cold paged count of 4f and the
+   lcp_array of 4g (with their largest idle gaps) join these; a build or
+   query whose
    device items include a library sort or scan fails, and
    the build's device time outside the port's own kernels and copies is
    printed by name.
@@ -158,6 +190,14 @@ CHUNK_MAX = 1 << 28          # 16 documents a chunk: 9 chunks, the last one
 CHUNK_NEEDLE = b"NEEDLE-XYZZY"
 CHUNK_NEEDLE_DOCS = (0, 64, 128)   # planted at offset 1000 + d
 CHUNK_TAIL_STEPS = 65536     # backward extract from the tail document's end
+# phase 4f, paged serving: (index, share of its rows the cache holds)
+PAGED_CELLS = (("zipf vrle", 0.25), ("zipf vrle", 0.5), ("zipf vseg", 0.25),
+               ("prose vrle", 0.25))
+N_SKEW = 64        # the skewed count draws its patterns from 64 of them
+EXTRACT_DOC = 8192  # the paged extract's prose documents (8191 bytes each)
+# phase 4g, LCP: sampled ranks held to a host byte compare
+N_LCP_SAMPLES = 65536
+SIMILARITY_MIN_LCP = 64  # suffix_similarity's pairs on the prose
 N_CHUNK_SEGS = 64            # sampled segments of each chunk's doc lists
 # phase 3's doc-list segment sizes; 65504 is the largest l1_group_for takes
 DOC_LIST_SEGS = (64, 256, 2048, 65504)
@@ -212,6 +252,17 @@ PATH_KERNELS = {
     + ("sa_keys[n_real]", "expand_u8", "doc_lists", "flatten_ragged",
        "occ_build", "marks_build", "backward_search[full]",
        "lf_locate[full]", "lf_extract[full]", "psi_walk[full]"),
+    # phase 4f: paged serving of the zipf vseg and vrle and the prose vrle
+    # indexes (K16): the cache update (T), C's masked step, D's locate
+    # step and mark decode, the one-step extract (prose vrle) and the host
+    # engine's free-lane step (the prose queries' regex terms)
+    "paged": ("apply_faults", "resolve_marks", "lf_extract[vrle]",
+              "backward_step[vrle]")
+    + tuple(f"{k}[{lay}]" for k in ("backward_step_masked", "lf_walk_step")
+            for lay in ROW_LAYOUTS),
+    # phase 4g: lcp_array on the zipf corpus and its twin, and the prose
+    # (K17, kernel S)
+    "lcp": ("lcp_round", "lcp_compact"),
 }
 KERNELS = {  # entry -> (source, the femto_tpu function it replaces)
     "occ_build": ("femto_tpu_torch/csrc/occ_build.cu",
@@ -267,6 +318,19 @@ KERNELS.update({
     "flatten_ragged": ("femto_tpu_torch/csrc/doc_lists.cu",
                        "femto_tpu/ops/build_ops.py:863"),
 })
+KERNELS.update({
+    "apply_faults": ("femto_tpu_torch/csrc/paged.cu",
+                     "femto_tpu/paged.py:53"),
+    "resolve_marks": ("femto_tpu_torch/csrc/lf_walk.cu",
+                      "femto_tpu/paged.py:86"),
+    "lcp_round": ("femto_tpu_torch/csrc/lcp.cu", "femto_tpu/lcp.py:33"),
+    "lcp_compact": ("femto_tpu_torch/csrc/lcp.cu", "femto_tpu/lcp.py:57"),
+})
+for _lay in ROW_LAYOUTS:
+    KERNELS[f"backward_step_masked[{_lay}]"] = (
+        "femto_tpu_torch/csrc/backward_search.cu", "femto_tpu/paged.py:64")
+    KERNELS[f"lf_walk_step[{_lay}]"] = ("femto_tpu_torch/csrc/lf_walk.cu",
+                                        "femto_tpu/paged.py:73")
 # device items that would mean a build or a query fell back to a library
 # sort or scan
 LIBRARY_SORT_NAMES = ("RadixSort", "Onesweep", "cub::", "thrust::")
@@ -1832,9 +1896,12 @@ def phase_parity(record, rng):
     query_runs = parity_query_kernels(
         {**indexes, **{f"prose_{k}": v for k, v in prose_ix.items()}}, pt,
         rng, errs, whole=LAYOUTS)
+    paged_lcp = parity_paged_lcp(indexes, prose_ix, prepared, docs, text, sa,
+                                 rng, errs)
     record["parity_8mib"] = {"n": n, "ndocs": ndocs, "max_abs_err": errs,
                              "sort_regimes": regimes, "prose": prose_rec,
-                             "query_runs": query_runs}
+                             "query_runs": query_runs,
+                             "paged_lcp": paged_lcp}
     log(f"[3] 8 MiB parity (n={n}): every kernel equals its plain version "
         f"bit for bit: {sorted(errs)}")
 
@@ -1961,6 +2028,7 @@ def phase_main(record, rng):
     undecided = check_suffix_order(text, index.sa_direct, rng)
     twin_text = text_tensor(twin_prepared, torch.device("cuda"))
     twin_undecided = check_suffix_order(twin_text, twin.sa_direct, rng)
+    twin_sa = twin.sa_direct  # phase 4g's LCP of the twin
     del twin_text, twin
     check(twin_matches[:2] == [(0, 1000), (1, 1000)],
           f"twin corpus: a pattern of document 0 located at {twin_matches}")
@@ -1996,7 +2064,7 @@ def phase_main(record, rng):
         "suffix_sort": sort_stats, "suffix_sort_twin": twin_stats,
     }
     return dict(prepared=prepared, twin_prepared=twin_prepared, docs=docs,
-                index=index, walk=walk,
+                index=index, walk=walk, twin_sa=twin_sa,
                 text=text, patterns=patterns, loc_rows=loc_rows,
                 ext_docs=ext_docs, launches=launches, first=first, last=last,
                 offs_direct=offs_direct)
@@ -2638,6 +2706,36 @@ def chunk_rows_sa(ix, rows):
     return out
 
 
+def timed_row(name, path, launches, run_k, run_p, nbytes, card,
+              library=None):
+    """Phase 5's row of one kernel on `path`, timed in its own phase: held
+    to its plain version on the same inputs (plain_ms the time of that
+    one comparison run), then the median of 3 CUDA-event timings, its
+    bound from `nbytes` and the library call's time where one exists."""
+    import torch
+
+    a, b = torch.cuda.Event(enable_timing=True), \
+        torch.cuda.Event(enable_timing=True)
+    got = run_k()
+    a.record()
+    want = run_p()
+    b.record()
+    torch.cuda.synchronize()
+    err = max_abs_err(f"{name} ({path})", got, want)
+    del got, want
+    r = {"name": name, "path": path, "route": "cuda",
+         "source": KERNELS[name][0], "replaces": KERNELS[name][1],
+         "launches": launches, "max_abs_err": err,
+         "ms": cuda_ms(run_k), "plain_ms": a.elapsed_time(b),
+         "bound_ms": bound_ms(nbytes), "bound_by": "bytes",
+         "library_ms": cuda_ms(library) if library else None,
+         "card": card}
+    log(f"    {name}: {r['ms']:.4g} ms (bound {r['bound_ms']:.4g} ms, "
+        f"plain {r['plain_ms']:.4g} ms, library {r['library_ms']}); "
+        f"launches on the {path} path {r['launches']}")
+    return r
+
+
 def chunked_kernel_rows(prepared, tail_text, tail_n, seg, launches, card):
     """Phase 5's rows of the chunked path's own kernels, at the shapes of
     phase 4e (P and Q on the first chunk, G with n_real on the padded
@@ -2655,26 +2753,8 @@ def chunked_kernel_rows(prepared, tail_text, tail_n, seg, launches, card):
     rows = []
 
     def row(name, run_k, run_p, nbytes, library=None):
-        a, b = torch.cuda.Event(enable_timing=True), \
-            torch.cuda.Event(enable_timing=True)
-        got = run_k()
-        a.record()
-        want = run_p()
-        b.record()
-        torch.cuda.synchronize()
-        err = max_abs_err(name, got, want)
-        del got, want
-        r = {"name": name, "path": "chunked", "route": "cuda",
-             "source": KERNELS[name][0], "replaces": KERNELS[name][1],
-             "launches": launches.get(name, 0), "max_abs_err": err,
-             "ms": cuda_ms(run_k), "plain_ms": a.elapsed_time(b),
-             "bound_ms": bound_ms(nbytes), "bound_by": "bytes",
-             "library_ms": cuda_ms(library) if library else None,
-             "card": card}
-        rows.append(r)
-        log(f"    {name}: {r['ms']:.4g} ms (bound {r['bound_ms']:.4g} ms, "
-            f"plain {r['plain_ms']:.4g} ms, library {r['library_ms']}); "
-            f"launches on the chunked path {r['launches']}")
+        rows.append(timed_row(name, "chunked", launches.get(name, 0), run_k,
+                              run_p, nbytes, card, library))
 
     d1 = CHUNK_MAX // CHUNK_DOC
     sub = PreparedText(
@@ -2980,6 +3060,780 @@ def phase_chunked(record, rng):
     }
     return {"launches": launches, "kernel_rows": rows5,
             "profile": {"chunked_two_chunk_build": entry}}
+
+
+# ---------------------------------------------------------------------------
+# paged serving and the LCP analytics (K16, K17)
+# ---------------------------------------------------------------------------
+
+
+def paged_budget(path, share):
+    """The budget that gives load_paged a cache of `share` of the rows of
+    the .ftpu file at path: its resident arrays, the slot map and that
+    share of the row bytes (femto_tpu's cache-size rule)."""
+    from femto_tpu_torch import paged as TP
+    from femto_tpu_torch.fmindex import FMIndex
+
+    _, _, arrs = FMIndex.parse_flat(path)
+    rows = arrs["bwt"]
+    resident = sum(v.nbytes for k, v in arrs.items()
+                   if k not in TP._HOST_ENTRIES)
+    return resident + 4 * rows.shape[0] + int(rows.nbytes * share)
+
+
+def half_cache(arrays, rng, errs, tag):
+    """The index's arrays over a half-filled row cache: a random half of
+    the segments written into random slots of a cache of n_seg // 2 + 1
+    rows by apply_faults, then a quarter of them evicted for others (and
+    one dropped entry), each update held to the plain version on a copy.
+    Returns (paged arrays, bool[n_seg] of the mapped segments)."""
+    import torch
+
+    from femto_tpu_torch.ops import paged_ops as PO
+
+    dev = arrays.bwt.device
+    n_seg, W = arrays.bwt.shape
+    rows = n_seg // 2 + 1
+    perm = rng.permutation(n_seg)
+    segs1 = perm[: rows - 1]
+    slots1 = rng.permutation(rows - 1) + 1
+    q = (rows - 1) // 4
+    segs2 = perm[rows - 1: rows - 1 + q]
+    cache = torch.zeros((rows, W), dtype=torch.int32, device=dev)
+    cache = cache.view(torch.uint32)
+    smap = torch.zeros(n_seg, dtype=torch.int32, device=dev)
+    c2, m2 = cache.clone(), smap.clone()
+    i32 = lambda a: torch.from_numpy(  # noqa: E731
+        np.ascontiguousarray(a, np.int32)).to(dev)
+
+    def fetch(segs):
+        return arrays.bwt.view(torch.int32)[i32(segs).long()].view(
+            torch.uint32).contiguous()
+
+    # the second update: q slots change tenants, and one pair drops
+    steps = [(slots1, fetch(segs1), np.zeros(0, np.int32), segs1),
+             (np.append(slots1[:q], rows),
+              torch.cat([fetch(segs2), fetch(segs2[:1])]), segs1[:q],
+              np.append(segs2, n_seg))]
+    for k, (slots, fetched, evict, segs) in enumerate(steps):
+        args = (i32(slots), fetched, i32(evict), i32(segs))
+        PO.apply_faults(cache, smap, *args)
+        PO.apply_faults_plain(c2, m2, *args)
+        torch.cuda.synchronize()
+        errs[f"apply_faults({tag}, update {k})"] = max_abs_err(
+            f"apply_faults({tag})", [cache, smap], [c2, m2])
+    mapped = np.zeros(n_seg, bool)
+    mapped[np.concatenate([segs1[q:], segs2])] = True
+    check(np.array_equal(smap.cpu().numpy() > 0, mapped),
+          f"apply_faults({tag}): the slot map does not map the fetched "
+          f"segments alone")
+    return arrays._replace(bwt=cache, seg_slot=smap), mapped
+
+
+def parity_paged_steps(name, ix, rng, errs):
+    """K16's steps (C's masked step, D's lf_walk_step, resolve_marks and
+    the one-step extract) on a half-filled cache with a random seg_slot:
+    each kernel against its plain version there and against itself on
+    the resident index (the indirection changes no answer)."""
+    import torch
+
+    from femto_tpu_torch.ops import search_ops as S
+
+    arrays = ix.arrays
+    dev = arrays.bwt.device
+    seg, n = ix.meta.seg, ix.meta.n
+    paged, mapped = half_cache(arrays, rng, errs, name)
+    B = 65536
+
+    def mapped_rows(k):
+        r = rng.integers(0, n, size=4 * k)
+        return r[mapped[r // seg]][:k].astype(np.int32)
+
+    t = lambda a: torch.from_numpy(np.ascontiguousarray(a)).to(dev)  # noqa
+    rows = t(mapped_rows(B))
+    other = t(mapped_rows(B))
+    first, last = torch.minimum(rows, other), torch.maximum(rows, other)
+    syms = arrays.alpha_rev.cpu().numpy()
+    c = syms[rng.integers(0, len(syms), B)].astype(np.int32)
+    c[::7] = -1
+    c[3::11] = 300               # outside the alphabet
+    c = t(c)
+    granks = t(rng.integers(0, max(ix.meta.n_marks, 1), B).astype(np.int32))
+    steps = t(rng.integers(0, 21, B).astype(np.int32))
+    done = t(rng.random(B) < 0.25)
+    runs = {
+        "backward_step_masked": (
+            lambda A: S.backward_step_masked(A, c, first, last),
+            lambda A: S.backward_step_masked_plain(A, c, first, last)),
+        "lf_walk_step": (
+            lambda A: S.lf_walk_step(A, rows, granks, steps, done, 7),
+            lambda A: S.lf_walk_step_plain(A, rows, granks, steps, done, 7)),
+        "resolve_marks": (
+            lambda A: [S.resolve_marks(A, granks, steps)],
+            lambda A: [S.resolve_marks_plain(A, granks, steps)]),
+        "lf_extract(1 step)": (
+            lambda A: S.extract_backward(A, rows, 1),
+            lambda A: S.extract_backward_plain(A, rows, 1)),
+    }
+    for entry, (run_k, run_p) in runs.items():
+        got, want, resident = run_k(paged), run_p(paged), run_k(arrays)
+        torch.cuda.synchronize()
+        errs[f"{entry}[{name}](paged)"] = max_abs_err(
+            f"{entry}[{name}] on a half-filled cache", got, want)
+        max_abs_err(f"{entry}[{name}]: paged against resident", got,
+                    resident)
+
+
+def parity_paged_index(name, ix, docs, rng, errs):
+    """A PagedIndex on the card against the same .ftpu file opened with
+    device="cpu", at a cache of a quarter of the rows: equal answers,
+    stats, slot maps, clock and cache after every call."""
+    import torch
+
+    import femto_tpu_torch as tt
+    from femto_tpu_torch import paged as TP
+    from femto_tpu_torch.query import regexp as QR
+    from femto_tpu_torch.query.nfa import compile_nfa
+    from femto_tpu_torch.query.parser import parse_query
+    from femto_tpu_torch.query.planning import streamline
+
+    pats = []
+    while len(pats) < 512:
+        d = int(rng.integers(0, len(docs)))
+        if len(docs[d]) > PATLEN:
+            o = int(rng.integers(0, len(docs[d]) - PATLEN))
+            pats.append(docs[d][o: o + PATLEN])
+    rows = rng.integers(0, ix.meta.n, size=1024).astype(np.int32)
+    node = parse_query("th[aeiou]n")
+    nfa = compile_nfa(streamline(node.regexp))
+    with tempfile.TemporaryDirectory() as tmp:
+        path = os.path.join(tmp, f"{name}.ftpu")
+        ix.save_flat(path)
+        budget = paged_budget(path, 0.25)
+        pgs = [TP.load_paged(path, budget, device=d) for d in ("cuda", "cpu")]
+        calls = (
+            ("count", lambda pg: np.stack(tt.count_ranges(pg, pats))),
+            ("count, warm", lambda pg: np.stack(tt.count_ranges(pg, pats))),
+            ("locate", lambda pg: tt.locate_rows_array(pg, rows)),
+            ("run_regexp", lambda pg: np.asarray(
+                sorted((m.first, m.last, m.cost)
+                       for m in QR.run_regexp(pg, nfa, node.approx)),
+                np.int64).reshape(-1, 3)),
+        )
+        for what, call in calls:
+            got, want = (call(pg) for pg in pgs)
+            torch.cuda.synchronize()
+            card, cpu = pgs
+            check(np.array_equal(got, want),
+                  f"paged {name} {what}: the card's answer differs from "
+                  f"the CPU's")
+            check(card.stats == cpu.stats and card._clock == cpu._clock
+                  and np.array_equal(card._slot_map_np, cpu._slot_map_np)
+                  and np.array_equal(card._slot_seg, cpu._slot_seg),
+                  f"paged {name} {what}: stats or slot maps differ "
+                  f"({card.stats} vs {cpu.stats})")
+            errs[f"PagedIndex({name}) {what}"] = max_abs_err(
+                f"paged {name} {what}: cache and map",
+                [card._cache.cpu(), card._slot_map.cpu()],
+                [cpu._cache, cpu._slot_map])
+        return dict(pgs[0].stats, cache_rows=pgs[0].cache_rows)
+
+
+def host_lcp(text, i, j):
+    """LCP of the suffix pairs (i, j) of a host text by a numpy byte
+    compare in doubling windows (the end of the text a mismatch)."""
+    n = len(text)
+    h = np.zeros(len(i), np.int64)
+    live = np.arange(len(i))
+    W = 64
+    while live.size:
+        k = np.arange(W)
+        a = i[live, None] + h[live, None] + k
+        b = j[live, None] + h[live, None] + k
+        x = np.where(a < n, text[np.minimum(a, n - 1)], -1)
+        y = np.where(b < n, text[np.minimum(b, n - 1)], -2)
+        ne = x != y
+        ml = np.where(ne.any(axis=1), ne.argmax(axis=1), W)
+        h[live] += ml
+        live = live[ml == W]
+        W = min(2 * W, 4096)
+    return h
+
+
+def host_kasai(text, sa):
+    """The host Kasai pass lcp_array's size switch takes: the native
+    ft_kasai, or _kasai_np where the native library does not build."""
+    from femto_tpu_torch import lcp as TL
+
+    t16 = np.ascontiguousarray(text, np.uint16)
+    sa32 = np.ascontiguousarray(sa, np.int32)
+    out = np.zeros(len(t16), np.int32)
+    if TL.kasai_native(t16, sa32, out):
+        return out, "ft_kasai"
+    return TL._kasai_np(t16, sa32), "_kasai_np"
+
+
+def parity_lcp(prepared, text, sa, errs):
+    """Kernel S round by round against its plain versions: the windowed
+    compare of every (suffix, SA predecessor) pair of the 8 MiB parity
+    corpus and the compaction after it, W from 32 up to 4096 (its twin
+    document's pairs share 64 KiB); compaction into more slots than lanes
+    (the fill); then lcp_array against the host Kasai pass."""
+    import torch
+
+    from femto_tpu_torch import lcp as TL
+    from femto_tpu_torch.ops import lcp_ops as L
+
+    dev = text.device
+    n = text.shape[0]
+    i = sa
+    j = torch.cat([sa[:1], sa[:-1]])
+    act = torch.ones(n, dtype=torch.bool, device=dev)
+    act[0] = False
+    h = torch.zeros(n, dtype=torch.int32, device=dev)
+    orig = torch.arange(n, dtype=torch.int32, device=dev)
+    out_k = torch.zeros(n, dtype=torch.int32, device=dev)
+    out_p = out_k.clone()
+    W, windows = L.LCP_W_MIN, []
+    err_r = err_c = 0
+    while True:
+        hk, ak = L.lcp_round(text, i, j, h, act, W)
+        hp, ap = L.lcp_round_plain(text, i, j, h, act, W)
+        torch.cuda.synchronize()
+        err_r = max(err_r, max_abs_err(f"lcp_round(W={W})", [hk, ak],
+                                       [hp, ap]))
+        if not windows:  # more slots than lanes: the fill values
+            o1, o2 = out_k.clone(), out_k.clone()
+            extra = i.shape[0] + 1000
+            got = L.lcp_compact(o1, i, j, hk, ak, orig, extra)
+            want = L.lcp_compact_plain(o2, i, j, hk, ak, orig, extra)
+            torch.cuda.synchronize()
+            err_c = max(err_c, max_abs_err("lcp_compact(fill)",
+                                           [o1, *got], [o2, *want]))
+        windows.append(W)
+        got = L.lcp_compact(out_k, i, j, hk, ak, orig, i.shape[0])
+        want = L.lcp_compact_plain(out_p, i, j, hk, ak, orig, i.shape[0])
+        torch.cuda.synchronize()
+        err_c = max(err_c, max_abs_err(f"lcp_compact(W={W})",
+                                       [out_k, *got], [out_p, *want]))
+        m = int(got[4])
+        if m == 0:
+            break
+        i, j, h, orig = (x[:m] for x in got[:4])
+        act = torch.ones(m, dtype=torch.bool, device=dev)
+        W = min(2 * W, L.LCP_W_MAX)
+    errs["lcp_round"], errs["lcp_compact"] = err_r, err_c
+    check(windows.count(L.LCP_W_MAX) >= 2,
+          f"the parity corpus's LCP rounds never held W at 4096: {windows}")
+    sa_np = sa.cpu().numpy()
+    got = TL.lcp_array(prepared.text, sa_np, device=True,
+                         torch_device="cuda")
+    want, how = host_kasai(prepared.text, sa_np)
+    check(np.array_equal(got, want), "lcp_array differs from host Kasai")
+    check(np.array_equal(got, out_k.cpu().numpy()),
+          "lcp_array differs from the round-by-round run")
+    log(f"    kernel S: lcp_round and lcp_compact equal their plain "
+        f"versions in each of {len(windows)} rounds (W {windows}); "
+        f"lcp_array of n={n} equals host Kasai ({how}), largest LCP "
+        f"{int(got.max())}")
+    return {"windows": windows, "host_kasai": how,
+            "max_lcp": int(got.max())}
+
+
+def parity_paged_lcp(indexes, prose_ix, prepared, docs, text, sa, rng,
+                     errs):
+    """Phase 3's K16 and K17 checks."""
+    pdocs = prose_docs(int(PARITY_PROSE_MIB * 2**20))
+    rec = {}
+    for name, ix, dd in (("vseg", indexes["vseg"], docs),
+                         ("vrle", indexes["vrle"], docs),
+                         ("prose_vrle", prose_ix["vrle"], pdocs)):
+        parity_paged_steps(name, ix, rng, errs)
+        rec[name] = parity_paged_index(name, ix, dd, rng, errs)
+    log(f"    K16: apply_faults, the masked step, lf_walk_step, "
+        f"resolve_marks and the one-step extract equal their plain "
+        f"versions on half-filled caches of the 8 MiB vseg and vrle and "
+        f"the prose vrle index; PagedIndex on the card equals its CPU twin "
+        f"(answers, stats, maps, cache): {rec}")
+    rec["lcp"] = parity_lcp(prepared, text, sa, errs)
+    return rec
+
+
+def idle_gaps(prof, top=5):
+    """The largest gaps (us) between the device's busy intervals of a
+    profiled call, longest first, with where each starts."""
+    import torch
+
+    cuda = torch.autograd.DeviceType.CUDA
+    spans = sorted((e.time_range.start, e.time_range.end)
+                   for e in prof.events() if e.device_type == cuda)
+    merged = []
+    for a, b in spans:
+        if merged and a <= merged[-1][1]:
+            merged[-1][1] = max(merged[-1][1], b)
+        else:
+            merged.append([a, b])
+    gaps = [(c - b, b - merged[0][0])
+            for (_, b), (c, _) in zip(merged, merged[1:])]
+    return [{"gap_us": g, "after_us": at}
+            for g, at in sorted(gaps, reverse=True)[:top]]
+
+
+def profile_with_gaps(name, fn):
+    entry, prof = profile_step(name, fn, own_kernel_names())
+    entry["largest_idle_gaps"] = idle_gaps(prof)
+    log(f"      largest idle gaps (us, after us): "
+        f"{[(round(g['gap_us'], 1), round(g['after_us'], 1)) for g in entry['largest_idle_gaps']]}")
+    return entry
+
+
+def phase_paged(record, rng, st, st3, st4):
+    """Phase 4f, paged serving (K16) at full size: phase 4c's zipf vrle
+    (at a quarter and half of its rows) and vseg (a quarter) indexes and
+    its prose vrle index (a quarter, seg 2048), each saved with save_flat
+    and opened with load_paged, served cold (a fresh cache) and warm:
+    count of phase 4's 32768 patterns, the same count over 32768 draws
+    from 64 of them, locate of 65536 rows, phase 4d's prose queries
+    through the engine (prose), and extract_document of one prose
+    document of 8191 bytes (the prose in 8 KiB documents, seg 2048).
+    Every answer equals the resident index's; a warm repeat adds no fault
+    whenever the cold call's faults fit the cache.  Then the paged
+    kernels' phase 5 rows and one cold count profiled for phase 6."""
+    import torch
+
+    import femto_tpu_torch as tt
+    from femto_tpu_torch import kernels
+    from femto_tpu_torch import paged as TP
+    from femto_tpu_torch import query as Q
+    from femto_tpu_torch.ops import paged_ops as PO
+    from femto_tpu_torch.ops import search_ops as S
+    from femto_tpu_torch.alphabet import pattern_to_alpha
+    from femto_tpu_torch.search import pack_patterns
+
+    t_phase = time.perf_counter()
+    card = record["toolchain"]["card"]
+    dev = torch.device("cuda")
+    zpats = st["patterns"]
+    ppats = st3["ppats"]
+    skew = {c: [p[int(k)] for k in rng.integers(0, N_SKEW, N_PATTERNS)]
+            for c, p in (("zipf", zpats), ("prose", ppats))}
+    pb = prose_bytes()
+    xdocs = [pb[o: o + EXTRACT_DOC - 1]
+             for o in range(0, len(pb), EXTRACT_DOC - 1)]
+    xd = len(xdocs) // 2
+    xix = tt.build_index(tt.prepare_documents(xdocs), seg=PROSE_SEG,
+                         mark_period=20, tier="vrle", device="cuda")
+    resident = {"zipf vrle": st3["zrows"]["vrle"],
+                "zipf vseg": st3["zrows"]["vseg"],
+                "prose vrle": st3["prows"]["vrle"], "prose8k vrle": xix}
+    inputs = {"zipf": (zpats, st["loc_rows"]),
+              "prose": (ppats, st3["ploc"])}
+    queries = {name: (q, icase)
+               for name, (q, _, icase) in PROSE_QUERIES.items()}
+    tmp = tempfile.TemporaryDirectory()
+    paths, ref, ref_ms = {}, {}, {}
+
+    def timed(fn):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        out = fn()
+        torch.cuda.synchronize()
+        return out, (time.perf_counter() - t0) * 1e3
+
+    def calls(corpus):
+        pats, loc = inputs.get(corpus, (None, None))
+        if corpus == "prose8k":
+            return {"extract": lambda ix: tt.extract_document(ix, xd)}
+        out = {"count": lambda ix: np.stack(tt.count_ranges(ix, pats)),
+               "count_skewed": lambda ix: np.stack(
+                   tt.count_ranges(ix, skew[corpus])),
+               "locate": lambda ix: tt.locate_rows_array(ix, loc)}
+        if corpus == "prose":
+            for name, (q, icase) in queries.items():
+                out[f"query {name}"] = (lambda ix, q=q, icase=icase: (
+                    Q.count_query(ix, q, icase=icase),
+                    [d for d, _, _ in Q.docs_query(
+                        ix, q, with_offsets=False, icase=icase)]))
+        return out
+
+    # the resident answers and times, and the files, before the counted
+    # region
+    for key, ix in resident.items():
+        paths[key] = os.path.join(tmp.name, key.replace(" ", "_") + ".ftpu")
+        ix.save_flat(paths[key])
+        corpus = key.split()[0]
+        for what, fn in calls(corpus).items():
+            fn(ix)
+            ref[key, what], ref_ms[key, what] = timed(lambda: fn(ix))
+    check(ref["prose8k vrle", "extract"] == xdocs[xd],
+          "prose8k: the resident extract differs from the document")
+    log(f"[4f] paged serving: {len(PAGED_CELLS)} cells and the prose8k "
+        f"extract; files {({k: os.path.getsize(p) for k, p in paths.items()})} B")
+
+    torch.cuda.synchronize()
+    kernels.reset_launches()
+    cells = {}
+    for key, share in PAGED_CELLS + (("prose8k vrle", 0.25),):
+        corpus = key.split()[0]
+        budget = paged_budget(paths[key], share)
+        pg = TP.load_paged(paths[key], budget, device="cuda")
+        n_seg = pg.bwt_np.shape[0]
+        cell = cells[f"{key} {share}"] = {
+            "cache_rows": pg.cache_rows, "n_seg": n_seg,
+            "row_bytes": 4 * pg.bwt_np.shape[1], "budget_bytes": budget,
+            "calls": {}}
+        for what, fn in calls(corpus).items():
+            # cold: a fresh cache for each call
+            pg = TP.load_paged(paths[key], budget, device="cuda")
+            for pas in ("cold", "warm"):
+                before = dict(pg.stats)
+                f_s = pg.fault_seconds
+                try:
+                    got, ms = timed(lambda: fn(pg))
+                except ValueError as e:
+                    # femto_tpu's contract: a dispatch whose segments do
+                    # not fit the cache is refused (a query layer wider
+                    # than the cache); recorded, and held below
+                    check("segments but the cache holds" in str(e)
+                          and what.startswith("query"),
+                          f"paged {key} {what}: {e}")
+                    cell["calls"][f"{what} {pas}"] = {"refused": str(e)}
+                    log(f"    {key} {share} {what} {pas}: refused: {e}")
+                    break
+                d = {k: pg.stats[k] - before[k] for k in pg.stats}
+                fsec = pg.fault_seconds - f_s
+                same = (np.array_equal(got, ref[key, what])
+                        if isinstance(got, np.ndarray)
+                        else got == ref[key, what])
+                check(same, f"paged {key} {share} {what} ({pas}): the "
+                            f"answer differs from the resident index's")
+                r = cell["calls"][f"{what} {pas}"] = {
+                    "ms": ms, **d, "fetched_mib": d["fetched_bytes"] / 2**20,
+                    "fault_gb_per_s": (d["fetched_bytes"] / fsec / 1e9
+                                       if fsec > 0 else None),
+                    "resident_ms": ref_ms[key, what],
+                    "x_resident": ms / ref_ms[key, what]}
+                if what == "extract":
+                    r["us_per_char"] = ms * 1e3 / len(got)
+                if pas == "cold":
+                    cold = d
+                elif cold["faults"] <= pg.cache_rows - 1:
+                    # the cold call from a fresh cache evicted nothing, so
+                    # the warm repeat faults nothing
+                    check(d["faults"] == 0,
+                          f"paged {key} {share} {what}: the warm repeat "
+                          f"faulted {d['faults']} rows")
+                log(f"    {key} {share} {what} {pas}: {ms:.2f} ms "
+                    f"({r['x_resident']:.1f}x resident), faults "
+                    f"{d['faults']}, hits {d['hits']}, fetched "
+                    f"{r['fetched_mib']:.2f} MiB, dispatches "
+                    f"{d['dispatches']}, fault path "
+                    f"{r['fault_gb_per_s']} GB/s"
+                    + (f", {r['us_per_char']:.1f} us/char"
+                       if "us_per_char" in r else ""))
+        log(f"    {key} {share}: cache {pg.cache_rows} of {n_seg} rows")
+        del pg
+    torch.cuda.synchronize()
+    launches = dict(kernels.launches)
+    refused = [k for c in cells.values() for k, v in c["calls"].items()
+               if "refused" in v]
+    check(len([k for k in refused if "cold" in k]) <= len(queries) // 2,
+          f"more than half the prose queries were refused: {refused}")
+    for name in PATH_KERNELS["paged"]:
+        check(launches[name] >= 1,
+              f"kernel {name} was not launched on the paged path")
+    log(f"    checks: every paged answer equals the resident index's; "
+        f"warm repeats whose cold faults fit the cache fault nothing; "
+        f"refused (layers wider than the cache): {refused}; launches "
+        f"{ {k: v for k, v in launches.items() if v} }")
+
+    # phase 5's rows at the zipf cells' shapes (a quarter of the rows)
+    log("[5] the paged path's kernels (zipf, a quarter of the rows):")
+    rows5 = []
+    pv = {lay: TP.load_paged(paths[f"zipf {lay}"],
+                             paged_budget(paths[f"zipf {lay}"], 0.25),
+                             device="cuda") for lay in ROW_LAYOUTS}
+    pg = pv["vrle"]
+    n_seg, W = pg.bwt_np.shape
+    m = min(65536, pg.cache_rows - 1)
+    free = np.flatnonzero(pg._slot_map_np == 0)
+    segs = np.sort(rng.choice(free, m, replace=False)).astype(np.int32)
+    slots = (rng.permutation(pg.cache_rows - 1)[:m] + 1).astype(np.int32)
+    fetched = torch.from_numpy(np.ascontiguousarray(pg.bwt_np[segs])).to(dev)
+    t32 = lambda a: torch.from_numpy(  # noqa: E731
+        np.ascontiguousarray(a, np.int32)).to(dev)
+    sl, sg, ev = t32(slots), t32(segs), t32(np.zeros(0, np.int32))
+    ck, mk = pg._cache.clone(), pg._slot_map.clone()
+    cp, mp_ = pg._cache.clone(), pg._slot_map.clone()
+
+    def faults_k():
+        PO.apply_faults(ck, mk, sl, fetched, ev, sg)
+        return [ck, mk]
+
+    def faults_p():
+        PO.apply_faults_plain(cp, mp_, sl, fetched, ev, sg)
+        return [cp, mp_]
+
+    rows5.append(timed_row(
+        "apply_faults", "paged", launches["apply_faults"], faults_k,
+        faults_p, 8 * m * W + 12 * m, card,
+        library=lambda: ck.view(torch.int32).index_copy_(
+            0, sl.long(), fetched.view(torch.int32))))
+    del ck, mk, cp, mp_, fetched
+    # the count's last column from the ranges of the rest of each pattern
+    pt = torch.from_numpy(pack_patterns(
+        [pattern_to_alpha(p) for p in zpats], pad_b=len(zpats))[0]).to(dev)
+    res = st3["zrows"]["vrle"]
+    # a dispatch's lanes, as many as the cache serves at once
+    lanes = min(pt.shape[0], (pg.cache_rows - 1) // 2)
+    pt = pt[:lanes]
+    loc = t32(st["loc_rows"][: pg.cache_rows - 1])
+    for lay, pgl in pv.items():
+        A_res = st3["zrows"][lay].arrays
+        first, last = S.backward_search(A_res, res.meta.n_rows,
+                                        pt[:, 1:].contiguous())
+        c = pt[:, 0].contiguous()
+        pgl._ensure_rows(torch.cat([first, last]).cpu().numpy())
+        A = pgl.arrays
+        rows5.append(timed_row(
+            f"backward_step_masked[{lay}]", "paged",
+            launches[f"backward_step_masked[{lay}]"],
+            lambda: S.backward_step_masked(A, c, first, last),
+            lambda: S.backward_step_masked_plain(A, c, first, last),
+            bound_backward_step(A_res, c, first, last) * HBM_BYTES_PER_S
+            / 1e3 + 8 * c.shape[0], card))
+        # the walk's first step over the 65536 rows
+        pgl._ensure_rows(loc.cpu().numpy())
+        z = torch.zeros_like(loc)
+        done = torch.zeros(loc.shape[0], dtype=torch.bool, device=dev)
+        rows5.append(timed_row(
+            f"lf_walk_step[{lay}]", "paged", launches[f"lf_walk_step[{lay}]"],
+            lambda: S.lf_walk_step(A, loc, z, z, done, 0),
+            lambda: S.lf_walk_step_plain(A, loc, z, z, done, 0),
+            bound_walk_step(A_res, loc), card))
+    granks = t32(rng.integers(0, res.meta.n_marks, loc.shape[0]))
+    steps = t32(rng.integers(0, 21, loc.shape[0]))
+    A = pv["vrle"].arrays
+    rows5.append(timed_row(
+        "resolve_marks", "paged", launches["resolve_marks"],
+        lambda: [S.resolve_marks(A, granks, steps)],
+        lambda: [S.resolve_marks_plain(A, granks, steps)],
+        20 * loc.shape[0] + 20, card))
+    # the prose8k extract's one-step launches and the queries' host-engine
+    # step, on the prose indexes' quarter caches
+    px = TP.load_paged(paths["prose8k vrle"],
+                       paged_budget(paths["prose8k vrle"], 0.25),
+                       device="cuda")
+    xr = xix.arrays.doc_seof_rows[xd: xd + 1].contiguous()
+    px._ensure_rows(xr.cpu().numpy())
+    rows5.append(timed_row(
+        "lf_extract[vrle]", "paged", launches["lf_extract[vrle]"],
+        lambda: S.extract_backward(px.arrays, xr, 1),
+        lambda: S.extract_backward_plain(px.arrays, xr, 1),
+        bound_extract_rows(xix.arrays, xr), card))
+    pp = TP.load_paged(paths["prose vrle"],
+                       paged_budget(paths["prose vrle"], 0.25),
+                       device="cuda")
+    pres = st3["prows"]["vrle"]
+    lanes = min(len(ppats), (pp.cache_rows - 1) // 2)
+    ppt = torch.from_numpy(pack_patterns(
+        [pattern_to_alpha(p) for p in ppats[:lanes]],
+        pad_b=lanes)[0]).to(dev)
+    pf, pl = S.backward_search(pres.arrays, pres.meta.n_rows,
+                               ppt[:, 1:].contiguous())
+    pc = ppt[:, 0].contiguous()
+    pp._ensure_rows(torch.cat([pf, pl]).cpu().numpy())
+    rows5.append(timed_row(
+        "backward_step[vrle]", "paged", launches["backward_step[vrle]"],
+        lambda: S.backward_step_pair(pp.arrays, pc, pf, pl),
+        lambda: S.backward_step_plain(pp.arrays, pc, pf, pl),
+        bound_backward_step(pres.arrays, pc, pf, pl) * HBM_BYTES_PER_S
+        / 1e3 + 8 * lanes, card))
+    del pv, px, pp
+    # phase 6: one cold count on zipf vrle at a quarter
+    zq = paths["zipf vrle"]
+    fresh = TP.load_paged(zq, paged_budget(zq, 0.25), device="cuda")
+    prof = {"paged_cold_count_zipf_vrle_quarter": profile_with_gaps(
+        "paged_cold_count_zipf_vrle_quarter",
+        lambda: tt.count(fresh, zpats))}
+    prof["paged_cold_count_zipf_vrle_quarter"]["stats"] = dict(fresh.stats)
+    del fresh
+    tmp.cleanup()
+    record["paged_path"] = {"cells": cells, "launches": launches,
+                            "refused": refused, "card": card,
+                            "prose8k_doc": xd,
+                            "prose8k_docs": len(xdocs),
+                            "seconds": time.perf_counter() - t_phase}
+    log(f"[4f] phase 4f took {record['paged_path']['seconds']:.1f}s")
+    return {"launches": launches, "kernel_rows": rows5, "profile": prof}
+
+
+def bound_walk_step(arrays, rows):
+    """Lanes in and out (13 bytes each way); per live lane the slot map
+    entry and the mark word, and on a miss the code, C[c], a checkpoint
+    and the counted prefix; on a hit the earlier mark words and the mark
+    checkpoint (one step of bound_locate)."""
+    from femto_tpu_torch.ops import rank as R
+
+    seg = R.seg_size(arrays)
+    code, ckpt, prefix, _ = _layout_bytes(arrays)
+    _, bit, _ = R.lf_grank_step(arrays, rows)
+    off = (rows % seg).long()
+    total = 26 * rows.shape[0] + 8 * rows.shape[0]
+    total += int((bit * (4 * (off // 32) + 4)).sum())
+    total += int((~bit * (code + 4 + ckpt + prefix(rows.long() // seg, off))
+                  ).sum())
+    return total
+
+
+def bound_extract_rows(arrays, rows):
+    """One extract step from each row: a code, C[c], a checkpoint, the
+    counted prefix, the symbol map and the slot map entry, rows in, the
+    symbol and the row out."""
+    from femto_tpu_torch.ops import rank as R
+
+    seg = R.seg_size(arrays)
+    code, ckpt, prefix, remap = _layout_bytes(arrays)
+    return int((code + 4 + ckpt + remap + 4 + 12
+                + prefix(rows.long() // seg, rows.long() % seg)).sum())
+
+
+def lcp_bounds(text, i, j, h, valid, W, h_out, act):
+    """Bytes of one lcp_round (each valid lane's symbols up to and
+    including its first mismatch on both sides, its lane state in and
+    out) and of the compaction after it (the lanes read once, the live
+    ones written once, each resolved lane's answer)."""
+    import torch
+
+    ml = (h_out - h).long()
+    sym = torch.where(act, ml, torch.clamp(ml + 1, max=W))
+    nv = int(valid.sum())
+    rnd = 8 * int((sym * valid).sum()) + 18 * nv + 10 * (valid.numel() - nv)
+    live = int(act.sum())
+    cmp = 17 * act.numel() + 16 * live + 4 * (act.numel() - live)
+    return rnd, cmp
+
+
+def phase_lcp(record, rng, st, st3):
+    """Phase 4g, the LCP analytics (K17) at full size: lcp_array of phase
+    4's corpus (n = 2^28) and of its twin from the port's own suffix
+    arrays on the card, each held to a host byte compare at 65536 sampled
+    ranks with lcp[0] == 0; on the prose, unique_lengths and
+    suffix_similarity from the card's LCP against host Kasai's.  Then
+    kernel S's phase 5 rows at the first round's shape and one lcp_array
+    profiled for phase 6."""
+    import torch
+
+    from femto_tpu_torch import kernels
+    from femto_tpu_torch import lcp as TL
+    from femto_tpu_torch.ops import lcp_ops as L
+
+    t_phase = time.perf_counter()
+    card = record["toolchain"]["card"]
+    dev = torch.device("cuda")
+    corpora = {"zipf": (st["text"], st["index"].sa_direct,
+                        st["prepared"].text),
+               "twin": (text_tensor(st["twin_prepared"], dev),
+                        st["twin_sa"], st["twin_prepared"].text)}
+    torch.cuda.synchronize()
+    kernels.reset_launches()
+    out = {}
+    for name, (text, sa, _) in corpora.items():
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        lcp = TL.lcp_array(text, sa, device=True, torch_device="cuda")
+        s = time.perf_counter() - t0
+        out[name] = {"lcp": lcp, "s": s, **TL.last_stats}
+    pfull, pprep = st3["pfull"], st3["pprep"]
+    psa = pfull.sa_direct
+    t0 = time.perf_counter()
+    plcp = TL.lcp_array(pprep.text, psa, device=True,
+                           torch_device="cuda")
+    ps = time.perf_counter() - t0
+    pstats = dict(TL.last_stats)
+    torch.cuda.synchronize()
+    launches = dict(kernels.launches)
+    rec = {}
+    for name, (text, sa, host_text) in corpora.items():
+        o = out[name]
+        lcp = o["lcp"]
+        n = len(host_text)
+        sa_np = sa.cpu().numpy()
+        r = rng.integers(1, n, N_LCP_SAMPLES)
+        want = host_lcp(host_text, sa_np[r].astype(np.int64),
+                        sa_np[r - 1].astype(np.int64))
+        check(lcp.shape == (n,) and lcp[0] == 0,
+              f"lcp {name}: shape or lcp[0]")
+        check(np.array_equal(lcp[r], want),
+              f"lcp {name}: differs from a host byte compare at sampled "
+              f"ranks")
+        rec[name] = {"n": n, "s": o["s"], "mib_per_s": n / 2**20 / o["s"],
+                     "rounds": o["rounds"], "windows": o["windows"],
+                     "live": o["live"], "max_lcp": int(lcp.max())}
+        log(f"[4g] lcp_array {name} (n={n}): {o['s'] * 1e3:.1f} ms, "
+            f"{rec[name]['mib_per_s']:.1f} MiB/s, {o['rounds']} rounds "
+            f"(W {o['windows']}), live lanes after each {o['live']}, "
+            f"largest LCP {rec[name]['max_lcp']}; {N_LCP_SAMPLES} sampled "
+            f"ranks equal a host byte compare")
+    check(rec["twin"]["max_lcp"] >= DOC_SIZE - 2,
+          "the twin corpus's duplicate document left no long LCP")
+    psa_np = psa.cpu().numpy()
+    host, how = host_kasai(pprep.text, psa_np)
+    check(np.array_equal(plcp, host), "prose: lcp_array differs from host "
+                                      "Kasai")
+    ul = TL.unique_lengths(pprep, psa_np, plcp)
+    check(np.array_equal(ul, TL.unique_lengths(pprep, psa_np, host)),
+          "prose: unique_lengths differ")
+    sim = TL.suffix_similarity(pprep, psa_np, plcp,
+                               min_lcp=SIMILARITY_MIN_LCP)
+    check(sim == TL.suffix_similarity(pprep, psa_np, host,
+                                      min_lcp=SIMILARITY_MIN_LCP) and sim,
+          "prose: suffix_similarity differs (or is empty)")
+    rec["prose"] = {"n": pprep.n, "s": ps, "mib_per_s": pprep.n / 2**20 / ps,
+                    "rounds": pstats["rounds"], "live": pstats["live"],
+                    "host_kasai": how, "max_lcp": int(plcp.max()),
+                    "unique_positions": int((ul > 0).sum()),
+                    "similar_pairs": len(sim)}
+    log(f"[4g] prose (n={pprep.n}): lcp_array {ps * 1e3:.1f} ms "
+        f"({rec['prose']['mib_per_s']:.1f} MiB/s, {pstats['rounds']} rounds, "
+        f"live {pstats['live']}) equals host Kasai ({how}); unique_lengths "
+        f"and suffix_similarity (min_lcp {SIMILARITY_MIN_LCP}, "
+        f"{len(sim)} pairs) equal; launches "
+        f"{ {k: v for k, v in launches.items() if v} }")
+    for name in PATH_KERNELS["lcp"]:
+        check(launches[name] >= 1,
+              f"kernel {name} was not launched on the lcp path")
+    # phase 5: kernel S at the first round's shape (2^28 lanes, W 32)
+    log("[5] the lcp path's kernels (zipf, the first round):")
+    text, sa, _ = corpora["zipf"]
+    n = text.shape[0]
+    j = torch.cat([sa[:1], sa[:-1]])
+    valid = torch.ones(n, dtype=torch.bool, device=dev)
+    valid[0] = False
+    h0 = torch.zeros(n, dtype=torch.int32, device=dev)
+    h1, act = L.lcp_round(text, sa, j, h0, valid, L.LCP_W_MIN)
+    rnd, cmp = lcp_bounds(text, sa, j, h0, valid, L.LCP_W_MIN, h1, act)
+    rows5 = [timed_row(
+        "lcp_round", "lcp", launches["lcp_round"],
+        lambda: list(L.lcp_round(text, sa, j, h0, valid, L.LCP_W_MIN)),
+        lambda: list(L.lcp_round_plain(text, sa, j, h0, valid,
+                                       L.LCP_W_MIN)), rnd, card)]
+    orig = torch.arange(n, dtype=torch.int32, device=dev)
+    outs = [torch.zeros(n, dtype=torch.int32, device=dev) for _ in range(2)]
+    rows5.append(timed_row(
+        "lcp_compact", "lcp", launches["lcp_compact"],
+        lambda: [outs[0], *L.lcp_compact(outs[0], sa, j, h1, act, orig, n)],
+        lambda: [outs[1], *L.lcp_compact_plain(outs[1], sa, j, h1, act,
+                                               orig, n)], cmp, card))
+    del j, valid, h0, h1, act, orig, outs
+    # phase 6: one lcp_array at 2^28
+    prof = {"lcp_array_zipf": profile_with_gaps(
+        "lcp_array_zipf", lambda: TL.lcp_array(text, sa, device=True,
+                                              torch_device="cuda"))}
+    record["lcp_path"] = {**rec, "launches": launches, "card": card,
+                          "seconds": time.perf_counter() - t_phase}
+    log(f"[4g] phase 4g took {record['lcp_path']['seconds']:.1f}s")
+    return {"launches": launches, "kernel_rows": rows5, "profile": prof}
 
 
 def sort_kernel_rows(record, kernel_row, text, ds, sa, sa_direct, rows, *,
@@ -3348,7 +4202,7 @@ def query_kernel_rows(kernel_row, st, st3, st4):
     return shapes
 
 
-def phase_numbers(record, st, st2, st3, st4, st5):
+def phase_numbers(record, st, st2, st3, st4, own):
     """End-to-end rates (medians of 3) and each kernel at the main paths'
     shapes against its bound, its plain version and a library call."""
     import torch
@@ -3469,7 +4323,7 @@ def phase_numbers(record, st, st2, st3, st4, st5):
     path_launches = {"full": st["launches"], "tiers": st2["launches"],
                      "rows": st3["launches"], "query": st4["launches"],
                      "query_host": st4["host_launches"],
-                     "chunked": st5["launches"]}
+                     "chunked": own[0]["launches"]}
 
     def kernel_row(name, run_k, run_p, bound_ms, library=None, paths=None):
         """One kernel against its plain version at these shapes; plain_ms
@@ -3578,8 +4432,9 @@ def phase_numbers(record, st, st2, st3, st4, st5):
     del isa
     row_kernel_rows(kernel_row, st3)
     record["query_shapes"] = query_kernel_rows(kernel_row, st, st3, st4)
-    # the chunked path's own kernels, timed in phase 4e at its shapes
-    record["kernels"] = kern + st5["kernel_rows"]
+    # the chunked, paged and lcp paths' kernels, timed in phases 4e, 4f
+    # and 4g at their shapes
+    record["kernels"] = kern + [r for o in own for r in o["kernel_rows"]]
 
 
 def own_kernel_names():
@@ -3653,7 +4508,7 @@ def profile_step(name, fn, own_kernels):
     return out, prof
 
 
-def phase_profile(record, st, st2, st3, st4, st5):
+def phase_profile(record, st, st2, st3, st4, own):
     """Device time by kernel (torch.profiler, CUPTI) and the device's busy
     share over one call of each main-path step, for PERF.md's breakdown;
     "not measured" where the profiler reports no device time.  The
@@ -3710,7 +4565,8 @@ def phase_profile(record, st, st2, st3, st4, st5):
                 if dev_ms != "not measured" else "not measured")
             log(f"      {layers} layers, host ms per layer "
                 f"{out[name]['host_ms_per_layer']}")
-    out.update(st5["profile"])
+    for o in own:
+        out.update(o["profile"])
     record["profile"] = out
 
 
@@ -3738,8 +4594,10 @@ def main(argv=None):
         st2 = phase_tiers(record, rng, st)
         st3 = phase_rows(record, rng, st, st2)
         st4 = phase_query(record, rng, st, st2, st3)
-        phase_numbers(record, st, st2, st3, st4, st5)
-        phase_profile(record, st, st2, st3, st4, st5)
+        st6 = phase_paged(record, rng, st, st3, st4)
+        st7 = phase_lcp(record, rng, st, st3)
+        phase_numbers(record, st, st2, st3, st4, (st5, st6, st7))
+        phase_profile(record, st, st2, st3, st4, (st5, st6, st7))
     except SmokeError as e:
         print(f"chip_smoke: FAILED: {e}", file=sys.stderr)
         return 1

@@ -7,8 +7,13 @@
 //                          backward_search_steps, 87);
 //   backward_step          one step per lane (c, first, last) -> the new
 //                          range (ops/rank.py backward_step_pair, 681, on
-//                          free lanes: the host regex engine's layer).
-// All three share one device step, fm_step below.
+//                          free lanes: the host regex engine's layer);
+//   backward_step_masked   the same step in its masked mode, where a lane
+//                          with c < 0 keeps its range (femto_tpu/paged.py
+//                          _pair_step, 64: paged count, one dispatch per
+//                          pattern column; row tiers only, through the
+//                          view's seg_slot).
+// All four share one device step, fm_step below.
 //
 // Replaces femto_tpu/ops/search_ops.py backward_search (23) with its step
 // ops/rank.py backward_step_pair (681), map_char (97) and _occ_dense (649)
@@ -92,7 +97,9 @@ __global__ void backward_search_kernel(femto::FmView ix,
 }
 
 // One thread per lane; the host engine pads its layers with c = -1 lanes.
-template <int L>
+// kMasked: a lane with c < 0 keeps (first, last) instead of stepping to
+// the empty range.
+template <int L, bool kMasked>
 __global__ void backward_step_kernel(femto::FmView ix,
                                      const int* __restrict__ cs,
                                      const int* __restrict__ firsts,
@@ -102,9 +109,27 @@ __global__ void backward_step_kernel(femto::FmView ix,
   const int b = blockIdx.x * blockDim.x + threadIdx.x;
   if (b >= B) return;
   int first = firsts[b], last = lasts[b];
-  fm_step<L>(ix, cs[b], &first, &last);
+  const int c = cs[b];
+  if (!kMasked || c >= 0) fm_step<L>(ix, c, &first, &last);
   first_out[b] = first;
   last_out[b] = last;
+}
+
+template <bool kMasked>
+int launch_step(const femto::FmView* ix, const void* c, const void* first,
+                const void* last, int B, void* first_out, void* last_out,
+                void* stream) {
+  if (B <= 0) return static_cast<int>(cudaGetLastError());
+  auto launch = [&](auto layout) {
+    constexpr int L = decltype(layout)::value;
+    backward_step_kernel<L, kMasked><<<(B + 127) / 128, 128, 0,
+                                       static_cast<cudaStream_t>(stream)>>>(
+        *ix, static_cast<const int*>(c), static_cast<const int*>(first),
+        static_cast<const int*>(last), B, static_cast<int*>(first_out),
+        static_cast<int*>(last_out));
+  };
+  if constexpr (kMasked) return femto::dispatch_row_layout(*ix, launch);
+  else return femto::dispatch_layout(*ix, launch);
 }
 
 template <bool kSteps>
@@ -149,13 +174,16 @@ extern "C" int femto_backward_step(const femto::FmView* ix, const void* c,
                                    const void* first, const void* last, int B,
                                    void* first_out, void* last_out,
                                    void* stream) {
-  if (B <= 0) return static_cast<int>(cudaGetLastError());
-  return femto::dispatch_layout(*ix, [&](auto layout) {
-    constexpr int L = decltype(layout)::value;
-    backward_step_kernel<L><<<(B + 127) / 128, 128, 0,
-                              static_cast<cudaStream_t>(stream)>>>(
-        *ix, static_cast<const int*>(c), static_cast<const int*>(first),
-        static_cast<const int*>(last), B, static_cast<int*>(first_out),
-        static_cast<int*>(last_out));
-  });
+  return launch_step<false>(ix, c, first, last, B, first_out, last_out,
+                            stream);
+}
+
+// The same on a row-tier view, lanes with c < 0 keeping their range.
+extern "C" int femto_backward_step_masked(const femto::FmView* ix,
+                                          const void* c, const void* first,
+                                          const void* last, int B,
+                                          void* first_out, void* last_out,
+                                          void* stream) {
+  return launch_step<true>(ix, c, first, last, B, first_out, last_out,
+                           stream);
 }

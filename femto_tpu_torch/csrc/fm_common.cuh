@@ -25,6 +25,11 @@
 //   C int32[K+1], C[c] = number of codes < c.  K = 261 on the identity
 //   tiers; alpha_map (symbol -> dense code or -1) and alpha_rev (dense
 //   code -> symbol) are non-null when the index is remapped.
+//   Paged serving (femto_tpu_torch/paged.py, row tiers only): bwt is a
+//   row cache uint32[cache_rows, row_words] and seg_slot int32[n_seg]
+//   maps each true segment id to its cache slot (slot 0 a dummy row);
+//   n_seg stays the true segment count and every other per-segment array
+//   is indexed by the true id.
 //
 // Every exported entry point launches on the stream it is given, allocates
 // nothing, and returns cudaGetLastError() so the Python wrapper can raise.
@@ -83,6 +88,7 @@ struct FmView {
   int G;           // words per continuation granule row
   int ngr;         // granule rows a segment's continuation window reads
   long long X;     // granule rows in seg_cont
+  const int* seg_slot;  // int32[n_seg] cache slots (paged serving) or null
 };
 
 // Occurrences of symbol c among the first `off` symbols of one uint16
@@ -179,8 +185,11 @@ __device__ __forceinline__ void local_code_table(
   __syncwarp();
 }
 
+// The serving row of true segment s: through seg_slot when the index is
+// paged (PagedIndex maps every segment a launch touches before it).
 __device__ __forceinline__ const unsigned* row_of(const FmView& ix,
                                                   long long s) {
+  if (ix.seg_slot != nullptr) s = __ldg(ix.seg_slot + s);
   return static_cast<const unsigned*>(ix.bwt) + s * ix.row_words;
 }
 
@@ -428,6 +437,18 @@ int dispatch_layout(const FmView& ix, F&& launch) {
     case kFull: launch(std::integral_constant<int, kFull>{}); break;
     case kCompact: launch(std::integral_constant<int, kCompact>{}); break;
     case kPacked: launch(std::integral_constant<int, kPacked>{}); break;
+    case kVseg: launch(std::integral_constant<int, kVseg>{}); break;
+    case kVrle: launch(std::integral_constant<int, kVrle>{}); break;
+    default: return static_cast<int>(cudaErrorInvalidValue);
+  }
+  return static_cast<int>(cudaGetLastError());
+}
+
+// dispatch_layout for the entries that serve the row tiers only (the paged
+// steps): any other layout is refused.
+template <class F>
+int dispatch_row_layout(const FmView& ix, F&& launch) {
+  switch (ix.layout) {
     case kVseg: launch(std::integral_constant<int, kVseg>{}); break;
     case kVrle: launch(std::integral_constant<int, kVrle>{}); break;
     default: return static_cast<int>(cudaErrorInvalidValue);

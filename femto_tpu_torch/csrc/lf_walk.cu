@@ -1,5 +1,6 @@
 // Kernel D, lf_walk: LF-mapping walks over the full, compact, packed,
-// vseg and vrle layouts (one instantiation each), two entry points.
+// vseg and vrle layouts (one instantiation each), two entry points, and
+// the two steps of paged locate (femto_tpu/paged.py, K16) on the row tiers.
 //
 // locate replaces femto_tpu/ops/search_ops.py locate_rows (115) with
 // ops/rank.py lf_grank_step (883), mark_rank (821) and mark_offset (842):
@@ -19,6 +20,17 @@
 // and the marks, as femto_tpu's one-row walk step (ops/rank.py
 // lf_grank_step 895-911) does; a run-length segment is read by a walk
 // over its slots that stops at the position it needs.
+//
+// lf_walk_step replaces femto_tpu/paged.py _walk_step (73): ONE step of
+// the walk above per launch, its state (row, mark rank, step, done) kept
+// per lane in device memory between launches, so that the host can fault
+// in the rows of the next step (paged serving reads every row through the
+// view's seg_slot).  A done lane is left as it is; a marked lane takes its
+// mark rank and the step number i; any other lane steps LF.
+// resolve_marks replaces paged.py _resolve_marks (86): mark_offset(g) +
+// steps per lane, after the walk.  Both are one thread per lane; their
+// bound is the bytes of one row prefix per live lane (lf_walk_step) and of
+// the lane arrays and two or three mark_vals words a lane (resolve_marks).
 //
 // Bound on the H100: bytes of dependent random gathers.  Per step: one
 // mark word, one symbol (word), the checkpoint and the counted row prefix;
@@ -140,6 +152,61 @@ __global__ void lf_extract_kernel(femto::FmView ix,
   final_rows[b] = static_cast<int>(r);
 }
 
+// The mark bit of row r in a row tier's serving row and, when set, its mark
+// rank (the checkpoint + popcounts of the segment's earlier mark words).
+__device__ __forceinline__ bool row_mark(const femto::FmView& ix,
+                                         const unsigned* row, long long r,
+                                         long long s, int* grank) {
+  const int wl = static_cast<int>(r - s * ix.seg) >> 5;
+  const unsigned* words = row + ix.off_mk;
+  const unsigned w = __ldg(words + wl);
+  const unsigned bit = static_cast<unsigned>(r & 31);
+  if (!((w >> bit) & 1u)) return false;
+  int g = static_cast<int>(__ldg(row + ix.off_mck));
+  for (int k = 0; k < wl; ++k) g += __popc(__ldg(words + k));
+  *grank = g + __popc(w & ((1u << bit) - 1u));
+  return true;
+}
+
+template <int L>
+__global__ void lf_walk_step_kernel(
+    femto::FmView ix, const int* __restrict__ rows,
+    const int* __restrict__ granks, const int* __restrict__ steps,
+    const unsigned char* __restrict__ done, int B, int i,
+    int* __restrict__ rows_out, int* __restrict__ granks_out,
+    int* __restrict__ steps_out, unsigned char* __restrict__ done_out) {
+  const int b = blockIdx.x * blockDim.x + threadIdx.x;
+  if (b >= B) return;
+  int r = rows[b], g = granks[b], st = steps[b];
+  unsigned char d = done[b];
+  if (!d) {
+    const long long s = r / ix.seg;
+    if (row_mark(ix, femto::row_of(ix, s), r, s, &g)) {
+      st = i;
+      d = 1;
+    } else {
+      int c;
+      r = static_cast<int>(lf_step<L>(ix, r, &c));
+    }
+  }
+  rows_out[b] = r;
+  granks_out[b] = g;
+  steps_out[b] = st;
+  done_out[b] = d;
+}
+
+__global__ void resolve_marks_kernel(const int* __restrict__ granks,
+                                     const int* __restrict__ steps, int B,
+                                     const unsigned* __restrict__ mark_vals,
+                                     long long mark_vals_len,
+                                     const int* __restrict__ mark_meta,
+                                     int* __restrict__ out) {
+  const int b = blockIdx.x * blockDim.x + threadIdx.x;
+  if (b >= B) return;
+  out[b] = mark_offset(mark_vals, mark_vals_len, mark_meta, granks[b]) +
+           steps[b];
+}
+
 }  // namespace
 
 // rows int32[B] -> offsets int32[B] (-1 where no mark was reached).
@@ -174,4 +241,40 @@ extern "C" int femto_lf_extract(const femto::FmView* ix, const void* rows,
         *ix, static_cast<const int*>(rows), B, num_steps,
         static_cast<int*>(chars), static_cast<int*>(final_rows));
   });
+}
+
+// One paged locate step on a row-tier view: (rows, granks, steps int32[B],
+// done uint8[B]) and the step number i -> the same four after the step.
+extern "C" int femto_lf_walk_step(const femto::FmView* ix, const void* rows,
+                                  const void* granks, const void* steps,
+                                  const void* done, int B, int i,
+                                  void* rows_out, void* granks_out,
+                                  void* steps_out, void* done_out,
+                                  void* stream) {
+  if (B <= 0) return static_cast<int>(cudaGetLastError());
+  return femto::dispatch_row_layout(*ix, [&](auto layout) {
+    constexpr int L = decltype(layout)::value;
+    lf_walk_step_kernel<L><<<(B + 127) / 128, 128, 0,
+                             static_cast<cudaStream_t>(stream)>>>(
+        *ix, static_cast<const int*>(rows), static_cast<const int*>(granks),
+        static_cast<const int*>(steps),
+        static_cast<const unsigned char*>(done), B, i,
+        static_cast<int*>(rows_out), static_cast<int*>(granks_out),
+        static_cast<int*>(steps_out), static_cast<unsigned char*>(done_out));
+  });
+}
+
+// granks, steps int32[B] -> mark_offset(granks) + steps int32[B].
+extern "C" int femto_resolve_marks(const void* granks, const void* steps,
+                                   int B, const void* mark_vals,
+                                   long long mark_vals_len,
+                                   const void* mark_meta, void* out,
+                                   void* stream) {
+  if (B <= 0) return static_cast<int>(cudaGetLastError());
+  resolve_marks_kernel<<<(B + 127) / 128, 128, 0,
+                         static_cast<cudaStream_t>(stream)>>>(
+      static_cast<const int*>(granks), static_cast<const int*>(steps), B,
+      static_cast<const unsigned*>(mark_vals), mark_vals_len,
+      static_cast<const int*>(mark_meta), static_cast<int*>(out));
+  return static_cast<int>(cudaGetLastError());
 }

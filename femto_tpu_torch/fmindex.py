@@ -60,9 +60,9 @@ DEFAULT_MARK_PERIOD = 20
 L1_GROUP = 16  # segments per L1 checkpoint group (compact tiers)
 TIERS = ("full", "compact", "packed", "vseg", "vrle")
 
-# Fields of paged serving, which this port does not serve yet.
+# Fields that only paged serving (paged.PagedIndex) sets; no saved index
+# carries them.
 _OTHER_TIER_FIELDS = ("seg_slot",)
-_ROADMAP_PAGED = "ROADMAP.md Q1 item 1 (paged serving, K16)"
 
 
 def l1_group_for(seg: int) -> int:
@@ -95,7 +95,10 @@ def resolve_device(device: Union[str, torch.device]) -> torch.device:
 class FMArrays(NamedTuple):
     """Device tensors of the index (femto_tpu.fmindex.FMArrays' fields).
 
-    seg_slot (paged serving) stays None in this port."""
+    Paged serving (paged.PagedIndex, row tiers only) sets seg_slot: bwt is
+    then the device row cache uint32[cache_rows, total] and seg_slot
+    int32[n_seg] maps each true segment id to its cache slot (slot 0 a
+    dummy row); every other field is indexed by the true id."""
 
     bwt: torch.Tensor        # uint16[n_seg, seg] | uint32[n_seg, W] packed
     #                          | uint32[n_seg, total] rows (vseg, vrle)
@@ -117,7 +120,7 @@ class FMArrays(NamedTuple):
     mark_meta: Optional[torch.Tensor] = None  # int32[5]
     seg_rle: Optional[torch.Tensor] = None   # int32[scheme, w_main] marker
     seg_cont: Optional[torch.Tensor] = None  # uint32[X, G] flat store
-    seg_slot: Optional[torch.Tensor] = None
+    seg_slot: Optional[torch.Tensor] = None  # int32[n_seg] (paged)
 
 
 @dataclasses.dataclass(frozen=True)
@@ -328,7 +331,8 @@ def arrays_from_numpy(arrays: Mapping[str, np.ndarray], meta: Any, *,
     chunk_doc_offsets_np, chunk_docs_np, sa_direct where present) and the
     FMMeta fields (a mapping, or any object with those attributes) -> the
     port's FMIndex on ``device``.  Indexes of every storage tier are
-    taken (paged ones are refused); bits are kept as they are: uint8,
+    taken (a seg_slot array, which only paged.PagedIndex sets, is
+    refused); bits are kept as they are: uint8,
     uint16 and uint32 arrays stay uint8, uint16 and uint32 tensors.  ``infos`` defaults to meta["infos"] (a .npz
     directory's meta.json) or doc<i> names."""
     dev = resolve_device(device)
@@ -339,8 +343,9 @@ def arrays_from_numpy(arrays: Mapping[str, np.ndarray], meta: Any, *,
     for k in _OTHER_TIER_FIELDS:
         if k in arrays:
             raise NotImplementedError(
-                f"index field {k!r} belongs to paged serving, not ported "
-                f"yet ({_ROADMAP_PAGED})")
+                f"index field {k!r} belongs to paged serving: open the "
+                f"index's .ftpu file with paged.PagedIndex (paged.load_paged "
+                f"or paged.load_auto)")
     layout = (arrays["bwt"].dtype, arrays["occ_ckpt"].dtype)
     if layout not in ((np.uint16, np.int32), (np.uint16, np.uint16),
                       (np.uint32, np.uint16)):
@@ -527,7 +532,7 @@ def build_index(
     if not device_build:
         raise NotImplementedError(
             "device_build=False (the host packaging path build_fm_arrays) "
-            "is not ported (ROADMAP.md Q1 item 5, the host packaging "
+            "is not ported (ROADMAP.md Q1 item 4, the host packaging "
             "path)")
     if tier not in TIERS:
         raise ValueError(f"unknown tier {tier!r}")

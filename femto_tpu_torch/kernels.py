@@ -11,7 +11,8 @@ allocates nothing, and returns ``cudaGetLastError()``; :func:`launch` raises
 when that is not 0 and otherwise adds one to the entry's launch count.  The
 search entries take the index as an :class:`FmView` and run one kernel
 instantiation per row layout (full, compact, packed, vseg, vrle); their
-launches are counted per layout, as ``"entry[layout]"``.  Nothing here is built for CPU
+launches are counted per layout, as ``"entry[layout]"`` (the paged steps
+serve the vseg and vrle layouts only).  Nothing here is built for CPU
 tensors: the wrappers in ``ops/`` check their inputs with :func:`check` and
 take their plain PyTorch versions where :func:`on_card` says the tensors lie
 on the CPU.
@@ -57,7 +58,9 @@ class FmView(ctypes.Structure):
                 ("w_main", _I), ("off_syms", _I), ("off_mk", _I),
                 ("off_mck", _I), ("off_rel", _I), ("S", _I), ("wide", _I),
                 ("w_side", _I), ("side_words", _I), ("n_side", _I),
-                ("G", _I), ("ngr", _I), ("X", _L)]
+                ("G", _I), ("ngr", _I), ("X", _L),
+                # paged serving: cache slot of each true segment, or null
+                ("seg_slot", _P)]
 
 
 _V = ctypes.POINTER(FmView)
@@ -83,6 +86,18 @@ ENTRIES: Dict[str, Tuple[str, List]] = {
     "backward_search_steps": ("backward_search", [_V, _P, _I, _I, _I, _I,
                                                   _P, _P, _P, _P, _P]),
     "backward_step": ("backward_search", [_V, _P, _P, _P, _I, _P, _P]),
+    # paged serving (paged.py, K16): C's masked step, D's locate step and
+    # mark decode, and the cache update
+    "backward_step_masked": ("backward_search", [_V, _P, _P, _P, _I, _P,
+                                                 _P]),
+    "lf_walk_step": ("lf_walk", [_V, _P, _P, _P, _P, _I, _I, _P, _P, _P,
+                                 _P]),
+    "resolve_marks": ("lf_walk", [_P, _P, _I, _P, _L, _P, _P]),
+    "apply_faults": ("paged", [_P, _L, _I, _P, _L, _P, _P, _P, _P, _I, _I]),
+    # the LCP analytics (lcp.py, K17)
+    "lcp_round": ("lcp", [_P, _L, _P, _P, _P, _P, _I, _I, _P, _P]),
+    "lcp_compact": ("lcp", [_P, _I, _P, _P, _P, _P, _P, _I, _I, _P, _P, _P,
+                            _P, _P]),
     "lf_locate": ("lf_walk", [_V, _P, _I, _P, _P, _P, _L, _P, _I, _P]),
     "lf_extract": ("lf_walk", [_V, _P, _I, _I, _P, _P]),
     "psi_walk": ("psi_walk", [_V, _P, _I, _I, _P]),
@@ -117,10 +132,14 @@ SIZES: Dict[str, Tuple[str, List]] = {
     "regex_fork_scratch": ("regex_frontier", [_I, _I]),
     "regex_merge_tiles": ("regex_frontier", [_L]),
     "doc_lists_stride": ("doc_lists", [_I]),
+    "lcp_compact_scratch": ("lcp", [_L]),
 }
 # entries that take an FmView: one count per layout
 LAYOUT_ENTRIES = ("backward_search", "backward_search_steps", "backward_step",
                   "lf_locate", "lf_extract", "psi_walk", "regex_fork")
+# entries that take an FmView of a row tier only: one count per row layout
+ROW_LAYOUTS = ("vseg", "vrle")
+ROW_LAYOUT_ENTRIES = ("backward_step_masked", "lf_walk_step")
 # entries with modes that do different work: one count per mode (None: the
 # entry's own name)
 MODE_ENTRIES = {"round_keys": ("extension", "doubling"),
@@ -135,8 +154,12 @@ def counter(entry: str, layout: Optional[str] = None) -> str:
 
 def counters(entry: str) -> List[str]:
     """Names of the launch counts of an entry: one per layout or mode."""
-    kinds = LAYOUTS if entry in LAYOUT_ENTRIES else MODE_ENTRIES.get(
-        entry, (None,))
+    if entry in LAYOUT_ENTRIES:
+        kinds = LAYOUTS
+    elif entry in ROW_LAYOUT_ENTRIES:
+        kinds = ROW_LAYOUTS
+    else:
+        kinds = MODE_ENTRIES.get(entry, (None,))
     return [counter(entry, kind) for kind in kinds]
 
 

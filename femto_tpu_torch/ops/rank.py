@@ -74,7 +74,10 @@ def seg_size(arrays: FMArrays) -> int:
 
 def n_segments(arrays: FMArrays) -> int:
     """Segment count: the row tiers keep their checkpoints inside the
-    serving rows, and occ_ckpt is a one-row dtype marker there."""
+    serving rows, and occ_ckpt is a one-row dtype marker there.  Paged
+    serving: bwt is a row cache, and seg_slot holds the true count."""
+    if arrays.seg_slot is not None:
+        return arrays.seg_slot.shape[0]
     if is_row_tier(arrays):
         return arrays.bwt.shape[0]
     return arrays.occ_ckpt.shape[0]
@@ -201,8 +204,13 @@ def vrle_flat_cont(arrays: FMArrays) -> bool:
 
 
 def _rows(arrays: FMArrays, s: torch.Tensor) -> torch.Tensor:
-    """int64[B, total] main rows of segments s (uint32 bits widened)."""
-    return u32_to_i64(arrays.bwt.view(torch.int32)[s.long()])
+    """int64[B, total] main rows of segments s (uint32 bits widened); on a
+    paged index through seg_slot (femto_tpu's _bwt_row): PagedIndex maps
+    every segment a step needs, an unmapped one reads dummy slot 0."""
+    s = s.long()
+    if arrays.seg_slot is not None:
+        s = arrays.seg_slot[s].long()
+    return u32_to_i64(arrays.bwt.view(torch.int32)[s])
 
 
 def vseg_syms_from_row(g: VsegGeom, row: torch.Tensor) -> torch.Tensor:

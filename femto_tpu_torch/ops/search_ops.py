@@ -4,8 +4,11 @@ vrle).
 
 The counterparts of femto_tpu/ops/search_ops.py backward_search,
 backward_search_steps, locate_rows, extract_backward and psi_step
-(scanned as search.py _psi_scan_jit), and of ops/rank.py
-backward_step_pair on free lanes (the host regex engine's step).  Each wrapper launches its CUDA kernel (csrc/
+(scanned as search.py _psi_scan_jit), of ops/rank.py
+backward_step_pair on free lanes (the host regex engine's step), and of
+the steps of femto_tpu/paged.py (_pair_step, _walk_step, _resolve_marks;
+its _extract_step is extract_backward at one step), which paged serving
+dispatches one at a time over a row cache (FMArrays.seg_slot).  Each wrapper launches its CUDA kernel (csrc/
 backward_search.cu, csrc/lf_walk.cu, csrc/psi_walk.cu; one instantiation
 per layout, picked from dtypes and shapes as ops/rank.py does) for tensors
 on the card and takes the plain PyTorch version beside it for tensors on
@@ -28,10 +31,12 @@ def fm_view(arrays: FMArrays):
     tensors every search kernel reads against the layout's dtypes and
     shapes.  Raises on a layout the kernels do not take."""
     lay = R.layout(arrays)
-    n_seg = arrays.bwt.shape[0]
     seg = R.seg_size(arrays)
     K = R.alpha_count(arrays)
     row_tier = R.is_row_tier(arrays)
+    # the true segment count: under paging bwt is the row cache
+    n_seg = (arrays.seg_slot.shape[0] if arrays.seg_slot is not None
+             else arrays.bwt.shape[0])
     kernels.check(arrays.C, "C", torch.int32, 1)
     # the row tiers keep their marks in the rows: one-row dummies here
     kernels.check(arrays.mark_bits, "mark_bits", torch.uint32, 2,
@@ -63,7 +68,13 @@ def fm_view(arrays: FMArrays):
     elif lay == "compact":
         kernels.check(arrays.bwt, "bwt", torch.uint16, 2, (n_seg, seg))
     elif row_tier:
-        _row_view(arrays, view)
+        _row_view(arrays, view, n_seg)
+    if arrays.seg_slot is not None:
+        if not row_tier:
+            raise ValueError("paged serving (seg_slot) takes the row tiers "
+                             "(vseg, vrle) only")
+        kernels.check(arrays.seg_slot, "seg_slot", torch.int32, 1, (n_seg,))
+        view.seg_slot = arrays.seg_slot.data_ptr()
     if R.is_remapped(arrays):
         kernels.check(arrays.alpha_map, "alpha_map", torch.int32, 1,
                       (ALPHA_SIZE,))
@@ -73,11 +84,11 @@ def fm_view(arrays: FMArrays):
     return view, lay
 
 
-def _row_view(arrays: FMArrays, view) -> None:
+def _row_view(arrays: FMArrays, view, n_seg: int) -> None:
     """Fill the row tiers' part of a view from ops/rank.VsegGeom, after
-    checking the row-tier fields."""
+    checking the row-tier fields (bwt: n_seg rows, or a paged index's
+    cache rows)."""
     g = R.VsegGeom(arrays)
-    n_seg = arrays.bwt.shape[0]
     kernels.check(arrays.bwt, "bwt", torch.uint32, 2)
     kernels.check(arrays.seg_nsym, "seg_nsym", torch.uint8, 1, (n_seg,))
     kernels.check(arrays.seg_woff, "seg_woff", torch.int32, 1, (n_seg,))
@@ -109,6 +120,8 @@ def _index_tensors(arrays: FMArrays):
         ts += (arrays.seg_ovf, arrays.seg_nsym, arrays.seg_woff)
         if arrays.seg_cont is not None:
             ts += (arrays.seg_cont,)
+    if arrays.seg_slot is not None:
+        ts += (arrays.seg_slot,)
     return ts
 
 
@@ -218,6 +231,42 @@ def backward_step_pair(arrays: FMArrays, c: torch.Tensor,
     return nf, nl
 
 
+def _row_layout(arrays: FMArrays) -> None:
+    if not R.is_row_tier(arrays):
+        raise ValueError("the paged steps take the row tiers (vseg, vrle) "
+                         "only")
+
+
+def backward_step_masked_plain(arrays: FMArrays, c: torch.Tensor,
+                               first: torch.Tensor, last: torch.Tensor):
+    """femto_tpu/paged.py _pair_step: backward_step_pair on the lanes
+    with c >= 0; the others keep their range."""
+    active = c >= 0
+    nf, nl = R.backward_step_pair(arrays, c, first, last)
+    return torch.where(active, nf, first), torch.where(active, nl, last)
+
+
+def backward_step_masked(arrays: FMArrays, c: torch.Tensor,
+                         first: torch.Tensor, last: torch.Tensor):
+    """One masked FM backward step (a paged count's per-column dispatch):
+    lanes with c >= 0 step as backward_step_pair does, lanes with c < 0
+    keep (first, last).  int32[B] each; row tiers only.  Kernel C on the
+    card."""
+    B = c.shape[0]
+    for name, t in (("c", c), ("first", first), ("last", last)):
+        kernels.check(t, name, torch.int32, 1, (B,))
+    _row_layout(arrays)
+    if not kernels.on_card(c, first, last, *_index_tensors(arrays)):
+        return backward_step_masked_plain(arrays, c, first, last)
+    view, lay = fm_view(arrays)
+    nf = torch.empty_like(first)
+    nl = torch.empty_like(last)
+    kernels.launch("backward_step_masked", view, c.data_ptr(),
+                   first.data_ptr(), last.data_ptr(), B, nf.data_ptr(),
+                   nl.data_ptr(), layout=lay)
+    return nf, nl
+
+
 # ---------------------------------------------------------------------------
 # Kernel D: LF walks (locate, extract)
 # ---------------------------------------------------------------------------
@@ -266,6 +315,66 @@ def locate_rows(arrays: FMArrays, mark_period: int,
                    arrays.mark_vals.data_ptr(), arrays.mark_vals.shape[0],
                    arrays.mark_meta.data_ptr(), mark_period, out.data_ptr(),
                    layout=lay)
+    return out
+
+
+def lf_walk_step_plain(arrays: FMArrays, rows: torch.Tensor,
+                      granks: torch.Tensor, steps: torch.Tensor,
+                      done: torch.Tensor, i: int):
+    """femto_tpu/paged.py _walk_step: one lockstep locate step."""
+    nxt, bit, grank = R.lf_grank_step(arrays, rows)
+    is_m = bit & ~done
+    granks = torch.where(is_m, grank, granks)
+    steps = torch.where(is_m, torch.full_like(steps, i), steps)
+    done = done | is_m
+    return torch.where(done, rows, nxt), granks, steps, done
+
+
+def lf_walk_step(arrays: FMArrays, rows: torch.Tensor, granks: torch.Tensor,
+                 steps: torch.Tensor, done: torch.Tensor, i: int):
+    """One step of a paged locate walk: lanes not done that sit on a
+    marked row take its mark rank and step number i and are done; the
+    others step LF.  rows, granks, steps int32[B], done bool[B] -> the
+    four after the step; row tiers only.  Kernel D on the card."""
+    B = rows.shape[0]
+    for name, t in (("rows", rows), ("granks", granks), ("steps", steps)):
+        kernels.check(t, name, torch.int32, 1, (B,))
+    kernels.check(done, "done", torch.bool, 1, (B,))
+    _row_layout(arrays)
+    if not kernels.on_card(rows, granks, steps, done,
+                           *_index_tensors(arrays)):
+        return lf_walk_step_plain(arrays, rows, granks, steps, done, i)
+    view, lay = fm_view(arrays)
+    outs = (torch.empty_like(rows), torch.empty_like(granks),
+            torch.empty_like(steps), torch.empty_like(done))
+    kernels.launch("lf_walk_step", view, rows.data_ptr(), granks.data_ptr(),
+                   steps.data_ptr(), done.data_ptr(), B, i,
+                   *(o.data_ptr() for o in outs), layout=lay)
+    return outs
+
+
+def resolve_marks_plain(arrays: FMArrays, granks: torch.Tensor,
+                        steps: torch.Tensor) -> torch.Tensor:
+    """femto_tpu/paged.py _resolve_marks: mark_offset(granks) + steps."""
+    return (R.mark_offset(arrays, granks) + steps).to(torch.int32)
+
+
+def resolve_marks(arrays: FMArrays, granks: torch.Tensor,
+                  steps: torch.Tensor) -> torch.Tensor:
+    """Text offsets after a paged locate walk: the mark value of each
+    lane's mark rank plus its steps (int32[B]).  Kernel D on the card."""
+    B = granks.shape[0]
+    kernels.check(granks, "granks", torch.int32, 1, (B,))
+    kernels.check(steps, "steps", torch.int32, 1, (B,))
+    kernels.check(arrays.mark_vals, "mark_vals", torch.uint32, 1)
+    kernels.check(arrays.mark_meta, "mark_meta", torch.int32, 1, (5,))
+    if not kernels.on_card(granks, steps, arrays.mark_vals,
+                           arrays.mark_meta):
+        return resolve_marks_plain(arrays, granks, steps)
+    out = torch.empty_like(granks)
+    kernels.launch("resolve_marks", granks.data_ptr(), steps.data_ptr(), B,
+                   arrays.mark_vals.data_ptr(), arrays.mark_vals.shape[0],
+                   arrays.mark_meta.data_ptr(), out.data_ptr())
     return out
 
 

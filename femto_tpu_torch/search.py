@@ -1,11 +1,15 @@
-"""Query API: count / locate / extract / context over an FMIndex (full,
-compact and packed tiers).
+"""Query API: count / locate / extract / context over an FMIndex (every
+tier) or a paged.PagedIndex.
 
 The counterpart of femto_tpu/search.py.  Patterns are byte strings; every
 query runs on the index's device, through kernel C (count), kernel D
 (locate walk, extract, context before the match) and kernel E (context
 from the match on) on the card.  The direct locate tier is one gather,
-sa_direct[rows], through kernel L.
+sa_direct[rows], through kernel L.  A PagedIndex (it has _ensure_rows)
+answers count_ranges, locate_range, locate_rows_array and
+extract_document with its own host-driven steps, at femto_tpu's four
+dispatch points; context and whole-corpus extraction raise over it, since
+they would read rows the cache does not hold.
 """
 
 from __future__ import annotations
@@ -62,6 +66,8 @@ def count_ranges(
     metrics.count("queries/backward_steps", sum(len(p) for p in patterns))
     if not patterns:
         return np.zeros(0, np.int64), np.zeros(0, np.int64)
+    if hasattr(index, "_ensure_rows"):  # paged.PagedIndex: host-driven
+        return index.count_ranges(patterns)
     lens = np.fromiter(map(len, patterns), np.int64, len(patterns))
     pats = _pack_flat(pattern_to_alpha(b"".join(patterns)), lens,
                       pad_b=len(patterns))
@@ -94,6 +100,8 @@ def locate_range(
     metrics.count("queries/locate_rows", max(m, 0))
     if m <= 0:
         return np.zeros(0, dtype=np.int64)
+    if hasattr(index, "_ensure_rows"):  # paged.PagedIndex
+        return index.locate_range(first, first + m)
     rows = torch.arange(first, first + m, dtype=torch.int32,
                         device=index.device)
     return _locate_rows_dispatch(index, rows).cpu().numpy().astype(np.int64)
@@ -108,6 +116,8 @@ def locate_rows_array(index: FMIndex, rows: np.ndarray) -> np.ndarray:
     if rows.min() < 0 or rows.max() >= index.meta.n_rows:
         raise ValueError("rows must lie in [0, n_rows)")
     metrics.count("queries/locate_rows", m)
+    if hasattr(index, "_ensure_rows"):  # paged.PagedIndex
+        return index.locate_rows_array(rows)
     rr = torch.from_numpy(rows.astype(np.int32)).to(index.device)
     return _locate_rows_dispatch(index, rr).cpu().numpy().astype(np.int64)
 
@@ -171,6 +181,8 @@ def _content_lens(index: FMIndex) -> np.ndarray:
 def extract_document(index: FMIndex, doc_id: int) -> bytes:
     """Reconstruct document bytes from the index alone, by a backward LF
     walk from the document's SEOF row."""
+    if hasattr(index, "_ensure_rows"):  # paged.PagedIndex
+        return index.extract_document(doc_id)
     dlen = int(_content_lens(index)[doc_id])
     if dlen == 0:
         return b""
@@ -180,9 +192,21 @@ def extract_document(index: FMIndex, doc_id: int) -> bytes:
     return (seq - CHARACTER_OFFSET).astype(np.uint8).tobytes()
 
 
+def _refuse_paged(index, what: str) -> None:
+    """femto_tpu's version of `what` has no paged dispatch and, over a
+    PagedIndex, reads the uncached segments through dummy slot 0 and
+    returns wrong bytes; the port raises instead."""
+    if hasattr(index, "_ensure_rows"):
+        raise NotImplementedError(
+            f"{what} is not served over a paged index (its walks would "
+            f"read rows the device cache does not hold); load the index "
+            f"resident (FMIndex.load) for it")
+
+
 def extract_all_documents(index: FMIndex) -> List[bytes]:
     """Reconstruct every document in one batched LF walk (rows = all doc
     SEOF rows, steps = the longest document)."""
+    _refuse_paged(index, "extract_all_documents")
     lens = _content_lens(index)
     ndocs = len(lens)
     if ndocs == 0:
@@ -202,7 +226,9 @@ def extract_context_batch(
     """For each match row, `before` bytes of left context, the match and
     `after` bytes of right context, cut at the document's bounds (and
     header): one backward LF walk (kernel D) and one forward psi walk
-    (kernel E) for the whole batch."""
+    (kernel E) for the whole batch.  Raises NotImplementedError over a
+    paged.PagedIndex."""
+    _refuse_paged(index, "extract_context_batch")
     rows = np.asarray(rows, dtype=np.int64)
     B = len(rows)
     if B == 0:
@@ -234,4 +260,5 @@ def extract_context(
     index: FMIndex, row: int, before: int, pattern_len: int, after: int
 ) -> bytes:
     """Single-row wrapper over extract_context_batch."""
+    _refuse_paged(index, "extract_context")
     return extract_context_batch(index, [row], before, pattern_len, after)[0]

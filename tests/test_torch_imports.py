@@ -17,8 +17,12 @@ import torch
 
 import femto_tpu_torch as tt
 from femto_tpu_torch import kernels
+from femto_tpu_torch import lcp as TL
+from femto_tpu_torch import paged as TP
 from femto_tpu_torch import query as TQ
 from femto_tpu_torch.ops import build_ops as TB
+from femto_tpu_torch.ops import lcp_ops as LO
+from femto_tpu_torch.ops import paged_ops as PO
 from femto_tpu_torch.ops import regex_ops as RO
 from femto_tpu_torch.ops import search_ops as TS
 from femto_tpu_torch.ops import sort_ops as SO
@@ -46,7 +50,10 @@ def test_import_pulls_in_neither_jax_nor_femto_tpu():
             "femto_tpu_torch.query.planning, femto_tpu_torch.query.nfa, "
             "femto_tpu_torch.query.results, femto_tpu_torch.query.regexp, "
             "femto_tpu_torch.query.regexp_device, "
-            "femto_tpu_torch.query.engine, femto_tpu_torch.multi; "
+            "femto_tpu_torch.query.engine, femto_tpu_torch.multi, "
+            "femto_tpu_torch.paged, femto_tpu_torch.lcp, "
+            "femto_tpu_torch.io.native, femto_tpu_torch.ops.paged_ops, "
+            "femto_tpu_torch.ops.lcp_ops; "
             "print('jax' in sys.modules, 'femto_tpu' in sys.modules)")
     out = subprocess.run([sys.executable, "-c", code], cwd=ROOT,
                          capture_output=True, text=True, timeout=120)
@@ -87,7 +94,7 @@ def test_every_kernel_source_is_an_entry_and_is_built():
     assert stems == set(kernels.SOURCES)
     assert {"sa_keys", "radix_sort", "sa_groups", "sa_rounds",
             "sa_payload", "regex_frontier", "doc_lists",
-            "text_expand"} <= stems
+            "text_expand", "paged", "lcp"} <= stems
 
 
 # entries whose plain version is not named <entry>_plain
@@ -101,7 +108,7 @@ def test_every_entry_has_a_plain_version_and_a_smoke_row(entry):
     import chip_smoke
 
     name = PLAIN_NAMES.get(entry, entry + "_plain")
-    homes = [m for m in (TB, TS, SO, RO) if hasattr(m, name)]
+    homes = [m for m in (TB, TS, SO, RO, PO, LO) if hasattr(m, name)]
     assert len(homes) == 1, (entry, name)
     assert callable(getattr(homes[0], name))
     src, argtypes = kernels.ENTRIES[entry]
@@ -146,6 +153,22 @@ def test_entry_points_raise_without_a_card(tmp_path):
         tt.arrays_from_numpy(arrays, ix.meta)
     with pytest.raises(ValueError, match="device"):
         tt.build_index(prepared, device="mps")
+    # paged serving and the LCP device path default to the card too
+    rows = tt.build_index(prepared, seg=64, mark_period=4, tier="vrle",
+                          device="cpu")
+    flat = str(tmp_path / "rows.ftpu")
+    rows.save_flat(flat)
+    with pytest.raises(RuntimeError, match="cuda"):
+        TP.load_paged(flat, budget_bytes=1)
+    with pytest.raises(RuntimeError, match="cuda"):
+        TP.load_auto(flat, budget_bytes=1)
+    assert isinstance(TP.load_auto(flat, budget_bytes=1, device="cpu"),
+                      TP.PagedIndex)
+    sa = np.arange(prepared.n, dtype=np.int32)
+    with pytest.raises(RuntimeError, match="cuda"):
+        TL.lcp_array(prepared.text, sa, device=True)
+    with pytest.raises(RuntimeError, match="cuda"):
+        TL.sparse_plcp(prepared.text, sa)
 
 
 def test_query_engine_raises_without_a_card(tmp_path):

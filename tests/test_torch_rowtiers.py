@@ -517,7 +517,8 @@ def test_row_tier_save_flat_byte_identical(tmp_path, tier):
 def test_legacy_row_layouts_are_refused():
     """u8 vrle slots (marker leading dim 2), the per-row continuation
     table (marker dim 3 with a many-row seg_cont), the obsolete vseg
-    layout (no side table) and paged serving are refused."""
+    layout (no side table) and a carried seg_slot (paged.PagedIndex's
+    own) are refused."""
     jix = ft.build_index(ft.prepare_documents(CORPORA["runs"]()), seg=128,
                          mark_period=8, tier="vrle")
     w_main = jix.arrays.seg_rle.shape[1]
@@ -526,8 +527,8 @@ def test_legacy_row_layouts_are_refused():
             ({"seg_rle": np.zeros((2, w_main), np.int32)}, "u8"),
             ({"seg_rle": np.zeros((3, w_main), np.int32), "seg_cont": cont},
              "continuation"),
-            ({"seg_slot": np.zeros(4, np.int32)}, "ROADMAP")):
-        exc = NotImplementedError if match == "ROADMAP" else ValueError
+            ({"seg_slot": np.zeros(4, np.int32)}, "PagedIndex")):
+        exc = NotImplementedError if match == "PagedIndex" else ValueError
         with pytest.raises(exc, match=match):
             _carry(jix, **extra)
     vs = ft.build_index(ft.prepare_documents(CORPORA["runs"]()), seg=128,

@@ -268,8 +268,9 @@ def test_flat_files_are_not_ported_yet(tmp_path):
 
 
 def test_other_tiers_are_refused():
-    """Paged serving (a seg_slot row-cache map) is not ported yet."""
+    """A seg_slot row-cache map belongs to paged.PagedIndex alone: an
+    index carried across with one is refused."""
     jix = ft.build_index(ft.prepare_documents(_graft_docs()), seg=64,
                          mark_period=8, tier="vseg")
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
+    with pytest.raises(NotImplementedError, match="PagedIndex"):
         _carry(jix, seg_slot=np.zeros(jix.meta.n_seg, np.int32))
