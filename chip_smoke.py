@@ -43,6 +43,18 @@ non-zero):
    lcp_compact round by round (W 32 up to 4096, its twin document's
    pairs sharing 64 KiB) and with more slots than lanes, and lcp_array
    against host Kasai (ft_kasai, or _kasai_np where make fails: printed);
+   the sharded index's kernels (K18) on a LocalMesh of 4 shards: each at
+   the inputs a sharded build of the 8 MiB corpus gives it (seed keys,
+   payload, splitters, the bucket exchange, the rebalance, group starts,
+   scans, compaction, psum fetches, placements, the mesh prefix and
+   add_base), bucket_pack also past its capacity and with every record
+   of a shard bound for the next, the owner and masked occ / LF answers
+   on the full, compact and packed sharded indexes; the whole full-tier
+   sharded build on the card against the same build on the CPU (every
+   FMArrays block, meta, LAST_BUILD_STATS), dist_suffix_array's real rows
+   against the suffix array, and every tier's count (routed and psum) of
+   1024 patterns and locate of 4096 rows against the single-device
+   index;
 4e. run right after phase 3, while the card holds nothing else: the
    chunked path at full size, build_chunked_prepared of 129 zipf
    documents of 2^24 symbols (n = 2,164,260,864, past 2^31) in chunks of
@@ -71,6 +83,20 @@ non-zero):
    which the main corpus does not reach), checked the same way; the
    kernels' launch counts are read around this phase alone, and printed
    after the first build too;
+4h. run right after phase 4, while the card holds its index only: the
+   sharded path (K18) on a LocalMesh of 4 shards of one card, through
+   build_index_sharded, sharded_backward_search and sharded_locate:
+   phase 4's corpus built in the full, compact and packed tiers, each
+   held to phase 4's index (count of its 32768 patterns, ranges shifted
+   by row0, and locate of its 65536 rows, routed and psum), the sharded
+   SA of the real rows to phase 4's; build MiB/s, LAST_BUILD_STATS,
+   peak device memory, count steps/s and locate rows/s; one full build
+   of the twin corpus (the replicated doubling tail at full size); the
+   DistMesh code path on NCCL at world size 1 in this process
+   (bins.exchange, a sharded build and the count of 4096 patterns equal
+   to LocalMesh(1)'s); the launch counts of this path alone (path
+   "sharded"); its kernels' phase 5 rows at its shapes; one sharded
+   build profiled for phase 6;
 4b. the second main path on the same corpora: build_index of the compact
    and packed tiers, a .ftpu round trip of the packed index (save_flat,
    load), then on both tiers count, locate and extract as in 4, and on all
@@ -135,8 +161,9 @@ non-zero):
    builds, one build, count, locate and context of the prose vrle
    index, and one APPROX 1 ther query on the zipf full and the prose vrle
    index (with the host time per layer) (torch.profiler);
-   the two-chunk build of phase 4e, the cold paged count of 4f and the
-   lcp_array of 4g (with their largest idle gaps) join these; a build or
+   the two-chunk build of phase 4e, the cold paged count of 4f, the
+   lcp_array of 4g and the sharded build of 4h (with their largest idle
+   gaps) join these; a build or
    query whose
    device items include a library sort or scan fails, and
    the build's device time outside the port's own kernels and copies is
@@ -198,6 +225,9 @@ EXTRACT_DOC = 8192  # the paged extract's prose documents (8191 bytes each)
 # phase 4g, LCP: sampled ranks held to a host byte compare
 N_LCP_SAMPLES = 65536
 SIMILARITY_MIN_LCP = 64  # suffix_similarity's pairs on the prose
+SHARD_D = 4                  # phase 3's and 4h's LocalMesh shards
+SHARD_TIERS = ("full", "compact", "packed")
+N_NCCL_PATTERNS = 4096       # phase 4h's count on the NCCL DistMesh
 N_CHUNK_SEGS = 64            # sampled segments of each chunk's doc lists
 # phase 3's doc-list segment sizes; 65504 is the largest l1_group_for takes
 DOC_LIST_SEGS = (64, 256, 2048, 65504)
@@ -263,6 +293,18 @@ PATH_KERNELS = {
     # phase 4g: lcp_array on the zipf corpus and its twin, and the prose
     # (K17, kernel S)
     "lcp": ("lcp_round", "lcp_compact"),
+    # phase 4h: the sharded build of the full, compact and packed tiers on
+    # a LocalMesh (K18a-K18e around G, H, L, A, A', F, B) and sharded count
+    # and locate, routed and psum (K18f on each tier)
+    "sharded": ("bucket_pack", "owner_place", "splitter_bucket",
+                "rebalance_place", "mesh_exclusive", "add_base", "seed_keys",
+                "payload_block", "mesh_flags", "mesh_scan", "compact_rows",
+                "fetch_owned", "sym_hist", "radix_sort_pairs", "gather_rows",
+                "occ_build", "occ_build_compact", "pack_build",
+                "marks_build")
+    + tuple(f"{k}[{lay}]" for k in ("owner_occ", "masked_occ", "owner_lf",
+                                    "masked_lf")
+            for lay in SHARD_TIERS),
 }
 KERNELS = {  # entry -> (source, the femto_tpu function it replaces)
     "occ_build": ("femto_tpu_torch/csrc/occ_build.cu",
@@ -326,6 +368,43 @@ KERNELS.update({
     "lcp_round": ("femto_tpu_torch/csrc/lcp.cu", "femto_tpu/lcp.py:33"),
     "lcp_compact": ("femto_tpu_torch/csrc/lcp.cu", "femto_tpu/lcp.py:57"),
 })
+KERNELS.update({
+    "bucket_pack": ("femto_tpu_torch/csrc/exchange.cu",
+                    "femto_tpu/parallel/bins.py:37"),
+    "owner_place": ("femto_tpu_torch/csrc/exchange.cu",
+                    "femto_tpu/parallel/bins.py:148"),
+    "splitter_bucket": ("femto_tpu_torch/csrc/sample_sort.cu",
+                        "femto_tpu/parallel/dist_sort.py:40"),
+    "rebalance_place": ("femto_tpu_torch/csrc/sample_sort.cu",
+                        "femto_tpu/parallel/dist_sort.py:51"),
+    "mesh_exclusive": ("femto_tpu_torch/csrc/sample_sort.cu",
+                       "femto_tpu/parallel/dist_build.py:88"),
+    "add_base": ("femto_tpu_torch/csrc/sample_sort.cu",
+                 "femto_tpu/parallel/dist_build.py:1010"),
+    "seed_keys": ("femto_tpu_torch/csrc/dist_rounds.cu",
+                  "femto_tpu/parallel/dist_build.py:216"),
+    "payload_block": ("femto_tpu_torch/csrc/dist_rounds.cu",
+                      "femto_tpu/parallel/dist_build.py:247"),
+    "mesh_flags": ("femto_tpu_torch/csrc/dist_rounds.cu",
+                   "femto_tpu/parallel/dist_build.py:280"),
+    "mesh_scan": ("femto_tpu_torch/csrc/dist_rounds.cu",
+                  "femto_tpu/parallel/dist_build.py:195"),
+    "compact_rows": ("femto_tpu_torch/csrc/dist_rounds.cu",
+                     "femto_tpu/parallel/dist_build.py:305"),
+    "fetch_owned": ("femto_tpu_torch/csrc/dist_rounds.cu",
+                    "femto_tpu/parallel/dist_build.py:344"),
+})
+for _lay in SHARD_TIERS:
+    KERNELS.update({
+        f"owner_occ[{_lay}]": ("femto_tpu_torch/csrc/dist_query.cu",
+                               "femto_tpu/parallel/dist_query.py:216"),
+        f"masked_occ[{_lay}]": ("femto_tpu_torch/csrc/dist_query.cu",
+                                "femto_tpu/parallel/dist_query.py:58"),
+        f"owner_lf[{_lay}]": ("femto_tpu_torch/csrc/dist_query.cu",
+                              "femto_tpu/parallel/dist_query.py:320"),
+        f"masked_lf[{_lay}]": ("femto_tpu_torch/csrc/dist_query.cu",
+                               "femto_tpu/parallel/dist_query.py:155"),
+    })
 for _lay in ROW_LAYOUTS:
     KERNELS[f"backward_step_masked[{_lay}]"] = (
         "femto_tpu_torch/csrc/backward_search.cu", "femto_tpu/paged.py:64")
@@ -455,12 +534,18 @@ def as_i64(t):
 
 
 def max_abs_err(name, got, want):
-    """Max |got - want| over matching tensors; raises unless bit-equal."""
+    """Max |got - want| over matching tensors; raises unless bit-equal.
+    Equal tensors are found equal without a widened copy (the sharded
+    rows compare buffers of several GiB)."""
+    import torch
+
     err = 0
     for i, (g, w) in enumerate(zip(got, want)):
         check(g.dtype == w.dtype and g.shape == w.shape,
               f"{name}[{i}]: {g.dtype}{tuple(g.shape)} vs "
               f"{w.dtype}{tuple(w.shape)}")
+        if g.dtype not in (torch.uint16, torch.uint32) and torch.equal(g, w):
+            continue
         if g.numel():
             err = max(err, int((as_i64(g) - as_i64(w)).abs().max()))
     check(err == 0, f"{name}: kernel differs from its plain version "
@@ -1898,10 +1983,12 @@ def phase_parity(record, rng):
         rng, errs, whole=LAYOUTS)
     paged_lcp = parity_paged_lcp(indexes, prose_ix, prepared, docs, text, sa,
                                  rng, errs)
+    del indexes, prose_ix
+    sharded = parity_sharded(rng, docs, prepared, sa, errs)
     record["parity_8mib"] = {"n": n, "ndocs": ndocs, "max_abs_err": errs,
                              "sort_regimes": regimes, "prose": prose_rec,
                              "query_runs": query_runs,
-                             "paged_lcp": paged_lcp}
+                             "paged_lcp": paged_lcp, "sharded": sharded}
     log(f"[3] 8 MiB parity (n={n}): every kernel equals its plain version "
         f"bit for bit: {sorted(errs)}")
 
@@ -3836,6 +3923,590 @@ def phase_lcp(record, rng, st, st3):
     return {"launches": launches, "kernel_rows": rows5, "profile": prof}
 
 
+# ---------------------------------------------------------------------------
+# the sharded index (K18a-K18f): phase 3's parity, phase 4h, phase 5's rows
+# ---------------------------------------------------------------------------
+
+
+class _Captured(Exception):
+    """Stops a build at the call that captured_call waits for."""
+
+
+def captured_call(name, pick, build):
+    """The arguments of the first call of ops/dist_ops.<name> in build()
+    for which pick(args, kwargs) holds (pick None: the first call), as
+    (positional, keyword) with the defaults filled in.  The build stops
+    there, before the kernel runs: the inputs are as the path made them,
+    and nothing else of the build stays alive."""
+    import inspect
+
+    from femto_tpu_torch.ops import dist_ops as DO
+
+    fn = getattr(DO, name)
+    got = []
+
+    def hook(*a, **kw):
+        if pick is None or pick(a, kw):
+            got.append(inspect.signature(fn).bind(*a, **kw))
+            raise _Captured
+        return fn(*a, **kw)
+
+    setattr(DO, name, hook)
+    try:
+        build()
+    except _Captured:
+        pass
+    finally:
+        setattr(DO, name, fn)
+    check(bool(got), f"the sharded build made no call of {name}")
+    got[0].apply_defaults()
+    return list(got[0].args), dict(got[0].kwargs)
+
+
+def _owned(v, base, m, off, shard0):
+    """The records that rebalance_place moves at offset off: those of
+    shard d (global positions base[d] .. base[d] + v[d]) that shard
+    d + off owns."""
+    n = 0
+    for j, (vj, bj) in enumerate(zip(v.tolist(), base.tolist())):
+        lo = (shard0 + j + off) * m
+        n += max(0, min(bj + vj, lo + m) - max(bj, lo))
+    return n
+
+
+def _owner_targets(idx, valid, recs, outs, base_mul, shard0):
+    """owner_place's writes as flat indexes into outs[c].view(-1), and the
+    values each column writes there."""
+    import torch
+
+    Dl, M = outs[0].shape
+    rep = idx.dim() == 1
+    ii = idx.long()[None].expand(Dl, -1) if rep else idx.long()
+    j = torch.arange(Dl, device=idx.device)[:, None]
+    loc = ii - (shard0 + j) * base_mul
+    ok = (loc >= 0) & (loc < M)
+    if valid is not None:
+        ok &= (valid[None] if rep else valid).bool()
+    return (loc + j * M)[ok], [(r[None].expand(Dl, -1) if rep else r)[ok]
+                               for r in recs]
+
+
+# the K18 build kernels of phase 5's rows, each with the call of it in a
+# full-tier sharded build that its row takes (a test of the call's
+# arguments; None: the first call)
+SHARDED_CALLS = (
+    ("seed_keys", None), ("payload_block", None), ("splitter_bucket", None),
+    ("bucket_pack", None),
+    ("rebalance_place", lambda a, kw: kw["off"] == 0),
+    ("mesh_flags", None), ("mesh_scan", None), ("compact_rows", None),
+    ("fetch_owned", None), ("owner_place", None),
+    ("mesh_exclusive", lambda a, kw: kw.get("want_c", False)),
+    ("add_base", None))
+
+
+def sharded_case(name, a, kw):
+    """(run_k, run_p, bytes moved, library call or None) of one K18 build
+    kernel on its captured arguments a, kw.  The in-place kernels
+    (owner_place, add_base) write into copies of their outputs, one for
+    the kernel, one for the plain version and one for the library call."""
+    import torch
+
+    from femto_tpu_torch.ops import dist_ops as DO
+
+    fk, fp = getattr(DO, name), getattr(DO, name + "_plain")
+
+    def both():
+        return (lambda: _flat([fk(*a, **kw)]),
+                lambda: _flat([fp(*a, **kw)]))
+
+    def size(xs):
+        return sum(4 * x.numel() for x in xs if x is not None)
+
+    if name in ("owner_place", "add_base"):
+        outs = a[3] if name == "owner_place" else [a[0]]
+        mine = {who: [o.clone() for o in outs]
+                for who in ("kernel", "plain", "library")}
+
+        def run(f, who):
+            # owner_place writes each target once, so a repeat leaves its
+            # outputs as they were; add_base is held to its plain version
+            # after one call each (timed_row's first)
+            if name == "owner_place":
+                f(*a[:3], mine[who], **kw)
+            else:
+                f(mine[who][0], a[1])
+            return mine[who]
+
+        run_k, run_p = (lambda: run(fk, "kernel"),
+                        lambda: run(fp, "plain"))
+        if name == "owner_place":
+            flat, vals = _owner_targets(*a, **kw)
+            nbytes = 5 * a[0].numel() + 8 * sum(v.numel() for v in vals)
+
+            def lib():
+                for o, v in zip(mine["library"], vals):
+                    o.view(-1).index_put_((flat,), v)
+        else:
+            nbytes = 8 * a[0].numel() + 4 * a[1].numel()
+
+            def lib():
+                mine["library"][0].add_(a[1][:, None, :])
+        return run_k, run_p, nbytes, lib
+    run_k, run_p = both()
+    lib = None
+    if name == "seed_keys":
+        nbytes = size([a[0]]) + 4 * kw["nkeys"] * a[0].shape[0] * kw["m"]
+    elif name == "payload_block":
+        nbytes = 2 * size([a[0]]) + size([a[2]])
+    elif name == "splitter_bucket":
+        nbytes = size(a[0]) + size([a[0][0]]) + size(a[1])
+    elif name == "bucket_pack":
+        dest, cols = a
+        nbytes = (size([dest, *cols])
+                  + (4 * len(cols) + 1) * dest.shape[0] * kw["D"] * kw["cap"])
+
+        def lib():
+            return _sort_scatter(dest, cols)
+    elif name == "rebalance_place":
+        cols, v, base = a
+        own = _owned(v, base, kw["m"], kw["off"], kw["shard0"])
+        # the owned records read, every output written once (the wrapper
+        # fills bufs and vbuf whole), v, base and far
+        nbytes = (4 * len(cols) * own
+                  + (4 * len(cols) + 1) * v.shape[0] * kw["m"]
+                  + 12 * v.shape[0])
+    elif name == "mesh_flags":
+        nbytes = size(a[0]) + a[0][0].numel() + size(a[1])
+    elif name == "mesh_scan":
+        flags = a[0]
+        nbytes = 5 * flags.numel() + size([kw["slots"]]) + 4 * flags.shape[0]
+        if kw["mode"] == "sum" and kw["slots"] is None:
+            def lib():
+                return torch.cumsum(flags, 1, dtype=torch.int32)
+    elif name == "compact_rows":
+        flags, rank, off, cols = a
+        M = kw["M"]
+        took = sum(min(c, max(0, M - o)) for c, o in zip(
+            flags.sum(dim=1, dtype=torch.int64).tolist(), off.tolist()))
+        nbytes = (5 * flags.numel()
+                  + 4 * took * sum(c is not None for c in cols)
+                  + 4 * len(cols) * flags.shape[0] * M)
+    elif name == "fetch_owned":
+        src, idx, valid = a
+        nv = idx.numel() if valid is None else int(valid.sum())
+        nbytes = (5 * idx.numel() + 4 * kw["T"] * nv
+                  + 4 * src.shape[0] * kw["T"] * idx.numel())
+    elif name == "mesh_exclusive":
+        g = a[0]
+        nbytes = size([g]) + 4 * (kw["Dl"] + 1) * g.shape[1] + 4
+
+        def lib():
+            return torch.cumsum(g, 0)
+    else:
+        raise ValueError(f"no phase 5 case for {name}")
+    return run_k, run_p, nbytes, lib
+
+
+def sharded_cases(mesh, prepared, seg, mark_period):
+    """Each K18 build kernel of SHARDED_CALLS at the inputs that a
+    full-tier sharded build of `prepared` on `mesh` gives it: the build
+    runs up to the kernel's call and stops there (captured_call).  Yields
+    (name, run_k, run_p, bytes moved, library call or None), one kernel
+    at a time; a kernel's inputs are dropped before the next build."""
+    from femto_tpu_torch.parallel import build_index_sharded
+
+    def build():
+        build_index_sharded(prepared, mesh, seg=seg, mark_period=mark_period)
+
+    for name, pick in SHARDED_CALLS:
+        case = list(sharded_case(name, *captured_call(name, pick, build)))
+        yield (name, lambda: case[0](), lambda: case[1](), case[2],
+               (lambda: case[3]()) if case[3] else None)
+        # the consumer may still hold the lambdas: empty what they reach
+        case.clear()
+
+
+def _flat(xs):
+    """The tensors of nested lists and tuples, in order (None dropped)."""
+    out = []
+    for x in xs:
+        if isinstance(x, (list, tuple)):
+            out += _flat(x)
+        elif x is not None:
+            out.append(x)
+    return out
+
+
+def _sort_scatter(dest, cols):
+    """bucket_pack's yardstick: one library sort of the destinations and
+    a scatter of every column through its order."""
+    import torch
+
+    order = torch.sort(dest.view(-1), stable=True)[1]
+    return [torch.empty_like(c).view(-1).index_copy_(0, order, c.view(-1))
+            for c in cols]
+
+
+def sharded_query_cases(index, mesh, rng, B):
+    """K18f's inputs for one sharded index at B lanes: routed requests
+    (each shard's rows inside its own block, codes from the index's
+    alphabet) and replicated ones."""
+    import torch
+
+    from femto_tpu_torch.ops import dist_ops as DO
+    from femto_tpu_torch.ops import rank as R
+
+    D = mesh.D
+    dev = mesh.device
+    meta = index.meta
+    nseg_local = meta.n_seg // D
+    rps = nseg_local * meta.seg
+    A = index.arrays
+    K = R.alpha_count(A)
+    rows_r = torch.from_numpy((rng.integers(0, rps, size=(D, B))
+                               + np.arange(D)[:, None] * rps).astype(
+        np.int32)).to(dev)
+    cd_r = torch.from_numpy(rng.integers(0, K, size=(D, B)).astype(
+        np.int32)).to(dev)
+    val_r = torch.ones((D, B), dtype=torch.uint8, device=dev)
+    rows_b = rows_r.reshape(-1)[:B].contiguous()
+    cd_b = cd_r.reshape(-1)[:B].contiguous()
+    kw = dict(nseg_local=nseg_local, shard0=0)
+    nrt = D * rps
+    _, ckpt, prefix, _ = _layout_bytes(A)
+
+    def lane_bytes(r):
+        rl = r.reshape(-1).long()
+        return int((ckpt + 4 + prefix(rl // meta.seg, rl % meta.seg)).sum())
+
+    return {
+        "owner_occ": (
+            lambda: [DO.owner_occ(A, rows_r, cd_r, val_r, n_rows_total=nrt,
+                                  **kw)],
+            lambda: [DO.owner_occ_plain(A, rows_r, cd_r, val_r,
+                                        n_rows_total=nrt, **kw)],
+            13 * D * B + lane_bytes(rows_r)),
+        "masked_occ": (
+            lambda: [DO.masked_occ(A, cd_b, rows_b, Dl=D, n_rows_total=nrt,
+                                   **kw)],
+            lambda: [DO.masked_occ_plain(A, cd_b, rows_b, Dl=D,
+                                         n_rows_total=nrt, **kw)],
+            8 * B + 4 * D * B + lane_bytes(rows_b)),
+        "owner_lf": (
+            lambda: [DO.owner_lf(A, rows_r, val_r, **kw)],
+            lambda: [DO.owner_lf_plain(A, rows_r, val_r, **kw)],
+            9 * D * B + lane_bytes(rows_r) + 8 * D * B),
+        "masked_lf": (
+            lambda: [DO.masked_lf(A, rows_b, Dl=D, **kw)],
+            lambda: [DO.masked_lf_plain(A, rows_b, Dl=D, **kw)],
+            4 * B + 4 * D * B + lane_bytes(rows_b) + 8 * B),
+    }
+
+
+def parity_sharded(rng, docs, prepared, sa, errs):
+    """Phase 3's K18 checks on the 8 MiB corpus at D = SHARD_D on a
+    LocalMesh: each K18 kernel against its plain version on the card at a
+    sharded build's own inputs, bucket_pack also with a forced overflow
+    and a pair-concentrated dest; K18f on the full, compact and packed
+    sharded indexes; the whole full-tier sharded build on the card against
+    the same build on the CPU (every FMArrays block, meta and
+    LAST_BUILD_STATS), dist_suffix_array's SA against the single-device
+    suffix array, and count and locate of both schemes against the
+    single-device index."""
+    import torch
+
+    import femto_tpu_torch as tt
+    from femto_tpu_torch.ops import dist_ops as DO
+    from femto_tpu_torch.parallel import (LocalMesh, build_index_sharded,
+                                          dist_suffix_array,
+                                          pad_text_for_mesh,
+                                          sharded_backward_search,
+                                          sharded_locate)
+    from femto_tpu_torch.parallel import dist_build as DB
+    from femto_tpu_torch.parallel.distributed import put_global
+
+    t0 = time.perf_counter()
+    D = SHARD_D
+    card, cpu = LocalMesh(D, "cuda"), LocalMesh(D, "cpu")
+    for name, run_k, run_p, _, _ in sharded_cases(card, prepared, 256, 20):
+        got, want = run_k(), run_p()
+        torch.cuda.synchronize()
+        errs[f"{name}[sharded]"] = max_abs_err(f"{name} (sharded)", got,
+                                               want)
+        del got, want
+    # bucket_pack past its capacity and with every record of a shard for
+    # the next one (tests/test_dist.py's pair-concentrated case)
+    dev = torch.device("cuda")
+    mm = 1 << 16
+    vals = torch.arange(D * mm, dtype=torch.int32, device=dev).view(D, mm)
+    for tag, dest, cap in (
+            ("overflow", torch.from_numpy(rng.integers(
+                0, D + 1, size=(D, mm)).astype(np.int32)).to(dev),
+             mm // (2 * D)),
+            ("pair", ((torch.arange(D, device=dev)[:, None] + 1) % D).expand(
+                D, mm).to(torch.int32).contiguous(), mm)):
+        got = DO.bucket_pack(dest, [vals, vals * 3], D=D, cap=cap)
+        want = DO.bucket_pack_plain(dest, [vals, vals * 3], D=D, cap=cap)
+        torch.cuda.synchronize()
+        errs[f"bucket_pack[{tag}]"] = max_abs_err(
+            f"bucket_pack ({tag})", _flat(got), _flat(want))
+        if tag == "overflow":
+            check(int(got[2].max()) > 0, "bucket_pack: no overflow reported")
+    # the whole build: card against CPU (full tier), then every tier's
+    # answers against the single-device index
+    n = prepared.n
+    ix = build_index_sharded(prepared, card, seg=256, mark_period=20)
+    card_stats = dict(DB.LAST_BUILD_STATS)
+    ix_cpu = build_index_sharded(prepared, cpu, seg=256, mark_period=20)
+    check(card_stats == DB.LAST_BUILD_STATS,
+          f"sharded build stats: card {card_stats} != CPU "
+          f"{DB.LAST_BUILD_STATS}")
+    for k, v in ix_cpu.arrays._asdict().items():
+        w = getattr(ix.arrays, k)
+        check((v is None) == (w is None), f"sharded field {k}")
+        if v is not None:
+            max_abs_err(f"build_index_sharded field {k}", [w.cpu()], [v])
+    check(dataclasses.asdict(ix.meta) == dataclasses.asdict(ix_cpu.meta),
+          "sharded meta differs between card and CPU builds")
+    del ix_cpu
+    tp, n_pad = pad_text_for_mesh(prepared.text, D, 256)
+    ssa, _, _, of = dist_suffix_array(put_global(tp, card), card, n=n)
+    check(int(of) <= 0 and torch.equal(ssa.reshape(-1)[n_pad - n:], sa),
+          "dist_suffix_array's real rows differ from the suffix array")
+    del ssa
+    single = tt.build_index(prepared, seg=256, mark_period=20, device="cuda")
+    pats = []
+    while len(pats) < 1024:
+        d = docs[int(rng.integers(0, len(docs)))]
+        if len(d) > 8:
+            o = int(rng.integers(0, len(d) - 8))
+            pats.append(d[o: o + 8])
+    from femto_tpu_torch.alphabet import pattern_to_alpha
+    from femto_tpu_torch.search import pack_patterns
+    packed, B = pack_patterns([pattern_to_alpha(p) for p in pats])
+    sf, sl = tt.count_ranges(single, pats)
+    rows = rng.integers(0, n, size=4096).astype(np.int32)
+    want_loc = tt.locate_rows_array(single, rows)
+    rec = {"stats": card_stats}
+    for tier in SHARD_TIERS:
+        tix = ix if tier == "full" else build_index_sharded(
+            prepared, card, seg=256, mark_period=20, tier=tier)
+        row0 = tix.meta.row0
+        for routed in (True, False):
+            f, l = sharded_backward_search(tix, card, packed, routed=routed)
+            check(np.array_equal(f.cpu().numpy() - row0, np.asarray(sf))
+                  and np.array_equal(l.cpu().numpy() - row0, np.asarray(sl)),
+                  f"sharded {tier} count (routed={routed}) differs from the "
+                  f"single-device index")
+            got = sharded_locate(tix, card, rows + row0, routed=routed)
+            check(np.array_equal(got.cpu().numpy(), want_loc),
+                  f"sharded {tier} locate (routed={routed}) differs")
+        for name, (run_k, run_p, _) in sharded_query_cases(
+                tix, card, rng, 8192).items():
+            got, want = run_k(), run_p()
+            torch.cuda.synchronize()
+            errs[f"{name}[{tier}]"] = max_abs_err(f"{name} ({tier})", got,
+                                                  want)
+    rec["seconds"] = time.perf_counter() - t0
+    log(f"    K18: every sharded kernel equals its plain version at D={D}; "
+        f"the sharded build on the card equals the CPU's; SA, counts and "
+        f"locate equal the single-device index's ({rec['seconds']:.1f}s, "
+        f"stats {card_stats})")
+    return rec
+
+
+def nccl_pass(prepared, patterns, rng):
+    """The DistMesh code path on NCCL at world size 1 (one card): one
+    process group in this process, bins.exchange and a sharded build and
+    count of the patterns, each equal to LocalMesh(1)'s."""
+    import torch
+    import torch.distributed as dist
+
+    from femto_tpu_torch.alphabet import pattern_to_alpha
+    from femto_tpu_torch.parallel import (DistMesh, LocalMesh, bins,
+                                          build_index_sharded,
+                                          sharded_backward_search)
+    from femto_tpu_torch.search import pack_patterns
+
+    t0 = time.perf_counter()
+    # NCCL allocates outside PyTorch's cache: hand the cached blocks back
+    torch.cuda.empty_cache()
+    with tempfile.TemporaryDirectory() as tmp:
+        dist.init_process_group("nccl", init_method=f"file://{tmp}/store",
+                                rank=0, world_size=1)
+        try:
+            dm, lm = DistMesh("cuda"), LocalMesh(1, "cuda")
+            check(dist.get_backend() == "nccl", "the group is not on NCCL")
+            mm = 1 << 20
+            dest = torch.zeros((1, mm), dtype=torch.int32, device=dm.device)
+            recs = [torch.from_numpy(rng.integers(0, 1 << 30, size=(1, mm))
+                                     .astype(np.int32)).to(dm.device)
+                    for _ in range(2)]
+            got = bins.exchange(dm, dest, recs, mm)
+            want = bins.exchange(lm, dest, recs, mm)
+            max_abs_err("bins.exchange (NCCL)", _flat(got), _flat(want))
+            packed, B = pack_patterns([pattern_to_alpha(p)
+                                       for p in patterns])
+            answers = []
+            for mesh in (dm, lm):
+                ix = build_index_sharded(prepared, mesh, seg=256,
+                                         mark_period=20)
+                answers.append([*sharded_backward_search(ix, mesh, packed),
+                                *sharded_backward_search(ix, mesh, packed,
+                                                         routed=False)])
+                del ix
+            max_abs_err("sharded count (NCCL)", answers[0], answers[1])
+        finally:
+            dist.destroy_process_group()
+    s = time.perf_counter() - t0
+    log(f"[4h] DistMesh on NCCL at world size 1: bins.exchange of {mm} "
+        f"records and the sharded count of {len(patterns)} patterns "
+        f"(routed and psum, n={prepared.n}) equal LocalMesh(1)'s ({s:.1f}s)")
+    return {"n": prepared.n, "patterns": len(patterns), "seconds": s}
+
+
+def phase_sharded(record, rng, st):
+    """Phase 4h, the sharded index on a LocalMesh of SHARD_D shards on one
+    card at full size: phase 4's corpus built in the full, compact and
+    packed tiers, each held to phase 4's single-device index (the SA of
+    the real rows, the count of its 32768 patterns with ranges shifted by
+    row0, locate of its 65536 rows, routed and psum); build MiB/s,
+    LAST_BUILD_STATS, peak device memory, count steps/s and locate
+    rows/s; the twin corpus once (the replicated doubling tail at full
+    size); the DistMesh pass on NCCL; then K18's phase 5 rows at these
+    shapes and one sharded build profiled for phase 6."""
+    import torch
+
+    import femto_tpu_torch as tt
+    from femto_tpu_torch import kernels
+    from femto_tpu_torch.alphabet import pattern_to_alpha
+    from femto_tpu_torch.parallel import (LocalMesh, build_index_sharded,
+                                          dist_suffix_array,
+                                          pad_text_for_mesh,
+                                          sharded_backward_search,
+                                          sharded_locate)
+    from femto_tpu_torch.parallel import dist_build as DB
+    from femto_tpu_torch.parallel.distributed import put_global
+    from femto_tpu_torch.search import pack_patterns
+
+    t_phase = time.perf_counter()
+    card = record["toolchain"]["card"]
+    D = SHARD_D
+    mesh = LocalMesh(D, "cuda")
+    prepared = st["prepared"]
+    n = prepared.n
+    mib = n / 2**20
+    patterns, loc_rows = st["patterns"], st["loc_rows"]
+    packed, B = pack_patterns([pattern_to_alpha(p) for p in patterns])
+    want_first = np.asarray(st["first"])
+    want_last = np.asarray(st["last"])
+    want_loc = np.asarray(st["offs_direct"])
+    torch.cuda.synchronize()
+    base_bytes = torch.cuda.memory_allocated()
+    kernels.reset_launches()
+    rec, indexes = {}, {}
+    for tier in SHARD_TIERS:
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        t0 = time.perf_counter()
+        ix = build_index_sharded(prepared, mesh, seg=256, mark_period=20,
+                                 tier=tier)
+        torch.cuda.synchronize()
+        s = time.perf_counter() - t0
+        peak = torch.cuda.max_memory_allocated()
+        stats = dict(DB.LAST_BUILD_STATS)
+        row0 = ix.meta.row0
+        r = {"build_s": s, "build_mib_per_s": mib / s, "stats": stats,
+             "peak_device_bytes": peak,
+             "peak_above_phase4_bytes": peak - base_bytes,
+             "n_pad": ix.meta.n_rows, "row0": row0}
+        for routed in (True, False):
+            tag = "routed" if routed else "psum"
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            f, l = sharded_backward_search(ix, mesh, packed, routed=routed)
+            torch.cuda.synchronize()
+            tc = time.perf_counter() - t0
+            check(np.array_equal(f.cpu().numpy() - row0, want_first)
+                  and np.array_equal(l.cpu().numpy() - row0, want_last),
+                  f"sharded {tier} count ({tag}) differs from phase 4's")
+            t0 = time.perf_counter()
+            offs = sharded_locate(ix, mesh, loc_rows + row0, routed=routed)
+            torch.cuda.synchronize()
+            tl = time.perf_counter() - t0
+            check(np.array_equal(offs.cpu().numpy(), want_loc),
+                  f"sharded {tier} locate ({tag}) differs from phase 4's")
+            r[f"count_{tag}_steps_per_s"] = len(patterns) * PATLEN / tc
+            r[f"locate_{tag}_rows_per_s"] = len(loc_rows) / tl
+        rec[tier] = r
+        indexes[tier] = ix
+        log(f"[4h] sharded {tier} (D={D}, n={n}, n_pad={r['n_pad']}): build "
+            f"{s:.2f}s = {r['build_mib_per_s']:.1f} MiB/s, peak device "
+            f"memory {peak / 2**30:.2f} GiB ({(peak - base_bytes) / 2**30:.2f}"
+            f" GiB above phase 4's), stats {stats}; count "
+            f"{r['count_routed_steps_per_s']:.4g} / "
+            f"{r['count_psum_steps_per_s']:.4g} steps/s (routed / psum), "
+            f"locate {r['locate_routed_rows_per_s']:.4g} / "
+            f"{r['locate_psum_rows_per_s']:.4g} rows/s; every answer equals "
+            f"phase 4's index")
+    tp, n_pad = pad_text_for_mesh(prepared.text, D, 256)
+    sa, _, _, of = dist_suffix_array(put_global(tp, mesh), mesh, n=n)
+    del tp
+    check(int(of) <= 0 and torch.equal(sa.reshape(-1)[n_pad - n:],
+                                       st["index"].sa_direct),
+          "sharded SA of the real rows differs from phase 4's")
+    del sa
+    t0 = time.perf_counter()
+    twin = build_index_sharded(st["twin_prepared"], mesh, seg=256,
+                               mark_period=20)
+    torch.cuda.synchronize()
+    twin_s = time.perf_counter() - t0
+    twin_stats = dict(DB.LAST_BUILD_STATS)
+    check(twin_stats["path"] == "doubling" or twin_stats["tail_rounds"] > 0,
+          f"the twin corpus reached no doubling round: {twin_stats}")
+    tpat = st["docs"][0][1000: 1000 + 2 * PATLEN]
+    tp_packed, _ = pack_patterns([pattern_to_alpha(tpat)])
+    f, l = sharded_backward_search(twin, mesh, tp_packed)
+    check(int(l[0] - f[0]) >= 2, "twin corpus: the duplicate document's "
+                                 "pattern is found fewer than twice")
+    del twin
+    torch.cuda.synchronize()
+    launches = dict(kernels.launches)
+    log(f"[4h] SA of the real rows equals phase 4's; twin corpus: build "
+        f"{twin_s:.2f}s, stats {twin_stats}; launches "
+        f"{ {k: v for k, v in launches.items() if v} }")
+    for name in PATH_KERNELS["sharded"]:
+        check(launches[name] >= 1,
+              f"kernel {name} was not launched on the sharded path")
+    small = tt.prepare_documents(st["docs"][:64])
+    nccl = nccl_pass(small, patterns[:N_NCCL_PATTERNS], rng)
+    # phase 5: K18f on each tier at the count's and locate's lane counts,
+    # then the build kernels at this corpus's shapes
+    log("[5] the sharded path's kernels (D=4 on phase 4's corpus):")
+    rows5 = []
+    for tier, ix in indexes.items():
+        for name, (run_k, run_p, nbytes) in sharded_query_cases(
+                ix, mesh, rng, 2 * len(patterns) // D).items():
+            key = f"{name}[{tier}]"
+            rows5.append(timed_row(key, "sharded", launches[key], run_k,
+                                   run_p, nbytes, card))
+    del indexes, ix
+    for name, run_k, run_p, nbytes, lib in sharded_cases(mesh, prepared, 256,
+                                                         20):
+        rows5.append(timed_row(name, "sharded", launches[name], run_k, run_p,
+                               nbytes, card, library=lib))
+    # phase 6: one sharded build
+    prof = {"sharded_build_full": profile_with_gaps(
+        "sharded_build_full", lambda: build_index_sharded(
+            prepared, mesh, seg=256, mark_period=20))}
+    record["sharded_path"] = {
+        "D": D, "mib": MAIN_MIB, "n": n, "tiers": rec, "twin_stats": twin_stats,
+        "twin_build_s": twin_s, "nccl": nccl, "launches": launches,
+        "card": card, "seconds": time.perf_counter() - t_phase}
+    log(f"[4h] phase 4h took {record['sharded_path']['seconds']:.1f}s")
+    return {"launches": launches, "kernel_rows": rows5, "profile": prof}
+
+
 def sort_kernel_rows(record, kernel_row, text, ds, sa, sa_direct, rows, *,
                      n, ndocs, mark_period):
     """Kernels G-L at the main path's shapes: the state after the first
@@ -3881,7 +4552,7 @@ def sort_kernel_rows(record, kernel_row, text, ds, sa, sa_direct, rows, *,
                lambda: SO.radix_sort_pairs_plain(key0, None, 0, per * bits),
                bounds["radix_sort_pairs"],
                library=lambda: torch.sort(key0, stable=True),
-               paths=("full", "tiers", "rows", "chunked"))
+               paths=("full", "tiers", "rows", "chunked", "sharded"))
     kernel_row("group_flags", lambda: [SO.group_flags(skey)],
                lambda: [SO.group_flags_plain(skey)], bounds["group_flags"])
     del skey
@@ -4323,7 +4994,8 @@ def phase_numbers(record, st, st2, st3, st4, own):
     path_launches = {"full": st["launches"], "tiers": st2["launches"],
                      "rows": st3["launches"], "query": st4["launches"],
                      "query_host": st4["host_launches"],
-                     "chunked": own[0]["launches"]}
+                     "chunked": own[0]["launches"],
+                     "sharded": own[3]["launches"]}
 
     def kernel_row(name, run_k, run_p, bound_ms, library=None, paths=None):
         """One kernel against its plain version at these shapes; plain_ms
@@ -4591,13 +5263,15 @@ def main(argv=None):
         # the chunked path first, while the card holds nothing else
         st5 = phase_chunked(record, rng)
         st = phase_main(record, rng)
+        # the sharded path next, while the card holds phase 4's index only
+        st8 = phase_sharded(record, rng, st)
         st2 = phase_tiers(record, rng, st)
         st3 = phase_rows(record, rng, st, st2)
         st4 = phase_query(record, rng, st, st2, st3)
         st6 = phase_paged(record, rng, st, st3, st4)
         st7 = phase_lcp(record, rng, st, st3)
-        phase_numbers(record, st, st2, st3, st4, (st5, st6, st7))
-        phase_profile(record, st, st2, st3, st4, (st5, st6, st7))
+        phase_numbers(record, st, st2, st3, st4, (st5, st6, st7, st8))
+        phase_profile(record, st, st2, st3, st4, (st5, st6, st7, st8))
     except SmokeError as e:
         print(f"chip_smoke: FAILED: {e}", file=sys.stderr)
         return 1

@@ -6,9 +6,24 @@ and index packaging on the card, .npz and .ftpu persistence, count /
 locate / extract / context / range_docs, and the query engine
 (femto_tpu_torch.query: regex, approximate and Boolean queries, the
 device regex frontier), chunked builds past 2^31 symbols with per-segment
-doc lists (femto_tpu_torch.multi), served by hand-written CUDA kernels
-(csrc/, built and bound by kernels.py).  It imports torch and numpy only; femto_tpu
-stays the JAX reference.
+doc lists (femto_tpu_torch.multi), and the sharded index of the full,
+compact and packed tiers (femto_tpu_torch.parallel), served by
+hand-written CUDA kernels (csrc/, built and bound by kernels.py).  It
+imports torch and numpy only; femto_tpu stays the JAX reference.
+
+The sharded index runs on a mesh of D shards:
+
+    from femto_tpu_torch import parallel as tpar
+    mesh = tpar.LocalMesh(4, device="cuda")      # 4 shards on one card
+    six = tpar.build_index_sharded(prepared, mesh, tier="packed")
+    first, last = tpar.sharded_backward_search(six, mesh, packed_pats)
+    offsets = tpar.sharded_locate(six, mesh, rows)
+
+or one shard per process, the collectives on NCCL:
+
+    from femto_tpu_torch.parallel import distributed as ftd
+    ftd.initialize("host0:29500", num_processes=4, process_id=rank)
+    mesh = ftd.global_mesh()                      # a DistMesh
 """
 
 from .alphabet import (

@@ -125,6 +125,35 @@ ENTRIES: Dict[str, Tuple[str, List]] = {
                                       _P, _P]),
     "regex_merge": ("regex_frontier", [_P, _P, _P, _L, _I, _P, _I, _I, _I,
                                        _I, _I, _P, _P, _P, _P, _P, _P, _P]),
+    # the sharded build and queries (ops/dist_ops.py, K18a-K18f)
+    "bucket_pack": ("exchange", [_P, _L, _I, _I, _I, _I] + [_P] * 16
+                    + [_P, _P, _P]),
+    "owner_place": ("exchange", [_P, _P, _L, _I, _L, _I, _L, _L, _I, _I]
+                    + [_P] * 8),
+    "splitter_bucket": ("sample_sort", [_P] * 4 + [_I, _L, _I] + [_P] * 4
+                        + [_I, _P]),
+    "rebalance_place": ("sample_sort", [_P] * 6 + [_I, _L, _P, _P, _I, _I,
+                                                   _I, _L, _I, _I]
+                        + [_P] * 6 + [_P, _P]),
+    "mesh_exclusive": ("sample_sort", [_P, _I, _I, _I, _I, _I, _P, _P]),
+    "add_base": ("sample_sort", [_P, _P, _L, _I, _I]),
+    "seed_keys": ("dist_rounds", [_P, _L, _L, _I, _I, _L, _L, _P, _I, _I,
+                                  _I, _P, _P, _P]),
+    "payload_block": ("dist_rounds", [_P, _P, _L, _I, _I, _L, _P, _I, _I,
+                                      _P]),
+    "mesh_flags": ("dist_rounds", [_P] * 6 + [_I] + [_P] * 6
+                   + [_L, _I, _I, _I, _P]),
+    "mesh_scan": ("dist_rounds", [_P, _P, _L, _I, _I, _I, _P, _P, _P]),
+    "compact_rows": ("dist_rounds", [_P, _P, _P, _L, _I, _I, _L, _I]
+                     + [_P] * 6),
+    "fetch_owned": ("dist_rounds", [_P, _L, _I, _I, _P, _P, _L, _L, _I, _L,
+                                    _P]),
+    "owner_occ": ("dist_query", [_V, _L, _I, _P, _P, _P, _L, _I, _L, _P]),
+    "masked_occ": ("dist_query", [_V, _L, _I, _I, _P, _P, _L, _L, _P]),
+    "owner_lf": ("dist_query", [_V, _L, _I, _P, _P, _L, _I, _P, _P, _P, _L,
+                                _P, _P]),
+    "masked_lf": ("dist_query", [_V, _L, _I, _I, _P, _L, _P, _P, _P, _L, _P,
+                                 _P]),
 }
 # scratch sizes a source reports for its entries (no launch, not counted):
 # name -> (source stem, argument types); each returns int32 elements
@@ -140,6 +169,10 @@ LAYOUT_ENTRIES = ("backward_search", "backward_search_steps", "backward_step",
 # entries that take an FmView of a row tier only: one count per row layout
 ROW_LAYOUTS = ("vseg", "vrle")
 ROW_LAYOUT_ENTRIES = ("backward_step_masked", "lf_walk_step")
+# entries that take an FmView of the full, compact or packed tier only (the
+# sharded queries): one count per tier layout
+TIER_LAYOUTS = ("full", "compact", "packed")
+TIER_LAYOUT_ENTRIES = ("owner_occ", "masked_occ", "owner_lf", "masked_lf")
 # entries with modes that do different work: one count per mode (None: the
 # entry's own name)
 MODE_ENTRIES = {"round_keys": ("extension", "doubling"),
@@ -158,6 +191,8 @@ def counters(entry: str) -> List[str]:
         kinds = LAYOUTS
     elif entry in ROW_LAYOUT_ENTRIES:
         kinds = ROW_LAYOUTS
+    elif entry in TIER_LAYOUT_ENTRIES:
+        kinds = TIER_LAYOUTS
     else:
         kinds = MODE_ENTRIES.get(entry, (None,))
     return [counter(entry, kind) for kind in kinds]

@@ -1,0 +1,373 @@
+"""The port's sharded build and queries (femto_tpu_torch.parallel) against
+femto_tpu's (femto_tpu.parallel) on the 8-virtual-device CPU mesh.
+
+The port's LocalMesh(8) on the CPU runs every per-shard step's plain
+PyTorch version; femto_tpu runs its shard_map bodies on the conftest's 8
+virtual devices.  The same seeded inputs go through both, and everything
+that leaves a module must agree exactly (no tolerance): delivered records
+(as sets per destination: the Valiant routes differ by design), sorted
+blocks, SA / BWT / a_row and LAST_BUILD_STATS, every FMArrays block of the
+full, compact and packed tiers, and count and locate answers of both
+schemes.  femto_tpu's sharded indexes are built once per module.
+"""
+
+import jax
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+from jax.sharding import NamedSharding, PartitionSpec as P
+
+import femto_tpu as ft
+import femto_tpu_torch as tt
+from femto_tpu.alphabet import pattern_to_alpha
+from femto_tpu.parallel import bins as jbins
+from femto_tpu.parallel import dist_build as jdb
+from femto_tpu.parallel.dist_query import (
+    sharded_backward_search as j_search, sharded_locate as j_locate)
+from femto_tpu.parallel.dist_sort import dist_sort as j_dist_sort
+from femto_tpu.parallel.mesh import DEFAULT_AXIS, make_mesh
+from femto_tpu.search import pack_patterns
+from femto_tpu_torch.parallel import LocalMesh
+from femto_tpu_torch.parallel import bins as tbins
+from femto_tpu_torch.parallel import dist_build as tdb
+from femto_tpu_torch.parallel import dist_query as tdq
+from femto_tpu_torch.parallel.dist_sort import dist_sort as t_dist_sort
+from femto_tpu_torch.parallel.distributed import put_global
+from tests.oracle import naive_count, naive_locate
+
+D = 8
+AX = DEFAULT_AXIS
+TIERS = ("full", "compact", "packed")
+
+
+@pytest.fixture(scope="module")
+def jmesh():
+    return make_mesh(D)
+
+
+@pytest.fixture(scope="module")
+def tmesh():
+    return LocalMesh(D, device="cpu")
+
+
+def _smap(fn, mesh, n_in, n_out_sharded, n_out_rep=0, rep_in=()):
+    ins = tuple(P() if i in rep_in else P(AX) for i in range(n_in))
+    outs = tuple([P(AX)] * n_out_sharded + [P()] * n_out_rep)
+    return jax.jit(jax.shard_map(fn, mesh=mesh, in_specs=ins,
+                                 out_specs=outs))
+
+
+def _blocks(x: np.ndarray) -> torch.Tensor:
+    return torch.from_numpy(np.ascontiguousarray(x.reshape(D, -1)))
+
+
+def _per_dest(rv, valid):
+    rv, valid = np.asarray(rv).reshape(D, -1), np.asarray(valid).reshape(
+        D, -1).astype(bool)
+    return [sorted(rv[d][valid[d]].tolist()) for d in range(D)]
+
+
+@pytest.mark.parametrize("scheme", ["exchange", "valiant"])
+def test_exchange_delivers_like_femto_tpu(jmesh, tmesh, scheme):
+    rng = np.random.default_rng(7)
+    m = 256
+    vals = rng.integers(0, 1000, size=D * m).astype(np.int32)
+    if scheme == "exchange":
+        dest = rng.integers(0, D, size=D * m).astype(np.int32)
+        cap = m
+    else:
+        # every record of source s to (s + 1) % D: the pair-concentrated
+        # case a single hop could only carry at cap = m
+        dest = ((np.arange(D * m) // m + 1) % D).astype(np.int32)
+        cap = 2 * m // D + 64
+
+    def f(v, d, key):
+        if scheme == "exchange":
+            recs, valid, of = jbins.exchange(d, [v], cap=cap, axis=AX)
+        else:
+            recs, valid, of = jbins.valiant_exchange(d, [v], cap=cap,
+                                                     axis=AX, key=key)
+        return recs[0], valid, of
+
+    jr, jv, jof = _smap(f, jmesh, 3, 2, 1, rep_in=(2,))(
+        jnp.asarray(vals), jnp.asarray(dest), jax.random.PRNGKey(1))
+    if scheme == "exchange":
+        (tr,), tv, tof = tbins.exchange(tmesh, _blocks(dest), [_blocks(vals)],
+                                        cap)
+    else:
+        (tr,), tv, tof = tbins.valiant_exchange(
+            tmesh, _blocks(dest), [_blocks(vals)], cap, key=1)
+    assert int(jof) <= 0 and int(tof) <= 0
+    want = [sorted(vals[dest == d].tolist()) for d in range(D)]
+    assert _per_dest(tr.numpy(), tv.numpy()) == _per_dest(jr, jv) == want
+    if scheme == "exchange":
+        # one hop: the overflow scalar is the same as femto_tpu's
+        assert int(tof) == int(jof)
+
+
+def test_place_by_owner_like_femto_tpu(jmesh, tmesh):
+    """Records routed to the owners of their positions and placed into
+    dense blocks over the fills: the same global array as femto_tpu's."""
+    rng = np.random.default_rng(9)
+    m = 128
+    gpos = rng.permutation(D * m).astype(np.int32)
+    vals = rng.integers(-1000, 1000, size=D * m).astype(np.int32)
+    valid = (rng.random(D * m) < 0.9)
+
+    def f(g, v, ok):
+        fill = jnp.full((m,), -7, jnp.int32)
+        (out,), of = jbins.place_by_owner(g, [v], m, 2 * m // D + 64, AX,
+                                          [fill], valid=ok)
+        return out, of
+
+    jout, jof = _smap(f, jmesh, 3, 1, 1)(jnp.asarray(gpos),
+                                        jnp.asarray(vals),
+                                        jnp.asarray(valid))
+    fills = [torch.full((D, m), -7, dtype=torch.int32)]
+    (tout,), tof = tbins.place_by_owner(
+        tmesh, _blocks(gpos), [_blocks(vals)], m, 2 * m // D + 64, fills,
+        valid=_blocks(valid.astype(np.uint8)))
+    assert int(jof) <= 0 and int(tof) <= 0
+    np.testing.assert_array_equal(tout.reshape(-1).numpy(), np.asarray(jout))
+
+
+def test_exchange_overflow_reported(tmesh):
+    """A bucket past cap is reported (never dropped in silence)."""
+    m = 64
+    dest = np.zeros(D * m, np.int32)
+    vals = np.arange(D * m, dtype=np.int32)
+    _, _, of = tbins.exchange(tmesh, _blocks(dest), [_blocks(vals)], 16)
+    assert int(of) == m - 16
+
+
+@pytest.mark.parametrize("case", ["ties", "sorted"])
+def test_dist_sort_blocks(jmesh, tmesh, case):
+    rng = np.random.default_rng(3)
+    m = 128
+    if case == "ties":
+        k1 = rng.integers(0, 50, size=D * m).astype(np.int32)
+    else:
+        k1 = np.arange(D * m, dtype=np.int32)
+    idx = np.arange(D * m, dtype=np.int32)
+    pay = rng.integers(-5, 5, size=D * m).astype(np.int32)
+
+    def f(a, b, c):
+        (s1, s2), (p1,), of = j_dist_sort((a, b), (c,), AX, cap=m)
+        return s1, s2, p1, of
+
+    js1, js2, jp, jof = _smap(f, jmesh, 3, 3, 1)(
+        jnp.asarray(k1), jnp.asarray(idx), jnp.asarray(pay))
+    (ts1, ts2), (tp,), tof = t_dist_sort(
+        tmesh, [_blocks(k1), _blocks(idx)], [_blocks(pay)], m, key=5)
+    assert int(jof) <= 0 and int(tof) <= 0
+    order = np.lexsort((idx, k1))
+    for got, ref, want in ((ts1, js1, k1[order]), (ts2, js2, idx[order]),
+                           (tp, jp, pay[order])):
+        np.testing.assert_array_equal(got.reshape(-1).numpy(),
+                                      np.asarray(ref))
+        np.testing.assert_array_equal(got.reshape(-1).numpy(), want)
+
+
+def _five_docs():
+    rng = np.random.default_rng(42)
+    return [
+        b"the quick brown fox jumps over the lazy dog",
+        b"banana banana banana",
+        b"",
+        bytes(rng.integers(0, 256, size=500).astype(np.uint8)),
+        b"abracadabra" * 10,
+    ]
+
+
+def _sa_case(case):
+    """(text, doc_starts or None, mark_period) of each suffix-sort case."""
+    if case == "docs":
+        # the five documents with doc starts and marks: six extension
+        # rounds, then the replicated doubling tail
+        prep = ft.prepare_documents(_five_docs())
+        return np.asarray(prep.text, np.int32), prep.doc_starts, 8
+    # a single repeated symbol: the full distributed doubling path
+    return np.full(3000, 5, np.int32), None, 0
+
+
+@pytest.mark.parametrize("case", ["docs", "doubling"])
+def test_dist_suffix_array_like_femto_tpu(jmesh, tmesh, case):
+    text, ds, mp = _sa_case(case)
+    n = len(text)
+    text_pad, n_pad = jdb.pad_text_for_mesh(text, D, seg=32)
+    kw = dict(n=n, mark_period=mp)
+    jds = tds = None
+    if ds is not None:
+        jds = jax.device_put(jnp.asarray(ds.astype(np.int32)),
+                             NamedSharding(jmesh, P()))
+        tds = torch.from_numpy(ds.astype(np.int32))
+    jsa, jbwt, jaux, jof = jdb.dist_suffix_array(
+        jax.device_put(jnp.asarray(text_pad),
+                       NamedSharding(jmesh, P(AX))),
+        jmesh, doc_starts=jds, **kw)
+    jstats = dict(jdb.LAST_BUILD_STATS)
+    tsa, tbwt, taux, tof = tdb.dist_suffix_array(
+        put_global(text_pad, tmesh), tmesh, doc_starts=tds, **kw)
+    assert int(jof) <= 0 and int(tof) <= 0
+    for got, want in ((tsa, jsa), (tbwt, jbwt), (taux, jaux)):
+        np.testing.assert_array_equal(got.reshape(-1).numpy(),
+                                      np.asarray(want))
+    assert tdb.LAST_BUILD_STATS == jstats
+    if case == "docs":
+        assert jstats["path"] == "wide" and jstats["tail_rounds"] > 0
+    else:
+        assert jstats["path"] == "doubling" and jstats["dbl_rounds"] > 0
+
+
+@pytest.fixture(scope="module")
+def built(jmesh, tmesh):
+    """femto_tpu's and the port's sharded index of the five documents, per
+    tier (seg 32, mark_period 8)."""
+    docs = _five_docs()
+    jprep = ft.prepare_documents(docs)
+    tprep = tt.prepare_documents(docs)
+    out = {}
+    for tier in TIERS:
+        jix = jdb.build_index_sharded(jprep, jmesh, seg=32, mark_period=8,
+                                      tier=tier)
+        jstats = dict(jdb.LAST_BUILD_STATS)
+        tix = tdb.build_index_sharded(tprep, tmesh, seg=32, mark_period=8,
+                                      tier=tier)
+        out[tier] = (jix, tix, jstats, dict(tdb.LAST_BUILD_STATS))
+    return docs, out
+
+
+@pytest.mark.parametrize("tier", TIERS)
+def test_build_index_sharded_blocks(built, tier):
+    _, out = built
+    jix, tix, jstats, tstats = out[tier]
+    assert tstats == jstats
+    assert dict(tix.meta.__dict__) == {k: getattr(jix.meta, k)
+                                       for k in tix.meta.__dict__}
+    for name in tt.FMArrays._fields:
+        want = getattr(jix.arrays, name)
+        got = getattr(tix.arrays, name)
+        if want is None:
+            assert got is None, name
+            continue
+        want = np.asarray(want)
+        got = got.cpu().numpy()
+        assert got.dtype == want.dtype and got.shape == want.shape, name
+        np.testing.assert_array_equal(got, want, err_msg=name)
+
+
+PATS = [b"banana", b"the", b"abra", b"zz", b"a", b"\x00", b"", b"qu"]
+
+
+def _packed(pats):
+    return pack_patterns([pattern_to_alpha(p) for p in pats])
+
+
+@pytest.mark.parametrize("routed", [True, False])
+@pytest.mark.parametrize("tier", TIERS)
+def test_sharded_count_like_femto_tpu(built, jmesh, tmesh, tier, routed):
+    docs, out = built
+    jix, tix, _, _ = out[tier]
+    packed, B = _packed(PATS)
+    jf, jl = j_search(jix, jmesh, packed, routed=routed)
+    tf, tl = tdq.sharded_backward_search(tix, tmesh, packed, routed=routed)
+    np.testing.assert_array_equal(tf.numpy(), np.asarray(jf)[:B])
+    np.testing.assert_array_equal(tl.numpy(), np.asarray(jl)[:B])
+    for p, c in zip(PATS, (tl - tf).tolist()):
+        assert c == (naive_count(docs, p) if p else tix.meta.n), (p, c)
+
+
+@pytest.mark.parametrize("routed", [True, False])
+@pytest.mark.parametrize("tier", TIERS)
+def test_sharded_locate_like_femto_tpu(built, jmesh, tmesh, tier, routed):
+    """Offsets equal femto_tpu's routed walk (its psum walk gives the same
+    offsets, tests/test_dist.py) and the text's."""
+    docs, out = built
+    jix, tix, _, _ = out[tier]
+    packed, _ = _packed([b"a"])
+    tf, tl = tdq.sharded_backward_search(tix, tmesh, packed)
+    f, l = int(tf[0]), int(tl[0])
+    rows = np.arange(f, l, dtype=np.int32)
+    rows = np.concatenate([rows, np.full((-len(rows)) % D, f, np.int32)])
+    got = tdq.sharded_locate(tix, tmesh, rows, routed=routed).numpy()
+    if routed:
+        want = np.asarray(j_locate(jix, jmesh, rows))
+        np.testing.assert_array_equal(got, want[:len(rows)])
+    else:
+        np.testing.assert_array_equal(
+            got, tdq.sharded_locate(tix, tmesh, rows).numpy())
+    doc, off = tt.offsets_to_docs(tix, got[: l - f].astype(np.int64))
+    assert sorted(zip(doc.tolist(), off.tolist())) == naive_locate(docs,
+                                                                   b"a")
+
+
+def test_routed_hot_row_skew(built, tmesh):
+    """64 lanes on one row at cap_factor 1.0: the routed exchange
+    overflows, retries with a larger capacity and stays exact."""
+    docs, out = built
+    _, tix, _, _ = out["full"]
+    packed, B = _packed([b"banana"] * 64)
+    f, l = tdq.sharded_backward_search(tix, tmesh, packed, cap_factor=1.0)
+    assert ((l - f)[:B] == naive_count(docs, b"banana")).all()
+
+
+def test_extract_and_empty_pattern_on_local_mesh(built, tmesh):
+    """A LocalMesh index holds the global arrays: the single-device
+    extract_document serves it; the empty pattern counts the real rows."""
+    docs, out = built
+    _, tix, _, _ = out["full"]
+    assert tt.extract_document(tix, 1) == docs[1]
+    assert tt.extract_document(tix, 4) == docs[4]
+    packed, _ = _packed([b""])
+    f, l = tdq.sharded_backward_search(tix, tmesh, packed)
+    assert int(l[0] - f[0]) == tix.meta.n
+
+
+@pytest.mark.parametrize("tier", ["full", "packed"])
+def test_carried_sharded_index(built, tmesh, tier):
+    """femto_tpu's sharded index carried across (sharded_arrays_from_numpy)
+    answers like the port's own build of the same blocks."""
+    _, out = built
+    jix, tix, _, _ = out[tier]
+    arrays = {k: np.asarray(v) for k, v in jix.arrays._asdict().items()
+              if v is not None}
+    cix = tdq.sharded_arrays_from_numpy(arrays, jix.meta, tmesh)
+    assert cix.meta == tix.meta
+    packed, B = _packed(PATS)
+    for got, want in zip(tdq.sharded_backward_search(cix, tmesh, packed),
+                         tdq.sharded_backward_search(tix, tmesh, packed)):
+        np.testing.assert_array_equal(got.numpy(), want.numpy())
+    rows = np.arange(tix.meta.row0, tix.meta.n_rows, dtype=np.int32)[::7]
+    rows = np.concatenate([rows, np.full((-len(rows)) % D, rows[0],
+                                         np.int32)])
+    np.testing.assert_array_equal(
+        tdq.sharded_locate(cix, tmesh, rows).numpy(),
+        tdq.sharded_locate(tix, tmesh, rows, routed=False).numpy())
+
+
+def test_mark_capacity_retry(tmesh):
+    """Identical documents cluster their doc-start marks in one shard: the
+    per-shard mark capacity grows on overflow (femto_tpu's
+    test_sharded_mark_overflow_retry) and locate stays exact."""
+    docs = [b"identical document body text here " * 8] * 40
+    tix = tdb.build_index_sharded(tt.prepare_documents(docs), tmesh, seg=32,
+                                  mark_period=4, mark_cap_local0=128)
+    assert tdb.LAST_BUILD_STATS["mark_cap_retries"] > 0
+    packed, _ = _packed([b"body"])
+    f, l = tdq.sharded_backward_search(tix, tmesh, packed)
+    rows = np.arange(int(f[0]), int(l[0]), dtype=np.int32)
+    rows = np.concatenate([rows, np.full((-len(rows)) % D, rows[0],
+                                         np.int32)])
+    offs = tdq.sharded_locate(tix, tmesh, rows).numpy()[: int(l[0] - f[0])]
+    doc, off = tt.offsets_to_docs(tix, offs.astype(np.int64))
+    assert sorted(zip(doc.tolist(), off.tolist())) == \
+        naive_locate(docs, b"body")
+
+
+def test_unported_options_raise(tmesh):
+    prep = tt.prepare_documents([b"abc"])
+    for kw in ({"tier": "vseg"}, {"tier": "vrle"}, {"doc_chunks": True},
+               {"checkpoint_dir": "ck"}):
+        with pytest.raises(NotImplementedError):
+            tdb.build_index_sharded(prep, tmesh, seg=32, **kw)

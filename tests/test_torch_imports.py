@@ -20,7 +20,9 @@ from femto_tpu_torch import kernels
 from femto_tpu_torch import lcp as TL
 from femto_tpu_torch import paged as TP
 from femto_tpu_torch import query as TQ
+from femto_tpu_torch import parallel as TPAR
 from femto_tpu_torch.ops import build_ops as TB
+from femto_tpu_torch.ops import dist_ops as DO
 from femto_tpu_torch.ops import lcp_ops as LO
 from femto_tpu_torch.ops import paged_ops as PO
 from femto_tpu_torch.ops import regex_ops as RO
@@ -53,7 +55,13 @@ def test_import_pulls_in_neither_jax_nor_femto_tpu():
             "femto_tpu_torch.query.engine, femto_tpu_torch.multi, "
             "femto_tpu_torch.paged, femto_tpu_torch.lcp, "
             "femto_tpu_torch.io.native, femto_tpu_torch.ops.paged_ops, "
-            "femto_tpu_torch.ops.lcp_ops; "
+            "femto_tpu_torch.ops.lcp_ops, femto_tpu_torch.ops.dist_ops, "
+            "femto_tpu_torch.parallel, femto_tpu_torch.parallel.mesh, "
+            "femto_tpu_torch.parallel.distributed, "
+            "femto_tpu_torch.parallel.bins, "
+            "femto_tpu_torch.parallel.dist_sort, "
+            "femto_tpu_torch.parallel.dist_build, "
+            "femto_tpu_torch.parallel.dist_query; "
             "print('jax' in sys.modules, 'femto_tpu' in sys.modules)")
     out = subprocess.run([sys.executable, "-c", code], cwd=ROOT,
                          capture_output=True, text=True, timeout=120)
@@ -108,7 +116,7 @@ def test_every_entry_has_a_plain_version_and_a_smoke_row(entry):
     import chip_smoke
 
     name = PLAIN_NAMES.get(entry, entry + "_plain")
-    homes = [m for m in (TB, TS, SO, RO, PO, LO) if hasattr(m, name)]
+    homes = [m for m in (TB, TS, SO, RO, PO, LO, DO) if hasattr(m, name)]
     assert len(homes) == 1, (entry, name)
     assert callable(getattr(homes[0], name))
     src, argtypes = kernels.ENTRIES[entry]
@@ -169,6 +177,20 @@ def test_entry_points_raise_without_a_card(tmp_path):
         TL.lcp_array(prepared.text, sa, device=True)
     with pytest.raises(RuntimeError, match="cuda"):
         TL.sparse_plcp(prepared.text, sa)
+    # the sharded index: a mesh defaults to the card; on a CPU mesh the
+    # build and the queries answer
+    with pytest.raises(RuntimeError, match="cuda"):
+        TPAR.LocalMesh(2)
+    mesh = TPAR.LocalMesh(2, device="cpu")
+    six = TPAR.build_index_sharded(prepared, mesh, seg=64, mark_period=4)
+    assert six.device.type == "cpu"
+    pats = np.array([[-1, 102, 103]], np.int32)
+    first, last = TPAR.sharded_backward_search(six, mesh, pats)
+    assert int(last[0] - first[0]) == 2
+    offs = TPAR.sharded_locate(six, mesh, np.arange(six.meta.row0,
+                                                    six.meta.row0 + 2,
+                                                    dtype=np.int32))
+    assert offs.device.type == "cpu" and (offs >= 0).all()
 
 
 def test_query_engine_raises_without_a_card(tmp_path):
@@ -207,6 +229,14 @@ def test_wrappers_refuse_mixed_devices():
         SO.radix_sort_pairs(torch.zeros(2, dtype=torch.int64), rows, 0, 8)
     with pytest.raises(ValueError, match="int32"):
         TS.extract_backward(ix.arrays, torch.zeros(2, dtype=torch.int64), 3)
+    # the sharded steps refuse them too
+    with pytest.raises(ValueError, match="devices"):
+        DO.bucket_pack(rows.view(1, 2), [torch.zeros((1, 2),
+                                                     dtype=torch.int32)],
+                       D=2, cap=2)
+    with pytest.raises(ValueError, match="devices"):
+        DO.masked_lf(ix.arrays, rows, Dl=1, nseg_local=ix.meta.n_seg,
+                     shard0=0)
 
 
 @pytest.mark.parametrize("alone", [False, True])
