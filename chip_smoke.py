@@ -227,7 +227,11 @@ N_LCP_SAMPLES = 65536
 SIMILARITY_MIN_LCP = 64  # suffix_similarity's pairs on the prose
 SHARD_D = 4                  # phase 3's and 4h's LocalMesh shards
 SHARD_TIERS = ("full", "compact", "packed")
+SHARD_LAYOUTS = SHARD_TIERS + ROW_LAYOUTS
 N_NCCL_PATTERNS = 4096       # phase 4h's count on the NCCL DistMesh
+N_DOC_LIST_SEGS = 256        # 4h's sampled segments of the doc lists
+NCCL_DOCS_QUERY = "'the' AND 'ing'"  # 4h's docs query on the NCCL DistMesh
+CKPT_DOCS = 256              # 4h's checkpointed build: 2^24 symbols
 N_CHUNK_SEGS = 64            # sampled segments of each chunk's doc lists
 # phase 3's doc-list segment sizes; 65504 is the largest l1_group_for takes
 DOC_LIST_SEGS = (64, 256, 2048, 65504)
@@ -293,18 +297,30 @@ PATH_KERNELS = {
     # phase 4g: lcp_array on the zipf corpus and its twin, and the prose
     # (K17, kernel S)
     "lcp": ("lcp_round", "lcp_compact"),
-    # phase 4h: the sharded build of the full, compact and packed tiers on
-    # a LocalMesh (K18a-K18e around G, H, L, A, A', F, B) and sharded count
-    # and locate, routed and psum (K18f on each tier)
+    # phase 4h: the sharded build of all five tiers on a LocalMesh
+    # (K18a-K18e around G, H, L, A, A', F, B; the row tiers' M and N per
+    # shard, K18g), the doc lists (P per shard) and sharded count and
+    # locate, routed and psum (K18f on each layout)
     "sharded": ("bucket_pack", "owner_place", "splitter_bucket",
                 "rebalance_place", "mesh_exclusive", "add_base", "seed_keys",
                 "payload_block", "mesh_flags", "mesh_scan", "compact_rows",
                 "fetch_owned", "sym_hist", "radix_sort_pairs", "gather_rows",
                 "occ_build", "occ_build_compact", "pack_build",
-                "marks_build")
+                "marks_build", "doc_lists", "flatten_ragged") + ROW_KERNELS
     + tuple(f"{k}[{lay}]" for k in ("owner_occ", "masked_occ", "owner_lf",
                                     "masked_lf")
-            for lay in SHARD_TIERS),
+            for lay in SHARD_LAYOUTS),
+    # phase 4h's query engine over the sharded indexes (K18h): bench.py's
+    # regexes on the zipf full, packed, vseg and vrle ones, the prose
+    # queries on the prose vseg and vrle ones (count and docs queries),
+    # the frontier's ranks by K18f's masked_occ, R's given-ranges fork, H
+    # and R's merge; literal terms and offsets through the routed search
+    # and locate
+    "sharded_query": ("regex_fork_ranked", "radix_sort_pairs", "regex_merge",
+                      "bucket_pack", "owner_place")
+    + tuple(f"masked_occ[{lay}]" for lay in ("full", "packed") + ROW_LAYOUTS)
+    + tuple(f"{k}[{lay}]" for k in ("owner_occ", "owner_lf")
+            for lay in ROW_LAYOUTS),
 }
 KERNELS = {  # entry -> (source, the femto_tpu function it replaces)
     "occ_build": ("femto_tpu_torch/csrc/occ_build.cu",
@@ -394,7 +410,9 @@ KERNELS.update({
     "fetch_owned": ("femto_tpu_torch/csrc/dist_rounds.cu",
                     "femto_tpu/parallel/dist_build.py:344"),
 })
-for _lay in SHARD_TIERS:
+KERNELS["regex_fork_ranked"] = ("femto_tpu_torch/csrc/regex_frontier.cu",
+                                "femto_tpu/parallel/dist_query.py:572")
+for _lay in SHARD_LAYOUTS:
     KERNELS.update({
         f"owner_occ[{_lay}]": ("femto_tpu_torch/csrc/dist_query.cu",
                                "femto_tpu/parallel/dist_query.py:216"),
@@ -2760,7 +2778,14 @@ def phase_query(record, rng, st, st2, st3):
                             "scan_s": t_scan, "launches": device_launches,
                             "host_launches": host_launches}
     return dict(launches=device_launches, host_launches=host_launches,
-                zipf=zipf, zsteps=zsteps, psteps=psteps)
+                zipf=zipf, zsteps=zsteps, psteps=psteps,
+                zipf_answers={name: sorted((m.first, m.last, m.cost)
+                                           for m in answers[
+                                               ("zipf", "full", name)][3])
+                              for name in ZIPF_QUERIES},
+                prose_answers={(tier, name): (v[2], v[3]) for (
+                    corpus, tier, name), v in answers.items()
+                    if corpus == "prose"})
 
 
 def interval_overlap(spans, others):
@@ -3932,17 +3957,18 @@ class _Captured(Exception):
     """Stops a build at the call that captured_call waits for."""
 
 
-def captured_call(name, pick, build):
-    """The arguments of the first call of ops/dist_ops.<name> in build()
-    for which pick(args, kwargs) holds (pick None: the first call), as
-    (positional, keyword) with the defaults filled in.  The build stops
-    there, before the kernel runs: the inputs are as the path made them,
-    and nothing else of the build stays alive."""
+def captured_call(name, pick, build, mod=None):
+    """The arguments of the first call of <mod>.<name> (mod: ops/dist_ops
+    unless given) in build() for which pick(args, kwargs) holds (pick
+    None: the first call), as (positional, keyword) with the defaults
+    filled in.  The build stops there, before the kernel runs: the inputs
+    are as the path made them, and nothing else of the build stays
+    alive."""
     import inspect
 
-    from femto_tpu_torch.ops import dist_ops as DO
-
-    fn = getattr(DO, name)
+    if mod is None:
+        from femto_tpu_torch.ops import dist_ops as mod
+    fn = getattr(mod, name)
     got = []
 
     def hook(*a, **kw):
@@ -3951,16 +3977,70 @@ def captured_call(name, pick, build):
             raise _Captured
         return fn(*a, **kw)
 
-    setattr(DO, name, hook)
+    setattr(mod, name, hook)
     try:
         build()
     except _Captured:
         pass
     finally:
-        setattr(DO, name, fn)
-    check(bool(got), f"the sharded build made no call of {name}")
+        setattr(mod, name, fn)
+    check(bool(got), f"the path made no call of {name}")
     got[0].apply_defaults()
     return list(got[0].args), dict(got[0].kwargs)
+
+
+def _copied(x):
+    """x with every tensor in it (in lists, tuples and dicts) cloned."""
+    import torch
+
+    if isinstance(x, torch.Tensor):
+        return x.clone()
+    if isinstance(x, (list, tuple)):
+        return type(x)(_copied(v) for v in x)
+    if isinstance(x, dict):
+        return {k: _copied(v) for k, v in x.items()}
+    return x
+
+
+def first_calls(entries, builds):
+    """The arguments of one call of each <mod>.<name> of entries (mod,
+    name, size) in the builds, run in order (each to its end) until every
+    entry has been called: the first call, or where size is given the
+    call with the largest size(positional) (the first of equals).
+    {name: (positional, keyword)} with the defaults filled in, copied at
+    the call (the build goes on and may reuse its buffers)."""
+    import inspect
+
+    fns = {(mod, name): getattr(mod, name) for mod, name, _ in entries}
+    got, best = {}, {}
+
+    def hook(mod, name, size):
+        fn = fns[mod, name]
+
+        def call(*a, **kw):
+            b = inspect.signature(fn).bind(*a, **kw)
+            b.apply_defaults()
+            k = 0 if size is None else size(list(b.args))
+            if name not in got or (size is not None and k > best[name]):
+                got[name] = (_copied(list(b.args)), _copied(dict(b.kwargs)))
+                best[name] = k
+            return fn(*a, **kw)
+        return call
+
+    for mod, name, size in entries:
+        setattr(mod, name, hook(mod, name, size))
+    try:
+        for build in builds:
+            if len(got) == len(entries) and all(
+                    size is None for _, _, size in entries):
+                break
+            build()
+    finally:
+        for (mod, name), fn in fns.items():
+            setattr(mod, name, fn)
+    missing = sorted({name for _, name, _ in entries} - set(got))
+    check(not missing, f"the builds made no call of {missing}")
+    return got
 
 
 def _owned(v, base, m, off, shard0):
@@ -4126,6 +4206,221 @@ def sharded_cases(mesh, prepared, seg, mark_period):
         case.clear()
 
 
+# kernels M, N and P of the sharded row-tier builds (K18g): phase 5 times
+# each at its first call in 4h's builds (first_calls)
+SHARDED_ROW_KERNELS = ("seg_syms", "vseg_rows", "side_rows",
+                       "vrle_slot_count", "vrle_pack", "cont_flatten",
+                       "doc_lists", "flatten_ragged")
+
+
+def row_case(name, a, kw):
+    """(run_k, run_p, bytes moved, library call or None) of kernel M, N or
+    P on captured arguments: what the kernel reads of its inputs, once
+    (as bound_row_kernels counts it: the BWT of the segments it packs, the
+    words a continuation copies), and its outputs once.  P's doc_lists
+    against torch.sort of its rows' documents."""
+    import torch
+
+    from femto_tpu_torch.ops import build_ops as BO
+
+    fk, fp = getattr(BO, name), getattr(BO, name + "_plain")
+
+    def run_k():
+        return _flat([fk(*a, **kw)])
+
+    def run_p():
+        return _flat([fp(*a, **kw)])
+
+    out = sum(t.numel() * t.element_size() for t in run_k())
+    lib = None
+    if name == "seg_syms":
+        reads = 4 * a[0].numel()
+    elif name == "vseg_rows":
+        bwt, amap, syms, nsym, woff, mbits, mckpt, occ_rel = a
+        n_seg, seg = bwt.shape
+        w = woff.long()
+        reads = (2 * int((w == 0).sum()) * seg
+                 + 4 * int((w < 0).sum()) * kw["code_words"]
+                 + 4 * amap.numel() + 4 * n_seg * kw["s_store"]
+                 + nsym.numel() + 4 * n_seg
+                 + sum(t.numel() * t.element_size()
+                       for t in (mbits, mckpt, occ_rel)))
+    elif name == "side_rows":
+        bwt, amap, ovf = a
+        reads = 2 * ovf.numel() * bwt.shape[1] + 4 * amap.numel() \
+            + 4 * ovf.numel()
+    elif name == "vrle_slot_count":
+        bwt, amap, syms, nsym = a
+        reads = 2 * bwt.numel() + 4 * amap.numel() + 4 * syms.numel() \
+            + nsym.numel()
+    elif name == "vrle_pack":
+        bwt, amap, syms, nsym, woff = a
+        n_seg, seg = bwt.shape
+        n_rle = int((woff < 0).sum())
+        reads = (2 * n_rle * seg + 4 * amap.numel()
+                 + 4 * n_rle * syms.shape[1] + nsym.numel() + 4 * n_seg)
+    elif name == "cont_flatten":
+        _, cidx, cwords, _ = a
+        reads = 4 * int(cwords.sum()) + 12 * cidx.numel()
+    elif name == "doc_lists":
+        sa, ds = a
+        reads = 4 * sa.numel() + 4 * ds.numel()
+        n_seg, seg = kw["n_seg"], kw["seg"]
+        doc = torch.searchsorted(ds.long(), sa.long(), right=True) - 1
+        tile = torch.full((n_seg * seg,), 2**31 - 1, dtype=torch.int32,
+                          device=sa.device)
+        tile[: sa.numel()] = torch.where(
+            (sa >= 0) & (sa < kw["n_real"]), doc, 2**31 - 1).to(torch.int32)
+        tile = tile.view(n_seg, seg)
+
+        def lib():
+            return torch.sort(tile, dim=1)
+    elif name == "flatten_ragged":
+        _, counts, offsets = a
+        reads = 4 * counts.numel() + 8 * offsets.numel() \
+            + 4 * int(offsets[-1])
+    else:
+        raise ValueError(f"no phase 5 case for {name}")
+    return run_k, run_p, reads + out, lib
+
+
+def sharded_build_calls():
+    """first_calls' entries of the per-shard kernels that the sharded
+    path shares with the single-device builds: A, B (as shard_marks), G,
+    H and L in a full-tier build (H and L at their largest calls: the
+    local sort of a shard's received records), A' and F in a compact
+    one."""
+    from femto_tpu_torch.ops import build_ops as BO
+    from femto_tpu_torch.ops import dist_ops as DO
+    from femto_tpu_torch.ops import sort_ops as SO
+
+    return [(BO, "occ_build", None), (DO, "shard_marks", None),
+            (SO, "sym_hist", None),
+            (SO, "radix_sort_pairs", lambda a: a[0].numel()),
+            (SO, "gather_rows", lambda a: a[1].numel()),
+            (BO, "occ_build_compact", None), (BO, "pack_build", None)]
+
+
+def build_case(name, a, kw):
+    """(row name, run_k, run_p, bytes moved, library call or None) of a
+    kernel of sharded_build_calls on captured arguments, its bytes as the
+    single-device rows count them (bound_occ_build, bound_sort_kernels
+    and the rest) at these inputs."""
+    import torch
+
+    from femto_tpu_torch.ops import build_ops as BO
+    from femto_tpu_torch.ops import dist_ops as DO
+    from femto_tpu_torch.ops import sort_ops as SO
+
+    mod = DO if name == "shard_marks" else (
+        SO if name in ("sym_hist", "radix_sort_pairs", "gather_rows")
+        else BO)
+    fk, fp = getattr(mod, name), getattr(mod, name + "_plain")
+    pa, pkw = a, kw
+    if name == "occ_build_compact":
+        # its plain version takes no symbol map
+        pa = [a[0], a[2]]
+
+    def run_k():
+        return _flat([fk(*a, **kw)])
+
+    def run_p():
+        return _flat([fp(*pa, **pkw)])
+
+    lib = None
+    if name == "occ_build":
+        pull = a[0]
+        n, n_seg, seg = pull.numel(), kw["n_seg"], kw["seg"]
+        nbytes = (8 * n + 2 * n_seg * seg + 4 * n + 4 * 261 * n_seg
+                  + 4 * 262)
+        seg_sym = (torch.arange(n, device=pull.device) // seg) * 261 \
+            + (pull & 511)
+
+        def lib():
+            return torch.bincount(seg_sym, minlength=n_seg * 261)
+    elif name == "occ_build_compact":
+        pull, _, arev = a
+        n, n_seg, seg = pull.numel(), kw["n_seg"], kw["seg"]
+        out = run_k()
+        nbytes = 8 * n + 4 * 261 + sum(t.numel() * t.element_size()
+                                       for t in out)
+        seg_sym = (torch.arange(n, device=pull.device) // seg) * 261 \
+            + (pull & 511)
+        del out
+
+        def lib():
+            return torch.bincount(seg_sym, minlength=n_seg * 261)
+    elif name == "pack_build":
+        bwt = a[0]
+        out = run_k()[0]
+        nbytes = 2 * bwt.numel() + 4 * 261 + out.numel() * out.element_size()
+        del out
+    elif name == "shard_marks":
+        sa = a[0]
+        name = "marks_build"
+        mb, mc, mv, cnt, _ = fk(*a, **kw)
+        nbytes = (4 * sa.numel() + 4 * int(cnt[0]) + 4 * mb.numel()
+                  + 4 * mc.numel() + 4 * mv.numel() + 4 * kw["ndocs"])
+        del mb, mc, mv, cnt
+    elif name == "sym_hist":
+        text = a[0]
+        nbytes = 4 * text.numel() + 4 * 513
+
+        def lib():
+            return torch.bincount(text, minlength=512)
+    elif name == "radix_sort_pairs":
+        keys = a[0]
+        nbytes = 24 * keys.numel()
+
+        def lib():
+            return torch.sort(keys, stable=True)
+    elif name == "gather_rows":
+        src, idx = a
+        nbytes = (4 + SECTOR + src.element_size()) * idx.numel()
+
+        def lib():
+            return torch.index_select(src, 0, idx)
+    else:
+        raise ValueError(f"no phase 5 case for {name}")
+    return name, run_k, run_p, nbytes, lib
+
+
+def sharded_layer_calls(ix, mesh, q, fcap):
+    """The widest layer of the sharded search of q on ix
+    (sharded_regexp_matches from frontier cap fcap, its retries included):
+    (depth, n_live, {entry: (positional, keyword)}) of that layer's calls
+    of K18f masked_occ, R regex_fork_ranked, H radix_sort_pairs and R
+    regex_merge, each captured at its call there (captured_call: the
+    search runs again and stops before the kernel)."""
+    from femto_tpu_torch.ops import dist_ops as DO
+    from femto_tpu_torch.ops import regex_ops as RO
+    from femto_tpu_torch.ops import sort_ops as SO
+    from femto_tpu_torch.parallel import sharded_regexp_matches
+
+    node, nfa = query_nfa(q)
+    seen = []
+    sharded_regexp_matches(ix, mesh, nfa, node.approx, frontier_cap=fcap,
+                           on_layer=lambda d, n_live, *_: seen.append(
+                               (d, n_live)))
+    # a layer each: one masked_occ, fork, sort and merge; the run that
+    # answered starts at the last depth 0
+    start = max(i for i, (d, _) in enumerate(seen) if d == 0)
+    k = max(range(start, len(seen)), key=lambda i: seen[i][1])
+    calls = {}
+    for name, mod in (("masked_occ", DO), ("regex_fork_ranked", RO),
+                      ("radix_sort_pairs", SO), ("regex_merge", RO)):
+        count = [0]
+
+        def pick(a, kw, count=count):
+            count[0] += 1
+            return count[0] == k + 1
+
+        calls[name] = captured_call(
+            name, pick, lambda: sharded_regexp_matches(
+                ix, mesh, nfa, node.approx, frontier_cap=fcap), mod)
+    return seen[k][0], seen[k][1], calls
+
+
 def _flat(xs):
     """The tensors of nested lists and tuples, in order (None dropped)."""
     out = []
@@ -4145,6 +4440,34 @@ def _sort_scatter(dest, cols):
     order = torch.sort(dest.view(-1), stable=True)[1]
     return [torch.empty_like(c).view(-1).index_copy_(0, order, c.view(-1))
             for c in cols]
+
+
+def sharded_prefix_bytes(arrays, nseg_local):
+    """_layout_bytes' (checkpoint bytes, row-prefix bytes as a function of
+    (view segment, off)) of a LocalMesh's sharded index: a row tier's
+    prefix is read in each segment's own shard (per-shard side tables and
+    continuation stores)."""
+    import torch
+
+    from femto_tpu_torch.ops import dist_ops as DO
+    from femto_tpu_torch.ops import rank as R
+
+    _, ckpt, prefix, _ = _layout_bytes(arrays)
+    if not R.is_row_tier(arrays):
+        return ckpt, prefix
+    Dl = arrays.bwt.shape[0] // nseg_local
+    subs = [_row_prefix_bytes(DO._row_shard(arrays, d, nseg_local))
+            for d in range(Dl)]
+
+    def sharded(s, off):
+        s = s.long()
+        out = torch.zeros(s.shape, dtype=torch.int64, device=s.device)
+        for d in range(Dl):
+            sel = torch.div(s, nseg_local, rounding_mode="floor") == d
+            if bool(sel.any()):
+                out[sel] = subs[d](s[sel] - d * nseg_local, off[sel]).long()
+        return out
+    return ckpt, sharded
 
 
 def sharded_query_cases(index, mesh, rng, B):
@@ -4173,7 +4496,7 @@ def sharded_query_cases(index, mesh, rng, B):
     cd_b = cd_r.reshape(-1)[:B].contiguous()
     kw = dict(nseg_local=nseg_local, shard0=0)
     nrt = D * rps
-    _, ckpt, prefix, _ = _layout_bytes(A)
+    ckpt, prefix = sharded_prefix_bytes(A, nseg_local)
 
     def lane_bytes(r):
         rl = r.reshape(-1).long()
@@ -4307,12 +4630,129 @@ def parity_sharded(rng, docs, prepared, sa, errs):
             torch.cuda.synchronize()
             errs[f"{name}[{tier}]"] = max_abs_err(f"{name} ({tier})", got,
                                                   want)
+    del ix, single
+    rec["rows"] = parity_sharded_rows(card, cpu, prepared, rng, errs)
     rec["seconds"] = time.perf_counter() - t0
     log(f"    K18: every sharded kernel equals its plain version at D={D}; "
-        f"the sharded build on the card equals the CPU's; SA, counts and "
-        f"locate equal the single-device index's ({rec['seconds']:.1f}s, "
-        f"stats {card_stats})")
+        f"the sharded builds on the card equal the CPU's (full, vseg and "
+        f"vrle); SA, counts, locate and an "
+        f"APPROX 1 search equal the single-device index's "
+        f"({rec['seconds']:.1f}s, stats {card_stats}; row tiers "
+        f"{rec['rows']})")
     return rec
+
+
+def same_sharded_index(what, got, want):
+    """Every FMArrays block, meta and the doc lists of two sharded
+    indexes, bit for bit (got on the card, want on the CPU)."""
+    for k, v in want.arrays._asdict().items():
+        w = getattr(got.arrays, k)
+        check((v is None) == (w is None), f"{what} field {k}")
+        if v is not None:
+            max_abs_err(f"{what} field {k}", [w.cpu()], [v])
+    check(dataclasses.asdict(got.meta) == dataclasses.asdict(want.meta),
+          f"{what}: meta differs between card and CPU builds")
+    for k in ("chunk_doc_offsets_np", "chunk_docs_np"):
+        a, b = getattr(got, k), getattr(want, k)
+        check((a is None) == (b is None)
+              and (a is None or np.array_equal(a, b)),
+              f"{what}: {k} differs between card and CPU builds")
+
+
+def cpu_row_builds(prepared, mesh, kws):
+    """{tier: (index, LAST_BUILD_STATS)} of the builds of `prepared` on
+    the CPU mesh with the keywords kws[tier], all from the CPU's own
+    suffix sort: the row tiers pad alike, so the sort runs once and the
+    later builds take copies of its output (dist_build._dist_sa memoised
+    on its padded text, cap factor and seed)."""
+    import torch
+
+    from femto_tpu_torch.parallel import build_index_sharded
+    from femto_tpu_torch.parallel import dist_build as DB
+
+    orig, memo = DB._dist_sa, {}
+
+    def once(text, mesh_, **kw):
+        key = (tuple(text.shape), kw["cap_factor"], kw["seed"])
+        if key not in memo:
+            memo[key] = (text.clone(), orig(text, mesh_, **kw))
+        check(torch.equal(memo[key][0], text),
+              "the row tiers' padded texts differ")
+        return tuple(t.clone() for t in memo[key][1])
+
+    DB._dist_sa = once
+    out = {}
+    try:
+        for tier, kw in kws.items():
+            ix = build_index_sharded(prepared, mesh, **kw)
+            out[tier] = (ix, dict(DB.LAST_BUILD_STATS))
+    finally:
+        DB._dist_sa = orig
+    return out
+
+
+def parity_sharded_rows(card, cpu, prepared, rng, errs):
+    """Phase 3's K18g / K18h checks on the 8 MiB corpus: the sharded vseg
+    and vrle builds (vrle with doc lists) on the card against the CPU
+    mesh's (its own sort; every FMArrays block, meta, the doc lists and
+    LAST_BUILD_STATS), K18f's row-tier entries against their plain
+    versions at the build's own shapes, and on each a sharded APPROX 1
+    search held to the single-device index of the tier, with K18f's
+    masked_occ and kernel R's regex_fork_ranked held to their plain
+    versions at the search's widest layer."""
+    import torch
+
+    import femto_tpu_torch as tt
+    from femto_tpu_torch.ops import dist_ops as DO
+    from femto_tpu_torch.ops import regex_ops as RO
+    from femto_tpu_torch.parallel import (build_index_sharded,
+                                          sharded_regexp_matches)
+    from femto_tpu_torch.parallel import dist_build as DB
+    from femto_tpu_torch.query import regexp_device as RD
+
+    q, fcap = ZIPF_QUERIES["approx1"]
+    node, nfa = query_nfa(q)
+    kws = {tier: dict(seg=256, mark_period=20, tier=tier,
+                      doc_chunks=tier == "vrle") for tier in ROW_LAYOUTS}
+    cpu_ix = cpu_row_builds(prepared, cpu, kws)
+    out = {}
+    for tier in ROW_LAYOUTS:
+        ix = build_index_sharded(prepared, card, **kws[tier])
+        stats = dict(DB.LAST_BUILD_STATS)
+        want_ix, want_stats = cpu_ix.pop(tier)
+        same_sharded_index(f"build_index_sharded[{tier}]", ix, want_ix)
+        check(stats == want_stats, f"sharded {tier} build stats: card "
+                                   f"{stats} != CPU {want_stats}")
+        del want_ix
+        for name, (run_k, run_p, _) in sharded_query_cases(
+                ix, card, rng, 8192).items():
+            got, want = run_k(), run_p()
+            torch.cuda.synchronize()
+            errs[f"{name}[{tier}]"] = max_abs_err(f"{name} ({tier})", got,
+                                                  want)
+        single = tt.build_index(prepared, seg=256, mark_period=20,
+                                tier=tier, device="cuda")
+        got = sharded_regexp_matches(ix, card, nfa, node.approx)
+        want = RD.run_regexp_device(single, nfa, node.approx)
+        shift = ix.meta.row0 - single.meta.row0
+        check(match_tuples(got) == sorted(
+            (m.first + shift, m.last + shift, m.cost, b"") for m in want),
+            f"sharded {tier} {q!r} differs from the single-device index's")
+        depth, n_live, calls = sharded_layer_calls(ix, card, q, fcap)
+        for name, fk, fp in (
+                ("masked_occ", DO.masked_occ, masked_occ_in_chunks),
+                ("regex_fork_ranked", RO.regex_fork_ranked,
+                 RO.regex_fork_ranked_plain)):
+            a, kw = calls[name]
+            k, p = fk(*a, **kw), fp(*a, **kw)
+            torch.cuda.synchronize()
+            errs[f"{name}[{tier}] layer"] = max_abs_err(
+                f"{name} ({tier}, layer {depth}, {n_live} live)", _flat([k]),
+                _flat([p]))
+        out[tier] = {"modes": seg_modes(ix.arrays.seg_woff),
+                     "matches": len(got), "widest": n_live, "stats": stats}
+        del ix, single, calls
+    return out
 
 
 def nccl_pass(prepared, patterns, rng):
@@ -4325,7 +4765,9 @@ def nccl_pass(prepared, patterns, rng):
     from femto_tpu_torch.alphabet import pattern_to_alpha
     from femto_tpu_torch.parallel import (DistMesh, LocalMesh, bins,
                                           build_index_sharded,
-                                          sharded_backward_search)
+                                          sharded_backward_search,
+                                          sharded_docs_query,
+                                          sharded_regexp_matches)
     from femto_tpu_torch.search import pack_patterns
 
     t0 = time.perf_counter()
@@ -4347,34 +4789,84 @@ def nccl_pass(prepared, patterns, rng):
             max_abs_err("bins.exchange (NCCL)", _flat(got), _flat(want))
             packed, B = pack_patterns([pattern_to_alpha(p)
                                        for p in patterns])
-            answers = []
+            node, nfa = query_nfa(ZIPF_QUERIES["approx1"][0])
+            answers, queries = [], []
             for mesh in (dm, lm):
                 ix = build_index_sharded(prepared, mesh, seg=256,
                                          mark_period=20)
                 answers.append([*sharded_backward_search(ix, mesh, packed),
                                 *sharded_backward_search(ix, mesh, packed,
                                                          routed=False)])
+                queries.append((
+                    match_tuples(sharded_regexp_matches(
+                        ix, mesh, nfa, node.approx,
+                        frontier_cap=ZIPF_QUERIES["approx1"][1])),
+                    sharded_docs_query(ix, mesh, NCCL_DOCS_QUERY)))
                 del ix
             max_abs_err("sharded count (NCCL)", answers[0], answers[1])
+            check(queries[0] == queries[1] and queries[0][0]
+                  and queries[0][1],
+                  "the sharded regex or docs query on NCCL differs from "
+                  "LocalMesh(1)'s")
         finally:
             dist.destroy_process_group()
     s = time.perf_counter() - t0
     log(f"[4h] DistMesh on NCCL at world size 1: bins.exchange of {mm} "
-        f"records and the sharded count of {len(patterns)} patterns "
-        f"(routed and psum, n={prepared.n}) equal LocalMesh(1)'s ({s:.1f}s)")
+        f"records, the sharded count of {len(patterns)} patterns (routed "
+        f"and psum, n={prepared.n}), the sharded "
+        f"{ZIPF_QUERIES['approx1'][0]!r} ({len(queries[0][0])} matches) and "
+        f"docs query {NCCL_DOCS_QUERY!r} ({len(queries[0][1])} documents) "
+        f"equal LocalMesh(1)'s ({s:.1f}s)")
     return {"n": prepared.n, "patterns": len(patterns), "seconds": s}
+
+
+def add_launches(acc, launches):
+    """acc += launches, entry by entry (a path read in several parts)."""
+    for k, v in launches.items():
+        acc[k] = acc.get(k, 0) + v
+
+
+def check_doc_lists(ix, mesh, rng, n, doc_starts):
+    """N_DOC_LIST_SEGS sampled segments of a sharded index's doc lists
+    against the documents of their rows' sharded locates (pad rows, at
+    offsets from n on, hold none)."""
+    from femto_tpu_torch.parallel import sharded_locate
+
+    seg = ix.meta.seg
+    segs = np.sort(rng.choice(ix.meta.n_seg, N_DOC_LIST_SEGS, replace=False))
+    rows = (segs[:, None] * seg + np.arange(seg)[None]).reshape(-1)
+    offs = sharded_locate(ix, mesh, rows.astype(np.int32)).cpu().numpy()
+    offs = offs.reshape(len(segs), seg)
+    co, cd = ix.chunk_doc_offsets_np, ix.chunk_docs_np
+    check(co.shape[0] == ix.meta.n_seg + 1 and cd.shape[0] == co[-1],
+          "sharded doc lists: offsets and lists disagree")
+    for k, sg in enumerate(segs):
+        o = offs[k]
+        o = o[(o >= 0) & (o < n)]
+        want = np.unique(np.searchsorted(doc_starts, o, side="right") - 1)
+        check(np.array_equal(cd[co[sg]: co[sg + 1]], want),
+              f"sharded doc list of segment {sg} differs from its rows' "
+              f"documents")
+    return int(cd.shape[0])
 
 
 def phase_sharded(record, rng, st):
     """Phase 4h, the sharded index on a LocalMesh of SHARD_D shards on one
-    card at full size: phase 4's corpus built in the full, compact and
-    packed tiers, each held to phase 4's single-device index (the SA of
-    the real rows, the count of its 32768 patterns with ranges shifted by
-    row0, locate of its 65536 rows, routed and psum); build MiB/s,
-    LAST_BUILD_STATS, peak device memory, count steps/s and locate
-    rows/s; the twin corpus once (the replicated doubling tail at full
-    size); the DistMesh pass on NCCL; then K18's phase 5 rows at these
-    shapes and one sharded build profiled for phase 6."""
+    card at full size: phase 4's corpus built in all five tiers (vrle with
+    doc lists), each held to phase 4's single-device index (the SA of the
+    real rows, the count of its 32768 patterns with ranges shifted by
+    row0, locate of its 65536 rows, routed and psum; phase 4c holds its
+    vseg and vrle indexes to the same answers), 256 segments of the doc
+    lists held to their rows' documents; build MiB/s, LAST_BUILD_STATS,
+    peak device memory, count steps/s and locate rows/s; bench.py's two
+    regexes through the sharded engine on the full, packed, vseg and vrle
+    indexes (the "sharded_query" path, held to phase 4d's answers after
+    it); the twin corpus once (the replicated doubling tail at full
+    size); the DistMesh pass on NCCL; then phase 5's rows at these shapes
+    (K18f on every tier, the K18 build kernels, M, N and P at their first
+    calls in this path's row-tier builds, masked_occ of the sharded_query
+    path on full and packed) and one sharded full and vrle build and one
+    sharded APPROX 1 query profiled for phase 6."""
     import torch
 
     import femto_tpu_torch as tt
@@ -4384,9 +4876,12 @@ def phase_sharded(record, rng, st):
                                           dist_suffix_array,
                                           pad_text_for_mesh,
                                           sharded_backward_search,
-                                          sharded_locate)
+                                          sharded_locate,
+                                          sharded_regexp_matches)
+    from femto_tpu_torch.ops import build_ops as BO
     from femto_tpu_torch.parallel import dist_build as DB
     from femto_tpu_torch.parallel.distributed import put_global
+    from femto_tpu_torch.query import regexp_device as RD
     from femto_tpu_torch.search import pack_patterns
 
     t_phase = time.perf_counter()
@@ -4403,14 +4898,15 @@ def phase_sharded(record, rng, st):
     want_loc = np.asarray(st["offs_direct"])
     torch.cuda.synchronize()
     base_bytes = torch.cuda.memory_allocated()
-    kernels.reset_launches()
-    rec, indexes = {}, {}
-    for tier in SHARD_TIERS:
+    launches, q_launches = {}, {}
+    rec, indexes, zipf_regex = {}, {}, {}
+    for tier in SHARD_LAYOUTS:
         torch.cuda.synchronize()
+        kernels.reset_launches()
         torch.cuda.reset_peak_memory_stats()
         t0 = time.perf_counter()
         ix = build_index_sharded(prepared, mesh, seg=256, mark_period=20,
-                                 tier=tier)
+                                 tier=tier, doc_chunks=tier == "vrle")
         torch.cuda.synchronize()
         s = time.perf_counter() - t0
         peak = torch.cuda.max_memory_allocated()
@@ -4420,6 +4916,8 @@ def phase_sharded(record, rng, st):
              "peak_device_bytes": peak,
              "peak_above_phase4_bytes": peak - base_bytes,
              "n_pad": ix.meta.n_rows, "row0": row0}
+        if tier in ROW_LAYOUTS:
+            r["modes"] = seg_modes(ix.arrays.seg_woff)
         for routed in (True, False):
             tag = "routed" if routed else "psum"
             torch.cuda.synchronize()
@@ -4438,8 +4936,32 @@ def phase_sharded(record, rng, st):
                   f"sharded {tier} locate ({tag}) differs from phase 4's")
             r[f"count_{tag}_steps_per_s"] = len(patterns) * PATLEN / tc
             r[f"locate_{tag}_rows_per_s"] = len(loc_rows) / tl
+        if ix.chunk_docs_np is not None:
+            r["doc_list_entries"] = check_doc_lists(
+                ix, mesh, rng, n, prepared.doc_starts)
+        torch.cuda.synchronize()
+        add_launches(launches, kernels.launches)
+        if tier != "compact":
+            # bench.py's regexes through the sharded engine
+            kernels.reset_launches()
+            for name, (q, fcap) in ZIPF_QUERIES.items():
+                node, nfa = query_nfa(q)
+
+                def run():
+                    return sharded_regexp_matches(ix, mesh, nfa, node.approx,
+                                                  frontier_cap=fcap)
+                ms = run()
+                qstats = dict(RD.last_stats)
+                lat = wall_runs(run)
+                zipf_regex[tier, name] = sorted(
+                    (m.first - row0, m.last - row0, m.cost) for m in ms)
+                r[f"query_{name}"] = {"query": q, "latency_s": summary(lat),
+                                      "ranges": len(ms), **qstats}
+            torch.cuda.synchronize()
+            add_launches(q_launches, kernels.launches)
         rec[tier] = r
         indexes[tier] = ix
+        del ix
         log(f"[4h] sharded {tier} (D={D}, n={n}, n_pad={r['n_pad']}): build "
             f"{s:.2f}s = {r['build_mib_per_s']:.1f} MiB/s, peak device "
             f"memory {peak / 2**30:.2f} GiB ({(peak - base_bytes) / 2**30:.2f}"
@@ -4448,7 +4970,42 @@ def phase_sharded(record, rng, st):
             f"{r['count_psum_steps_per_s']:.4g} steps/s (routed / psum), "
             f"locate {r['locate_routed_rows_per_s']:.4g} / "
             f"{r['locate_psum_rows_per_s']:.4g} rows/s; every answer equals "
-            f"phase 4's index")
+            f"phase 4's index"
+            + (f"; segments by mode {r['modes']}" if "modes" in r else "")
+            + (f"; {N_DOC_LIST_SEGS} sampled doc lists equal their rows' "
+               f"documents ({r['doc_list_entries']} entries)"
+               if "doc_list_entries" in r else "")
+            + "".join(f"; {k[6:]} {v['query']!r} median "
+                      f"{v['latency_s']['median'] * 1e3:.3f} ms, layers "
+                      f"{v['layers']}, widest {v['max_live']}, retries "
+                      f"{v['retries']}" for k, v in r.items()
+                      if k.startswith("query_")))
+    for name in ZIPF_QUERIES:
+        for tier in ("packed", "vseg", "vrle"):
+            check(zipf_regex[tier, name] == zipf_regex["full", name],
+                  f"sharded {tier} {name} differs from the sharded full "
+                  f"index's")
+    # the prose at seg PROSE_SEG: side-table and continued segments (the
+    # zipf corpus has neither); phase 4h's query part serves them
+    pprep = tt.prepare_documents(prose_docs())
+    prose = {}
+    for tier in ROW_LAYOUTS:
+        kernels.reset_launches()
+        t0 = time.perf_counter()
+        prose[tier] = build_index_sharded(pprep, mesh, seg=PROSE_SEG,
+                                          mark_period=20, tier=tier)
+        torch.cuda.synchronize()
+        add_launches(launches, kernels.launches)
+        modes = seg_modes(prose[tier].arrays.seg_woff)
+        rec[f"prose_{tier}"] = {"build_s": time.perf_counter() - t0,
+                                "modes": modes}
+        log(f"[4h] sharded prose {tier} (D={D}, seg {PROSE_SEG}, "
+            f"{pprep.n / 2**20:.4f} MiB, blake2b {_PROSE['blake2b']}): "
+            f"build {rec[f'prose_{tier}']['build_s']:.2f}s, segments by "
+            f"mode {modes}")
+    check(rec["prose_vrle"]["modes"]["continuation"] > 0,
+          "the sharded prose vrle index has no continued segments")
+    kernels.reset_launches()
     tp, n_pad = pad_text_for_mesh(prepared.text, D, 256)
     sa, _, _, of = dist_suffix_array(put_global(tp, mesh), mesh, n=n)
     del tp
@@ -4471,16 +5028,17 @@ def phase_sharded(record, rng, st):
                                  "pattern is found fewer than twice")
     del twin
     torch.cuda.synchronize()
-    launches = dict(kernels.launches)
+    add_launches(launches, kernels.launches)
     log(f"[4h] SA of the real rows equals phase 4's; twin corpus: build "
         f"{twin_s:.2f}s, stats {twin_stats}; launches "
-        f"{ {k: v for k, v in launches.items() if v} }")
+        f"{ {k: v for k, v in launches.items() if v} }; the sharded "
+        f"engine's {  {k: v for k, v in q_launches.items() if v} }")
     for name in PATH_KERNELS["sharded"]:
-        check(launches[name] >= 1,
+        check(launches.get(name, 0) >= 1,
               f"kernel {name} was not launched on the sharded path")
     small = tt.prepare_documents(st["docs"][:64])
     nccl = nccl_pass(small, patterns[:N_NCCL_PATTERNS], rng)
-    # phase 5: K18f on each tier at the count's and locate's lane counts,
+    # phase 5: K18f on each layout at the count's and locate's lane counts,
     # then the build kernels at this corpus's shapes
     log("[5] the sharded path's kernels (D=4 on phase 4's corpus):")
     rows5 = []
@@ -4490,21 +5048,358 @@ def phase_sharded(record, rng, st):
             key = f"{name}[{tier}]"
             rows5.append(timed_row(key, "sharded", launches[key], run_k,
                                    run_p, nbytes, card))
-    del indexes, ix
+    # the sharded_query path's masked_occ on the zipf full and packed
+    # indexes (bench.py's regexes above; the row tiers' rows are at the
+    # prose's widest layer, in the query part)
+    for tier in ("full", "packed"):
+        rows, shape = sharded_layer_rows(
+            indexes[tier], mesh, *ZIPF_QUERIES["approx1"], tier,
+            ["masked_occ"], q_launches, card)
+        rows5 += rows
+        log(f"    the sharded zipf {tier} widest layer: {shape}")
+    # phase 6: one sharded APPROX 1 query (zipf vrle)
+    node, nfa = query_nfa(ZIPF_QUERIES["approx1"][0])
+    vix = indexes["vrle"]
+    prof = {"sharded_query_approx1_vrle": profile_with_gaps(
+        "sharded_query_approx1_vrle", lambda: sharded_regexp_matches(
+            vix, mesh, nfa, node.approx,
+            frontier_cap=ZIPF_QUERIES["approx1"][1]))}
+    del indexes, ix, vix
     for name, run_k, run_p, nbytes, lib in sharded_cases(mesh, prepared, 256,
                                                          20):
         rows5.append(timed_row(name, "sharded", launches[name], run_k, run_p,
                                nbytes, card, library=lib))
-    # phase 6: one sharded build
-    prof = {"sharded_build_full": profile_with_gaps(
-        "sharded_build_full", lambda: build_index_sharded(
-            prepared, mesh, seg=256, mark_period=20))}
+    # M, N and P at their first calls in this path's builds: zipf vseg,
+    # zipf vrle with doc lists, then the prose (side-table and continued
+    # segments, which zipf lacks)
+    builds = [
+        lambda: build_index_sharded(prepared, mesh, seg=256, mark_period=20,
+                                    tier="vseg"),
+        lambda: build_index_sharded(prepared, mesh, seg=256, mark_period=20,
+                                    tier="vrle", doc_chunks=True),
+        lambda: build_index_sharded(pprep, mesh, seg=PROSE_SEG,
+                                    mark_period=20, tier="vseg"),
+        lambda: build_index_sharded(pprep, mesh, seg=PROSE_SEG,
+                                    mark_period=20, tier="vrle")]
+    calls = first_calls([(BO, k, None) for k in SHARDED_ROW_KERNELS],
+                        builds)
+    for name in SHARDED_ROW_KERNELS:
+        a, kw = calls.pop(name)
+        run_k, run_p, nbytes, lib = row_case(name, a, kw)
+        log(f"    {name} at its first call: inputs "
+            f"{[tuple(t.shape) for t in _flat(a) if torch.is_tensor(t)]}")
+        rows5.append(timed_row(name, "sharded", launches[name], run_k, run_p,
+                               nbytes, card, library=lib))
+        del a, kw, run_k, run_p, lib
+    # A, A', F, B, G, H and L as the sharded builds run them (a full and a
+    # compact build)
+    calls = first_calls(sharded_build_calls(), [
+        lambda: build_index_sharded(prepared, mesh, seg=256, mark_period=20),
+        lambda: build_index_sharded(prepared, mesh, seg=256, mark_period=20,
+                                    tier="compact")])
+    for _, entry, _ in sharded_build_calls():
+        a, kw = calls.pop(entry)
+        name, run_k, run_p, nbytes, lib = build_case(entry, a, kw)
+        log(f"    {name} at its call in a sharded build: inputs "
+            f"{[tuple(t.shape) for t in _flat(a) if torch.is_tensor(t)]}")
+        rows5.append(timed_row(name, "sharded", launches[name], run_k, run_p,
+                               nbytes, card, library=lib))
+        del a, kw, run_k, run_p, lib
+    # phase 6: one sharded full and one sharded vrle build
+    for tier in ("full", "vrle"):
+        prof[f"sharded_build_{tier}"] = profile_with_gaps(
+            f"sharded_build_{tier}", lambda: build_index_sharded(
+                prepared, mesh, seg=256, mark_period=20, tier=tier))
     record["sharded_path"] = {
-        "D": D, "mib": MAIN_MIB, "n": n, "tiers": rec, "twin_stats": twin_stats,
+        "D": D, "mib": MAIN_MIB, "n": n, "tiers": rec,
+        "twin_stats": twin_stats,
         "twin_build_s": twin_s, "nccl": nccl, "launches": launches,
-        "card": card, "seconds": time.perf_counter() - t_phase}
+        "query_launches": q_launches, "card": card,
+        "seconds": time.perf_counter() - t_phase}
     log(f"[4h] phase 4h took {record['sharded_path']['seconds']:.1f}s")
-    return {"launches": launches, "kernel_rows": rows5, "profile": prof}
+    return {"launches": launches, "query_launches": q_launches,
+            "zipf_regex": zipf_regex, "prose": prose, "kernel_rows": rows5,
+            "profile": prof}
+
+
+# lanes a plain row-tier decode takes at once in phase 5's rows at the
+# query shapes (its slot views are lanes x slots wide)
+PLAIN_LANES = 1 << 16
+
+
+def bound_masked_occ(arrays, codes, lanes, kw):
+    """masked_occ's lanes in, Dl results a lane out, and per lane of a
+    present code below the rows' end the owner's checkpoint and prefix."""
+    from femto_tpu_torch.ops import rank as R
+
+    ckpt, prefix = sharded_prefix_bytes(arrays, kw["nseg_local"])
+    seg = R.seg_size(arrays)
+    ok = (codes >= 0) & (lanes < kw["n_rows_total"])
+    r = lanes[ok].long()
+    total = (8 + 4 * kw["Dl"]) * lanes.numel()
+    for i in range(0, r.numel(), PLAIN_LANES):
+        c = r[i: i + PLAIN_LANES]
+        total += int((ckpt + prefix(c // seg, c % seg)).sum())
+    return total
+
+
+def masked_occ_in_chunks(arrays, codes, lanes, **kw):
+    """masked_occ_plain over PLAIN_LANES lanes at a time (a lane's answer
+    is its own)."""
+    import torch
+
+    from femto_tpu_torch.ops import dist_ops as DO
+
+    return torch.cat([DO.masked_occ_plain(arrays, codes[i: i + PLAIN_LANES],
+                                          lanes[i: i + PLAIN_LANES], **kw)
+                      for i in range(0, lanes.numel(), PLAIN_LANES)], dim=1)
+
+
+def owner_case(name, a, kw):
+    """(run_k, run_p, bytes moved, None) of K18f's owner_occ or owner_lf on
+    captured arguments: the lanes in and out, and per valid lane the
+    owner's checkpoint and row prefix (and for LF two marks' words)."""
+    from femto_tpu_torch.ops import dist_ops as DO
+    from femto_tpu_torch.ops import rank as R
+
+    arrays, rows = a[0], a[1]
+    valid = a[3] if name == "owner_occ" else a[2]
+    nl = kw["nseg_local"]
+    ckpt, prefix = sharded_prefix_bytes(arrays, nl)
+    seg = R.seg_size(arrays)
+    r = rows[valid.bool()].long()
+    lanes = (int((ckpt + 4 + prefix(r // seg - kw["shard0"] * nl, r % seg))
+                 .sum()) if r.numel() else 0)
+    nbytes = (13 if name == "owner_occ" else 17) * rows.numel() + lanes
+    fk, fp = getattr(DO, name), getattr(DO, name + "_plain")
+    return (lambda: [fk(*a, **kw)], lambda: [fp(*a, **kw)], nbytes, None)
+
+
+def bound_fork_ranked(n_live, nd, E):
+    """Each live entry's cost row, the forks' ranges and the NFA in; every
+    fork's key and cost row out."""
+    from femto_tpu_torch.ops import regex_ops as RO
+
+    return (4 * n_live * nd.S + 8 * E + 4 * (nd.S + 1)
+            + 4 * (1 + RO.MASK_WORDS) * nd.T + E * (8 + 4 * nd.S))
+
+
+def sharded_layer_rows(ix, mesh, q, fcap, lay, entries, launches, card):
+    """Phase 5's sharded_query rows of `entries` (of sharded_layer_calls)
+    at the widest layer of q on the sharded index ix of layout lay, each
+    held to its plain version on the captured inputs: (rows, the layer's
+    shape)."""
+    import torch
+
+    from femto_tpu_torch.ops import dist_ops as DO
+    from femto_tpu_torch.ops import regex_ops as RO
+    from femto_tpu_torch.ops import sort_ops as SO
+
+    depth, n_live, calls = sharded_layer_calls(ix, mesh, q, fcap)
+    shape = {"query": q, "depth": depth, "n_live": n_live}
+    rows = []
+    for name in entries:
+        a, kw = calls[name]
+        key, lib = name, None
+        if name == "masked_occ":
+            key = f"masked_occ[{lay}]"
+            arrays, codes, lanes = a
+            run_k = (lambda: [DO.masked_occ(*a, **kw)])
+            run_p = (lambda: [masked_occ_in_chunks(*a, **kw)])
+            nbytes = bound_masked_occ(arrays, codes, lanes, kw)
+            shape["lanes"] = lanes.numel()
+        elif name == "regex_fork_ranked":
+            nf, _, _, nl_, nd, _ = a[:6]
+            run_k = (lambda: RO.regex_fork_ranked(*a, **kw))
+            run_p = (lambda: RO.regex_fork_ranked_plain(*a, **kw))
+            nbytes = bound_fork_ranked(nl_, nd, nf.numel())
+            shape.update(S=nd.S, T=nd.T, forks=nf.numel())
+        elif name == "radix_sort_pairs":
+            keys = a[0]
+            run_k = (lambda: SO.radix_sort_pairs(*a))
+            run_p = (lambda: SO.radix_sort_pairs_plain(*a))
+            nbytes = 20 * keys.numel()
+
+            def lib():
+                return torch.sort(keys, stable=True)
+        elif name == "regex_merge":
+            head, bufs = a[:6], a[6:]
+            mine = {who: [b.clone() for b in bufs]
+                    for who in ("kernel", "plain", "bound")}
+            RO.regex_merge_plain(*head, *mine["bound"])
+
+            def merge(fn, who):
+                fn(*head, *mine[who])
+                return mine[who]
+
+            run_k = (lambda: merge(RO.regex_merge, "kernel"))
+            run_p = (lambda: merge(RO.regex_merge_plain, "plain"))
+            nbytes = regex_merge_bytes(head[0], mine["bound"][4], head[3],
+                                       head[4])
+        else:
+            raise ValueError(f"no sharded layer row for {name}")
+        rows.append(timed_row(key, "sharded_query", launches[key], run_k,
+                              run_p, nbytes, card, library=lib))
+    return rows, shape
+
+
+def phase_sharded_query(record, rng, st4, st8):
+    """Phase 4h's query part, after phase 4d: bench.py's regexes on the
+    sharded zipf indexes (run in 4h) held to phase 4d's answers; on 4h's
+    sharded prose vseg and vrle indexes (seg PROSE_SEG), PROSE_QUERIES
+    through sharded_count_query and sharded_docs_query held to phase 4d's
+    single-device answers, ms per query and layers (the "sharded_query"
+    path, with 4h's regex launches); phase 5's rows of K18f masked_occ,
+    R regex_fork_ranked, H and R regex_merge at the widest layer of APPROX
+    2 parameter on the sharded prose indexes, and of the routed exchanges
+    and owner answers at a docs query's first calls; a checkpointed
+    dist_suffix_array of a 2^24-symbol zipf corpus that keeps its seed
+    file, and one that resumes from it."""
+    import torch
+
+    from femto_tpu_torch import kernels
+    from femto_tpu_torch.parallel import (LocalMesh, sharded_count_query,
+                                          sharded_docs_query)
+    from femto_tpu_torch.query import regexp_device as RD
+
+    t_phase = time.perf_counter()
+    card = record["toolchain"]["card"]
+    D = SHARD_D
+    mesh = LocalMesh(D, "cuda")
+    for (tier, name), got in st8["zipf_regex"].items():
+        check(got == st4["zipf_answers"][name],
+              f"sharded {tier} {name} differs from phase 4d's answer")
+    indexes = st8.pop("prose")
+    kernels.reset_launches()
+    out = {}
+    for tier, ix in indexes.items():
+        for name, (q, _, icase) in PROSE_QUERIES.items():
+            RD.last_stats.clear()
+            count = sharded_count_query(ix, mesh, q, icase=icase)
+            stats = dict(RD.last_stats)
+            got_docs = [d for d, _, _ in sharded_docs_query(
+                ix, mesh, q, with_offsets=False, icase=icase)]
+            want_count, want_docs = st4["prose_answers"][tier, name]
+            check(count == want_count and got_docs == want_docs,
+                  f"sharded prose {tier} {name}: count {count} / "
+                  f"{len(got_docs)} docs != the single-device {want_count} "
+                  f"/ {len(want_docs)}")
+            lat = wall_runs(lambda: sharded_count_query(ix, mesh, q,
+                                                        icase=icase))
+            out[f"{tier} {name}"] = {"query": q, "latency_s": summary(lat),
+                                     "count": count, "docs": len(got_docs),
+                                     **stats}
+            log(f"    sharded prose {tier} {name} {q!r}: median "
+                f"{statistics.median(lat) * 1e3:.3f} ms, layers "
+                f"{stats.get('layers', '-')}, widest "
+                f"{stats.get('max_live', '-')}, count {count}, docs "
+                f"{len(got_docs)}; equal to phase 4d's")
+    torch.cuda.synchronize()
+    q_launches = dict(st8["query_launches"])
+    add_launches(q_launches, kernels.launches)
+    for name in PATH_KERNELS["sharded_query"]:
+        check(q_launches.get(name, 0) >= 1,
+              f"kernel {name} was not launched on the sharded_query path")
+    # phase 5: K18f's masked_occ (both row tiers), R's given-ranges fork,
+    # H and R's merge (vrle) at the widest layer of APPROX 2 parameter on
+    # the sharded prose indexes, each at its call there
+    q = PROSE_QUERIES["approx2"][0]
+    rows5, layer = [], {}
+    for tier, ix in indexes.items():
+        entries = ["masked_occ"] + (
+            ["regex_fork_ranked", "radix_sort_pairs", "regex_merge"]
+            if tier == "vrle" else [])
+        rows, layer[tier] = sharded_layer_rows(ix, mesh, q, 256, tier,
+                                               entries, q_launches, card)
+        rows5 += rows
+        log(f"    the sharded prose {tier} {q!r} widest layer: "
+            f"{layer[tier]}")
+    # the routed exchanges and owner answers at a docs query's shapes:
+    # each kernel's first call in the query, stopped there
+    bq = PROSE_QUERIES["and"][0]
+    for tier, tix in indexes.items():
+        def docs(tix=tix):
+            sharded_docs_query(tix, mesh, bq)
+        names = ["owner_occ", "owner_lf"] + (
+            ["bucket_pack", "owner_place"] if tier == "vrle" else [])
+        for name in names:
+            a, kw = captured_call(name, None, docs)
+            key = name if name in ("bucket_pack", "owner_place") \
+                else f"{name}[{tier}]"
+            if name in ("bucket_pack", "owner_place"):
+                run_k, run_p, nbytes, lib = sharded_case(name, a, kw)
+            else:
+                run_k, run_p, nbytes, lib = owner_case(name, a, kw)
+            rows5.append(timed_row(key, "sharded_query", q_launches[key],
+                                   run_k, run_p, nbytes, card, library=lib))
+    del indexes, ix, tix
+    ckpt = checkpoint_pass(mesh)
+    record["sharded_query_path"] = {
+        "queries": out, "launches": q_launches, "widest_layer": layer,
+        "checkpoint": ckpt, "card": card,
+        "seconds": time.perf_counter() - t_phase}
+    log(f"[4h] the sharded query part took "
+        f"{record['sharded_query_path']['seconds']:.1f}s")
+    return {"launches": q_launches, "kernel_rows": rows5, "profile": {}}
+
+
+def checkpoint_pass(mesh):
+    """dist_suffix_array of a CKPT_DOCS-document zipf corpus (2^24
+    symbols) with a checkpoint directory, its seed file kept
+    (_ckpt_clear held back), then again from that file: "resumed" set and
+    the same SA; the save's ms, the files' bytes and both runs' seconds."""
+    import torch
+
+    import femto_tpu_torch as tt
+    from femto_tpu_torch.parallel import dist_suffix_array, pad_text_for_mesh
+    from femto_tpu_torch.parallel import dist_build as DB
+    from femto_tpu_torch.parallel.distributed import put_global
+
+    prep = tt.prepare_documents(zipf_docs(np.random.default_rng(7),
+                                          CKPT_DOCS))
+    tp, n_pad = pad_text_for_mesh(prep.text, mesh.D, 256)
+    text = put_global(tp, mesh)
+    kw = dict(n=prep.n, doc_starts=torch.from_numpy(
+        prep.doc_starts.astype(np.int32)).to(mesh.device), mark_period=20)
+    save_ms = []
+    orig_save, orig_clear = DB._ckpt_save, DB._ckpt_clear
+
+    def timed_save(*a, **k):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        orig_save(*a, **k)
+        save_ms.append((time.perf_counter() - t0) * 1e3)
+
+    with tempfile.TemporaryDirectory() as ck:
+        DB._ckpt_save = timed_save
+        DB._ckpt_clear = lambda *a, **k: None
+        try:
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            sa1 = dist_suffix_array(text, mesh, checkpoint_dir=ck, **kw)[0]
+            torch.cuda.synchronize()
+            first_s = time.perf_counter() - t0
+        finally:
+            DB._ckpt_save, DB._ckpt_clear = orig_save, orig_clear
+        files = {f: os.path.getsize(os.path.join(ck, f))
+                 for f in os.listdir(ck)}
+        t0 = time.perf_counter()
+        sa2 = dist_suffix_array(text, mesh, checkpoint_dir=ck, **kw)[0]
+        torch.cuda.synchronize()
+        resumed_s = time.perf_counter() - t0
+        stats = dict(DB.LAST_BUILD_STATS)
+        left = os.listdir(ck)
+    check(stats.get("resumed") and torch.equal(sa1, sa2) and not left
+          and len(save_ms) == 1,
+          f"the checkpointed build did not resume to the same SA: {stats}, "
+          f"files left {left}, saves {save_ms}")
+    rec = {"n": prep.n, "n_pad": n_pad, "files": files, "save_ms": save_ms,
+           "first_s": first_s, "resumed_s": resumed_s, "stats": stats}
+    log(f"[4h] checkpoint / resume (D={mesh.D}, n={prep.n}, n_pad={n_pad}):"
+        f" the seed file {files} saved in {save_ms[0]:.1f} ms, the first "
+        f"build {first_s:.2f}s; the resumed build {resumed_s:.2f}s, "
+        f"stats {stats}, the same SA, the file cleared")
+    return rec
 
 
 def sort_kernel_rows(record, kernel_row, text, ds, sa, sa_direct, rows, *,
@@ -4706,15 +5601,18 @@ def bound_regex_fork(arrays, first, last, costs, n_live, nd, cfg):
     return total / HBM_BYTES_PER_S * 1e3
 
 
-def bound_regex_merge(skeys, state, nd, cfg):
+def regex_merge_bytes(skeys, state, nd, cfg):
     """The live forks' keys, rows and cost rows in (and the first dead
     key); the kept runs' frontier rows and the hits' result rows out."""
     live = int((skeys != cfg.dead).sum())
     n_keep = int(state[2])
     n_hits = int(state[0]) - int(state[4])
-    total = (live * (8 + 4 + 4 * nd.S) + 8 + n_keep * (8 + 4 * nd.S)
-             + 16 * n_hits + 2 * 4 * 8)
-    return total / HBM_BYTES_PER_S * 1e3
+    return (live * (8 + 4 + 4 * nd.S) + 8 + n_keep * (8 + 4 * nd.S)
+            + 16 * n_hits + 2 * 4 * 8)
+
+
+def bound_regex_merge(skeys, state, nd, cfg):
+    return bound_ms(regex_merge_bytes(skeys, state, nd, cfg))
 
 
 def widest_frontier(ix, q, fcap):
@@ -4842,7 +5740,7 @@ def query_kernel_rows(kernel_row, st, st3, st4):
         kernel_row("radix_sort_pairs",
                    lambda: SO.radix_sort_pairs(keys, None, 0, bits),
                    lambda: SO.radix_sort_pairs_plain(keys, None, 0, bits),
-                   bound_ms(20 * E), paths=("query",),
+                   bound_ms(20 * E), paths=("query", "sharded_query"),
                    library=lambda: torch.sort(keys, stable=True))
         skeys, sidx = SO.radix_sort_pairs(keys, None, 0, bits)
         bufs = {who: [b.clone() for b in (first, last, costs)]
@@ -4995,13 +5893,19 @@ def phase_numbers(record, st, st2, st3, st4, own):
                      "rows": st3["launches"], "query": st4["launches"],
                      "query_host": st4["host_launches"],
                      "chunked": own[0]["launches"],
-                     "sharded": own[3]["launches"]}
+                     "sharded": own[3]["launches"],
+                     "sharded_query": own[4]["launches"]}
+
+    # the chunked, paged, lcp and sharded paths' kernels, timed in phases
+    # 4e to 4h at their own shapes
+    own_rows = {(r["name"], r["path"]) for o in own for r in o["kernel_rows"]}
 
     def kernel_row(name, run_k, run_p, bound_ms, library=None, paths=None):
         """One kernel against its plain version at these shapes; plain_ms
         is the time of that one comparison run.  One row per main path
         that launched the kernel (of `paths`, where given: a kernel timed
-        at two paths' shapes), with that path's own count."""
+        at two paths' shapes), with that path's own count, but for a path
+        whose own phase timed the kernel at its own shapes."""
         a, b = torch.cuda.Event(enable_timing=True), \
             torch.cuda.Event(enable_timing=True)
         got = run_k()
@@ -5017,7 +5921,8 @@ def phase_numbers(record, st, st2, st3, st4, own):
         src, replaces = KERNELS[name]
         per_path = {p: c.get(name, 0) for p, c in path_launches.items()
                     if (c.get(name, 0) or name in PATH_KERNELS[p])
-                    and (paths is None or p in paths)}
+                    and (paths is None or p in paths)
+                    and (name, p) not in own_rows}
         for path, launches in per_path.items():
             kern.append({
                 "name": name, "path": path, "route": "cuda", "source": src,
@@ -5104,9 +6009,14 @@ def phase_numbers(record, st, st2, st3, st4, own):
     del isa
     row_kernel_rows(kernel_row, st3)
     record["query_shapes"] = query_kernel_rows(kernel_row, st, st3, st4)
-    # the chunked, paged and lcp paths' kernels, timed in phases 4e, 4f
-    # and 4g at their shapes
-    record["kernels"] = kern + [r for o in own for r in o["kernel_rows"]]
+    rows = kern + [r for o in own for r in o["kernel_rows"]]
+    have = {(r["name"], r["path"]) for r in rows}
+    missing = sorted((name, path) for path, counts in path_launches.items()
+                     for name, c in counts.items()
+                     if c and (name, path) not in have)
+    check(not missing, f"kernels launched on a path with no phase 5 row: "
+                       f"{missing}")
+    record["kernels"] = rows
 
 
 def own_kernel_names():
@@ -5268,10 +6178,13 @@ def main(argv=None):
         st2 = phase_tiers(record, rng, st)
         st3 = phase_rows(record, rng, st, st2)
         st4 = phase_query(record, rng, st, st2, st3)
+        # the sharded query engine, held to phase 4d's answers
+        st9 = phase_sharded_query(record, rng, st4, st8)
         st6 = phase_paged(record, rng, st, st3, st4)
         st7 = phase_lcp(record, rng, st, st3)
-        phase_numbers(record, st, st2, st3, st4, (st5, st6, st7, st8))
-        phase_profile(record, st, st2, st3, st4, (st5, st6, st7, st8))
+        own = (st5, st6, st7, st8, st9)
+        phase_numbers(record, st, st2, st3, st4, own)
+        phase_profile(record, st, st2, st3, st4, own)
     except SmokeError as e:
         print(f"chip_smoke: FAILED: {e}", file=sys.stderr)
         return 1

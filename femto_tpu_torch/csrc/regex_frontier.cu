@@ -1,8 +1,14 @@
-// Kernel R: one layer of the device regex frontier (K15), in two entries.
+// Kernel R: one layer of the device regex frontier (K15), in three entries.
 //
 //   regex_fork   every fork (entry f, symbol a) of the n_live live entries:
 //                whether a is reachable from f's cost vector, the FM step
 //                of f's range by a, and the fork's new cost vector;
+//   regex_fork_ranked  the same with each fork's new range given (two
+//                int32 [n_live * 261] arrays), for the sharded frontier
+//                (K18h: femto_tpu/parallel/dist_query.py _regexp_body
+//                572 over backward_step_pair_sharded 99), whose ranks are
+//                summed over the mesh's shards (K18f masked_occ + psum)
+//                before the fork, since no kernel sums across processes;
 //   regex_merge  after the forks are sorted by (first, last) (kernel H),
 //                min-merge each run of equal ranges, record the runs that
 //                accept into the results and compact the runs into the
@@ -84,13 +90,17 @@ struct ForkArgs {
   long long* keys;           // int64[n_live * 261]
   int* fcosts;               // int32[n_live * 261, S]
   int* scratch;              // int32[n_live * kForkWarps, S] or null
+  const int* rfirst;         // int32[n_live * 261]: the forks' ranges
+  const int* rlast;          //   (regex_fork_ranked), else null
 };
 
 __device__ __forceinline__ long long dead_key(int half_bits) {
   return (1LL << (2 * half_bits)) - 1;
 }
 
-template <int L>
+// kRanked: the forks' ranges come from a.rfirst / a.rlast and ix is not
+// read (regex_fork_ranked); else lanes 0 and 1 rank them (regex_fork).
+template <int L, bool kRanked>
 __global__ void __launch_bounds__(kForkThreads)
     regex_fork_kernel(femto::FmView ix, ForkArgs a) {
   extern __shared__ int sh[];
@@ -126,7 +136,8 @@ __global__ void __launch_bounds__(kForkThreads)
   __syncthreads();
   const bool any_live =
       approx && min_cost + min(a.subst, a.ins) < a.bound;
-  const int first = a.first[f], last = a.last[f];
+  const int first = kRanked ? 0 : a.first[f];
+  const int last = kRanked ? 0 : a.last[f];
   const long long dead = dead_key(a.half_bits);
   int* buf0 = in_smem ? sh + S + warp * 2 * S : nullptr;
   for (int c = warp; c < femto::kAlpha; c += kForkWarps) {
@@ -138,13 +149,18 @@ __global__ void __launch_bounds__(kForkThreads)
     bool alive = false;
     int* A = nullptr;
     if (reached) {
-      const int cd = femto::map_char(ix, c);  // uniform in the warp
-      if (cd >= 0) {
-        int o = 0;
-        if (lane < 2)
-          o = __ldg(ix.C + cd) + femto::occ<L>(ix, cd, lane ? last : first);
-        nf = __shfl_sync(0xffffffffu, o, 0);
-        nl = __shfl_sync(0xffffffffu, o, 1);
+      if constexpr (kRanked) {
+        nf = __ldg(a.rfirst + row);
+        nl = __ldg(a.rlast + row);
+      } else {
+        const int cd = femto::map_char(ix, c);  // uniform in the warp
+        if (cd >= 0) {
+          int o = 0;
+          if (lane < 2)
+            o = __ldg(ix.C + cd) + femto::occ<L>(ix, cd, lane ? last : first);
+          nf = __shfl_sync(0xffffffffu, o, 0);
+          nl = __shfl_sync(0xffffffffu, o, 1);
+        }
       }
       if (nl > nf) {
         A = in_smem ? buf0 : out;
@@ -397,13 +413,47 @@ extern "C" int femto_regex_fork(const femto::FmView* ix, const void* first,
              static_cast<const unsigned*>(in_mask), bound, subst, del, ins,
              del_rounds, allow_subst, half_bits,
              static_cast<long long*>(keys), static_cast<int*>(fcosts),
-             static_cast<int*>(scratch)};
+             static_cast<int*>(scratch), nullptr, nullptr};
   const int smem = in_smem ? fork_smem_bytes(S) : 0;
   return femto::dispatch_layout(*ix, [&](auto layout) {
     constexpr int L = decltype(layout)::value;
-    regex_fork_kernel<L><<<n_live, kForkThreads, smem,
-                           static_cast<cudaStream_t>(stream)>>>(*ix, a);
+    regex_fork_kernel<L, false><<<n_live, kForkThreads, smem,
+                                  static_cast<cudaStream_t>(stream)>>>(*ix,
+                                                                       a);
   });
+}
+
+// regex_fork with the forks' new ranges given: rfirst, rlast int32
+// [n_live * 261] (fork f * 261 + a: the range of entry f's range stepped
+// by symbol a, (0, 0) where a is absent), as the sharded frontier sums
+// them over the mesh; the rest as femto_regex_fork.
+extern "C" int femto_regex_fork_ranked(const void* costs, const void* rfirst,
+                                       const void* rlast, int n_live, int S,
+                                       int T, const void* in_off,
+                                       const void* in_src,
+                                       const void* in_mask, int bound,
+                                       int subst, int del, int ins,
+                                       int del_rounds, int allow_subst,
+                                       int half_bits, void* keys,
+                                       void* fcosts, void* scratch,
+                                       void* stream) {
+  if (n_live <= 0) return static_cast<int>(cudaGetLastError());
+  const bool in_smem = fork_smem_bytes(S) <= kSmemLimit;
+  if (!in_smem && scratch == nullptr)
+    return static_cast<int>(cudaErrorInvalidValue);
+  ForkArgs a{nullptr, nullptr, static_cast<const int*>(costs), S, T,
+             static_cast<const int*>(in_off), static_cast<const int*>(in_src),
+             static_cast<const unsigned*>(in_mask), bound, subst, del, ins,
+             del_rounds, allow_subst, half_bits,
+             static_cast<long long*>(keys), static_cast<int*>(fcosts),
+             static_cast<int*>(scratch), static_cast<const int*>(rfirst),
+             static_cast<const int*>(rlast)};
+  const femto::FmView none{};
+  const int smem = in_smem ? fork_smem_bytes(S) : 0;
+  regex_fork_kernel<femto::kFull, true>
+      <<<n_live, kForkThreads, smem, static_cast<cudaStream_t>(stream)>>>(
+          none, a);
+  return static_cast<int>(cudaGetLastError());
 }
 
 // The merge of E sorted forks (keys, idx from kernel H over regex_fork's

@@ -316,8 +316,14 @@ def _check_row_tier_layout(arrays: Mapping[str, np.ndarray]) -> None:
         raise ValueError("this vrle index stores u8 RLE slots (a legacy "
                          "layout); rebuild it with the current version "
                          "(tier='vrle')")
-    if "seg_cont" not in arrays or (scheme == 3
-                                    and arrays["seg_cont"].shape[0] > 1):
+    from .ops.build_ops import VRLE_CONT_G
+
+    # a sharded build keeps an unread store of zero granule rows, one a
+    # shard, when no segment is continued
+    cont = arrays.get("seg_cont")
+    unread = (cont is not None and cont.ndim == 2
+              and cont.shape[1] == VRLE_CONT_G and not cont.any())
+    if cont is None or (scheme == 3 and cont.shape[0] > 1 and not unread):
         raise ValueError("this vrle index keeps a per-row continuation "
                          "table (a legacy layout); rebuild it with the "
                          "current version (tier='vrle')")

@@ -125,6 +125,10 @@ ENTRIES: Dict[str, Tuple[str, List]] = {
                                       _P, _P]),
     "regex_merge": ("regex_frontier", [_P, _P, _P, _L, _I, _P, _I, _I, _I,
                                        _I, _I, _P, _P, _P, _P, _P, _P, _P]),
+    # the sharded frontier's fork (K18h): the forks' ranges given
+    "regex_fork_ranked": ("regex_frontier", [_P, _P, _P, _I, _I, _I, _P, _P,
+                                             _P, _I, _I, _I, _I, _I, _I, _I,
+                                             _P, _P, _P]),
     # the sharded build and queries (ops/dist_ops.py, K18a-K18f)
     "bucket_pack": ("exchange", [_P, _L, _I, _I, _I, _I] + [_P] * 16
                     + [_P, _P, _P]),
@@ -165,14 +169,11 @@ SIZES: Dict[str, Tuple[str, List]] = {
 }
 # entries that take an FmView: one count per layout
 LAYOUT_ENTRIES = ("backward_search", "backward_search_steps", "backward_step",
-                  "lf_locate", "lf_extract", "psi_walk", "regex_fork")
+                  "lf_locate", "lf_extract", "psi_walk", "regex_fork",
+                  "owner_occ", "masked_occ", "owner_lf", "masked_lf")
 # entries that take an FmView of a row tier only: one count per row layout
 ROW_LAYOUTS = ("vseg", "vrle")
 ROW_LAYOUT_ENTRIES = ("backward_step_masked", "lf_walk_step")
-# entries that take an FmView of the full, compact or packed tier only (the
-# sharded queries): one count per tier layout
-TIER_LAYOUTS = ("full", "compact", "packed")
-TIER_LAYOUT_ENTRIES = ("owner_occ", "masked_occ", "owner_lf", "masked_lf")
 # entries with modes that do different work: one count per mode (None: the
 # entry's own name)
 MODE_ENTRIES = {"round_keys": ("extension", "doubling"),
@@ -191,8 +192,6 @@ def counters(entry: str) -> List[str]:
         kinds = LAYOUTS
     elif entry in ROW_LAYOUT_ENTRIES:
         kinds = ROW_LAYOUTS
-    elif entry in TIER_LAYOUT_ENTRIES:
-        kinds = TIER_LAYOUTS
     else:
         kinds = MODE_ENTRIES.get(entry, (None,))
     return [counter(entry, kind) for kind in kinds]

@@ -23,7 +23,8 @@ between the steps are the mesh's (parallel/mesh.py), never a kernel's.
                             replicated epilogue's psum fetches)
   K18f csrc/dist_query.cu   owner_occ, owner_lf (the routed schemes'
                             owner answers), masked_occ, masked_lf (the
-                            psum schemes' local parts)
+                            psum schemes' local parts), on all five
+                            layouts
 
 The local sorts of dist_sort and of the replicated epilogue run through
 kernel H (radix_sort_pairs) and L (gather_rows), the packaging through A,
@@ -42,7 +43,7 @@ import torch
 from .. import kernels
 from ..fmindex import FMArrays
 from . import rank as R
-from .search_ops import fm_view
+from .search_ops import _index_tensors, fm_view
 
 INT32_MAX = 2**31 - 1
 MAX_COLS = 8          # csrc/exchange.cu kMaxCols
@@ -713,42 +714,76 @@ def shard_marks(sa: torch.Tensor, a_row: torch.Tensor, *, seg: int,
 # ---------------------------------------------------------------------------
 
 
-def _occ_at(arrays, sl, off, c):
+def _row_shard(arrays, d, nseg_local):
+    """A row tier's FMArrays of local shard d alone: its blocks of every
+    sharded field (side rows and continuation offsets count from its own
+    table and store) and its global mark base as mark_ckpt[0]."""
+    Dl = arrays.bwt.shape[0] // nseg_local
+
+    def blk(t):
+        if t is None:
+            return None
+        k = t.shape[0] // Dl
+        return t[d * k:(d + 1) * k]
+
+    return arrays._replace(
+        bwt=blk(arrays.bwt), occ_l1=blk(arrays.occ_l1),
+        mark_ckpt=blk(arrays.mark_ckpt), mark_vals=blk(arrays.mark_vals),
+        seg_ovf=blk(arrays.seg_ovf), seg_nsym=blk(arrays.seg_nsym),
+        seg_woff=blk(arrays.seg_woff), seg_cont=blk(arrays.seg_cont))
+
+
+def _occ_at(arrays, sl, off, c, nseg_local):
     """ckpt_base + the count of c among the first off codes of view
-    segment sl (rank._occ_dense at shard-local segments)."""
+    segment sl (rank._occ_dense at shard-local segments); a row tier
+    reads each lane's shard alone (_row_shard)."""
+    if R.is_row_tier(arrays):
+        out = torch.zeros(sl.shape[0], dtype=torch.int64, device=sl.device)
+        for d in range(arrays.bwt.shape[0] // nseg_local):
+            sel = torch.div(sl, nseg_local, rounding_mode="floor") == d
+            if bool(sel.any()):
+                sub = _row_shard(arrays, d, nseg_local)
+                s = sl[sel] - d * nseg_local
+                ctx = R.RowCtx(sub, s)
+                cc = c[sel]
+                out[sel] = (R.vseg_base_from_row(sub, ctx.g, ctx.row, s,
+                                                 cc).long()
+                            + ctx.within(ctx.query_code(cc), off[sel]))
+        return out
     segdata = R.gather_segments(arrays, sl)
     iota = torch.arange(R.seg_size(arrays), device=sl.device)[None, :]
     within = ((segdata == c[:, None]) & (iota < off[:, None])).sum(1)
     return R.ckpt_base(arrays, sl, c).long() + within
 
 
+def _owner_segment(arrays, rows, s, nseg_local, shard0):
+    """The view segment of each routed lane (rows [Dl, R], s its rows'
+    global segments, flattened): the global segment less shard0 *
+    nseg_local, clipped to the view; on the row tiers the lane's own
+    shard's segment, clipped to that shard's block (femto_tpu's
+    owner-side clip)."""
+    if not R.is_row_tier(arrays):
+        return torch.clamp(s - shard0 * nseg_local, 0, arrays.bwt.shape[0] - 1)
+    d = torch.arange(rows.shape[0], device=s.device).repeat_interleave(
+        rows.shape[1])
+    return d * nseg_local + torch.clamp(s - (shard0 + d) * nseg_local, 0,
+                                        nseg_local - 1)
+
+
 def owner_occ_plain(arrays, rows, cd, valid, *, nseg_local, shard0,
                     n_rows_total):
     seg = R.seg_size(arrays)
-    n_view = arrays.bwt.shape[0]
     r = rows.reshape(-1).long()
     c0 = cd.reshape(-1).long()
     ok = valid.reshape(-1).bool() & (c0 >= 0)
     c = torch.where(c0 >= 0, c0, 0)
     at_end = r >= n_rows_total
     s = torch.div(r, seg, rounding_mode="floor")
-    sl = torch.clamp(s - shard0 * nseg_local, 0, n_view - 1)
+    sl = _owner_segment(arrays, rows, s, nseg_local, shard0)
     off = torch.clamp(r - s * seg, 0, seg - 1)
     total = arrays.C.long()[c + 1] - arrays.C.long()[c]
-    v = torch.where(at_end, total, _occ_at(arrays, sl, off, c))
+    v = torch.where(at_end, total, _occ_at(arrays, sl, off, c, nseg_local))
     return torch.where(ok, v, 0).to(torch.int32).reshape(rows.shape)
-
-
-def _tier_tensors(arrays):
-    return (arrays.bwt, arrays.occ_ckpt, arrays.occ_l1, arrays.C,
-            arrays.alpha_map, arrays.alpha_rev)
-
-
-def _tier_view(arrays):
-    if R.is_row_tier(arrays):
-        raise NotImplementedError(
-            "the sharded vseg and vrle tiers are not ported yet")
-    return fm_view(arrays)
 
 
 def owner_occ(arrays: FMArrays, rows: torch.Tensor, cd: torch.Tensor,
@@ -758,18 +793,19 @@ def owner_occ(arrays: FMArrays, rows: torch.Tensor, cd: torch.Tensor,
     routed to the shard that owns the row (rows, cd int32[Dl, R], valid
     uint8[Dl, R]); arrays are the process's shard blocks end to end, whose
     checkpoints carry the global base, so a row's segment is its global
-    segment less shard0 * nseg_local.  A row at n_rows_total counts every
-    occurrence (C[c+1] - C[c]); invalid lanes and cd < 0 give 0.  Kernel
-    K18f on the card (full, compact, packed)."""
+    segment less shard0 * nseg_local (on the row tiers the lane's own
+    shard's segment, clipped to its block).  A row at n_rows_total counts
+    every occurrence (C[c+1] - C[c]); invalid lanes and cd < 0 give 0.
+    Kernel K18f on the card (every layout)."""
     kernels.check(rows, "rows", torch.int32, 2)
     shape = tuple(rows.shape)
     kernels.check(cd, "cd", torch.int32, 2, shape)
     kernels.check(valid, "valid", torch.uint8, 2, shape)
-    if not kernels.on_card(rows, cd, valid, *_tier_tensors(arrays)):
+    if not kernels.on_card(rows, cd, valid, *_index_tensors(arrays)):
         return owner_occ_plain(arrays, rows, cd, valid,
                                nseg_local=nseg_local, shard0=shard0,
                                n_rows_total=n_rows_total)
-    view, lay = _tier_view(arrays)
+    view, lay = fm_view(arrays)
     out = torch.empty(shape, dtype=torch.int32, device=rows.device)
     if rows.numel():
         kernels.launch("owner_occ", view, nseg_local, shard0,
@@ -794,8 +830,8 @@ def masked_occ_plain(arrays, cd, r, *, Dl, nseg_local, shard0, n_rows_total):
         g = shard0 + d
         slg = s - g * nseg_local
         mine = valid & ~at_end & (slg >= 0) & (slg < nseg_local)
-        sl = torch.where(mine, d * nseg_local + slg, 0)
-        v = torch.where(mine, _occ_at(arrays, sl, off, c), 0)
+        sl = torch.where(mine, d * nseg_local + slg, d * nseg_local)
+        v = torch.where(mine, _occ_at(arrays, sl, off, c, nseg_local), 0)
         out[d] = (v + torch.where(at_end & (g == 0), total, 0)).to(
             torch.int32)
     return out
@@ -811,10 +847,10 @@ def masked_occ(arrays: FMArrays, cd: torch.Tensor, r: torch.Tensor, *,
     the card."""
     kernels.check(cd, "cd", torch.int32, 1)
     kernels.check(r, "r", torch.int32, 1, tuple(cd.shape))
-    if not kernels.on_card(cd, r, *_tier_tensors(arrays)):
+    if not kernels.on_card(cd, r, *_index_tensors(arrays)):
         return masked_occ_plain(arrays, cd, r, Dl=Dl, nseg_local=nseg_local,
                                 shard0=shard0, n_rows_total=n_rows_total)
-    view, lay = _tier_view(arrays)
+    view, lay = fm_view(arrays)
     out = torch.empty((Dl, cd.shape[0]), dtype=torch.int32, device=cd.device)
     if cd.shape[0]:
         kernels.launch("masked_occ", view, nseg_local, shard0, Dl,
@@ -825,8 +861,27 @@ def masked_occ(arrays: FMArrays, cd: torch.Tensor, r: torch.Tensor, *,
 
 def _lf_answer(arrays, sl, r, nseg_local):
     """(lf, bit, mark value) of rows r at view segments sl: the routed
-    locate's owner_answer."""
+    locate's owner_answer.  The row tiers read each lane's shard alone
+    (_row_shard), whose rows carry the segments' global mark checkpoints;
+    the shard's mark base is mark_ckpt[shard]."""
     seg = R.seg_size(arrays)
+    Dl = arrays.bwt.shape[0] // nseg_local
+    shard = torch.div(sl, nseg_local, rounding_mode="floor")
+    if R.is_row_tier(arrays):
+        lf = torch.zeros(r.shape[0], dtype=torch.int64, device=r.device)
+        bit = torch.zeros(r.shape[0], dtype=torch.bool, device=r.device)
+        lrank = torch.zeros_like(lf)
+        for d in range(Dl):
+            sel = shard == d
+            if bool(sel.any()):
+                sub = _row_shard(arrays, d, nseg_local)
+                rl = (sl[sel] - d * nseg_local) * seg + torch.remainder(
+                    r[sel], seg)
+                f, b, g = R.lf_grank_step(sub, rl)
+                lf[sel] = f.long()
+                bit[sel] = b
+                lrank[sel] = g.long() - arrays.mark_ckpt[d].long()
+        return lf, bit, _mark_value_shard(arrays, shard, lrank, Dl)
     off = torch.remainder(r, seg)
     segdata = R.gather_segments(arrays, sl)
     lanes = torch.arange(r.shape[0], device=r.device)
@@ -843,18 +898,15 @@ def _lf_answer(arrays, sl, r, nseg_local):
     cnt = torch.where(widx < wl[:, None], R.popcount32(words), 0).sum(1)
     part = R.popcount32(word & ((1 << sh) - 1))
     grank = arrays.mark_ckpt[sl].long() + cnt + part
-    shard = torch.div(sl, nseg_local, rounding_mode="floor")
     lrank = grank - arrays.mark_ckpt[shard * nseg_local].long()
-    mv = _mark_value_shard(arrays, shard, lrank, nseg_local)
-    return lf, bit, mv
+    return lf, bit, _mark_value_shard(arrays, shard, lrank, Dl)
 
 
-def _mark_value_shard(arrays, shard, lrank, nseg_local):
+def _mark_value_shard(arrays, shard, lrank, Dl):
     """rank.mark_offset of each lane's slot lrank in its own shard's store
-    (mark_vals holds the local shards' stores end to end)."""
+    (mark_vals holds the Dl local shards' stores end to end)."""
     bits, exc_base, period, exc_off, cap = arrays.mark_meta.tolist()
     mv = R.u32_to_i64(arrays.mark_vals)
-    Dl = arrays.mark_ckpt.shape[0] // nseg_local
     L = mv.shape[0] // Dl
     g = torch.clamp(lrank, 0, cap - 1)
     bp = g * bits
@@ -872,12 +924,11 @@ def _mark_value_shard(arrays, shard, lrank, nseg_local):
 
 
 def owner_lf_plain(arrays, rows, valid, *, nseg_local, shard0):
-    n_view = arrays.bwt.shape[0]
     seg = R.seg_size(arrays)
     r = rows.reshape(-1).long()
     ok = valid.reshape(-1).bool()
     s = torch.div(r, seg, rounding_mode="floor")
-    sl = torch.clamp(s - shard0 * nseg_local, 0, n_view - 1)
+    sl = _owner_segment(arrays, rows, s, nseg_local, shard0)
     r = torch.where(ok, r, 0)
     sl = torch.where(ok, sl, 0)
     lf, bit, mv = _lf_answer(arrays, sl, r, nseg_local)
@@ -891,11 +942,14 @@ def _mark_tensors(arrays):
 
 
 def _check_marks(arrays, nseg_local):
+    """The local shard count Dl, after checking the mark fields: mark_ckpt
+    int32[n_seg] (the row tiers: int32[Dl], the shards' global mark
+    bases) and one mark_vals store per local shard."""
+    Dl = arrays.bwt.shape[0] // nseg_local
     kernels.check(arrays.mark_ckpt, "mark_ckpt", torch.int32, 1,
-                  (arrays.bwt.shape[0],))
+                  (Dl if R.is_row_tier(arrays) else arrays.bwt.shape[0],))
     kernels.check(arrays.mark_vals, "mark_vals", torch.uint32, 1)
     kernels.check(arrays.mark_meta, "mark_meta", torch.int32, 1, (5,))
-    Dl = arrays.bwt.shape[0] // nseg_local
     if arrays.bwt.shape[0] != Dl * nseg_local or \
             arrays.mark_vals.shape[0] % Dl:
         raise ValueError("mark_vals must hold one store per local shard")
@@ -908,15 +962,16 @@ def owner_lf(arrays: FMArrays, rows: torch.Tensor, valid: torch.Tensor, *,
     their owner (rows int32[Dl, R], valid uint8[Dl, R]): the mark value if
     the row is marked (its rank less the shard's first checkpoint, decoded
     from the shard's own mark store), else -1 - LF(row); 0 on invalid
-    lanes.  Kernel K18f on the card."""
+    lanes.  On the row tiers the marks ride the serving rows and the
+    shard's base is mark_ckpt[shard].  Kernel K18f on the card."""
     kernels.check(rows, "rows", torch.int32, 2)
     kernels.check(valid, "valid", torch.uint8, 2, tuple(rows.shape))
     _check_marks(arrays, nseg_local)
-    if not kernels.on_card(rows, valid, *_tier_tensors(arrays),
+    if not kernels.on_card(rows, valid, *_index_tensors(arrays),
                            *_mark_tensors(arrays)):
         return owner_lf_plain(arrays, rows, valid, nseg_local=nseg_local,
                               shard0=shard0)
-    view, lay = _tier_view(arrays)
+    view, lay = fm_view(arrays)
     out = torch.empty_like(rows)
     if rows.numel():
         kernels.launch("owner_lf", view, nseg_local, shard0, rows.data_ptr(),
@@ -939,7 +994,7 @@ def masked_lf_plain(arrays, rows, *, Dl, nseg_local, shard0):
     for d in range(Dl):
         slg = s - (shard0 + d) * nseg_local
         mine = (slg >= 0) & (slg < nseg_local)
-        sl = torch.where(mine, d * nseg_local + slg, 0)
+        sl = torch.where(mine, d * nseg_local + slg, d * nseg_local)
         rr = torch.where(mine, r, 0)
         lf, bit, mv = _lf_answer(arrays, sl, rr, nseg_local)
         out[d] = torch.where(mine, torch.where(bit, mv, -1 - lf), 0).to(
@@ -955,11 +1010,11 @@ def masked_lf(arrays: FMArrays, rows: torch.Tensor, *, Dl: int,
     the card."""
     kernels.check(rows, "rows", torch.int32, 1)
     _check_marks(arrays, nseg_local)
-    if not kernels.on_card(rows, *_tier_tensors(arrays),
+    if not kernels.on_card(rows, *_index_tensors(arrays),
                            *_mark_tensors(arrays)):
         return masked_lf_plain(arrays, rows, Dl=Dl, nseg_local=nseg_local,
                                shard0=shard0)
-    view, lay = _tier_view(arrays)
+    view, lay = fm_view(arrays)
     out = torch.empty((Dl, rows.shape[0]), dtype=torch.int32,
                       device=rows.device)
     if rows.shape[0]:

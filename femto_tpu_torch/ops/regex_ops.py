@@ -4,8 +4,10 @@ The counterparts of the layer body of femto_tpu/query/regexp_device.py
 _frontier_loop: regex_fork (steps 1-3: reach, the FM step of every fork,
 the forks' cost vectors) and regex_merge (steps 4b-6: min-merge of equal
 ranges, results, compaction into the next frontier), both in
-csrc/regex_frontier.cu (kernel R).  The sort between them is kernel H
-(ops/sort_ops.radix_sort_pairs) over regex_fork's keys.
+csrc/regex_frontier.cu (kernel R); regex_fork_ranked is regex_fork with
+the forks' ranges given, the sharded frontier's fork (its ranks are
+summed over the mesh before it, parallel/dist_query.py).  The sort
+between them is kernel H (ops/sort_ops.radix_sort_pairs) over the keys.
 query/regexp_device.py drives them.  Each wrapper launches its kernel for
 tensors on the card and takes the plain PyTorch version beside it for
 tensors on the CPU; a CUDA tensor never falls back.  The plain versions
@@ -103,6 +105,20 @@ def regex_fork_plain(arrays: FMArrays, first: torch.Tensor,
                      last: torch.Tensor, costs: torch.Tensor, n_live: int,
                      nfa: FrontierNFA, cfg: LayerCfg, allow_subst: bool):
     A = ALPHA_SIZE
+    chars = torch.arange(A, dtype=torch.int32, device=costs.device).repeat(
+        n_live)
+    nf, nl = R.backward_step_pair(
+        arrays, chars, first[:n_live].repeat_interleave(A),
+        last[:n_live].repeat_interleave(A))
+    return regex_fork_ranked_plain(nf, nl, costs, n_live, nfa, cfg,
+                                   allow_subst)
+
+
+def regex_fork_ranked_plain(nf: torch.Tensor, nl: torch.Tensor,
+                            costs: torch.Tensor, n_live: int,
+                            nfa: FrontierNFA, cfg: LayerCfg,
+                            allow_subst: bool):
+    A = ALPHA_SIZE
     dev = costs.device
     bound = cfg.cost_bound
     approx = bound > 1
@@ -114,10 +130,6 @@ def regex_fork_plain(arrays: FMArrays, first: torch.Tensor,
                     < bound)
         sub_ok = torch.arange(A, device=dev) >= CHARACTER_OFFSET
         reach = reach | (any_live[:, None] & sub_ok[None, :])
-    chars = torch.arange(A, dtype=torch.int32, device=dev).repeat(n_live)
-    nf, nl = R.backward_step_pair(
-        arrays, chars, first[:n_live].repeat_interleave(A),
-        last[:n_live].repeat_interleave(A))
     valid = reach.reshape(-1) & (nl > nf)
     mT = nfa.mask.T[None]                                 # [1, A, T]
     bc = base_c[:, None, :]                               # [F', 1, T]
@@ -179,6 +191,43 @@ def regex_fork(arrays: FMArrays, first: torch.Tensor, last: torch.Tensor,
                    cfg.half_bits, keys.data_ptr(), fcosts.data_ptr(),
                    None if scratch is None else scratch.data_ptr(),
                    layout=lay)
+    return keys, fcosts
+
+
+def regex_fork_ranked(nf: torch.Tensor, nl: torch.Tensor,
+                      costs: torch.Tensor, n_live: int, nfa: FrontierNFA,
+                      cfg: LayerCfg, allow_subst: bool):
+    """regex_fork with each fork's new range given: nf, nl int32[n_live *
+    261] (fork f * 261 + a: entry f's range stepped by symbol a, (0, 0)
+    where a is absent), as the sharded frontier sums them over the mesh.
+    Same outputs as regex_fork.  Kernel R on the card."""
+    F = costs.shape[0]
+    E = n_live * ALPHA_SIZE
+    kernels.check(costs, "costs", torch.int32, 2, (F, nfa.S))
+    kernels.check(nf, "nf", torch.int32, 1, (E,))
+    kernels.check(nl, "nl", torch.int32, 1, (E,))
+    if not 0 < n_live <= F:
+        raise ValueError("need 0 < n_live <= the frontier's capacity")
+    if not kernels.on_card(nf, nl, costs, nfa.in_off):
+        return regex_fork_ranked_plain(nf, nl, costs, n_live, nfa, cfg,
+                                       allow_subst)
+    kernels.check(nfa.in_off, "in_off", torch.int32, 1, (nfa.S + 1,))
+    kernels.check(nfa.in_src, "in_src", torch.int32, 1, (nfa.T,))
+    kernels.check(nfa.in_mask, "in_mask", torch.int32, 2,
+                  (nfa.T, MASK_WORDS))
+    dev = costs.device
+    keys = torch.empty(E, dtype=torch.int64, device=dev)
+    fcosts = torch.empty((E, nfa.S), dtype=torch.int32, device=dev)
+    n_scratch = kernels.size("regex_fork_scratch", n_live, nfa.S)
+    scratch = (torch.empty(n_scratch, dtype=torch.int32, device=dev)
+               if n_scratch else None)
+    kernels.launch("regex_fork_ranked", costs.data_ptr(), nf.data_ptr(),
+                   nl.data_ptr(), n_live, nfa.S, nfa.T,
+                   nfa.in_off.data_ptr(), nfa.in_src.data_ptr(),
+                   nfa.in_mask.data_ptr(), cfg.cost_bound, cfg.subst,
+                   cfg.delete, cfg.insert, cfg.del_rounds, int(allow_subst),
+                   cfg.half_bits, keys.data_ptr(), fcosts.data_ptr(),
+                   None if scratch is None else scratch.data_ptr())
     return keys, fcosts
 
 

@@ -1,9 +1,9 @@
 """Distributed suffix array, BWT and index over the mesh.
 
-The counterpart of femto_tpu/parallel/dist_build.py for the full, compact
-and packed tiers.  The text is padded with trailing 0 symbols to n_pad =
-D * m and cut into equal blocks (parallel/mesh.py), then sorted by the
-mesh edition of the single-device design:
+The counterpart of femto_tpu/parallel/dist_build.py, all five tiers.  The
+text is padded with trailing 0 symbols to n_pad = D * m and cut into
+equal blocks (parallel/mesh.py), then sorted by the mesh edition of the
+single-device design:
 
   1. ONE distributed sample sort (parallel/dist_sort.py) of wide packed
      seed keys (nkeys 30-bit int32 keys of per_key dense codes each,
@@ -22,7 +22,12 @@ The collectives are the mesh's; every per-shard body is a kernel of
 ops/dist_ops.py (K18a-K18d) or of the single-device sort (H, L).  Each
 shard then packages its own rows through kernels A, A', F and B
 (ops/build_ops.py) and kernel K18b's cross-shard bases (mesh_exclusive,
-add_base).  The pad rows stay in the index as leading rows (meta.row0 =
+add_base).  The row tiers (vseg, vrle) add kernel M's symbol lists and
+N's slot counts per shard; those O(n_seg) statistics cross to the host
+once (mesh.all_gather), the host picks one geometry for every shard
+(_row_plan), and M and N assemble each shard's rows with its global mark
+checkpoints inside them.  Kernel P lists each shard's segments' documents
+(doc_chunks).  The pad rows stay in the index as leading rows (meta.row0 =
 pad, meta.n_rows = n_pad); no pattern can match them.
 
 A sharded index holds the process's shard blocks end to end in every
@@ -30,14 +35,23 @@ row-dimension field: on a LocalMesh the global arrays (femto_tpu's
 sharded arrays as numpy), on a DistMesh the process's own blocks; C,
 doc_starts, doc_seof_rows, the alphabet maps and mark_meta are
 replicated.  mark_vals holds one packed store per shard and mark_ckpt[0]
-of each shard block is that shard's global mark base.
+of each shard block is that shard's global mark base.  The row tiers
+shard bwt (one serving row per segment), occ_l1, seg_nsym, seg_woff, the
+per-shard side tables seg_ovf (max_ovf + 2 rows a shard, row 0 a dummy,
+side rows numbered from 1 within the shard) and continuation stores
+seg_cont (offsets within the shard), and mark_ckpt is int32[D] of the
+shards' global mark bases (their rows carry the per-segment global
+checkpoints); occ_ckpt, mark_bits, seg_syms and seg_rle are replicated
+one-row markers, as femto_tpu lays them out.
 
-The vseg and vrle tiers, per-segment doc lists and checkpoint / resume
-are not ported yet (ROADMAP.md); they raise NotImplementedError.
+checkpoint_dir saves each process's suffix-sort state as host files and
+resumes from them (_ckpt_save, _ckpt_load).
 """
 
 from __future__ import annotations
 
+import os
+from dataclasses import dataclass
 from typing import Optional
 
 import numpy as np
@@ -65,9 +79,6 @@ _EXT_MAX_ROUNDS = 6   # then switch to filtered doubling
 _REP_CAP = 1 << 24    # replicated-active budget (records on every shard)
 _KEY_BITS = 30        # payload bits per int32 seed key
 _MIN_BUCKET = 1 << 16
-
-_NOT_PORTED = "is not ported yet (see ROADMAP.md)"
-
 
 def _pack_rate(K: int):
     """(per_key, bits) for dense codes in [1, K] (femto_tpu.suffix)."""
@@ -365,9 +376,98 @@ def _text_hist(mesh, text: torch.Tensor) -> np.ndarray:
     return mesh.psum(h).cpu().numpy()[:512].astype(np.int64)
 
 
+# ---------------------------------------------------------------------------
+# checkpoint / resume (host I/O)
+# ---------------------------------------------------------------------------
+# Each process saves the shard blocks it holds; resume needs every
+# process's file on a shared checkpoint_dir at the same stage, with the
+# same process count: "seed" after the seed sort (sa, pull, st, m_act),
+# "dbl" after each full doubling round (rank, k, nuniq, m_act).
+
+
+def _process(mesh):
+    """(index, count) of this process among the mesh's processes."""
+    return mesh.shard0 // mesh.Dl, mesh.D // mesh.Dl
+
+
+def _ckpt_file(checkpoint_dir: str, n_pad: int, pidx: int, nproc: int):
+    return os.path.join(checkpoint_dir,
+                        f"dist_rank_{n_pad}.p{pidx}of{nproc}.npz")
+
+
+def _ckpt_save(checkpoint_dir: str, n_pad: int, stage: str, mesh, **arrs):
+    """Save this process's shard blocks ([Dl, m] tensors) and scalars at
+    `stage`; the file appears whole (written aside, then renamed)."""
+    pidx, nproc = _process(mesh)
+    out = {"stage": stage, "nproc": nproc}
+    for name, v in arrs.items():
+        out[name] = v.cpu().numpy() if isinstance(v, torch.Tensor) else v
+    path = _ckpt_file(checkpoint_dir, n_pad, pidx, nproc)
+    with open(path + ".tmp", "wb") as f:
+        np.savez(f, **out)
+    os.replace(path + ".tmp", path)
+
+
+def _ckpt_load(checkpoint_dir: str, n_pad: int, stage: str, mesh):
+    """This process's blocks (tensors on the mesh's device) and scalars
+    saved at `stage`, or None.  Every process's file must be there at that
+    stage, so that all processes take the same branch."""
+    pidx, nproc = _process(mesh)
+    paths = [_ckpt_file(checkpoint_dir, n_pad, i, nproc)
+             for i in range(nproc)]
+    for p in paths:
+        try:
+            with np.load(p) as z:
+                if str(z["stage"]) != stage or int(z["nproc"]) != nproc:
+                    return None
+        except (OSError, ValueError, KeyError):
+            return None
+    with np.load(paths[pidx]) as z:
+        data = {k: z[k] for k in z.files if k not in ("stage", "nproc")}
+    m = n_pad // mesh.D
+    out = {}
+    for k, v in data.items():
+        if v.ndim == 2:
+            if v.shape != (mesh.Dl, m):
+                return None
+            out[k] = torch.from_numpy(v).to(mesh.device)
+        else:
+            out[k] = int(v)
+    return out
+
+
+def _ckpt_clear(checkpoint_dir: str, n_pad: int, mesh):
+    p = _ckpt_file(checkpoint_dir, n_pad, *_process(mesh))
+    if os.path.exists(p):
+        os.remove(p)
+
+
+def _doubling(mesh, rank, payload, key: int, *, k: int, nuniq: int,
+              n_pad: int, cap: int, stats: dict, overflow_acc: int,
+              m_act: int, checkpoint_dir: Optional[str]):
+    """Full distributed prefix doubling from the rank store (the wide
+    sort's, or a "dbl" checkpoint's at k), then the final sort and the
+    routed pull.  Returns (sa, pull, overflow)."""
+    while nuniq < n_pad and k < 2 * n_pad and overflow_acc <= 0:
+        rank, nuniq, of = _dist_round(mesh, rank, k, bins.fold_in(key, k),
+                                      n_pad=n_pad, cap=cap)
+        overflow_acc = max(overflow_acc, int(of))
+        k *= 2
+        stats["dbl_rounds"] += 1
+        stats["full_exchanges"] += 3
+        if checkpoint_dir is not None and overflow_acc <= 0:
+            _ckpt_save(checkpoint_dir, n_pad, "dbl", mesh, rank=rank, k=k,
+                       nuniq=nuniq, m_act=m_act)
+    sa, pull, of = _dist_finalize(mesh, rank, payload, key, cap=cap)
+    stats["full_sorts"] += 1
+    stats["full_exchanges"] += 3
+    return sa, pull, torch.clamp(of, min=overflow_acc)
+
+
 def _dist_sa(text, mesh, *, cap_factor: float, seed: int, n: int,
              doc_starts: Optional[torch.Tensor], mark_period: int,
-             alpha: Optional[np.ndarray]):
+             alpha: Optional[np.ndarray],
+             checkpoint_dir: Optional[str] = None):
     """dist_suffix_array with the payload kept whole: (sa, pull int32
     [Dl, m] = bwt | a_row << 9, overflow int32 scalar)."""
     global LAST_BUILD_STATS
@@ -415,12 +515,44 @@ def _dist_sa(text, mesh, *, cap_factor: float, seed: int, n: int,
                                n=n, mark_period=mark_period, ndocs=ndocs,
                                shard0=mesh.shard0)
     key0 = keys[0]
-    sa, pull, st, m_act_dev, of = _seed_sort(mesh, keys, payload,
-                                             n_pad=n_pad, cap=cap, rkey=key)
+    resumed = None
+    if checkpoint_dir is not None:
+        os.makedirs(checkpoint_dir, exist_ok=True)
+        resumed = (_ckpt_load(checkpoint_dir, n_pad, "dbl", mesh)
+                   or _ckpt_load(checkpoint_dir, n_pad, "seed", mesh))
+        # a process whose build resumes may reach _ckpt_clear without a
+        # collective: no file goes before every process has decided
+        mesh.barrier()
+    if resumed is not None:
+        stats["resumed"] = True
+        stats["m_act"] = resumed["m_act"]
+    if resumed is not None and "rank" in resumed:
+        # a "dbl" checkpoint: the doubling rounds go on from its k
+        del keys, key0
+        stats["path"] = "doubling"
+        sa, pull, of = _doubling(
+            mesh, resumed.pop("rank"), payload, key, k=resumed["k"],
+            nuniq=resumed["nuniq"], n_pad=n_pad, cap=cap, stats=stats,
+            overflow_acc=0, m_act=resumed["m_act"],
+            checkpoint_dir=checkpoint_dir)
+        _ckpt_clear(checkpoint_dir, n_pad, mesh)
+        LAST_BUILD_STATS = stats
+        return sa, pull, of
+    if resumed is not None:
+        sa, pull, st = resumed["sa"], resumed["pull"], resumed["st"]
+        overflow_acc = 0
+        m_act = resumed["m_act"]
+    else:
+        sa, pull, st, m_act_dev, of = _seed_sort(mesh, keys, payload,
+                                                 n_pad=n_pad, cap=cap,
+                                                 rkey=key)
+        overflow_acc = int(of)
+        m_act = int(m_act_dev)
+        stats["m_act"] = m_act
+        if checkpoint_dir is not None and overflow_acc <= 0:
+            _ckpt_save(checkpoint_dir, n_pad, "seed", mesh, sa=sa, pull=pull,
+                       st=st, m_act=m_act)
     del keys
-    overflow_acc = int(of)
-    m_act = int(m_act_dev)
-    stats["m_act"] = m_act
 
     if overflow_acc <= 0 and m_act > 0:
         if m_act <= min(_REP_CAP, n_pad // 4):
@@ -482,22 +614,17 @@ def _dist_sa(text, mesh, *, cap_factor: float, seed: int, n: int,
             rank, of = _rank_scatter(mesh, sa, st, bins.fold_in(key, 77),
                                      n_pad=n_pad, cap=cap)
             del sa, pull, st
-            overflow_acc = max(overflow_acc, int(of))
-            k = span
-            nuniq = 0
-            while nuniq < n_pad and k < 2 * n_pad and overflow_acc <= 0:
-                rank, nuniq, of = _dist_round(mesh, rank, k,
-                                              bins.fold_in(key, k),
-                                              n_pad=n_pad, cap=cap)
-                overflow_acc = max(overflow_acc, int(of))
-                k *= 2
-                stats["dbl_rounds"] += 1
-                stats["full_exchanges"] += 3
-            sa, pull, of = _dist_finalize(mesh, rank, payload, key, cap=cap)
-            stats["full_sorts"] += 1
-            stats["full_exchanges"] += 3
+            sa, pull, of = _doubling(
+                mesh, rank, payload, key, k=span, nuniq=0, n_pad=n_pad,
+                cap=cap, stats=stats,
+                overflow_acc=max(overflow_acc, int(of)), m_act=m_act,
+                checkpoint_dir=checkpoint_dir)
+            if checkpoint_dir is not None:
+                _ckpt_clear(checkpoint_dir, n_pad, mesh)
             LAST_BUILD_STATS = stats
-            return sa, pull, torch.clamp(of, min=overflow_acc)
+            return sa, pull, of
+    if checkpoint_dir is not None:
+        _ckpt_clear(checkpoint_dir, n_pad, mesh)
     LAST_BUILD_STATS = stats
     return sa, pull, torch.full((), overflow_acc, dtype=torch.int32,
                                 device=dev)
@@ -514,18 +641,21 @@ def dist_suffix_array(text: torch.Tensor, mesh, cap_factor: float = 4.0,
     text: int32[Dl, m] (parallel/distributed.put_global of the padded
     text, n_pad = D * m, a multiple of D * SEG); n: the real length (n_pad
     by default); doc_starts: int32[ndocs + 1] on the mesh's device; alpha:
-    the nonzero symbols present, ascending (skips the histogram).  Returns
-    (sa, bwt, a_row, overflow): int32[Dl, m] blocks (a_row: each row's
-    mark bit and SEOF doc tag, 0 without doc_starts) and an int32 scalar;
-    retry with a larger cap_factor when overflow > 0.  What the call did
-    is left in LAST_BUILD_STATS."""
-    if checkpoint_dir is not None:
-        raise NotImplementedError(f"checkpoint / resume {_NOT_PORTED}")
+    the nonzero symbols present, ascending (skips the histogram).
+    checkpoint_dir: save each process's blocks after the seed sort and
+    after each full doubling round, and resume from the latest stage that
+    every process's file holds (a shared directory; the files go when the
+    call completes).  Returns (sa, bwt, a_row, overflow): int32[Dl, m]
+    blocks (a_row: each row's mark bit and SEOF doc tag, 0 without
+    doc_starts) and an int32 scalar; retry with a larger cap_factor when
+    overflow > 0.  What the call did is left in LAST_BUILD_STATS
+    ("resumed": True after a resume)."""
     if n is None:
         n = mesh.D * text.shape[1]
     sa, pull, of = _dist_sa(text, mesh, cap_factor=cap_factor, seed=seed,
                             n=n, doc_starts=doc_starts,
-                            mark_period=mark_period, alpha=alpha)
+                            mark_period=mark_period, alpha=alpha,
+                            checkpoint_dir=checkpoint_dir)
     return sa, pull & 511, pull >> 9, of
 
 
@@ -547,11 +677,131 @@ def pad_text_for_mesh(text_np: np.ndarray, D: int, seg: int = DEFAULT_SEG,
 # ---------------------------------------------------------------------------
 
 
+@dataclass
+class _ShardRowPlan:
+    """The host plan of a sharded row-tier build: one global geometry
+    (femto_tpu's width argmin for vseg, vrle_plan over every shard's
+    statistics for vrle), each segment's mode, and the per-shard
+    capacities that keep the sharded arrays rectangular."""
+    tier: str
+    w_main: int
+    code_words: int      # vseg: the row's code words; vrle: A
+    C_words: int         # vrle: the continuation budget C; vseg: 0
+    s_store: int
+    w_side: int
+    Wside: int
+    wide: bool
+    cov: np.ndarray      # bool[D, nseg_local]: not in the side table
+    rle: np.ndarray      # bool[D, nseg_local]: run-length slots in the row
+    cont: np.ndarray     # bool[D, nseg_local]: ... continued in seg_cont
+    cw_al: np.ndarray    # int64[D, nseg_local]: continuation words, whole
+                         # granules
+    cwords: np.ndarray   # int64[D, nseg_local]: continuation words
+    max_ovf: int         # side rows a shard holds at most
+    cont_words: int      # words of a shard's continuation store
+    has_rle: bool
+    has_cont: bool
+    ngr: int
+
+
+def _row_plan(tier: str, nsym: np.ndarray, slots, *, seg: int, K: int):
+    """_ShardRowPlan from every shard's symbol counts nsym int32[D,
+    nseg_local] (and, on vrle, slot counts): femto_tpu's
+    build_index_sharded host plan (dist_build.py 1538-1604)."""
+    D, nl = nsym.shape
+    n_seg = D * nl
+    wide = K > 256
+    w_side, Wside = BO.vseg_width_for(seg, 9 if wide else 8)
+    G = BO.VRLE_CONT_G
+    zero = np.zeros((D, nl), bool)
+    zi = np.zeros((D, nl), np.int64)
+    if tier == "vseg":
+        best = None
+        for w_eff, Wm in BO.vseg_width_candidates(seg):
+            cov = (nsym <= (1 << w_eff)) & (nsym < 255)
+            nbytes = n_seg * Wm * 4 + int((~cov).sum()) * Wside * 4
+            if best is None or nbytes < best[0]:
+                best = (nbytes, w_eff, Wm, cov)
+        _, w_main, Wm, cov = best
+        return _ShardRowPlan(
+            tier=tier, w_main=w_main, code_words=Wm, C_words=0,
+            s_store=BO.vseg_sym_store(w_main, wide), w_side=w_side,
+            Wside=Wside, wide=wide, cov=cov, rle=zero, cont=zero, cw_al=zi,
+            cwords=zi, max_ovf=int((~cov).sum(axis=1).max()), cont_words=0,
+            has_rle=False, has_cont=False, ngr=1)
+    (w_main, A, C, s_store, rle, cont, wfit) = BO.vrle_plan(
+        nsym.reshape(-1), slots.reshape(-1), seg=seg, n_seg=n_seg,
+        wide=wide, Wside=Wside)
+    rle, cont = rle.reshape(D, nl), cont.reshape(D, nl)
+    cov = rle | cont | wfit.reshape(D, nl)
+    w_slot, _ = BO.vrle_slot_geom_np(nsym)
+    bits = slots.astype(np.int64) * w_slot
+    cwords = np.where(cont, -(-bits // 32) - A, 0)
+    cw_al = -(-cwords // G) * G
+    return _ShardRowPlan(
+        tier=tier, w_main=w_main, code_words=A, C_words=C, s_store=s_store,
+        w_side=w_side, Wside=Wside, wide=wide, cov=cov, rle=rle, cont=cont,
+        cw_al=cw_al, cwords=cwords, max_ovf=int((~cov).sum(axis=1).max()),
+        cont_words=int(cw_al.sum(axis=1).max()),
+        has_rle=bool((rle | cont).any()), has_cont=bool(cont.any()),
+        ngr=max(1, -(-max(C, 1) // G)))
+
+
+def _shard_rows(plan: _ShardRowPlan, d: int, bwt, amap, syms, nsym, mbits,
+                mckpt, occ_rel):
+    """One shard's serving rows and row-tier fields at the global plan
+    (femto_tpu's _package_shard_vseg / _package_shard_vrle): side rows
+    numbered from 1 within the shard, the side table padded to max_ovf + 2
+    rows, continuation offsets within the shard's own flat store of
+    cont_words + ngr granules.  Kernels M and N at the plan's geometry."""
+    dev = bwt.device
+    G = BO.VRLE_CONT_G
+    cov, rle, cont = plan.cov[d], plan.rle[d], plan.cont[d]
+    woff = np.zeros(cov.shape[0], np.int64)
+    woff[rle] = -1
+    coffs = np.cumsum(plan.cw_al[d]) - plan.cw_al[d]
+    woff[cont] = -(2 + coffs[cont])
+    woff[~cov] = np.arange(1, int((~cov).sum()) + 1)
+    seg_woff = BO._host_i32(woff, dev)
+    rle_rows, cont_store = None, None
+    if plan.tier == "vrle":
+        if plan.has_rle:
+            rle_rows = BO.vrle_pack(bwt, amap, syms, nsym, seg_woff,
+                                    words=plan.code_words + plan.C_words)
+        total = plan.cont_words + plan.ngr * G
+        cidx = np.nonzero(cont)[0]
+        if len(cidx):
+            cont_store = BO.cont_flatten(
+                rle_rows, BO._host_i32(cidx, dev),
+                BO._host_i32(plan.cwords[d][cidx], dev),
+                BO._host_i32(coffs[cidx], dev), first=plan.code_words,
+                total=total)
+        else:
+            cont_store = torch.zeros(total, dtype=torch.int32,
+                                     device=dev).view(torch.uint32)
+    rows = BO.vseg_rows(bwt, amap, syms, nsym, seg_woff, mbits, mckpt,
+                        occ_rel, w_main=plan.w_main,
+                        code_words=plan.code_words, s_store=plan.s_store,
+                        wide=plan.wide, rle=rle_rows)
+    del rle_rows
+    ovf = np.nonzero(~cov)[0]
+    side = (BO.side_rows(bwt, amap, BO._host_i32(ovf, dev),
+                         w_side=plan.w_side) if len(ovf) else None)
+    pad = torch.zeros((plan.max_ovf + 2 - (len(ovf) + 1), plan.Wside),
+                      dtype=torch.int32, device=dev).view(torch.uint32)
+    if side is None:
+        side = torch.zeros((1, plan.Wside), dtype=torch.int32,
+                           device=dev).view(torch.uint32)
+    return rows, seg_woff, torch.cat([side, pad]), cont_store
+
+
 def _package(mesh, sa, pull, doc_starts, used_np, *, n_pad: int, seg: int,
              ndocs: int, cap_local: int, mark_geom, tier: str):
-    """Each shard packages its own rows (kernels A or A', F, B), then the
-    cross-shard bases (K18b) make its checkpoints global.  Returns (fields
-    dict, n_marks, mark_overflow) with host ints for the last two."""
+    """Each shard packages its own rows (kernels A or A', F, B; on the
+    row tiers M and N at a host plan of every shard's statistics), then
+    the cross-shard bases (K18b) make its checkpoints global.  Returns
+    (fields dict, n_marks, mark_overflow) with host ints for the last
+    two."""
     Dl, m = sa.shape
     dev = sa.device
     nseg_local = m // seg
@@ -561,9 +811,12 @@ def _package(mesh, sa, pull, doc_starts, used_np, *, n_pad: int, seg: int,
     amap_np[used_np] = np.arange(K, dtype=np.int32)
     amap = torch.from_numpy(amap_np).to(dev)
     arev = torch.from_numpy(np.asarray(used_np, np.int32)).to(dev)
+    row_tier = tier in ("vseg", "vrle")
+    smax = BO.VSEG_SMAX if tier == "vseg" else BO.VRLE_SMAX
     grp = 1 if tier == "full" else l1_group_for(seg)
     bwts, occs, l1s, totals = [], [], [], []
     mbits, mckpts, mvals, nmarks, seofs = [], [], [], [], []
+    symss, nsyms, slotss = [], [], []
     ids = shard_ids(mesh)
     for j in range(Dl):
         p64 = pull[j].to(torch.int64)
@@ -573,13 +826,24 @@ def _package(mesh, sa, pull, doc_starts, used_np, *, n_pad: int, seg: int,
                                               seg=seg)
             occs.append(occ[:nseg_local])
         else:
-            bwt, a_row, occ, l1, C = BO.occ_build_compact(
-                p64, amap, arev, n_seg=nseg_local + grp, seg=seg)
+            bwt, a_row, occ, l1, C, *hist = BO.occ_build_compact(
+                p64, amap, arev, n_seg=nseg_local + grp, seg=seg,
+                want_hist=row_tier)
             occs.append(occ[:nseg_local])
             l1s.append(l1[:nseg_local // grp])
             if tier == "packed":
                 per_word, bits = BO.pack_widths(K)
                 bwt = BO.pack_build(bwt, amap, per_word=per_word, bits=bits)
+            elif row_tier:
+                # kernel M's symbol lists (and N's slot counts) of the
+                # shard's segments: the statistics of the host plan
+                bwt = bwt[:nseg_local]
+                syms, nsym = BO.seg_syms(hist[0][:nseg_local], smax)
+                symss.append(syms)
+                nsyms.append(nsym)
+                if tier == "vrle":
+                    slotss.append(BO.vrle_slot_count(bwt, amap, syms, nsym))
+                del hist
             else:
                 # dense codes as uint16: F packs two 16-bit codes a word
                 bwt = BO.pack_build(bwt, amap, per_word=2, bits=16).view(
@@ -607,25 +871,87 @@ def _package(mesh, sa, pull, doc_starts, used_np, *, n_pad: int, seg: int,
         occ_ckpt = occ_ckpt.view(Dl * nseg_local, -1)
         occ_l1 = torch.zeros((1, ALPHA_SIZE), dtype=torch.int32, device=dev)
     else:
-        occ_ckpt = torch.stack(occs).view(Dl * nseg_local, K)
         occ_l1 = torch.stack(l1s)
         DO.add_base(occ_l1, base)
         occ_l1 = occ_l1.view(Dl * (nseg_local // grp), K)
     local_marks = torch.stack(nmarks).view(Dl)
+    mark_base = _exclusive_base(mesh, local_marks)
     mark_ckpt = torch.stack(mckpts).view(Dl, nseg_local, 1)
-    DO.add_base(mark_ckpt, _exclusive_base(mesh, local_marks).view(Dl, 1))
+    DO.add_base(mark_ckpt, mark_base.view(Dl, 1))
     n_marks = int(mesh.psum(local_marks))
     mark_of = int(mesh.pmax(torch.clamp(local_marks - cap_local, min=0)))
     fields = dict(
-        bwt=torch.cat(bwts), occ_ckpt=occ_ckpt, occ_l1=occ_l1, C=C,
-        mark_bits=torch.cat(mbits), mark_ckpt=mark_ckpt.view(-1),
-        mark_vals=torch.cat(mvals),
+        C=C, mark_vals=torch.cat(mvals),
         doc_seof_rows=mesh.psum(torch.stack(seofs)),
         alpha_map=(torch.arange(ALPHA_SIZE, dtype=torch.int32, device=dev)
                    if tier == "full" else amap),
         alpha_rev=(torch.arange(ALPHA_SIZE, dtype=torch.int32, device=dev)
                    if tier == "full" else arev))
+    if not row_tier:
+        occ_ckpt = (occ_ckpt if tier == "full"
+                    else torch.stack(occs).view(Dl * nseg_local, K))
+        fields.update(bwt=torch.cat(bwts), occ_ckpt=occ_ckpt, occ_l1=occ_l1,
+                      mark_bits=torch.cat(mbits),
+                      mark_ckpt=mark_ckpt.view(-1))
+        return fields, n_marks, mark_of
+    # the row tiers: every shard's statistics cross to the host once, the
+    # host picks one geometry, then each shard assembles its rows with its
+    # global mark checkpoints inside them
+    nsym_np = mesh.all_gather(torch.stack(nsyms).to(torch.int32)).cpu() \
+        .numpy()
+    slots_np = (mesh.all_gather(torch.stack(slotss)).cpu().numpy()
+                if tier == "vrle" else None)
+    plan = _row_plan(tier, nsym_np, slots_np, seg=seg, K=K)
+    rows, woffs, ovfs, conts = [], [], [], []
+    for j in range(Dl):
+        r, w, o, c = _shard_rows(plan, mesh.shard0 + j, bwts[j], amap,
+                                 symss[j], nsyms[j], mbits[j],
+                                 mark_ckpt[j].view(-1), occs[j])
+        bwts[j] = symss[j] = None
+        rows.append(r)
+        woffs.append(w)
+        ovfs.append(o)
+        conts.append(c)
+    fields.update(
+        bwt=torch.cat(rows),
+        occ_ckpt=torch.zeros((1, K), dtype=torch.int16,
+                             device=dev).view(torch.uint16),
+        occ_l1=occ_l1,
+        mark_bits=torch.zeros((1, seg // 32), dtype=torch.int32,
+                              device=dev).view(torch.uint32),
+        mark_ckpt=mark_base.view(Dl), seg_ovf=torch.cat(ovfs),
+        seg_nsym=torch.cat(nsyms), seg_woff=torch.cat(woffs),
+        seg_syms=BO._sym_marker(plan.s_store, plan.wide, dev))
+    if tier == "vrle":
+        scheme = (3 + plan.ngr if plan.has_cont else 3) if plan.has_rle \
+            else 1
+        fields.update(
+            seg_rle=torch.zeros((scheme, plan.w_main), dtype=torch.int32,
+                                device=dev),
+            seg_cont=torch.cat(conts).view(-1, BO.VRLE_CONT_G))
     return fields, n_marks, mark_of
+
+
+def _doc_lists(mesh, sa, doc_starts, *, n: int, seg: int):
+    """(chunk_doc_offsets_np, chunk_docs_np) of a sharded build: kernel P
+    lists each shard's segments' documents, the counts cross to the host,
+    and P's flatten_ragged compacts each shard's lists (femto_tpu's
+    build_index_sharded doc_chunks)."""
+    Dl, m = sa.shape
+    nseg_local = m // seg
+    lists = [BO.doc_lists(sa[j], doc_starts, n_real=n, n_seg=nseg_local,
+                          seg=seg) for j in range(Dl)]
+    counts = np.concatenate([c.cpu().numpy() for _, c in lists]).astype(
+        np.int64)
+    offs = np.zeros(counts.shape[0] + 1, np.int64)
+    np.cumsum(counts, out=offs[1:])
+    flat = []
+    for j, (vals, cnt) in enumerate(lists):
+        o = offs[j * nseg_local: (j + 1) * nseg_local + 1]
+        flat.append(BO.flatten_ragged(
+            vals, cnt, torch.from_numpy(o - o[0]).to(sa.device)).cpu()
+            .numpy())
+    return offs, np.concatenate(flat).astype(np.int32)
 
 
 def build_index_sharded(prepared, mesh, seg: int = DEFAULT_SEG,
@@ -636,19 +962,22 @@ def build_index_sharded(prepared, mesh, seg: int = DEFAULT_SEG,
                         mark_cap_local0: Optional[int] = None,
                         doc_chunks: bool = False) -> FMIndex:
     """Distributed end-to-end build on the mesh's device: the sharded
-    suffix sort, then per-shard packaging (tier "full", "compact" or
-    "packed"); no host O(n) step.  Overflow of an exchange retries with a
-    doubled cap_factor (a fresh seed each time), then with cap = m; the
-    per-shard mark capacity grows on overflow.  Returns an FMIndex of the
+    suffix sort, then per-shard packaging (tier "full", "compact",
+    "packed", "vseg" or "vrle"); no host O(n) step (the row tiers pull
+    O(n_seg) statistics for their plan).  Overflow of an exchange retries
+    with a doubled cap_factor (a fresh seed each time), then with cap = m;
+    the per-shard mark capacity grows on overflow.  checkpoint_dir: the
+    suffix sort saves and resumes its state there (dist_suffix_array).
+    doc_chunks: the per-segment document lists (chunk_doc_offsets_np,
+    chunk_docs_np), host metadata that needs every shard in this process
+    (a LocalMesh or a one-process DistMesh).  Returns an FMIndex of the
     process's shard blocks (see the module docstring)."""
     if tier not in ("full", "compact", "packed", "vseg", "vrle"):
         raise ValueError(f"unknown sharded tier {tier!r}")
-    if tier in ("vseg", "vrle"):
-        raise NotImplementedError(f"the sharded {tier} tier {_NOT_PORTED}")
-    if doc_chunks:
-        raise NotImplementedError(f"sharded doc_chunks {_NOT_PORTED}")
-    if checkpoint_dir is not None:
-        raise NotImplementedError(f"checkpoint / resume {_NOT_PORTED}")
+    if doc_chunks and mesh.Dl != mesh.D:
+        raise ValueError(
+            "doc_chunks is host-side metadata and needs every shard "
+            "addressable; build chunk doc-lists on single-process meshes")
     if tier != "full":
         l1_group_for(seg)
     from .distributed import put_global
@@ -677,7 +1006,8 @@ def build_index_sharded(prepared, mesh, seg: int = DEFAULT_SEG,
     for attempt in range(max_retries):
         sa, pull, overflow = _dist_sa(
             text_dev, mesh, cap_factor=cf, seed=attempt, n=n,
-            doc_starts=doc_starts_dev, mark_period=mark_period, alpha=alpha)
+            doc_starts=doc_starts_dev, mark_period=mark_period, alpha=alpha,
+            checkpoint_dir=checkpoint_dir)
         if int(overflow) <= 0:
             break
         cf *= 2.0
@@ -686,7 +1016,8 @@ def build_index_sharded(prepared, mesh, seg: int = DEFAULT_SEG,
         # than one shard's whole block)
         sa, pull, overflow = _dist_sa(
             text_dev, mesh, cap_factor=float(D), seed=max_retries, n=n,
-            doc_starts=doc_starts_dev, mark_period=mark_period, alpha=alpha)
+            doc_starts=doc_starts_dev, mark_period=mark_period, alpha=alpha,
+            checkpoint_dir=checkpoint_dir)
         if int(overflow) > 0:
             raise RuntimeError(
                 "distributed sort capacity overflow even at cap=m")
@@ -717,7 +1048,12 @@ def build_index_sharded(prepared, mesh, seg: int = DEFAULT_SEG,
         cap_local = min(cap_local * 4, cap_total)
         mark_cap_retries += 1
     LAST_BUILD_STATS["mark_cap_retries"] = mark_cap_retries
-    del sa, pull
+    del pull
+    chunk_offs = chunk_docs = None
+    if doc_chunks:
+        chunk_offs, chunk_docs = _doc_lists(mesh, sa, doc_starts_dev, n=n,
+                                            seg=seg)
+    del sa
     arrays = FMArrays(
         doc_starts=doc_starts_dev,
         mark_meta=torch.tensor(
@@ -731,4 +1067,5 @@ def build_index_sharded(prepared, mesh, seg: int = DEFAULT_SEG,
     return FMIndex(arrays=arrays, meta=meta,
                    doc_starts_np=np.asarray(prepared.doc_starts, np.int64),
                    infos=list(prepared.infos),
-                   header_lens_np=prepared.header_lens)
+                   header_lens_np=prepared.header_lens,
+                   chunk_doc_offsets_np=chunk_offs, chunk_docs_np=chunk_docs)

@@ -1,7 +1,8 @@
-"""Sharded count and locate: index rows distributed over the mesh.
+"""Sharded queries: index rows distributed over the mesh.
 
-The counterpart of femto_tpu/parallel/dist_query.py's count and locate.
-Two schemes, as there:
+The counterpart of femto_tpu/parallel/dist_query.py, every tier (full,
+compact, packed, vseg, vrle).  Count and locate run two schemes, as
+there:
 
   * routed (the default): the query lanes are split over the shards, and
     every step routes each lane's (row, code) request to the shard owning
@@ -15,8 +16,18 @@ Two schemes, as there:
 
 Both return replicated int32 tensors.  sharded_arrays_from_numpy carries a
 femto_tpu sharded index (np.asarray of its global arrays) across to the
-mesh.  The query engine over a sharded index (regex, approximate, Boolean
-and docs queries) is not ported yet (ROADMAP.md).
+mesh.
+
+The query engine over a sharded index (sharded_regexp_matches,
+sharded_term_ranges, sharded_count_query, sharded_docs_query): the device
+regex frontier of query/regexp_device.py runs replicated, the same on
+every shard, and each layer's ranks are answered by the shards together:
+K18f's masked_occ of every fork's (code, first) and (code, last) lanes,
+one psum over the mesh, plus C[code] (0 for absent codes), then kernel
+R's regex_fork_ranked, H's sort and R's merge.  Past its largest
+capacities the sharded frontier raises RuntimeError (it has no host
+engine to fall back on).  Offsets come from sharded_locate, and Boolean
+queries combine the same host Results as the single-device engine.
 """
 
 from __future__ import annotations
@@ -26,6 +37,7 @@ from typing import Any, Mapping
 import numpy as np
 import torch
 
+from ..alphabet import ALPHA_SIZE
 from ..fmindex import FMIndex, arrays_from_numpy
 from ..ops import dist_ops as DO
 from ..ops import rank as R
@@ -33,20 +45,16 @@ from . import bins
 from .mesh import shard_ids
 
 # FMArrays fields that are cut into the shards' blocks (femto_tpu's
-# _specs_for_arrays, full / compact / packed): occ_l1 too where it has
-# more than its one dummy row
+# _specs_for_arrays): full / compact / packed (occ_l1 too where it has
+# more than its one dummy row), and the row tiers, whose occ_ckpt,
+# mark_bits, seg_syms and seg_rle are replicated one-row markers
 SHARDED_FIELDS = ("bwt", "occ_ckpt", "mark_bits", "mark_ckpt", "mark_vals")
+ROW_SHARDED_FIELDS = ("bwt", "occ_l1", "mark_ckpt", "mark_vals", "seg_ovf",
+                      "seg_nsym", "seg_woff", "seg_cont")
 
 
 def _nseg_local(index, mesh) -> int:
     return index.meta.n_seg // mesh.D
-
-
-def _check_tier(index) -> None:
-    if R.is_row_tier(index.arrays):
-        raise NotImplementedError(
-            "sharded queries over the vseg and vrle tiers are not ported "
-            "yet (see ROADMAP.md)")
 
 
 def _to_mesh(x, mesh) -> torch.Tensor:
@@ -150,7 +158,6 @@ def sharded_backward_search(index: FMIndex, mesh, pats: np.ndarray,
     each rank request to the row's owner; hot-row skew that overflows the
     exchange capacity retries with cap * 4, then falls back to the masked
     psum scheme."""
-    _check_tier(index)
     pats = np.asarray(pats, np.int32)
     B = pats.shape[0]
     D = mesh.D
@@ -227,7 +234,6 @@ def sharded_locate(index: FMIndex, mesh, rows: np.ndarray,
     """Text offset of each row (int32[B] replicated) over a sharded index,
     by LF walks whose steps the rows' owners answer (routed, retried with
     a larger capacity on hot-row skew) or the masked psum walk."""
-    _check_tier(index)
     rows = np.asarray(rows, np.int32)
     B = rows.shape[0]
     D = mesh.D
@@ -255,10 +261,245 @@ def sharded_arrays_from_numpy(arrays_np: Mapping[str, np.ndarray], meta: Any,
     arrays = {k: np.asarray(v) for k, v in arrays_np.items()
               if v is not None}
     if mesh.Dl != mesh.D:
-        for k in SHARDED_FIELDS + ("occ_l1",):
+        row_tier = "seg_nsym" in arrays
+        for k in (ROW_SHARDED_FIELDS if row_tier
+                  else SHARDED_FIELDS + ("occ_l1",)):
             a = arrays.get(k)
             if a is None or (k == "occ_l1" and a.shape[0] <= 1):
                 continue
             blk = a.shape[0] // mesh.D
             arrays[k] = a[mesh.shard0 * blk:(mesh.shard0 + mesh.Dl) * blk]
     return arrays_from_numpy(arrays, meta, device=mesh.device, **kw)
+
+
+# ---------------------------------------------------------------------------
+# The query engine over a sharded index (femto_tpu's dist_query.py 560-812)
+# ---------------------------------------------------------------------------
+
+# the sharded frontier's capacities: the first run's, and the largest it
+# grows to (fourfold per overflow) before it raises (femto_tpu's
+# sharded_regexp_matches)
+FRONTIER_CAPS = (256, 4096, 64)
+MAX_FRONTIER_CAPS = (16384, 262144, 1024)
+
+
+def _fork_ranks(index: FMIndex, mesh):
+    """The sharded frontier's rank hook (query/regexp_device._layer): the
+    new range of every fork (entry f, symbol a) of the n_live live
+    entries, int32[n_live * 261] each, from K18f's masked_occ of the
+    forks' (code, first) and (code, last) lanes on every local shard, one
+    psum over the mesh and C[code]; (0, 0) where a is absent
+    (femto_tpu's backward_step_pair_sharded)."""
+    arrays, meta = index.arrays, index.meta
+    nseg_local = _nseg_local(index, mesh)
+    n_rows_total = mesh.D * nseg_local * meta.seg
+    sym = torch.arange(ALPHA_SIZE, dtype=torch.int32, device=mesh.device)
+    cd = R.map_char(arrays, sym).to(torch.int32)
+    valid = cd >= 0
+    base = torch.where(valid, arrays.C[torch.where(valid, cd, 0).long()], 0)
+
+    def rank(first, last, n_live):
+        A = ALPHA_SIZE
+        rows = torch.cat([first[:n_live], last[:n_live]])
+        lanes = rows[:, None].expand(2 * n_live, A).reshape(-1)
+        codes = cd[None].expand(2 * n_live, A).reshape(-1)
+        occ = mesh.psum(DO.masked_occ(
+            arrays, codes, lanes, Dl=mesh.Dl, nseg_local=nseg_local,
+            shard0=mesh.shard0, n_rows_total=n_rows_total))
+        del lanes, codes
+        occ = torch.where(valid, base + occ.view(2, n_live, A), 0)
+        return occ[0].reshape(-1), occ[1].reshape(-1)
+
+    return rank
+
+
+def sharded_regexp_matches(index: FMIndex, mesh, nfa, settings=None,
+                           frontier_cap: int = FRONTIER_CAPS[0],
+                           results_cap: int = FRONTIER_CAPS[1],
+                           max_len: int = FRONTIER_CAPS[2],
+                           on_layer=None):
+    """Run the NFA frontier against a sharded index: deduped RegexpMatch
+    list (match strings empty: row ranges and costs).  The frontier runs
+    replicated on the index's device (query/regexp_device.py), its ranks
+    summed over the mesh (_fork_ranks).  On capacity overflow the
+    capacities grow fourfold and the search re-runs; past
+    MAX_FRONTIER_CAPS it raises RuntimeError.  on_layer: as
+    run_regexp_device's, called before every layer of every run."""
+    from ..query import regexp_device as RD
+    from ..query.ast import ApproxSettings
+
+    if settings is None:
+        settings = ApproxSettings.exact()
+    rank = _fork_ranks(index, mesh)
+    retries = 0
+    while True:
+        try:
+            out = RD._run_regexp_device_once(
+                index, nfa, settings, frontier_cap, results_cap, max_len,
+                with_strings=False, on_layer=on_layer, rank=rank)
+            RD.last_stats["retries"] = retries
+            return out
+        except RD._DeviceCapacityOverflow:
+            if all(c >= m for c, m in zip(
+                    (frontier_cap, results_cap, max_len), MAX_FRONTIER_CAPS)):
+                raise RuntimeError("sharded regex frontier overflow at caps")
+            frontier_cap = min(frontier_cap * 4, MAX_FRONTIER_CAPS[0])
+            results_cap = min(results_cap * 4, MAX_FRONTIER_CAPS[1])
+            max_len = min(max_len * 4, MAX_FRONTIER_CAPS[2])
+            retries += 1
+
+
+def sharded_term_ranges(index: FMIndex, mesh, term):
+    """Row ranges (first, last, cost) of one query term against a sharded
+    index: literal terms run the sharded backward search, regex and
+    approximate terms the sharded frontier."""
+    from ..alphabet import pattern_to_alpha
+    from ..query.ast import as_literal
+    from ..query.nfa import compile_nfa
+    from ..query.planning import matches_empty, streamline
+    from ..search import pack_patterns
+
+    regexp = streamline(term.regexp)
+    if matches_empty(regexp):
+        return [(index.meta.row0, index.meta.n_rows, 0)]
+    lit = as_literal(regexp)
+    if lit is not None and term.approx.cost_bound <= 1:
+        packed, _ = pack_patterns([pattern_to_alpha(lit)])
+        first, last = sharded_backward_search(index, mesh, packed)
+        f, l = int(first[0]), int(last[0])
+        return [(f, l, 0)] if l > f else []
+    matches = sharded_regexp_matches(index, mesh, compile_nfa(regexp),
+                                     term.approx)
+    return [(m.first, m.last, m.cost) for m in matches]
+
+
+def sharded_count_query(index: FMIndex, mesh, query: str,
+                        icase: bool = False) -> int:
+    """count_query against a sharded index: the matching positions of a
+    term query (regex and approximate included), the matching documents
+    of a Boolean one (query/engine.count_query's semantics), answered
+    from the sharded arrays alone."""
+    from ..query.ast import QTerm
+    from ..query.engine import _warn_truncated, apply_icase
+    from ..query.parser import parse_query
+    from ..query.regexp import RegexpMatch, match_rows
+
+    node = parse_query(query)
+    if icase:
+        node = apply_icase(node)
+    if isinstance(node, QTerm):
+        iv = match_rows([RegexpMatch(f, l, c, b"")
+                         for f, l, c in sharded_term_ranges(index, mesh,
+                                                            node)])
+        return sum(l - f for f, l in iv)
+    res = _sharded_execute(index, mesh, node)
+    _warn_truncated(res, query)
+    return len(res.doc_set())
+
+
+# Per-term work bound, used only when the caller opts out of full
+# evaluation (full_eval=False): each Boolean operand then locates at most
+# this many rows, and the truncation is flagged.
+SHARDED_TERM_CAP = 1_000_000
+
+# Rows located per sharded_locate call when a term streams all its rows.
+SHARDED_LOCATE_WINDOW = 1 << 20
+
+
+def _sharded_locate_docs(index: FMIndex, mesh, iv, cap=None):
+    """(docs, offsets, truncated) of a union of row intervals through
+    sharded_locate: cap None streams every row in SHARDED_LOCATE_WINDOW
+    windows; a positive cap locates at most that many rows and flags the
+    truncation."""
+    from ..search import offsets_to_docs
+
+    D = mesh.D
+    total = sum(l - f for f, l in iv)
+    truncated = cap is not None and total > cap
+    spans = []
+    budget = cap
+    for f, l in iv:
+        take = l - f if budget is None else min(l - f, budget)
+        if take <= 0:
+            break
+        for wf in range(f, f + take, SHARDED_LOCATE_WINDOW):
+            spans.append((wf, min(wf + SHARDED_LOCATE_WINDOW, f + take)))
+        if budget is not None:
+            budget -= take
+    if not spans:
+        return np.zeros(0, np.int64), np.zeros(0, np.int64), truncated
+    docs_all, offs_all = [], []
+    for wf, wl in spans:
+        rows = np.arange(wf, wl, dtype=np.int32)
+        rows = np.concatenate([rows, np.full((-len(rows)) % D, rows[0],
+                                             np.int32)])
+        offs = sharded_locate(index, mesh, rows).cpu().numpy()[:wl - wf]
+        d, o = offsets_to_docs(index, offs.astype(np.int64))
+        docs_all.append(d)
+        offs_all.append(o)
+    return np.concatenate(docs_all), np.concatenate(offs_all), truncated
+
+
+def _sharded_execute(index: FMIndex, mesh, node, term_cap=None):
+    """query/engine.execute against a sharded index: each term's rows from
+    sharded ranges and sharded_locate, the Boolean nodes combined by the
+    host Results algebra (query/results.py).  term_cap None evaluates
+    every operand in full."""
+    from ..query.ast import QAnd, QNot, QOr, QTerm, QThen, QWithin
+    from ..query.regexp import RegexpMatch, match_rows
+    from ..query.results import (Results, intersect, subtract, then_within,
+                                 union)
+
+    if isinstance(node, QTerm):
+        ranges = sharded_term_ranges(index, mesh, node)
+        iv = match_rows([RegexpMatch(f, l, c, b"") for f, l, c in ranges])
+        docs, offs, truncated = _sharded_locate_docs(index, mesh, iv,
+                                                     cap=term_cap)
+        res = Results.from_doc_offsets(docs, offs)
+        res.count = sum(l - f for f, l in iv)
+        res.truncated = truncated
+        return res
+    a = _sharded_execute(index, mesh, node.left, term_cap)
+    b = _sharded_execute(index, mesh, node.right, term_cap)
+    if isinstance(node, QAnd):
+        return intersect(a, b)
+    if isinstance(node, QOr):
+        return union(a, b)
+    if isinstance(node, QNot):
+        return subtract(a, b)
+    if isinstance(node, QThen):
+        return then_within(a, b, node.distance, ordered=True)
+    if isinstance(node, QWithin):
+        return then_within(a, b, node.distance, ordered=False)
+    raise TypeError(node)
+
+
+def sharded_docs_query(index: FMIndex, mesh, query: str,
+                       with_offsets: bool = True, icase: bool = False,
+                       max_matches=None, full_eval: bool = True):
+    """docs_query against a sharded index: a list of (doc_id, info,
+    offsets), term ranges from the sharded engines, offsets from
+    sharded_locate, the Boolean algebra on the host.  full_eval True
+    evaluates every term exactly (streamed); False bounds each term at
+    SHARDED_TERM_CAP rows and warns of truncation.  max_matches limits
+    the documents returned."""
+    from ..query.engine import _warn_truncated, apply_icase
+    from ..query.parser import parse_query
+    from ..query.results import ResultType
+
+    node = parse_query(query)
+    if icase:
+        node = apply_icase(node)
+    res = _sharded_execute(index, mesh, node,
+                           term_cap=None if full_eval else SHARDED_TERM_CAP)
+    _warn_truncated(res, query)
+    out = []
+    for d in res.doc_set():
+        if with_offsets and res.type == ResultType.DOC_OFFSETS:
+            offs = res.offsets[res.docs == d].tolist()
+        else:
+            offs = []
+        out.append((int(d), index.infos[int(d)], offs))
+        if max_matches is not None and len(out) >= max_matches:
+            break
+    return out

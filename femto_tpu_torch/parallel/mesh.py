@@ -60,6 +60,9 @@ class LocalMesh:
         """Shard i's row goes to shard (i + shift) mod D."""
         return torch.roll(x, shift % self.D, dims=0)
 
+    def barrier(self) -> None:
+        """One process: nothing to wait for."""
+
 
 class DistMesh:
     """One shard per process of the default torch.distributed group."""
@@ -113,6 +116,13 @@ class DistMesh:
         for req in dist.batch_isend_irecv(ops):
             req.wait()
         return out
+
+    def barrier(self) -> None:
+        """Every process of the group reaches this point first."""
+        if self.device.type == "cuda":
+            self._dist.barrier(device_ids=[self.device.index])
+        else:
+            self._dist.barrier()
 
 
 def shard_ids(mesh) -> torch.Tensor:

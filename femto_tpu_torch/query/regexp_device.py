@@ -180,13 +180,22 @@ def _initial_state(index: FMIndex, nfa: NFA, settings: ApproxSettings,
 
 
 def _layer(index: FMIndex, nd: RO.FrontierNFA, cfg: RO.LayerCfg, depth: int,
-           n_live: int, first, last, costs, res, state) -> int:
+           n_live: int, first, last, costs, res, state, rank=None) -> int:
     """One character layer from the n_live live entries: fork (kernel R),
     sort the forks by (first, last) (kernel H), merge (kernel R) into the
     frontier and results in place.  Returns the next live count, -1 on
-    overflow: the layer's one read from the device."""
-    keys, fcosts = RO.regex_fork(index.arrays, first, last, costs, n_live,
-                                 nd, cfg, allow_subst=depth > 0)
+    overflow: the layer's one read from the device.  rank: the sharded
+    frontier's hook, rank(first, last, n_live) -> the forks' new ranges
+    (int32[n_live * 261] each), which kernel R's regex_fork_ranked takes
+    in place of ranking them itself."""
+    if rank is None:
+        keys, fcosts = RO.regex_fork(index.arrays, first, last, costs,
+                                     n_live, nd, cfg, allow_subst=depth > 0)
+    else:
+        nf, nl = rank(first, last, n_live)
+        keys, fcosts = RO.regex_fork_ranked(nf, nl, costs, n_live, nd, cfg,
+                                            allow_subst=depth > 0)
+        del nf, nl
     skeys, sidx = SO.radix_sort_pairs(keys, None, 0, 2 * cfg.half_bits)
     RO.regex_merge(skeys, sidx, fcosts, nd, cfg, depth, first, last, costs,
                    res, state)
@@ -202,6 +211,7 @@ def _run_regexp_device_once(
     max_len: int,
     with_strings: bool,
     on_layer: Optional[Callable] = None,
+    rank: Optional[Callable] = None,
 ) -> List[RegexpMatch]:
     R = results_cap
     nd, cfg, bufs = _initial_state(index, nfa, settings, frontier_cap,
@@ -211,7 +221,7 @@ def _run_regexp_device_once(
     while n_live > 0 and depth < max_len:
         if on_layer is not None:
             on_layer(depth, n_live, nd, cfg, bufs)
-        status = _layer(index, nd, cfg, depth, n_live, *bufs)
+        status = _layer(index, nd, cfg, depth, n_live, *bufs, rank=rank)
         reads += 1
         if status < 0:
             raise _DeviceCapacityOverflow(

@@ -365,9 +365,7 @@ def test_mark_capacity_retry(tmesh):
         naive_locate(docs, b"body")
 
 
-def test_unported_options_raise(tmesh):
+def test_unknown_tier_raises(tmesh):
     prep = tt.prepare_documents([b"abc"])
-    for kw in ({"tier": "vseg"}, {"tier": "vrle"}, {"doc_chunks": True},
-               {"checkpoint_dir": "ck"}):
-        with pytest.raises(NotImplementedError):
-            tdb.build_index_sharded(prep, tmesh, seg=32, **kw)
+    with pytest.raises(ValueError, match="unknown sharded tier"):
+        tdb.build_index_sharded(prep, tmesh, seg=32, tier="dense")

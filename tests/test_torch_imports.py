@@ -191,6 +191,9 @@ def test_entry_points_raise_without_a_card(tmp_path):
                                                     six.meta.row0 + 2,
                                                     dtype=np.int32))
     assert offs.device.type == "cpu" and (offs >= 0).all()
+    rix = TPAR.build_index_sharded(prepared, mesh, seg=64, mark_period=4,
+                                   tier="vrle")
+    assert TPAR.sharded_count_query(rix, mesh, "ab[cd]") == 2
 
 
 def test_query_engine_raises_without_a_card(tmp_path):
@@ -237,6 +240,14 @@ def test_wrappers_refuse_mixed_devices():
     with pytest.raises(ValueError, match="devices"):
         DO.masked_lf(ix.arrays, rows, Dl=1, nseg_local=ix.meta.n_seg,
                      shard0=0)
+    nd = RO.FrontierNFA(S=16, T=32, src=None, dst=None, mask=None,
+                        accept=None, in_off=torch.zeros(17, dtype=torch.int32),
+                        in_src=None, in_mask=None)
+    costs = torch.zeros((1, 16), dtype=torch.int32)
+    forks = torch.zeros(261, dtype=torch.int32, device="meta")
+    with pytest.raises(ValueError, match="devices"):
+        RO.regex_fork_ranked(forks, forks, costs, 1, nd,
+                             RO.LayerCfg(1, 1, 1, 1, 0, 8), False)
 
 
 @pytest.mark.parametrize("alone", [False, True])
