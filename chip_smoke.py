@@ -431,6 +431,25 @@ for _lay in ROW_LAYOUTS:
 # device items that would mean a build or a query fell back to a library
 # sort or scan
 LIBRARY_SORT_NAMES = ("RadixSort", "Onesweep", "cub::", "thrust::")
+# kernel H's own kernels (csrc/radix_sort.cu): phase 6 sums their device
+# items in each build and query, and checks their calls against the sorts
+H_KERNELS = ("radix_digit_hist", "radix_tile_pass", "radix_block_sort")
+# each of kernel H's routes (h_route), the route its sorts take instead in
+# a build of csrc/radix_sort.cu with the flag, and that flag: phase 5 holds
+# every route against that one on the query path's own sorts (h_route_rows)
+H_ALTERNATIVES = {
+    "one_block": ("few_key_tiles", "-DFEMTO_H_ONE_BLOCK=0"),
+    "few_key_tiles": ("full_tiles", "-DFEMTO_H_FEW_MAX=0"),
+    "full_tiles": ("few_key_tiles", "-DFEMTO_H_FEW_MAX=0x7fffffff"),
+}
+# kernels that lose to one library call by less than the cost of a call
+# (ROADMAP Q1): phase 5 also takes their own device items from
+# torch.profiler, beside the CUDA-event time of the whole call
+ITEM_ROWS = ("owner_place", "mesh_exclusive", "add_base")
+# kernels whose library call takes about their own time, where one round
+# in turns cannot say which is faster (host- and launch-bound times move
+# 20-90% from run to run, PERF.md): timed in turns this many rounds
+TURN_ROUNDS = {"radix_sort_pairs": 5}
 for _lay in LAYOUTS:
     _row = _lay in ROW_LAYOUTS  # the row tiers' own steps (K11-K13)
     KERNELS.update({
@@ -587,6 +606,238 @@ def cuda_ms(fn, reps=3):
         b.synchronize()
         times.append(a.elapsed_time(b))
     return statistics.median(times)
+
+
+def in_turns(run_k, library, rounds=1):
+    """A kernel and the library call beside it, timed in turns (kernel,
+    library, library, kernel; cuda_ms each), `rounds` times: (the median of
+    the rounds' kernel means, the median of their library means, each
+    round's four ms in that order)."""
+    fours = []
+    for _ in range(rounds):
+        k1 = cuda_ms(run_k)
+        l1 = cuda_ms(library)
+        l2 = cuda_ms(library)
+        k2 = cuda_ms(run_k)
+        fours.append([k1, l1, l2, k2])
+    return (statistics.median((f[0] + f[3]) / 2 for f in fours),
+            statistics.median((f[1] + f[2]) / 2 for f in fours), fours)
+
+
+def turn_fields(name, run_k, library):
+    """A kernel's ms and its library call's (in_turns, TURN_ROUNDS[name]
+    rounds) and the row's fields of those turns: each round's four ms and,
+    over several rounds, the rounds in which the kernel came first and
+    both calls' queued_ms."""
+    rounds = TURN_ROUNDS.get(name, 1)
+    ms, lib_ms, fours = in_turns(run_k, library, rounds)
+    more = {"turns_ms": fours}
+    if rounds > 1:
+        more["kernel_ahead_rounds"] = sum(
+            k1 + k2 < l1 + l2 for k1, l1, l2, k2 in fours)
+        more["queued_ms"] = queued_ms(run_k)
+        more["library_queued_ms"] = queued_ms(library)
+    return ms, lib_ms, more
+
+
+# torch.cuda._sleep's kernel: the warm-up of a profiler session and the
+# spin that keeps the card busy while a call is queued (queued_ms)
+SPIN_KERNEL = "spin_kernel"
+
+
+def profiler_warm_up():
+    """Run inside a torch.profiler session before what it measures: late in
+    a long process the profiler has dropped the first device events of a
+    session (PERF.md, section 5), so a few spin kernels and a pause go first;
+    their items (SPIN_KERNEL) are left out of every sum."""
+    import torch
+
+    for _ in range(16):
+        torch.cuda._sleep(1000)
+    torch.cuda.synchronize()
+    time.sleep(0.05)
+
+
+def device_items(fn, reps=3):
+    """The median ms of each of fn's device items (kernels, copies, fills)
+    over reps calls after a warm-up, from torch.profiler: {name: ms}.  A
+    median of an item's own events holds where the profiler drops some of
+    them, as it has late in a long process; a sum over the calls would
+    not."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        profiler_warm_up()
+        for _ in range(reps):
+            fn()
+        torch.cuda.synchronize()
+    each = {}
+    for e in prof.events():
+        if (e.device_type == torch.autograd.DeviceType.CUDA
+                and SPIN_KERNEL not in e.name):
+            each.setdefault(e.name, []).append(
+                (e.time_range.end - e.time_range.start) / 1e3)
+    return {k: statistics.median(v) for k, v in each.items()}
+
+
+def queued_ms(fn, reps=5):
+    """Device ms of fn with the host's cost of the call hidden: a spin
+    kernel keeps the card busy while the events and fn are queued behind
+    it, so the events time fn's device work alone (median of reps)."""
+    import torch
+
+    fn()
+    torch.cuda.synchronize()
+    times = []
+    for _ in range(reps):
+        a = torch.cuda.Event(enable_timing=True)
+        b = torch.cuda.Event(enable_timing=True)
+        torch.cuda._sleep(2_000_000)
+        a.record()
+        fn()
+        b.record()
+        b.synchronize()
+        times.append(a.elapsed_time(b))
+    return statistics.median(times)
+
+
+def item_fields(name, run_k, library, tries=3):
+    """The call and its kernel apart: the device ms of the kernel's own
+    item (<name>_kernel) and the library call's items (one of each a
+    call), from torch.profiler (device_items), and both calls' queued_ms.
+    A session that saw no such item (the profiler drops events late in
+    the script) is run again, up to `tries` sessions, and the row says how
+    many it took; "not measured" where none saw it."""
+    for attempt in range(1, tries + 1):
+        own = [ms for k, ms in device_items(run_k).items()
+               if f"{name}_kernel" in k]
+        if own:
+            break
+    out = {"kernel_device_ms": own[0] if own else "not measured",
+           "kernel_item_sessions": attempt,
+           "queued_ms": queued_ms(run_k)}
+    if library is not None:
+        lib = device_items(library)
+        out["library_device_ms"] = (sum(lib.values()) if lib
+                                    else "not measured")
+        out["library_queued_ms"] = queued_ms(library)
+    return out
+
+
+def h_fields(keys, bit_lo, bit_hi):
+    """Kernel H's shape on a row: m, the bit range and the kernels one
+    call launches there (csrc/radix_sort.cu's own count)."""
+    from femto_tpu_torch import kernels
+
+    m = keys.shape[0]
+    return {"m": m, "bits": [bit_lo, bit_hi],
+            "kernels_per_call": kernels.size("radix_sort_kernels", m, bit_lo,
+                                             bit_hi)}
+
+
+def h_route(m, bit_lo, bit_hi):
+    """The route kernel H takes for a sort of m keys (csrc/radix_sort.cu's
+    own choice): "one_block", "few_key_tiles" (tiles smaller than a large
+    sort's), "full_tiles", or None (m = 0: nothing launched)."""
+    from femto_tpu_torch import kernels
+
+    if kernels.size("radix_sort_kernels", m, bit_lo, bit_hi) == 0:
+        return None
+    tile = kernels.size("radix_sort_tile", m)
+    if tile == 0:
+        return "one_block"
+    full = kernels.size("radix_sort_tile", 2**31 - 1)
+    return "few_key_tiles" if tile < full else "full_tiles"
+
+
+def h_call_sizes(sorts):
+    """How a path's sorts ((m, bit_lo, bit_hi) each) fall on kernel H's
+    routes (h_route), with the largest m and the calls at each bit
+    width."""
+    routes = {"one_block": 0, "few_key_tiles": 0, "full_tiles": 0}
+    widths = {}
+    for m, lo, hi in sorts:
+        route = h_route(m, lo, hi)
+        if route is not None:
+            routes[route] += 1
+            widths[hi - lo] = widths.get(hi - lo, 0) + 1
+    return {"calls": sum(routes.values()), **routes,
+            "largest_m": max((m for m, _, _ in sorts), default=0),
+            "calls_by_bits": dict(sorted(widths.items()))}
+
+
+def start_h_route_builds():
+    """csrc/radix_sort.cu built with each flag of H_ALTERNATIVES, one nvcc
+    each, started now (beside kernels.build) and read by h_route_rows:
+    {route: (process, library path)}."""
+    from femto_tpu_torch import kernels
+
+    os.makedirs(kernels.BUILD_DIR, exist_ok=True)
+    out = {}
+    for route, (_, flag) in H_ALTERNATIVES.items():
+        so = os.path.join(kernels.BUILD_DIR, f"libradix_sort.not_{route}.so")
+        out[route] = (subprocess.Popen(
+            [kernels.nvcc_path(), *kernels.NVCC_FLAGS, flag, "-o", so,
+             os.path.join(kernels.CSRC, "radix_sort.cu")],
+            stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True), so)
+    return out
+
+
+def h_route_rows(builds, sorts):
+    """Kernel H's routes against each other on the paths' own sorts.
+    sorts: {tag: (keys, bit_lo, bit_hi)}; builds: start_h_route_builds'.
+    Each sort by H as built and by the build that sends it down the route
+    H_ALTERNATIVES names (kernels.variant, both through sort_ops'
+    wrapper), both held bit for bit to the plain version, then timed in
+    turns (5 rounds, as built first) and queued behind a spin kernel:
+    {tag: row}."""
+    from femto_tpu_torch import kernels
+    from femto_tpu_torch.ops import sort_ops as SO
+
+    libs = {}
+    for route, (proc, so) in builds.items():
+        out, _ = proc.communicate()
+        check(proc.returncode == 0,
+              f"nvcc failed for radix_sort.cu {H_ALTERNATIVES[route][1]}:"
+              f"\n{out}")
+        libs[route] = kernels.bind(so, "radix_sort")
+    rows = {}
+    for tag, (keys, lo, hi) in sorts.items():
+        m, route = keys.shape[0], h_route(keys.shape[0], lo, hi)
+        other = H_ALTERNATIVES[route][0]
+
+        def run(lib):
+            # the same swap around both, so that both calls pay it
+            with kernels.variant("radix_sort", lib):
+                return SO.radix_sort_pairs(keys, None, lo, hi)
+
+        def as_built():
+            return run(None)
+
+        def instead():
+            return run(libs[route])
+
+        want = SO.radix_sort_pairs_plain(keys, None, lo, hi)
+        max_abs_err(f"radix_sort_pairs({tag})", as_built(), want)
+        max_abs_err(f"radix_sort_pairs({tag}, {other})", instead(), want)
+        del want
+        ms, other_ms, fours = in_turns(as_built, instead, 5)
+        rows[tag] = {
+            "m": m, "bits": [lo, hi], "route": route, "ms": ms,
+            "other_route": other, "other_ms": other_ms, "turns_ms": fours,
+            "built_ahead_rounds": sum(k1 + k2 < l1 + l2
+                                      for k1, l1, l2, k2 in fours),
+            "queued_ms": queued_ms(as_built),
+            "other_queued_ms": queued_ms(instead)}
+        log(f"    H on {tag} (m={m}, bits {lo}:{hi}): {route} {ms:.4g} ms, "
+            f"{other} {other_ms:.4g}, first in "
+            f"{rows[tag]['built_ahead_rounds']} of 5 rounds; queued "
+            f"{rows[tag]['queued_ms']:.4g} / "
+            f"{rows[tag]['other_queued_ms']:.4g}")
+    return rows
 
 
 def wall_runs(fn, reps=3):
@@ -875,9 +1126,12 @@ def phase_toolchain(record):
 
 
 def phase_build(record):
+    """Every source at once (kernels.build), and kernel H's other routes
+    beside them: returns start_h_route_builds'."""
     from femto_tpu_torch import kernels
 
     t0 = time.perf_counter()
+    routes = start_h_route_builds()
     per = kernels.build()
     total = time.perf_counter() - t0
     record["build_seconds"] = {"total": total, **per}
@@ -889,6 +1143,7 @@ def phase_build(record):
     for src, lines in ptxas.items():
         for ln in lines:
             log(f"    {src}: {ln}")
+    return routes
 
 
 def sort_round(SO, sa, slots, base, shift, key_bits, rank=None, h=0,
@@ -921,6 +1176,7 @@ def parity_sort_kernels(rng, docs, prepared, text, ds, errs):
     import torch
 
     import femto_tpu_torch as tt
+    from femto_tpu_torch import kernels
     from femto_tpu_torch import suffix as TS
     from femto_tpu_torch.ops import build_ops as BO
     from femto_tpu_torch.ops import sort_ops as SO
@@ -956,19 +1212,72 @@ def parity_sort_kernels(rng, docs, prepared, text, ds, errs):
           "the parity corpus should have a near-full byte alphabet")
     check(state["zipf"][2:5] == (5, 12, 31), "the zipf docs have 31 symbols")
 
-    # H: random 63-bit keys with many duplicates, tiny and ragged sizes, a
-    # bit range, and the first sort of both texts
-    for m in (1, 31, 4097, (1 << 22) + 77):
+    # H (csrc/radix_sort.cu): random 63-bit keys with many duplicates at
+    # m = 1, about the few-key tile (1024), the tile and the one-block
+    # limit (both 4096) and the few-key tiles' limit (2^18), and at
+    # (1 << 22) + 77; the bit ranges the paths sort (the first sort's
+    # 0:60, a round's 8:29, dist_sort's biased int32 keys at 0:32) and the
+    # edges (0:63, 0:5, 62:63); all-equal, sorted and reverse-sorted keys;
+    # values given and 0..m-1.  Each case runs twice (the tile counter
+    # hands the tiles to whichever blocks come first) and both runs equal
+    # the plain version bit for bit
+    sort_errs = {}
+
+    def hold_sort(name, k, vv, lo, hi):
+        got = SO.radix_sort_pairs(k, vv, lo, hi)
+        again = SO.radix_sort_pairs(k, vv, lo, hi)
+        want = SO.radix_sort_pairs_plain(k, vv, lo, hi)
+        torch.cuda.synchronize()
+        sort_errs[name] = max(max_abs_err(name, got, want),
+                              max_abs_err(f"{name} again", again, got))
+
+    t_h = time.perf_counter()
+    check(kernels.size("radix_sort_kernels", 4096, 0, 63) == 1
+          and kernels.size("radix_sort_kernels", 4097, 0, 63) == 9
+          and [kernels.size("radix_sort_tile", m) for m in (
+              4096, 4097, 1 << 18, (1 << 18) + 1)] == [0, 1024, 1024, 4096],
+          "kernel H: one launch up to 4096 keys, 1 + passes above; tiles "
+          "of 1024 keys up to 2^18, of 4096 above")
+    for m in (1, 1023, 1024, 1025, 4095, 4096, 4097, 1 << 18,
+              (1 << 18) + 1, (1 << 22) + 77):
         keys = rng.integers(0, 2**63 - 1, size=m, dtype=np.int64)
         keys[rng.integers(0, m, size=m // 2)] = keys[0]
         keys[::3] &= 0xFFFFFF
         vals = rng.integers(0, 2**31 - 1, size=m).astype(np.int32)
         k, v = t_dev(keys), t_dev(vals)
-        for lo, hi, vv in ((0, 63, v), (0, 63, None), (8, 29, v)):
-            hold(f"radix_sort_pairs(m={m},bits={lo}:{hi},"
-                 f"vals={'given' if vv is not None else 'iota'})",
-                 SO.radix_sort_pairs(k, vv, lo, hi),
-                 SO.radix_sort_pairs_plain(k, vv, lo, hi))
+        biased = t_dev(rng.integers(-2**31, 2**31, size=m).astype(np.int64)
+                       + 2**31)
+        srt = torch.sort(k)[0]
+        cases = [(f"bits={lo}:{hi}", k, lo, hi)
+                 for lo, hi in ((0, 63), (0, 60), (8, 29), (0, 5), (62, 63))]
+        cases += [("dist_sort keys, bits=0:32", biased, 0, 32),
+                  ("all equal", torch.full_like(k, int(keys[0])), 0, 63),
+                  ("sorted", srt, 0, 63), ("reverse", srt.flip(0), 0, 63)]
+        for tag, kk, lo, hi in cases:
+            for vv in (v, None):
+                hold_sort(f"radix_sort_pairs(m={m},{tag},"
+                          f"vals={'given' if vv is not None else 'iota'})",
+                          kk, vv, lo, hi)
+    errs[f"radix_sort_pairs ({len(sort_errs)} cases, each sorted twice)"] = \
+        max(sort_errs.values())
+    # the kernels a sort launches, as the profiler sees them: 1 + passes
+    # above 4096 pairs (a histogram, then a tile pass a pass), 1 up to it
+    from torch.profiler import ProfilerActivity, profile
+
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        SO.radix_sort_pairs(k, None, 0, 63)
+        SO.radix_sort_pairs(k[:4096], None, 0, 63)
+        torch.cuda.synchronize()
+    calls = {h: sum(e.count for e in prof.key_averages() if h in e.key)
+             for h in H_KERNELS}
+    check(calls == {"radix_digit_hist": 1, "radix_tile_pass": 8,
+                    "radix_block_sort": 1},
+          f"kernel H's launches for a sort of {k.shape[0]} and one of 4096 "
+          f"pairs over 63 bits: {calls}")
+    log(f"    H held to its plain version in {len(sort_errs)} cases, each "
+        f"sorted twice ({time.perf_counter() - t_h:.1f}s); its kernels for a "
+        f"sort of {k.shape[0]} and one of 4096 pairs over 63 bits "
+        f"(torch.profiler): {calls}")
     for tag, (t, key0, bits, per, K) in state.items():
         nn = t.shape[0]
         skey, sa = SO.radix_sort_pairs(key0, None, 0, per * bits)
@@ -2609,6 +2918,7 @@ def phase_query(record, rng, st, st2, st3):
     from femto_tpu_torch import kernels
     from femto_tpu_torch import ops as O
     from femto_tpu_torch import query as Q
+    from femto_tpu_torch.ops import sort_ops as SO
     from femto_tpu_torch.query import regexp_device as RD
     from femto_tpu_torch.query.engine import apply_icase, term_ranges
 
@@ -2636,7 +2946,22 @@ def phase_query(record, rng, st, st2, st3):
     log(f"[4d] query path: text scans of the references {t_scan:.1f}s "
         f"(zipf {MAIN_MIB} MiB, prose {len(pdocs)} documents)")
 
+    # the sizes of the path's sorts as kernel H takes them (passed on
+    # unchanged), and a copy of the keys of the largest sort of each route
+    # and power of two of m, for phase 5 (h_route_rows)
+    sort, sorts, largest = SO.radix_sort_pairs, [], {}
+
+    def counted(keys, vals, bit_lo, bit_hi):
+        m = keys.shape[0]
+        sorts.append((m, bit_lo, bit_hi))
+        route = h_route(m, bit_lo, bit_hi)
+        bucket = (route, m.bit_length())
+        if route is not None and m > largest.get(bucket, (0,))[0]:
+            largest[bucket] = (m, keys.clone(), bit_lo, bit_hi)
+        return sort(keys, vals, bit_lo, bit_hi)
+
     torch.cuda.synchronize()
+    SO.radix_sort_pairs = counted
     kernels.reset_launches()
     out = {}
     answers = {}
@@ -2684,6 +3009,11 @@ def phase_query(record, rng, st, st2, st3):
                   for lay, ix in prows.items()})
     torch.cuda.synchronize()
     device_launches = dict(kernels.launches)
+    SO.radix_sort_pairs = sort
+    h_calls = h_call_sizes(sorts)
+    check(h_calls["calls"] == device_launches["radix_sort_pairs"],
+          f"the query path's sorts {h_calls['calls']} != H's launch count "
+          f"{device_launches['radix_sort_pairs']}")
     fallback = {k: v for k, v in device_launches.items()
                 if k.startswith("backward_step[") and v}
     check(not fallback, f"a query took the host engine's fallback: "
@@ -2774,11 +3104,16 @@ def phase_query(record, rng, st, st2, st3):
         f"backward_search_steps reports each NUL-headed pattern's own "
         f"range on all five layouts; no query took the host engine "
         f"(launches {device_launches}; the host engine's {host_launches})")
+    log(f"    H's sorts on the query path: {h_calls}")
     record["query_path"] = {"queries": out, "host_engine_s": host_s,
                             "scan_s": t_scan, "launches": device_launches,
-                            "host_launches": host_launches}
+                            "host_launches": host_launches,
+                            "h_calls": h_calls}
     return dict(launches=device_launches, host_launches=host_launches,
                 zipf=zipf, zsteps=zsteps, psteps=psteps,
+                h_sorts={f"{route}, largest below 2^{b}": (k, lo, hi)
+                         for (route, b), (_, k, lo, hi) in sorted(
+                             largest.items())},
                 zipf_answers={name: sorted((m.first, m.last, m.cost)
                                            for m in answers[
                                                ("zipf", "full", name)][3])
@@ -2819,11 +3154,13 @@ def chunk_rows_sa(ix, rows):
 
 
 def timed_row(name, path, launches, run_k, run_p, nbytes, card,
-              library=None):
+              library=None, extra=None):
     """Phase 5's row of one kernel on `path`, timed in its own phase: held
     to its plain version on the same inputs (plain_ms the time of that
     one comparison run), then the median of 3 CUDA-event timings, its
-    bound from `nbytes` and the library call's time where one exists."""
+    bound from `nbytes` and, where a library call exists, kernel and
+    library timed in turns (turn_fields).  ITEM_ROWS also get item_fields;
+    `extra` is added to the row."""
     import torch
 
     a, b = torch.cuda.Event(enable_timing=True), \
@@ -2835,16 +3172,28 @@ def timed_row(name, path, launches, run_k, run_p, nbytes, card,
     torch.cuda.synchronize()
     err = max_abs_err(f"{name} ({path})", got, want)
     del got, want
+    turns = {}
+    if library:
+        ms, lib_ms, turns = turn_fields(name, run_k, library)
+    else:
+        ms, lib_ms = cuda_ms(run_k), None
     r = {"name": name, "path": path, "route": "cuda",
          "source": KERNELS[name][0], "replaces": KERNELS[name][1],
          "launches": launches, "max_abs_err": err,
-         "ms": cuda_ms(run_k), "plain_ms": a.elapsed_time(b),
+         "ms": ms, "plain_ms": a.elapsed_time(b),
          "bound_ms": bound_ms(nbytes), "bound_by": "bytes",
-         "library_ms": cuda_ms(library) if library else None,
-         "card": card}
+         "library_ms": lib_ms, "card": card, **turns}
+    if name in ITEM_ROWS:
+        r.update(item_fields(name, run_k, library))
+    r.update(extra or {})
     log(f"    {name}: {r['ms']:.4g} ms (bound {r['bound_ms']:.4g} ms, "
         f"plain {r['plain_ms']:.4g} ms, library {r['library_ms']}); "
-        f"launches on the {path} path {r['launches']}")
+        f"launches on the {path} path {r['launches']}"
+        + "".join(f"; {k} {r[k]}" for k in (
+            "turns_ms", "kernel_ahead_rounds", "kernels_per_call",
+            "kernel_device_ms", "queued_ms", "library_device_ms",
+            "library_queued_ms")
+            if k in r))
     return r
 
 
@@ -3148,7 +3497,8 @@ def phase_chunked(record, rng):
                                           device="cuda"),
         own_kernel_names())
     cuda = torch.autograd.DeviceType.CUDA
-    evs = [e for e in prof.events() if e.device_type == cuda]
+    evs = [e for e in prof.events() if e.device_type == cuda
+           and SPIN_KERNEL not in e.name]
     copies = [(e.time_range.start, e.time_range.end) for e in evs
               if "HtoD" in e.name and "Pinned" in e.name]
     kerns = [(e.time_range.start, e.time_range.end) for e in evs
@@ -3478,7 +3828,8 @@ def idle_gaps(prof, top=5):
 
     cuda = torch.autograd.DeviceType.CUDA
     spans = sorted((e.time_range.start, e.time_range.end)
-                   for e in prof.events() if e.device_type == cuda)
+                   for e in prof.events() if e.device_type == cuda
+                   and SPIN_KERNEL not in e.name)
     merged = []
     for a, b in spans:
         if merged and a <= merged[-1][1]:
@@ -5103,7 +5454,9 @@ def phase_sharded(record, rng, st):
         log(f"    {name} at its call in a sharded build: inputs "
             f"{[tuple(t.shape) for t in _flat(a) if torch.is_tensor(t)]}")
         rows5.append(timed_row(name, "sharded", launches[name], run_k, run_p,
-                               nbytes, card, library=lib))
+                               nbytes, card, library=lib,
+                               extra=h_fields(a[0], a[2], a[3])
+                               if name == "radix_sort_pairs" else None))
         del a, kw, run_k, run_p, lib
     # phase 6: one sharded full and one sharded vrle build
     for tier in ("full", "vrle"):
@@ -5239,7 +5592,9 @@ def sharded_layer_rows(ix, mesh, q, fcap, lay, entries, launches, card):
         else:
             raise ValueError(f"no sharded layer row for {name}")
         rows.append(timed_row(key, "sharded_query", launches[key], run_k,
-                              run_p, nbytes, card, library=lib))
+                              run_p, nbytes, card, library=lib,
+                              extra=h_fields(a[0], a[2], a[3])
+                              if name == "radix_sort_pairs" else None))
     return rows, shape
 
 
@@ -5442,12 +5797,21 @@ def sort_kernel_rows(record, kernel_row, text, ds, sa, sa_direct, rows, *,
                lambda: [SO.sa_keys(text, lut, bits=bits, per=per)],
                lambda: [SO.sa_keys_plain(text, lut, bits=bits, per=per)],
                bounds["sa_keys"])
+    # H on the main path's keys, sorted twice: both runs equal bit for bit
+    again = SO.radix_sort_pairs(key0, None, 0, per * bits)
+    max_abs_err("radix_sort_pairs(first sort, main path, again)",
+                [skey, sa0], again)
+    del again
     kernel_row("radix_sort_pairs",
                lambda: SO.radix_sort_pairs(key0, None, 0, per * bits),
                lambda: SO.radix_sort_pairs_plain(key0, None, 0, per * bits),
                bounds["radix_sort_pairs"],
                library=lambda: torch.sort(key0, stable=True),
-               paths=("full", "tiers", "rows", "chunked", "sharded"))
+               paths=("full", "tiers", "rows", "chunked", "sharded"),
+               # bound_ms counts 24 B a pair, as PERF.md defines it; with
+               # the values 0..m-1 the sort reads none: 20 B a pair
+               extra={**h_fields(key0, 0, per * bits),
+                      "bound_ms_20B": bound_ms(20 * key0.shape[0])})
     kernel_row("group_flags", lambda: [SO.group_flags(skey)],
                lambda: [SO.group_flags_plain(skey)], bounds["group_flags"])
     del skey
@@ -5503,6 +5867,9 @@ def sort_kernel_rows(record, kernel_row, text, ds, sa, sa_direct, rows, *,
         "bound_ms": bound_ms((4 + SECTOR + 4) * B),
         "library_ms": cuda_ms(
             lambda: torch.index_select(sa_direct, 0, rows)),
+        **item_fields("gather_rows",
+                      lambda: SO.gather_rows(sa_direct, rows),
+                      lambda: torch.index_select(sa_direct, 0, rows)),
     }
     record["gather_rows_direct_tier"] = direct
     log(f"    gather_rows at the direct tier's shape: {direct}")
@@ -5687,16 +6054,17 @@ def hold_layer(ix, q, fcap):
     }
 
 
-def query_kernel_rows(kernel_row, st, st3, st4):
+def query_kernel_rows(kernel_row, st, st3, st4, h_builds=None):
     """Kernel C's step entries and kernel R at the query path's shapes:
     the widest layer of APPROX 1 ther (frontier cap 1024) on each of the
     zipf full, compact and packed and the prose vseg and vrle indexes
     (regex_fork; backward_step over the same forks' lanes, as the host
     engine steps them), backward_search_steps over the path's NUL-headed
     patterns, and, on zipf full, H and regex_merge after that layer's
-    forks, H beside torch.sort on the same keys.  Then fork, H and merge
-    held to their plain versions at the widest layers of APPROX 2
-    parameter and 0{1,64}1 on prose vrle."""
+    forks, H beside torch.sort on the same keys, and H's routes against
+    each other on the query path's sorts (h_route_rows, given
+    phase_build's h_builds).  Then fork, H and merge held to their plain versions at the
+    widest layers of APPROX 2 parameter and 0{1,64}1 on prose vrle."""
     import torch
 
     from femto_tpu_torch.ops import regex_ops as RO
@@ -5741,7 +6109,14 @@ def query_kernel_rows(kernel_row, st, st3, st4):
                    lambda: SO.radix_sort_pairs(keys, None, 0, bits),
                    lambda: SO.radix_sort_pairs_plain(keys, None, 0, bits),
                    bound_ms(20 * E), paths=("query", "sharded_query"),
-                   library=lambda: torch.sort(keys, stable=True))
+                   library=lambda: torch.sort(keys, stable=True),
+                   extra=h_fields(keys, 0, bits))
+        if h_builds is not None:
+            # H's routes against each other on this layer's sort and the
+            # query path's largest of each route and power of two of m
+            shapes["h_routes"] = h_route_rows(h_builds, {
+                "APPROX 1 ther's widest zipf layer": (keys, 0, bits),
+                **st4["h_sorts"]})
         skeys, sidx = SO.radix_sort_pairs(keys, None, 0, bits)
         bufs = {who: [b.clone() for b in (first, last, costs)]
                 + [torch.zeros((4, 1 << 16), dtype=torch.int32,
@@ -5771,7 +6146,7 @@ def query_kernel_rows(kernel_row, st, st3, st4):
     return shapes
 
 
-def phase_numbers(record, st, st2, st3, st4, own):
+def phase_numbers(record, st, st2, st3, st4, own, h_builds=None):
     """End-to-end rates (medians of 3) and each kernel at the main paths'
     shapes against its bound, its plain version and a library call."""
     import torch
@@ -5900,12 +6275,15 @@ def phase_numbers(record, st, st2, st3, st4, own):
     # 4e to 4h at their own shapes
     own_rows = {(r["name"], r["path"]) for o in own for r in o["kernel_rows"]}
 
-    def kernel_row(name, run_k, run_p, bound_ms, library=None, paths=None):
+    def kernel_row(name, run_k, run_p, bound_ms, library=None, paths=None,
+                   extra=None):
         """One kernel against its plain version at these shapes; plain_ms
         is the time of that one comparison run.  One row per main path
         that launched the kernel (of `paths`, where given: a kernel timed
         at two paths' shapes), with that path's own count, but for a path
-        whose own phase timed the kernel at its own shapes."""
+        whose own phase timed the kernel at its own shapes.  A kernel and
+        its library call are timed in turns (turn_fields); `extra` is
+        added to each row."""
         a, b = torch.cuda.Event(enable_timing=True), \
             torch.cuda.Event(enable_timing=True)
         got = run_k()
@@ -5916,8 +6294,12 @@ def phase_numbers(record, st, st2, st3, st4, own):
         err = max_abs_err(name, got, want)
         del got, want
         plain_ms = a.elapsed_time(b)
-        ms = cuda_ms(run_k)
-        lib_ms = cuda_ms(library) if library is not None else None
+        more = {}
+        if library is not None:
+            ms, lib_ms, more = turn_fields(name, run_k, library)
+        else:
+            ms, lib_ms = cuda_ms(run_k), None
+        more.update(extra or {})
         src, replaces = KERNELS[name]
         per_path = {p: c.get(name, 0) for p, c in path_launches.items()
                     if (c.get(name, 0) or name in PATH_KERNELS[p])
@@ -5930,9 +6312,11 @@ def phase_numbers(record, st, st2, st3, st4, own):
                 "max_abs_err": err, "ms": ms, "plain_ms": plain_ms,
                 "bound_ms": bound_ms, "bound_by": "bytes",
                 "library_ms": lib_ms, "card": record["toolchain"]["card"],
+                **more,
             })
         log(f"    {name}: {ms:.4g} ms (bound {bound_ms:.4g} ms, plain "
-            f"{plain_ms:.4g} ms, library {lib_ms}); launches {per_path}")
+            f"{plain_ms:.4g} ms, library {lib_ms}); launches {per_path}"
+            + (f"; {more}" if more else ""))
 
     seg_sym = (torch.arange(n, device=dev) // seg) * 261 + (pull & 511)
     kernel_row(
@@ -6008,7 +6392,8 @@ def phase_numbers(record, st, st2, st3, st4, own):
             bound_psi(A, ct, fwd))
     del isa
     row_kernel_rows(kernel_row, st3)
-    record["query_shapes"] = query_kernel_rows(kernel_row, st, st3, st4)
+    record["query_shapes"] = query_kernel_rows(kernel_row, st, st3, st4,
+                                               h_builds)
     rows = kern + [r for o in own for r in o["kernel_rows"]]
     have = {(r["name"], r["path"]) for r in rows}
     missing = sorted((name, path) for path, counts in path_launches.items()
@@ -6030,28 +6415,59 @@ def own_kernel_names():
             os.path.join(kernels.CSRC, src + ".cu")).read())})
 
 
-def profile_step(name, fn, own_kernels):
+def profile_step(name, fn, own_kernels, tries=3):
     """One call of fn under torch.profiler: (record entry, profiler).  The
     entry has the wall and device ms, the busy share and the top device
     items; a build's or query's device items must hold no library sort or
-    scan, and what lies outside the port's kernels and copies is named."""
+    scan, and what lies outside the port's kernels and copies is named.
+    Kernel H's items are summed by kernel (H_KERNELS) beside the kernels
+    that the step's sorts launch (csrc/radix_sort.cu's count for each
+    sort's m and bits).  Late in a long process the profiler has dropped
+    a session's first kernels (a build's first sort): each session starts
+    with profiler_warm_up, a step whose H calls still fall short is
+    profiled again, up to `tries` calls, and the entry says how many it
+    took and whether the last one saw every H kernel."""
     import torch
     from torch.profiler import ProfilerActivity, profile
 
-    torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as prof:
-        t0 = time.perf_counter()
-        fn()
+    from femto_tpu_torch import kernels
+    from femto_tpu_torch.ops import sort_ops as SO
+
+    sort = SO.radix_sort_pairs
+    sorts = []
+
+    def counted(keys, vals, bit_lo, bit_hi):
+        sorts.append((keys.shape[0], bit_lo, bit_hi))
+        return sort(keys, vals, bit_lo, bit_hi)
+
+    for attempt in range(1, tries + 1):
+        sorts.clear()
         torch.cuda.synchronize()
-        wall_ms = (time.perf_counter() - t0) * 1e3
-    # device-side events only (kernels, copies): aten ops would count
-    # their kernels a second time
-    ops = sorted(((e.key, e.self_device_time_total / 1e3, e.count)
-                  for e in prof.key_averages()
-                  if e.device_type == torch.autograd.DeviceType.CUDA
-                  and e.self_device_time_total > 0),
-                 key=lambda o: -o[1])
+        SO.radix_sort_pairs = counted
+        try:
+            with profile(activities=[ProfilerActivity.CPU,
+                                     ProfilerActivity.CUDA]) as prof:
+                profiler_warm_up()
+                t0 = time.perf_counter()
+                fn()
+                torch.cuda.synchronize()
+                wall_ms = (time.perf_counter() - t0) * 1e3
+        finally:
+            SO.radix_sort_pairs = sort
+        # device-side events only (kernels, copies): aten ops would count
+        # their kernels a second time
+        ops = sorted(((e.key, e.self_device_time_total / 1e3, e.count)
+                      for e in prof.key_averages()
+                      if e.device_type == torch.autograd.DeviceType.CUDA
+                      and e.self_device_time_total > 0
+                      and SPIN_KERNEL not in e.key),
+                     key=lambda o: -o[1])
+        want = sum(kernels.size("radix_sort_kernels", *a) for a in sorts)
+        h_calls = sum(c for k, _, c in ops if any(h in k for h in H_KERNELS))
+        if not sorts or h_calls == want:
+            break
+        log(f"[6] {name}: the profiler saw {h_calls} of the {want} H "
+            f"kernels (try {attempt} of {tries})")
     dev_ms = sum(o[1] for o in ops)
     out = {
         "wall_ms": wall_ms,
@@ -6059,11 +6475,22 @@ def profile_step(name, fn, own_kernels):
         "busy_share": dev_ms / wall_ms if ops else "not measured",
         "top": [{"op": k[:120], "ms": ms, "calls": c}
                 for k, ms, c in ops[:8]],
+        "profiled_calls": attempt,
     }
     log(f"[6] {name}: wall {wall_ms:.3f} ms, device {out['device_ms']} ms, "
         f"busy share {out['busy_share']}")
     for o in out["top"][:4]:
         log(f"      {o['ms']:.3f} ms x{o['calls']} {o['op'][:90]}")
+    if sorts:
+        by = {h: {"ms": sum(ms for k, ms, _ in ops if h in k),
+                  "calls": sum(c for k, _, c in ops if h in k)}
+              for h in H_KERNELS}
+        out["H"] = {"sorts": len(sorts), "kernels_expected": want,
+                    "kernel_calls": h_calls, "complete": h_calls == want,
+                    "ms": sum(v["ms"] for v in by.values()),
+                    "by_kernel": by}
+        log(f"      H: {len(sorts)} sorts, {out['H']['ms']:.3f} ms, "
+            f"{h_calls} of {want} kernels seen; {by}")
     if ("build" in name or name.startswith("query")) and ops:
         # nothing fell back: no library sort or scan among the build's
         # device items, and what lies outside the port's own kernels and
@@ -6166,25 +6593,34 @@ def main(argv=None):
     t_start = time.perf_counter()
     record = {"seed": args.seed}
     rng = np.random.default_rng(args.seed)
+    seconds = record["phase_seconds"] = {}
+
+    def phase(fn, *args):
+        t = time.perf_counter()
+        out = fn(record, *args)
+        seconds[fn.__name__] = time.perf_counter() - t
+        log(f"    {fn.__name__} took {seconds[fn.__name__]:.1f}s")
+        return out
+
     try:
-        phase_toolchain(record)
-        phase_build(record)
-        phase_parity(record, rng)
+        phase(phase_toolchain)
+        h_builds = phase(phase_build)
+        phase(phase_parity, rng)
         # the chunked path first, while the card holds nothing else
-        st5 = phase_chunked(record, rng)
-        st = phase_main(record, rng)
+        st5 = phase(phase_chunked, rng)
+        st = phase(phase_main, rng)
         # the sharded path next, while the card holds phase 4's index only
-        st8 = phase_sharded(record, rng, st)
-        st2 = phase_tiers(record, rng, st)
-        st3 = phase_rows(record, rng, st, st2)
-        st4 = phase_query(record, rng, st, st2, st3)
+        st8 = phase(phase_sharded, rng, st)
+        st2 = phase(phase_tiers, rng, st)
+        st3 = phase(phase_rows, rng, st, st2)
+        st4 = phase(phase_query, rng, st, st2, st3)
         # the sharded query engine, held to phase 4d's answers
-        st9 = phase_sharded_query(record, rng, st4, st8)
-        st6 = phase_paged(record, rng, st, st3, st4)
-        st7 = phase_lcp(record, rng, st, st3)
+        st9 = phase(phase_sharded_query, rng, st4, st8)
+        st6 = phase(phase_paged, rng, st, st3, st4)
+        st7 = phase(phase_lcp, rng, st, st3)
         own = (st5, st6, st7, st8, st9)
-        phase_numbers(record, st, st2, st3, st4, own)
-        phase_profile(record, st, st2, st3, st4, own)
+        phase(phase_numbers, st, st2, st3, st4, own, h_builds)
+        phase(phase_profile, st, st2, st3, st4, own)
     except SmokeError as e:
         print(f"chip_smoke: FAILED: {e}", file=sys.stderr)
         return 1

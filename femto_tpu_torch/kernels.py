@@ -20,6 +20,7 @@ on the CPU.
 
 from __future__ import annotations
 
+import contextlib
 import ctypes
 import hashlib
 import os
@@ -105,7 +106,7 @@ ENTRIES: Dict[str, Tuple[str, List]] = {
     "sym_hist": ("sa_keys", [_P, _L, _P]),
     "sa_keys": ("sa_keys", [_P, _L, _P, _I, _I, _L, _P]),
     "radix_sort_pairs": ("radix_sort", [_P, _P, _P, _P, _P, _P, _L, _I, _I,
-                                        _P, _P]),
+                                        _P]),
     "group_flags": ("sa_groups", [_P, _L, _P]),
     "tied_compact": ("sa_groups", [_P, _P, _L, _I, _P, _P, _P, _P, _P, _P]),
     "rank_init": ("sa_rounds", [_P, _L, _P, _P, _L, _P]),
@@ -166,6 +167,11 @@ SIZES: Dict[str, Tuple[str, List]] = {
     "regex_merge_tiles": ("regex_frontier", [_L]),
     "doc_lists_stride": ("doc_lists", [_I]),
     "lcp_compact_scratch": ("lcp", [_L]),
+    "radix_sort_scratch": ("radix_sort", [_L]),
+    # not sizes: the kernels one radix_sort_pairs call launches, and the
+    # keys a tile there (0: one block sorts them all)
+    "radix_sort_kernels": ("radix_sort", [_L, _I, _I]),
+    "radix_sort_tile": ("radix_sort", [_L]),
 }
 # entries that take an FmView: one count per layout
 LAYOUT_ENTRIES = ("backward_search", "backward_search_steps", "backward_step",
@@ -265,6 +271,23 @@ def build(sources=None) -> Dict[str, float]:
     return seconds
 
 
+def bind(path: str, src: str) -> ctypes.CDLL:
+    """The library at `path`, built from csrc/<src>.cu, with the argument
+    and result types of that source's entries and sizes set."""
+    lib = ctypes.CDLL(path)
+    for entry, (s, argtypes) in ENTRIES.items():
+        if s == src:
+            fn = getattr(lib, "femto_" + entry)
+            fn.argtypes = argtypes + [_P]
+            fn.restype = _I
+    for name, (s, argtypes) in SIZES.items():
+        if s == src:
+            fn = getattr(lib, "femto_" + name)
+            fn.argtypes = argtypes
+            fn.restype = _L
+    return lib
+
+
 def _lib(src: str) -> ctypes.CDLL:
     with _lock:
         lib = _libs.get(src)
@@ -272,19 +295,25 @@ def _lib(src: str) -> ctypes.CDLL:
             path = _lib_path(src)
             if not os.path.exists(path):
                 build(SOURCES)
-            lib = ctypes.CDLL(path)
-            for entry, (s, argtypes) in ENTRIES.items():
-                if s == src:
-                    fn = getattr(lib, "femto_" + entry)
-                    fn.argtypes = argtypes + [_P]
-                    fn.restype = _I
-            for name, (s, argtypes) in SIZES.items():
-                if s == src:
-                    fn = getattr(lib, "femto_" + name)
-                    fn.argtypes = argtypes
-                    fn.restype = _L
-            _libs[src] = lib
+            lib = _libs[src] = bind(path, src)
         return lib
+
+
+@contextlib.contextmanager
+def variant(src: str, lib: Optional[ctypes.CDLL]):
+    """Within the block, src's entries and sizes come from `lib` (bind of
+    csrc/<src>.cu built with other -D flags; None: the built library, so
+    that both sides of a comparison pay the same swap) through the same
+    wrappers; launches count as usual.  For holding a design choice
+    against its alternative (chip_smoke.py)."""
+    built = _lib(src)
+    with _lock:
+        _libs[src] = built if lib is None else lib
+    try:
+        yield lib
+    finally:
+        with _lock:
+            _libs[src] = built
 
 
 def launch(entry: str, *args, layout: Optional[str] = None) -> None:

@@ -22,7 +22,6 @@ import torch
 from .. import kernels
 
 N_SYMS = 512            # symbols lie in [0, 512)
-_SORT_TILE = 4096       # csrc/radix_sort.cu kTile, kScanTile
 _TIED_TILE = 2048       # csrc/sa_groups.cu kTile
 
 
@@ -117,9 +116,11 @@ def radix_sort_pairs_plain(keys: torch.Tensor, vals: Optional[torch.Tensor],
 def radix_sort_pairs(keys: torch.Tensor, vals: Optional[torch.Tensor],
                      bit_lo: int, bit_hi: int):
     """(keys, vals) sorted stably by bits [bit_lo, bit_hi) of the keys
-    (non-negative int64[m]); vals int32[m], or None for 0..m-1.  The inputs
-    are left as they were.  Kernel H on the card: 8-bit LSD passes between
-    two buffer pairs allocated here."""
+    (non-negative int64[m], m < 2^31); vals int32[m], or None for 0..m-1.
+    The inputs are left as they were.  Kernel H on the card: one
+    histogram launch, then one launch per 8-bit LSD pass between two
+    buffer pairs allocated here (one launch in all where m fits one
+    block's shared memory); scratch as csrc/radix_sort.cu sizes it."""
     kernels.check(keys, "keys", torch.int64, 1)
     m = keys.shape[0]
     if vals is not None:
@@ -128,20 +129,19 @@ def radix_sort_pairs(keys: torch.Tensor, vals: Optional[torch.Tensor],
         raise ValueError("need 0 <= bit_lo < bit_hi <= 63")
     if not kernels.on_card(*([keys] if vals is None else [keys, vals])):
         return radix_sort_pairs_plain(keys, vals, bit_lo, bit_hi)
+    if m >= 2**31:
+        raise ValueError("kernel H sorts fewer than 2^31 elements")
     dev = keys.device
     passes = -(-(bit_hi - bit_lo) // 8)
     bufs = [(_empty(dev, torch.int64, m), _empty(dev, torch.int32, m))
             for _ in range(min(passes, 2))]
     if m == 0:
         return bufs[0]
-    n_counts = 256 * -(-m // _SORT_TILE)
-    counts = _empty(dev, torch.int32, n_counts)
-    tile_sums = _empty(dev, torch.int32, -(-n_counts // _SORT_TILE))
+    scratch = _empty(dev, torch.int32, kernels.size("radix_sort_scratch", m))
     k1, v1 = bufs[1] if passes > 1 else (None, None)
     kernels.launch("radix_sort_pairs", keys.data_ptr(), _ptr(vals),
                    bufs[0][0].data_ptr(), bufs[0][1].data_ptr(), _ptr(k1),
-                   _ptr(v1), m, bit_lo, bit_hi, counts.data_ptr(),
-                   tile_sums.data_ptr())
+                   _ptr(v1), m, bit_lo, bit_hi, scratch.data_ptr())
     return bufs[(passes - 1) % 2]
 
 

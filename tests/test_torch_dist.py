@@ -35,6 +35,7 @@ from femto_tpu_torch.parallel import dist_query as tdq
 from femto_tpu_torch.parallel.dist_sort import dist_sort as t_dist_sort
 from femto_tpu_torch.parallel.distributed import put_global
 from tests.oracle import naive_count, naive_locate
+from tests.torch_threads import one_torch_thread  # noqa: F401
 
 D = 8
 AX = DEFAULT_AXIS

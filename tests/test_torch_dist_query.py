@@ -53,6 +53,7 @@ from femto_tpu_torch.query.nfa import compile_nfa as t_compile
 from femto_tpu_torch.query.parser import parse_query as t_parse
 from femto_tpu_torch.query.planning import streamline as t_streamline
 from tests.oracle import naive_count, naive_locate
+from tests.torch_threads import one_torch_thread  # noqa: F401
 
 D = 8
 SEG = {"five": 32, "overflow": 32, "prose": 64}
@@ -86,16 +87,6 @@ def _corpus(name):
     # segments (asserted below)
     buf = ("\n".join(sorted(topics.topics.values()))).encode()[:28000]
     return [buf[i:i + 25000] for i in range(0, len(buf), 25000)]
-
-
-@pytest.fixture(scope="module", autouse=True)
-def one_torch_thread():
-    """The plain versions' small tensors run on one thread: under the
-    suite's parallel workers the rest of the cores go to them."""
-    n = torch.get_num_threads()
-    torch.set_num_threads(1)
-    yield
-    torch.set_num_threads(n)
 
 
 @pytest.fixture(scope="module")

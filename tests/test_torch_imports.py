@@ -250,6 +250,22 @@ def test_wrappers_refuse_mixed_devices():
                              RO.LayerCfg(1, 1, 1, 1, 0, 8), False)
 
 
+def test_variant_swaps_a_library_and_restores_the_built_one(monkeypatch):
+    """kernels.variant (chip_smoke.py's route comparisons) serves a source's
+    entries from another library inside the block only, even when the
+    block raises; None stands for the built library."""
+    built, other = object(), object()
+    monkeypatch.setitem(kernels._libs, "radix_sort", built)
+    with kernels.variant("radix_sort", other):
+        assert kernels._libs["radix_sort"] is other
+    with kernels.variant("radix_sort", None):
+        assert kernels._libs["radix_sort"] is built
+    with pytest.raises(RuntimeError):
+        with kernels.variant("radix_sort", other):
+            raise RuntimeError("a failed launch")
+    assert kernels._libs["radix_sort"] is built
+
+
 @pytest.mark.parametrize("alone", [False, True])
 def test_chip_smoke_fails_without_a_card(tmp_path, alone):
     """No card: non-zero exit and no result line, also from a directory

@@ -34,6 +34,7 @@ from tests.oracle import naive_count, naive_locate
 from tests.test_torch_build import as_numpy, assert_same_bits
 from tests.test_torch_query import _q_docs
 from tests.test_torch_search import _carry
+from tests.torch_threads import one_torch_thread  # noqa: F401
 
 TIERS = ["full", "compact", "packed", "vseg", "vrle"]
 NEEDLE = b"NEEDLE-XY"

@@ -38,6 +38,7 @@ from femto_tpu_torch.query.parser import parse_query
 from femto_tpu_torch.query.planning import streamline
 from femto_tpu_torch.query.regexp import run_regexp
 from tests.oracle import naive_count
+from tests.torch_threads import one_torch_thread  # noqa: F401
 
 
 def _docs():

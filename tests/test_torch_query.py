@@ -44,6 +44,7 @@ from femto_tpu_torch.query import regexp as TRX
 from femto_tpu_torch.query import regexp_device as TRD
 from femto_tpu_torch.query import results as TRES
 from tests.test_regex_fuzz import gen_regex, py_count, py_docs
+from tests.torch_threads import one_torch_thread  # noqa: F401
 from tests.test_torch_search import _carry
 
 

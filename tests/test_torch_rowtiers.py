@@ -34,6 +34,7 @@ from femto_tpu_torch.ops import search_ops as TS
 from tests.oracle import naive_count, naive_locate
 from tests.test_torch_build import _repeat_docs, as_numpy, assert_same_bits
 from tests.test_torch_search import _carry, _patterns
+from tests.torch_threads import one_torch_thread  # noqa: F401
 
 
 def _byte_complete_docs():

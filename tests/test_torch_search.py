@@ -24,6 +24,7 @@ from femto_tpu_torch.ops import search_ops as TS
 from tests.oracle import naive_count, naive_locate
 from tests.test_conformance import build_corpus
 from tests.test_torch_build import _graft_docs
+from tests.torch_threads import one_torch_thread  # noqa: F401
 
 
 def _carry(jax_index, **extra):

@@ -200,15 +200,35 @@ def test_key_widths_and_lut():
 # ---------------------------------------------------------------------------
 
 
-@pytest.mark.parametrize("m,bit_lo,bit_hi", [
-    (1, 0, 63), (31, 0, 63), (4097, 0, 63), (5000, 8, 24), (5000, 0, 5),
-    (300, 32, 63),
-])
-def test_radix_sort_pairs_plain_matches_numpy(m, bit_lo, bit_hi):
+# (m, bit_lo, bit_hi, keys): the sizes about kernel H's tiles (1024 and
+# 4096) and its one-block limit (4096), 8192, all-equal and reverse-sorted
+# keys, and dist_sort's keys (int32 biased by 2^31, bits 0:32)
+SORT_CASES = [
+    (1, 0, 63, "random"), (31, 0, 63, "random"), (4097, 0, 63, "random"),
+    (5000, 8, 24, "random"), (5000, 0, 5, "random"), (300, 32, 63, "random"),
+    (1023, 0, 63, "random"), (1025, 0, 60, "random"),
+    (4095, 0, 63, "random"), (4096, 0, 63, "random"),
+    (8191, 0, 63, "random"), (8192, 0, 60, "random"), (8193, 8, 29, "random"),
+    (5000, 0, 63, "equal"), (5000, 0, 63, "reverse"),
+    (3000, 62, 63, "random"), (9000, 0, 32, "biased"),
+]
+
+
+@pytest.mark.parametrize(
+    "m,bit_lo,bit_hi,kind", SORT_CASES,
+    ids=[f"{m}-{lo}-{hi}" + ("" if kind == "random" else f"-{kind}")
+         for m, lo, hi, kind in SORT_CASES])
+def test_radix_sort_pairs_plain_matches_numpy(m, bit_lo, bit_hi, kind):
     rng = np.random.default_rng(m + bit_lo)
     keys = rng.integers(0, 2**63 - 1, size=m, dtype=np.int64)
     keys[rng.integers(0, m, size=m // 2)] = keys[0]   # many duplicates
     keys[::7] &= 0xFFFF
+    if kind == "equal":
+        keys[:] = keys[0]
+    elif kind == "reverse":
+        keys = np.ascontiguousarray(np.sort(keys)[::-1])
+    elif kind == "biased":
+        keys = rng.integers(-2**31, 2**31, size=m).astype(np.int64) + 2**31
     vals = rng.integers(0, 2**31 - 1, size=m).astype(np.int32)
     field = (keys >> bit_lo) & ((1 << (bit_hi - bit_lo)) - 1)
     order = np.argsort(field, kind="stable")

@@ -32,6 +32,7 @@ from tests.oracle import naive_count, naive_locate
 from tests.test_torch_build import CORPORA, _stage_inputs, as_numpy, \
     assert_same_bits
 from tests.test_torch_search import _carry, _patterns
+from tests.torch_threads import one_torch_thread  # noqa: F401
 
 
 def _assert_same_index(got, want):
