@@ -46,8 +46,12 @@ non-zero):
    the sharded index's kernels (K18) on a LocalMesh of 4 shards: each at
    the inputs a sharded build of the 8 MiB corpus gives it (seed keys,
    payload, splitters, the bucket exchange, the rebalance, group starts,
-   scans, compaction, psum fetches, placements, the mesh prefix and
-   add_base), bucket_pack also past its capacity and with every record
+   scans, compaction, psum fetches, placements, the mesh prefix,
+   add_base and the fused add_mesh_base), the last three also at edge
+   shapes (A of 1, 3, 256 and 1024 columns, 0, 1, 5 and 2^18 rows, 1 or
+   4 local shards from shard 0 or 3 of 8, x 16-B aligned or not, int32
+   values that wrap, op "max" on negative rows, C and the base on and
+   off), bucket_pack also past its capacity and with every record
    of a shard bound for the next, the owner and masked occ / LF answers
    on the full, compact and packed sharded indexes; the whole full-tier
    sharded build on the card against the same build on the CPU (every
@@ -163,7 +167,8 @@ non-zero):
    index (with the host time per layer) (torch.profiler);
    the two-chunk build of phase 4e, the cold paged count of 4f, the
    lcp_array of 4g and the sharded build of 4h (with their largest idle
-   gaps) join these; a build or
+   gaps, and the sharded build's launches of K18b's prefix entries)
+   join these; a build or
    query whose
    device items include a library sort or scan fails, and
    the build's device time outside the port's own kernels and copies is
@@ -397,6 +402,10 @@ KERNELS.update({
                        "femto_tpu/parallel/dist_build.py:88"),
     "add_base": ("femto_tpu_torch/csrc/sample_sort.cu",
                  "femto_tpu/parallel/dist_build.py:1010"),
+    # ops/dist_ops.add_mesh_base: the prefix inside add_base's launch,
+    # counted as add_base's (COUNTED_AS); its own row in phase 5
+    "add_mesh_base": ("femto_tpu_torch/csrc/sample_sort.cu",
+                      "femto_tpu/parallel/dist_build.py:1010"),
     "seed_keys": ("femto_tpu_torch/csrc/dist_rounds.cu",
                   "femto_tpu/parallel/dist_build.py:216"),
     "payload_block": ("femto_tpu_torch/csrc/dist_rounds.cu",
@@ -445,11 +454,17 @@ H_ALTERNATIVES = {
 # kernels that lose to one library call by less than the cost of a call
 # (ROADMAP Q1): phase 5 also takes their own device items from
 # torch.profiler, beside the CUDA-event time of the whole call
-ITEM_ROWS = ("owner_place", "mesh_exclusive", "add_base")
+ITEM_ROWS = ("owner_place", "mesh_exclusive", "add_base", "add_mesh_base")
+# the device item of a row whose __global__ function has another name
+# than <row>_kernel, and the launch count of a row that is another
+# entry's: every add_base launch on the sharded path is add_mesh_base's
+ITEM_KERNELS = {"add_mesh_base": "add_base_kernel"}
+COUNTED_AS = {"add_mesh_base": "add_base"}
 # kernels whose library call takes about their own time, where one round
 # in turns cannot say which is faster (host- and launch-bound times move
 # 20-90% from run to run, PERF.md): timed in turns this many rounds
-TURN_ROUNDS = {"radix_sort_pairs": 5}
+TURN_ROUNDS = {"radix_sort_pairs": 5, "mesh_exclusive": 5, "add_base": 5,
+               "add_mesh_base": 5}
 for _lay in LAYOUTS:
     _row = _lay in ROW_LAYOUTS  # the row tiers' own steps (K11-K13)
     KERNELS.update({
@@ -640,6 +655,18 @@ def turn_fields(name, run_k, library):
     return ms, lib_ms, more
 
 
+def full_fields(name, run_k, full):
+    """The kernel in turns with the library's whole function, where the
+    row's library call computes less (TURN_ROUNDS[name] rounds):
+    library_full_ms, each round's four ms, the rounds in which the kernel
+    came first, and the whole function's queued_ms."""
+    ms, lib_ms, fours = in_turns(run_k, full, TURN_ROUNDS.get(name, 1))
+    return {"library_full_ms": lib_ms, "library_full_turns_ms": fours,
+            "kernel_ahead_of_full_rounds": sum(
+                k1 + k2 < l1 + l2 for k1, l1, l2, k2 in fours),
+            "library_full_queued_ms": queued_ms(full)}
+
+
 # torch.cuda._sleep's kernel: the warm-up of a profiler session and the
 # spin that keeps the card busy while a call is queued (queued_ms)
 SPIN_KERNEL = "spin_kernel"
@@ -704,25 +731,31 @@ def queued_ms(fn, reps=5):
     return statistics.median(times)
 
 
-def item_fields(name, run_k, library, tries=3):
+def item_fields(name, run_k, library, tries=5, reps=10):
     """The call and its kernel apart: the device ms of the kernel's own
-    item (<name>_kernel) and the library call's items (one of each a
-    call), from torch.profiler (device_items), and both calls' queued_ms.
-    A session that saw no such item (the profiler drops events late in
-    the script) is run again, up to `tries` sessions, and the row says how
-    many it took; "not measured" where none saw it."""
+    item (<name>_kernel, or ITEM_KERNELS[name]) and the library call's
+    items (one of each a call), from torch.profiler (device_items over
+    `reps` calls), and both calls' queued_ms.  A session that saw no such
+    item (the profiler drops a session's first events late in the script)
+    is run again, up to `tries` sessions, for the kernel and for the
+    library alike, and the row says how many each took; "not measured"
+    where none saw it."""
+    item = ITEM_KERNELS.get(name, f"{name}_kernel")
     for attempt in range(1, tries + 1):
-        own = [ms for k, ms in device_items(run_k).items()
-               if f"{name}_kernel" in k]
+        own = [ms for k, ms in device_items(run_k, reps).items() if item in k]
         if own:
             break
     out = {"kernel_device_ms": own[0] if own else "not measured",
            "kernel_item_sessions": attempt,
            "queued_ms": queued_ms(run_k)}
     if library is not None:
-        lib = device_items(library)
+        for lib_attempt in range(1, tries + 1):
+            lib = device_items(library, reps)
+            if lib:
+                break
         out["library_device_ms"] = (sum(lib.values()) if lib
                                     else "not measured")
+        out["library_item_sessions"] = lib_attempt
         out["library_queued_ms"] = queued_ms(library)
     return out
 
@@ -3154,13 +3187,14 @@ def chunk_rows_sa(ix, rows):
 
 
 def timed_row(name, path, launches, run_k, run_p, nbytes, card,
-              library=None, extra=None):
+              library=None, extra=None, library_full=None, more=None):
     """Phase 5's row of one kernel on `path`, timed in its own phase: held
     to its plain version on the same inputs (plain_ms the time of that
     one comparison run), then the median of 3 CUDA-event timings, its
     bound from `nbytes` and, where a library call exists, kernel and
-    library timed in turns (turn_fields).  ITEM_ROWS also get item_fields;
-    `extra` is added to the row."""
+    library timed in turns (turn_fields), and with the library's whole
+    function where given (full_fields).  ITEM_ROWS also get item_fields;
+    `extra` and what `more()` returns are added to the row."""
     import torch
 
     a, b = torch.cuda.Event(enable_timing=True), \
@@ -3183,16 +3217,22 @@ def timed_row(name, path, launches, run_k, run_p, nbytes, card,
          "ms": ms, "plain_ms": a.elapsed_time(b),
          "bound_ms": bound_ms(nbytes), "bound_by": "bytes",
          "library_ms": lib_ms, "card": card, **turns}
+    if library_full is not None:
+        r.update(full_fields(name, run_k, library_full))
     if name in ITEM_ROWS:
         r.update(item_fields(name, run_k, library))
     r.update(extra or {})
+    if more is not None:
+        r.update(more())
     log(f"    {name}: {r['ms']:.4g} ms (bound {r['bound_ms']:.4g} ms, "
         f"plain {r['plain_ms']:.4g} ms, library {r['library_ms']}); "
         f"launches on the {path} path {r['launches']}"
         + "".join(f"; {k} {r[k]}" for k in (
             "turns_ms", "kernel_ahead_rounds", "kernels_per_call",
             "kernel_device_ms", "queued_ms", "library_device_ms",
-            "library_queued_ms")
+            "library_queued_ms", "library_full_ms",
+            "library_full_turns_ms", "kernel_ahead_of_full_rounds",
+            "library_full_queued_ms", "at_occ_site")
             if k in r))
     return r
 
@@ -4424,26 +4464,59 @@ def _owner_targets(idx, valid, recs, outs, base_mul, shard0):
 
 # the K18 build kernels of phase 5's rows, each with the call of it in a
 # full-tier sharded build that its row takes (a test of the call's
-# arguments; None: the first call)
+# arguments; None: the first call), and the wrapper that makes that call
+# where another one does (CALLED_AS): the path launches add_base through
+# add_mesh_base, and add_base's row takes the occ site's call with the
+# base given
 SHARDED_CALLS = (
     ("seed_keys", None), ("payload_block", None), ("splitter_bucket", None),
     ("bucket_pack", None),
     ("rebalance_place", lambda a, kw: kw["off"] == 0),
     ("mesh_flags", None), ("mesh_scan", None), ("compact_rows", None),
     ("fetch_owned", None), ("owner_place", None),
-    ("mesh_exclusive", lambda a, kw: kw.get("want_c", False)),
-    ("add_base", None))
+    ("mesh_exclusive", lambda a, kw: kw.get("op", "sum") == "sum"),
+    ("add_mesh_base", lambda a, kw: kw.get("want_c", False)),
+    ("add_base", lambda a, kw: kw.get("want_c", False)))
+CALLED_AS = {"add_base": "add_mesh_base"}
 
 
-def sharded_case(name, a, kw):
-    """(run_k, run_p, bytes moved, library call or None) of one K18 build
-    kernel on its captured arguments a, kw.  The in-place kernels
-    (owner_place, add_base) write into copies of their outputs, one for
-    the kernel, one for the plain version and one for the library call."""
+def library_prefix(g, shard0, Dl, want_c):
+    """The library's whole mesh prefix of gathered int32[D, A] (op sum):
+    an inclusive cumsum over the shards, the shift to an exclusive base
+    and C's scan of the column sums: (base int32[Dl, A], C or None)."""
+    import torch
+
+    inc = torch.cumsum(g, 0, dtype=torch.int32)
+    base = inc[shard0: shard0 + Dl] - g[shard0: shard0 + Dl]
+    C = None
+    if want_c:
+        C = torch.zeros(g.shape[1] + 1, dtype=torch.int32, device=g.device)
+        torch.cumsum(inc[-1], 0, dtype=torch.int32, out=C[1:])
+    return base, C
+
+
+def sharded_case(name, a, kw, occ=None):
+    """One K18 build kernel on its captured arguments a, kw (of
+    CALLED_AS[name]'s call where given): {"run_k", "run_p", "nbytes" (bytes
+    moved), "library" (a library call or None), "library_full" (the
+    library's whole function where "library" computes less, or None),
+    "more" (a call that returns more timed fields, or None), "extra" (the
+    row's fixed fields)}.  The in-place kernels (owner_place, add_base,
+    add_mesh_base) write into copies of their outputs, one for the
+    kernel, one for the plain version and one for the library call.
+    mesh_exclusive is also timed at `occ`, the occ site's add_mesh_base
+    arguments (its call before the redesign)."""
     import torch
 
     from femto_tpu_torch.ops import dist_ops as DO
 
+    if name == "add_base":
+        # the occ site's x with the base its prefix gives
+        x, g = a
+        base = DO.mesh_exclusive_plain(g, shard0=kw["shard0"],
+                                       Dl=x.shape[0], op="sum",
+                                       want_c=False)[0]
+        a, kw = [x, base], {}
     fk, fp = getattr(DO, name), getattr(DO, name + "_plain")
 
     def both():
@@ -4453,23 +4526,21 @@ def sharded_case(name, a, kw):
     def size(xs):
         return sum(4 * x.numel() for x in xs if x is not None)
 
-    if name in ("owner_place", "add_base"):
+    case = {"library_full": None, "more": None, "extra": {}}
+    if name in ("owner_place", "add_base", "add_mesh_base"):
         outs = a[3] if name == "owner_place" else [a[0]]
         mine = {who: [o.clone() for o in outs]
                 for who in ("kernel", "plain", "library")}
 
         def run(f, who):
             # owner_place writes each target once, so a repeat leaves its
-            # outputs as they were; add_base is held to its plain version
-            # after one call each (timed_row's first)
+            # outputs as they were; add_base and add_mesh_base are held to
+            # their plain versions after one call each (timed_row's first)
             if name == "owner_place":
                 f(*a[:3], mine[who], **kw)
-            else:
-                f(mine[who][0], a[1])
-            return mine[who]
+                return mine[who]
+            return mine[who] + _flat([f(mine[who][0], *a[1:], **kw)])
 
-        run_k, run_p = (lambda: run(fk, "kernel"),
-                        lambda: run(fp, "plain"))
         if name == "owner_place":
             flat, vals = _owner_targets(*a, **kw)
             nbytes = 5 * a[0].numel() + 8 * sum(v.numel() for v in vals)
@@ -4477,12 +4548,28 @@ def sharded_case(name, a, kw):
             def lib():
                 for o, v in zip(mine["library"], vals):
                     o.view(-1).index_put_((flat,), v)
-        else:
+        elif name == "add_base":
             nbytes = 8 * a[0].numel() + 4 * a[1].numel()
+            case["extra"]["x"] = list(a[0].shape)
 
             def lib():
                 mine["library"][0].add_(a[1][:, None, :])
-        return run_k, run_p, nbytes, lib
+        else:
+            x, g = a
+            Dl, _, A = x.shape
+            nbytes = (8 * x.numel() + size([g])
+                      + 4 * (A + 1) * kw["want_c"]
+                      + 4 * Dl * A * kw["want_base"])
+
+            def lib():
+                # the library's pair: the whole prefix, then add_
+                base, C = library_prefix(g, kw["shard0"], Dl, kw["want_c"])
+                mine["library"][0].add_(base[:, None, :])
+                return base, C
+            case["extra"]["x"] = list(x.shape)
+        return {**case, "run_k": lambda: run(fk, "kernel"),
+                "run_p": lambda: run(fp, "plain"), "nbytes": nbytes,
+                "library": lib}
     run_k, run_p = both()
     lib = None
     if name == "seed_keys":
@@ -4529,32 +4616,75 @@ def sharded_case(name, a, kw):
                   + 4 * src.shape[0] * kw["T"] * idx.numel())
     elif name == "mesh_exclusive":
         g = a[0]
-        nbytes = size([g]) + 4 * (kw["Dl"] + 1) * g.shape[1] + 4
+        nbytes = (size([g]) + 4 * kw["Dl"] * g.shape[1]
+                  + 4 * (g.shape[1] + 1) * kw["want_c"])
 
         def lib():
             return torch.cumsum(g, 0)
+
+        case["library_full"] = lambda: library_prefix(
+            g, kw["shard0"], kw["Dl"], kw["want_c"])
+        case["extra"].update(gathered=list(g.shape), op=kw["op"],
+                             want_c=kw["want_c"])
+        if occ is not None:
+            case["more"] = lambda: {"at_occ_site": prefix_at_occ_site(
+                occ[0][1], occ[1]["shard0"], occ[0][0].shape[0])}
     else:
         raise ValueError(f"no phase 5 case for {name}")
-    return run_k, run_p, nbytes, lib
+    return {**case, "run_k": run_k, "run_p": run_p, "nbytes": nbytes,
+            "library": lib}
 
 
-def sharded_cases(mesh, prepared, seg, mark_period):
+def prefix_at_occ_site(g, shard0, Dl):
+    """mesh_exclusive (op sum, with C) on the occ site's gathered totals,
+    its call there before the redesign: held to its plain version, then
+    in turns with torch.cumsum(g, 0) and with the library's whole
+    prefix."""
+    import torch
+
+    from femto_tpu_torch.ops import dist_ops as DO
+
+    def run_k():
+        return _flat([DO.mesh_exclusive(g, shard0=shard0, Dl=Dl,
+                                        want_c=True)])
+
+    max_abs_err("mesh_exclusive (the occ site)", run_k(), _flat(
+        [DO.mesh_exclusive_plain(g, shard0=shard0, Dl=Dl, op="sum",
+                                 want_c=True)]))
+    ms, lib_ms, turns = turn_fields("mesh_exclusive", run_k,
+                                    lambda: torch.cumsum(g, 0))
+    return {"gathered": list(g.shape), "want_c": True, "ms": ms,
+            "library_ms": lib_ms, **turns,
+            **full_fields("mesh_exclusive", run_k,
+                          lambda: library_prefix(g, shard0, Dl, True))}
+
+
+def sharded_cases(mesh, prepared, seg, mark_period, occ_site=False):
     """Each K18 build kernel of SHARDED_CALLS at the inputs that a
     full-tier sharded build of `prepared` on `mesh` gives it: the build
-    runs up to the kernel's call and stops there (captured_call).  Yields
-    (name, run_k, run_p, bytes moved, library call or None), one kernel
-    at a time; a kernel's inputs are dropped before the next build."""
+    runs up to the kernel's call and stops there (captured_call; with
+    `occ_site`, mesh_exclusive's case also gets the occ site's call).
+    Yields each kernel's sharded_case with its "name", one kernel at a
+    time; a kernel's inputs are dropped before the next build."""
     from femto_tpu_torch.parallel import build_index_sharded
 
     def build():
         build_index_sharded(prepared, mesh, seg=seg, mark_period=mark_period)
 
     for name, pick in SHARDED_CALLS:
-        case = list(sharded_case(name, *captured_call(name, pick, build)))
-        yield (name, lambda: case[0](), lambda: case[1](), case[2],
-               (lambda: case[3]()) if case[3] else None)
+        occ = (captured_call("add_mesh_base",
+                             lambda a, kw: kw.get("want_c", False), build)
+               if occ_site and name == "mesh_exclusive" else None)
+        case = sharded_case(name, *captured_call(CALLED_AS.get(name, name),
+                                                 pick, build), occ=occ)
+        yield {"name": name, "nbytes": case["nbytes"],
+               "extra": case["extra"],
+               **{k: (lambda k=k: case[k]()) if case[k] else None
+                  for k in ("run_k", "run_p", "library", "library_full",
+                            "more")}}
         # the consumer may still hold the lambdas: empty what they reach
         case.clear()
+        del occ
 
 
 # kernels M, N and P of the sharded row-tier builds (K18g): phase 5 times
@@ -4877,6 +5007,84 @@ def sharded_query_cases(index, mesh, rng, B):
     }
 
 
+# phase 3's edge shapes of K18b's prefix and add (parity_k18b_edges): the
+# columns, the rows a shard and the (local shards, first shard) of a mesh
+# of K18B_D shards
+K18B_D = 8
+K18B_COLUMNS = (1, 3, 256, 1024)
+K18B_ROWS = (0, 1, 5, 1 << 18)
+K18B_MESHES = ((1, 0), (1, 3), (4, 0), (4, 3))
+
+
+def parity_k18b_edges(rng):
+    """mesh_exclusive, add_base and add_mesh_base on the card against
+    their plain versions on the same card tensors, bit for bit, at every
+    K18B_COLUMNS x K18B_ROWS x K18B_MESHES shape (rows * A not a multiple
+    of 4 at A = 1, 3 and rows 1, 5), x 16-B aligned and 4 B past it (the
+    kernel's scalar head), rows drawn over all of int32 (the sums wrap);
+    mesh_exclusive with op "sum" and "max" (negative rows: a base of 0)
+    and C on and off, add_mesh_base with the base and C each on and off.
+    Returns {"<entry>[edges]": 0} for phase 3's errs (a difference
+    raises)."""
+    import torch
+
+    from femto_tpu_torch.ops import dist_ops as DO
+
+    dev = torch.device("cuda")
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(int(rng.integers(0, 2**31)))
+    cases = {"mesh_exclusive": 0, "add_base": 0, "add_mesh_base": 0}
+    t0 = time.perf_counter()
+
+    def same(entry, got, want, outs):
+        check(len(got) == len(want) == outs, f"{entry}: outputs differ")
+        max_abs_err(f"{entry} (edges)", got, want)
+        cases[entry] += 1
+
+    for A in K18B_COLUMNS:
+        for Dl, shard0 in K18B_MESHES:
+            g = torch.from_numpy(rng.integers(
+                -2**31, 2**31, size=(K18B_D, A)).astype(np.int32)).to(dev)
+            for op in ("sum", "max"):
+                for want_c in (False, True):
+                    kw = dict(shard0=shard0, Dl=Dl, op=op, want_c=want_c)
+                    same("mesh_exclusive", _flat(DO.mesh_exclusive(g, **kw)),
+                         _flat(DO.mesh_exclusive_plain(g, **kw)), 1 + want_c)
+            base = DO.mesh_exclusive_plain(g, shard0=shard0, Dl=Dl, op="sum",
+                                           want_c=False)[0]
+            for rows in K18B_ROWS:
+                for off in (0, 1):
+                    # x at the buffer's start (16-B aligned) or 4 B past it
+                    buf = torch.empty(off + Dl * rows * A, dtype=torch.int32,
+                                      device=dev)
+                    buf.random_(generator=gen)
+                    buf.sub_(2**30).mul_(2)
+
+                    def copy():
+                        c = buf.clone()
+                        return c[off:].view(Dl, rows, A)
+
+                    xk, xp = copy(), copy()
+                    DO.add_base(xk, base)
+                    DO.add_base_plain(xp, base)
+                    same("add_base", [xk], [xp], 1)
+                    for want_base in (False, True):
+                        for want_c in (False, True):
+                            kw = dict(shard0=shard0, want_base=want_base,
+                                      want_c=want_c)
+                            xk, xp = copy(), copy()
+                            same("add_mesh_base",
+                                 [xk] + _flat(DO.add_mesh_base(xk, g, **kw)),
+                                 [xp] + _flat(DO.add_mesh_base_plain(
+                                     xp, g, **kw)),
+                                 1 + want_base + want_c)
+                    del buf, xk, xp
+    torch.cuda.synchronize()
+    log(f"    K18b at edge shapes: {cases} cases equal their plain versions "
+        f"({time.perf_counter() - t0:.1f}s)")
+    return {f"{k}[edges]": 0 for k in cases}
+
+
 def parity_sharded(rng, docs, prepared, sa, errs):
     """Phase 3's K18 checks on the 8 MiB corpus at D = SHARD_D on a
     LocalMesh: each K18 kernel against its plain version on the card at a
@@ -4902,12 +5110,16 @@ def parity_sharded(rng, docs, prepared, sa, errs):
     t0 = time.perf_counter()
     D = SHARD_D
     card, cpu = LocalMesh(D, "cuda"), LocalMesh(D, "cpu")
-    for name, run_k, run_p, _, _ in sharded_cases(card, prepared, 256, 20):
-        got, want = run_k(), run_p()
+    for case in sharded_cases(card, prepared, 256, 20):
+        name = case["name"]
+        got, want = case["run_k"](), case["run_p"]()
         torch.cuda.synchronize()
+        check(len(got) == len(want), f"{name} (sharded): outputs differ")
         errs[f"{name}[sharded]"] = max_abs_err(f"{name} (sharded)", got,
                                                want)
-        del got, want
+        del got, want, case
+    # K18b's prefix and add at edge shapes
+    errs.update(parity_k18b_edges(rng))
     # bucket_pack past its capacity and with every record of a shard for
     # the next one (tests/test_dist.py's pair-concentrated case)
     dev = torch.device("cuda")
@@ -5416,10 +5628,15 @@ def phase_sharded(record, rng, st):
             vix, mesh, nfa, node.approx,
             frontier_cap=ZIPF_QUERIES["approx1"][1]))}
     del indexes, ix, vix
-    for name, run_k, run_p, nbytes, lib in sharded_cases(mesh, prepared, 256,
-                                                         20):
-        rows5.append(timed_row(name, "sharded", launches[name], run_k, run_p,
-                               nbytes, card, library=lib))
+    for case in sharded_cases(mesh, prepared, 256, 20, occ_site=True):
+        name = case["name"]
+        rows5.append(timed_row(
+            name, "sharded", launches[COUNTED_AS.get(name, name)],
+            case["run_k"], case["run_p"], case["nbytes"], card,
+            library=case["library"],
+            extra=case["extra"], library_full=case["library_full"],
+            more=case["more"]))
+        del case
     # M, N and P at their first calls in this path's builds: zipf vseg,
     # zipf vrle with doc lists, then the prose (side-table and continued
     # segments, which zipf lacks)
@@ -5458,11 +5675,25 @@ def phase_sharded(record, rng, st):
                                extra=h_fields(a[0], a[2], a[3])
                                if name == "radix_sort_pairs" else None))
         del a, kw, run_k, run_p, lib
-    # phase 6: one sharded full and one sharded vrle build
+    # phase 6: one sharded full and one sharded vrle build, each with the
+    # launches of its last profiled call
     for tier in ("full", "vrle"):
-        prof[f"sharded_build_{tier}"] = profile_with_gaps(
-            f"sharded_build_{tier}", lambda: build_index_sharded(
-                prepared, mesh, seg=256, mark_period=20, tier=tier))
+        counts = {}
+
+        def build():
+            kernels.reset_launches()
+            build_index_sharded(prepared, mesh, seg=256, mark_period=20,
+                                tier=tier)
+            counts.clear()
+            counts.update({k: v for k, v in kernels.launches.items() if v})
+
+        entry = prof[f"sharded_build_{tier}"] = profile_with_gaps(
+            f"sharded_build_{tier}", build)
+        entry["launches"] = dict(counts)
+        log(f"[6] sharded {tier} build: K18b's prefix entries launched "
+            + ", ".join(f"{k} {counts.get(k, 0)}"
+                        for k in ("mesh_exclusive", "add_base"))
+            + " (every add_base launch is add_mesh_base's prefix and add)")
     record["sharded_path"] = {
         "D": D, "mib": MAIN_MIB, "n": n, "tiers": rec,
         "twin_stats": twin_stats,
@@ -5682,7 +5913,9 @@ def phase_sharded_query(record, rng, st4, st8):
             key = name if name in ("bucket_pack", "owner_place") \
                 else f"{name}[{tier}]"
             if name in ("bucket_pack", "owner_place"):
-                run_k, run_p, nbytes, lib = sharded_case(name, a, kw)
+                case = sharded_case(name, a, kw)
+                run_k, run_p, nbytes, lib = (case["run_k"], case["run_p"],
+                                             case["nbytes"], case["library"])
             else:
                 run_k, run_p, nbytes, lib = owner_case(name, a, kw)
             rows5.append(timed_row(key, "sharded_query", q_launches[key],
@@ -5805,13 +6038,13 @@ def sort_kernel_rows(record, kernel_row, text, ds, sa, sa_direct, rows, *,
     kernel_row("radix_sort_pairs",
                lambda: SO.radix_sort_pairs(key0, None, 0, per * bits),
                lambda: SO.radix_sort_pairs_plain(key0, None, 0, per * bits),
-               bounds["radix_sort_pairs"],
+               # the first sort reads no values (they are 0..m-1): 20 B a
+               # pair; a sort given values moves 24 B a pair (bound_ms_24B)
+               bound_ms(20 * key0.shape[0]),
                library=lambda: torch.sort(key0, stable=True),
                paths=("full", "tiers", "rows", "chunked", "sharded"),
-               # bound_ms counts 24 B a pair, as PERF.md defines it; with
-               # the values 0..m-1 the sort reads none: 20 B a pair
                extra={**h_fields(key0, 0, per * bits),
-                      "bound_ms_20B": bound_ms(20 * key0.shape[0])})
+                      "bound_ms_24B": bounds["radix_sort_pairs"]})
     kernel_row("group_flags", lambda: [SO.group_flags(skey)],
                lambda: [SO.group_flags_plain(skey)], bounds["group_flags"])
     del skey

@@ -6,9 +6,10 @@ and index packaging on the card, .npz and .ftpu persistence, count /
 locate / extract / context / range_docs, and the query engine
 (femto_tpu_torch.query: regex, approximate and Boolean queries, the
 device regex frontier), chunked builds past 2^31 symbols with per-segment
-doc lists (femto_tpu_torch.multi), and the sharded index of the full,
-compact and packed tiers (femto_tpu_torch.parallel), served by
-hand-written CUDA kernels (csrc/, built and bound by kernels.py).  It
+doc lists (femto_tpu_torch.multi), and the sharded index of all five
+tiers with its doc lists, checkpoint / resume and query engine
+(femto_tpu_torch.parallel), served by hand-written CUDA kernels (csrc/,
+built and bound by kernels.py).  It
 imports torch and numpy only; femto_tpu stays the JAX reference.
 
 The sharded index runs on a mesh of D shards:

@@ -8,27 +8,36 @@
 // place each received element at global position base + i into the block
 // of its owner shard me + off.  mesh_exclusive replaces the exclusive
 // prefix over the mesh of per-shard values (dist_build.py _exclusive_base
-// 88, _group_state's carry 195, _shard_occ_base's base and C 1030-1041,
-// _shard_marks' mark base 1069-1071): every shard's row arrives by the
-// mesh's all_gather, and one block sums (or takes the largest of) the rows
-// of the shards before each local shard.  add_base adds that base to a
-// shard's checkpoints (occ_ckpt on the full tier, the L1 rows on the
-// compact and packed tiers, mark_ckpt).  The local sorts and the sample
-// and splitter gathers are kernels H and L.  The shard dimension is
-// blockIdx.y.
+// 88, _group_state's carry 195): every shard's row arrives by the mesh's
+// all_gather, and one block sums (or takes the largest of) the rows of the
+// shards before each local shard.  add_base adds a base to a shard's
+// checkpoints, given or (add_mesh_base in ops/dist_ops.py) summed from
+// the mesh's gathered totals, so that the prefix and the add are one
+// launch (_shard_occ_base's base and C 1030-1041 on occ_ckpt or the L1
+// rows, _shard_marks' mark base 1069-1075 on mark_ckpt): each block sums
+// its shard's base from the gathered rows itself, one block scans C.
+// The local sorts and the sample and splitter gathers are kernels H and
+// L.  The shard dimension is blockIdx.y.
 //
 // Bound on the H100 (3.35 TB/s): bytes.  splitter_bucket reads nk keys and
 // writes one int per element (the D-1 splitters stay in L1);
 // rebalance_place reads the received columns and writes the records of one
-// offset; add_base reads and writes the checkpoints once.  mesh_exclusive
-// is D*A ints, launch-bound.
+// offset; add_base reads and writes the checkpoints once, a 16-B vector
+// a thread, with the base row in shared memory and no 64-bit division
+// below a block (one a block, then a 32-bit one a thread).  Its grid is
+// sized to the work, one thread a vector: on the H100 that ran faster than
+// a few blocks an SM striding over the shard (PERF.md, K18b).
+// mesh_exclusive is D*A ints, launch-bound: where its only use is an add,
+// add_mesh_base takes its place.
 #include "fm_common.cuh"
 
 namespace {
 
 constexpr int kMaxKeys = 4;
 constexpr int kRebalanceCols = 6;
-constexpr int kMaxColumns = 1024;  // mesh_exclusive's A
+constexpr int kMaxColumns = 1024;  // the prefix's and the add's A
+constexpr int kPrefixThreads = 256;
+constexpr int kAddThreads = 256;
 
 struct Keys {
   const int* p[kMaxKeys];
@@ -93,43 +102,171 @@ __global__ void rebalance_place_kernel(RCols cols, int ncols, long long R,
   vbuf[d * m + p] = 1;
 }
 
-// base[d, a] = the sum (op 0) or the largest value, at least 0 (op 1), of
-// gathered[j, a] over the shards j < shard0 + d; C (when given) the
-// exclusive scan over a of the column sums.  One block.
-__global__ void mesh_exclusive_kernel(const int* __restrict__ g, int D, int A,
-                                      int shard0, int Dl, int op,
-                                      int* __restrict__ base,
-                                      int* __restrict__ C) {
-  __shared__ int tot[kMaxColumns];
-  for (int a = threadIdx.x; a < A; a += blockDim.x) {
-    int run = 0, all = 0;
-    for (int j = 0; j < D; ++j) {
-      if (j >= shard0 && j < shard0 + Dl) base[(j - shard0) * A + a] = run;
-      const int x = g[j * A + a];
-      run = op == 0 ? run + x : max(run, x);
-      all += x;
-    }
-    tot[a] = all;
+// int32 addition that wraps, as the plain versions' int32 tensors do.
+__device__ __forceinline__ int wrap_add(int a, int b) {
+  return static_cast<int>(static_cast<unsigned>(a) + static_cast<unsigned>(b));
+}
+
+// C[0] = 0, C[a + 1] = the sum of the column sums of g int32[D, A] over
+// the columns up to a: each of kT threads sums a run of up to
+// kMaxColumns / kT columns, one block scan places the runs.  Every thread
+// of the block calls it.
+template <int kT>
+__device__ void scan_columns(const int* __restrict__ g, int D, int A,
+                             int* __restrict__ C, int* warp_vals) {
+  constexpr int kPer = kMaxColumns / kT;
+  const int per = (A + kT - 1) / kT;
+  const int a0 = threadIdx.x * per;
+  int tot[kPer];
+  int run = 0;
+#pragma unroll
+  for (int k = 0; k < kPer; ++k) {
+    int t = 0;
+    if (k < per && a0 + k < A)
+      for (int j = 0; j < D; ++j) t = wrap_add(t, g[j * A + a0 + k]);
+    tot[k] = t;
+    run = wrap_add(run, t);
   }
-  __syncthreads();
-  if (C && threadIdx.x == 0) {
-    int run = 0;
-    C[0] = 0;
-    for (int a = 0; a < A; ++a) {
-      run += tot[a];
-      C[a + 1] = run;
+  int total;
+  int before = femto::block_exclusive_sum<kT>(run, warp_vals, &total);
+  if (threadIdx.x == 0) C[0] = 0;
+#pragma unroll
+  for (int k = 0; k < kPer; ++k) {
+    if (k < per && a0 + k < A) {
+      before = wrap_add(before, tot[k]);
+      C[a0 + k + 1] = before;
     }
   }
 }
 
-__global__ void add_base_kernel(int* __restrict__ x,
-                                const int* __restrict__ base,
-                                long long rows, int A) {
+// base[d, a] = the sum (op 0) or the largest value, at least 0 (op 1), of
+// gathered[j, a] over the shards j < shard0 + d; C (when given) the
+// exclusive scan over a of the column sums.  One block.
+__global__ void __launch_bounds__(kPrefixThreads)
+    mesh_exclusive_kernel(const int* __restrict__ g, int D, int A,
+                          int shard0, int Dl, int op, int* __restrict__ base,
+                          int* __restrict__ C) {
+  __shared__ int warp_vals[32];
+  const int hi = shard0 + Dl < D ? shard0 + Dl : D;
+  for (int a = threadIdx.x; a < A; a += blockDim.x) {
+    int run = 0;
+    for (int j = 0; j < hi; ++j) {
+      if (j >= shard0) base[(j - shard0) * A + a] = run;
+      const int x = g[j * A + a];
+      run = op == 0 ? wrap_add(run, x) : max(run, x);
+    }
+  }
+  if (C) scan_columns<kPrefixThreads>(g, D, A, C, warp_vals);
+}
+
+// The add's column layouts, chosen on the host: kQuad (A % 4 == 0 and x
+// 16-B aligned: every shard's run starts on a 16-B boundary, and a
+// vector's four columns are one 16-B read of the row); else a scalar head
+// up to the shard's first 16-B boundary, then kOne (A = 1: one scalar a
+// shard) or kAny (four scalar reads of the row a vector).
+enum Cols { kOne, kQuad, kAny };
+
+// x[d] (the E = rows * A ints from x + d * E) += shard d's base row,
+// broadcast over the rows.  The row goes to shared memory once a block,
+// repeated past A so that the four columns from any c < A read without a
+// wrap: from base[d] (g null), or the sum of g[j] (the mesh's gathered
+// totals, int32[D, A]) over the shards j < shard0 + d, which the shard's
+// first block also writes to base_out[d] (when given); block (0, 0) writes
+// C (when given).  Then each thread adds the row to its 16-B vector; the
+// few elements outside the vectors (the head, the tail) go to the shard's
+// first block.
+template <Cols kCols>
+__global__ void __launch_bounds__(kAddThreads)
+    add_base_kernel(int* __restrict__ x, long long E, int A,
+                    const int* __restrict__ base, const int* __restrict__ g,
+                    int D, int shard0, int* __restrict__ base_out,
+                    int* __restrict__ C) {
+  __shared__ __align__(16) int row[kMaxColumns + 4];
+  __shared__ int warp_vals[32];
+  __shared__ int col0;
   const int d = blockIdx.y;
-  const long long e =
-      static_cast<long long>(blockIdx.x) * blockDim.x + threadIdx.x;
-  if (e >= rows * A) return;
-  x[d * rows * A + e] += base[d * A + e % A];
+  const int width = kCols == kOne ? 1 : A + 4;
+  for (int k = threadIdx.x; k < width; k += blockDim.x) {
+    const int a = k < A ? k : (k - A) % A;
+    int v;
+    if (g) {
+      v = 0;
+      for (int j = 0; j < shard0 + d; ++j) v = wrap_add(v, g[j * A + a]);
+    } else {
+      v = base[d * A + a];
+    }
+    row[k] = v;
+    if (base_out && blockIdx.x == 0 && k < A) base_out[d * A + k] = v;
+  }
+  if (C && blockIdx.x == 0 && d == 0)
+    scan_columns<kAddThreads>(g, D, A, C, warp_vals);
+  int* p = x + d * E;
+  long long head = 0;
+  if (kCols != kQuad) {
+    head = ((16 - (reinterpret_cast<uintptr_t>(p) & 15)) & 15) >> 2;
+    if (head > E) head = E;
+  }
+  const long long nv = (E - head) >> 2, tail = head + 4 * nv;
+  const long long i0 = static_cast<long long>(blockIdx.x) * blockDim.x;
+  // the block's first column: its one 64-bit division
+  if (threadIdx.x == 0 && kCols != kOne)
+    col0 = static_cast<int>((head + 4 * i0) % A);
+  __syncthreads();
+  if (blockIdx.x == 0 && threadIdx.x < 8) {
+    // at most 3 head and 3 tail elements a shard
+    const int t = threadIdx.x;
+    const long long e = t < 4 ? t : tail + t - 4;
+    if (t < 4 ? e < head : e < E)
+      p[e] = wrap_add(p[e], row[kCols == kOne ? 0 : static_cast<int>(e % A)]);
+  }
+  const long long i = i0 + threadIdx.x;
+  if (i < nv) {
+    int4* v4 = reinterpret_cast<int4*>(p + head) + i;
+    const int c = kCols == kOne ? 0 : (col0 + 4 * threadIdx.x) % A;
+    int4 v = __ldcs(v4);
+    int4 b;
+    if (kCols == kOne) {
+      b = make_int4(row[0], row[0], row[0], row[0]);
+    } else if (kCols == kQuad) {
+      b = reinterpret_cast<const int4*>(row)[c >> 2];
+    } else {
+      b = make_int4(row[c], row[c + 1], row[c + 2], row[c + 3]);
+    }
+    v.x = wrap_add(v.x, b.x);
+    v.y = wrap_add(v.y, b.y);
+    v.z = wrap_add(v.z, b.z);
+    v.w = wrap_add(v.w, b.w);
+    __stcs(v4, v);
+  }
+}
+
+// One launch of add_base_kernel over x int32[Dl, rows, A]: a thread a
+// 16-B vector of every shard's run.
+int launch_add(void* x, long long rows, int A, int Dl, const void* base,
+               const void* g, int D, int shard0, void* base_out, void* C,
+               cudaStream_t st) {
+  if (A < 1 || A > kMaxColumns || Dl < 1 || rows < 0 ||
+      (g && (shard0 < 0 || shard0 + Dl > D)))
+    return static_cast<int>(cudaErrorInvalidValue);
+  const long long E = rows * A;
+  long long gx = (E / 4 + kAddThreads - 1) / kAddThreads;
+  if (gx < 1) gx = 1;
+  const dim3 grid(static_cast<unsigned>(gx), Dl);
+  int* xp = static_cast<int*>(x);
+  const int* bp = static_cast<const int*>(base);
+  const int* gp = static_cast<const int*>(g);
+  int* bo = static_cast<int*>(base_out);
+  int* cp = static_cast<int*>(C);
+  if (A == 1)
+    add_base_kernel<kOne><<<grid, kAddThreads, 0, st>>>(xp, E, A, bp, gp, D,
+                                                       shard0, bo, cp);
+  else if (A % 4 == 0 && (reinterpret_cast<uintptr_t>(x) & 15) == 0)
+    add_base_kernel<kQuad><<<grid, kAddThreads, 0, st>>>(xp, E, A, bp, gp, D,
+                                                        shard0, bo, cp);
+  else
+    add_base_kernel<kAny><<<grid, kAddThreads, 0, st>>>(xp, E, A, bp, gp, D,
+                                                       shard0, bo, cp);
+  return static_cast<int>(cudaGetLastError());
 }
 
 }  // namespace
@@ -183,18 +320,23 @@ extern "C" int femto_mesh_exclusive(const void* gathered, int D, int A,
                                     void* C, void* stream) {
   if (A < 1 || A > kMaxColumns || D < 1)
     return static_cast<int>(cudaErrorInvalidValue);
-  mesh_exclusive_kernel<<<1, 256, 0, static_cast<cudaStream_t>(stream)>>>(
+  mesh_exclusive_kernel<<<1, kPrefixThreads, 0,
+                          static_cast<cudaStream_t>(stream)>>>(
       static_cast<const int*>(gathered), D, A, shard0, Dl, op,
       static_cast<int*>(base), static_cast<int*>(C));
   return static_cast<int>(cudaGetLastError());
 }
 
-// x int32[Dl, rows, A] += base int32[Dl, A] broadcast over the rows.
+// x int32[Dl, rows, A] += base int32[Dl, A] broadcast over the rows, or
+// (base null) += the sum of gathered int32[D, A]'s rows of the shards
+// before shard0 + d, written to base_out int32[Dl, A] and with C int32[A +
+// 1] as mesh_exclusive writes them (each where not null).
 extern "C" int femto_add_base(void* x, const void* base, long long rows,
-                              int A, int Dl, void* stream) {
-  const long long e = rows * A;
-  add_base_kernel<<<dim3(static_cast<unsigned>((e + 255) / 256), Dl), 256, 0,
-                    static_cast<cudaStream_t>(stream)>>>(
-      static_cast<int*>(x), static_cast<const int*>(base), rows, A);
-  return static_cast<int>(cudaGetLastError());
+                              int A, int Dl, const void* gathered, int D,
+                              int shard0, void* base_out, void* C,
+                              void* stream) {
+  if ((base == nullptr) == (gathered == nullptr))
+    return static_cast<int>(cudaErrorInvalidValue);
+  return launch_add(x, rows, A, Dl, base, gathered, D, shard0, base_out, C,
+                    static_cast<cudaStream_t>(stream));
 }

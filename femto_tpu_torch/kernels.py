@@ -141,7 +141,7 @@ ENTRIES: Dict[str, Tuple[str, List]] = {
                                                    _I, _L, _I, _I]
                         + [_P] * 6 + [_P, _P]),
     "mesh_exclusive": ("sample_sort", [_P, _I, _I, _I, _I, _I, _P, _P]),
-    "add_base": ("sample_sort", [_P, _P, _L, _I, _I]),
+    "add_base": ("sample_sort", [_P, _P, _L, _I, _I, _P, _I, _I, _P, _P]),
     "seed_keys": ("dist_rounds", [_P, _L, _L, _I, _I, _L, _L, _P, _I, _I,
                                   _I, _P, _P, _P]),
     "payload_block": ("dist_rounds", [_P, _P, _L, _I, _I, _L, _P, _I, _I,

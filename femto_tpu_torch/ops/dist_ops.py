@@ -15,8 +15,10 @@ between the steps are the mesh's (parallel/mesh.py), never a kernel's.
                             records into a shard's block)
   K18b csrc/sample_sort.cu  splitter_bucket, rebalance_place (dist_sort),
                             mesh_exclusive (the exclusive prefix over the
-                            mesh of per-shard totals) and add_base (that
-                            prefix added to a shard's checkpoints)
+                            mesh of per-shard totals) and add_base (a base
+                            added to a shard's checkpoints: given, or
+                            summed from the mesh's totals in the same
+                            launch, add_mesh_base)
   K18c csrc/dist_rounds.cu  seed_keys, payload_block, mesh_flags,
                             mesh_scan, compact_rows, fetch_owned (the
                             suffix sort's per-shard bodies and the
@@ -50,6 +52,7 @@ MAX_COLS = 8          # csrc/exchange.cu kMaxCols
 MAX_BUCKETS = 128     # csrc/exchange.cu kMaxBuckets (D + 1 buckets)
 PLACE_COLS = 4        # csrc/exchange.cu owner_place columns per launch
 REBALANCE_COLS = 6    # csrc/sample_sort.cu kRebalanceCols
+MAX_COLUMNS = 1024    # csrc/sample_sort.cu kMaxColumns (the prefix's A)
 MAX_KEYS = 4          # csrc/sample_sort.cu kMaxKeys (splitter keys)
 FLAG_KEYS = 6         # csrc/dist_rounds.cu kFlagKeys (mesh_flags keys)
 _EXCHANGE_TILE = 1024  # csrc/exchange.cu kTile
@@ -297,6 +300,23 @@ def mesh_exclusive_plain(gathered, *, shard0, Dl, op, want_c):
     return base.to(torch.int32), C
 
 
+def _prefix_out(Dl: int, A: int, want_base: bool, want_c: bool, dev):
+    """The prefix's outputs, base int32[Dl, A] and C int32[A + 1] (each
+    or None), in one allocation (views of one int32 buffer when both)."""
+    if not want_c:
+        return (torch.empty((Dl, A), dtype=torch.int32, device=dev)
+                if want_base else None), None
+    if not want_base:
+        return None, torch.empty(A + 1, dtype=torch.int32, device=dev)
+    buf = torch.empty(Dl * A + A + 1, dtype=torch.int32, device=dev)
+    return buf[: Dl * A].view(Dl, A), buf[Dl * A:]
+
+
+def _check_columns(A: int) -> None:
+    if not 1 <= A <= MAX_COLUMNS:
+        raise ValueError(f"need 1 to {MAX_COLUMNS} columns, got {A}")
+
+
 def mesh_exclusive(gathered: torch.Tensor, *, shard0: int, Dl: int,
                    op: str = "sum", want_c: bool = False):
     """The exclusive prefix over the mesh of per-shard values (gathered
@@ -304,18 +324,18 @@ def mesh_exclusive(gathered: torch.Tensor, *, shard0: int, Dl: int,
     largest value, at least 0 (op "max"), of the rows of the shards before
     shard shard0 + d, int32[Dl, A]; with ``want_c`` also C int32[A + 1],
     the exclusive scan over the columns of the rows' sum (the global C of
-    an occ table).  dist_build._exclusive_base / _group_state's carry /
-    _shard_occ_base.  Kernel K18b on the card (one block)."""
+    an occ table).  dist_build._exclusive_base / _group_state's carry;
+    where the base only feeds add_base, add_mesh_base does both.  Kernel
+    K18b on the card (one block)."""
     kernels.check(gathered, "gathered", torch.int32, 2)
     D, A = gathered.shape
+    _check_columns(A)
     if op not in ("sum", "max"):
         raise ValueError("op must be 'sum' or 'max'")
     if not kernels.on_card(gathered):
         return mesh_exclusive_plain(gathered, shard0=shard0, Dl=Dl, op=op,
                                     want_c=want_c)
-    dev = gathered.device
-    base = torch.empty((Dl, A), dtype=torch.int32, device=dev)
-    C = torch.empty(A + 1, dtype=torch.int32, device=dev) if want_c else None
+    base, C = _prefix_out(Dl, A, True, want_c, gathered.device)
     kernels.launch("mesh_exclusive", gathered.data_ptr(), D, A, shard0, Dl,
                    0 if op == "sum" else 1, base.data_ptr(), _ptr(C))
     return base, C
@@ -327,14 +347,54 @@ def add_base_plain(x, base):
 
 def add_base(x: torch.Tensor, base: torch.Tensor) -> None:
     """In place: x[d, i, :] += base[d, :] (x int32[Dl, rows, A], base
-    int32[Dl, A]): a shard's checkpoints made global.  Kernel K18b."""
+    int32[Dl, A], A <= MAX_COLUMNS): a shard's checkpoints made global.
+    Kernel K18b."""
     kernels.check(x, "x", torch.int32, 3)
     Dl, rows, A = x.shape
     kernels.check(base, "base", torch.int32, 2, (Dl, A))
+    _check_columns(A)
     if not kernels.on_card(x, base):
         return add_base_plain(x, base)
-    if rows and A:
-        kernels.launch("add_base", x.data_ptr(), base.data_ptr(), rows, A, Dl)
+    if rows:
+        kernels.launch("add_base", x.data_ptr(), base.data_ptr(), rows, A, Dl,
+                       None, 0, 0, None, None)
+
+
+def add_mesh_base_plain(x, gathered, *, shard0, want_base, want_c):
+    base, C = mesh_exclusive_plain(gathered, shard0=shard0, Dl=x.shape[0],
+                                   op="sum", want_c=want_c)
+    add_base_plain(x, base)
+    return (base if want_base else None), C
+
+
+def add_mesh_base(x: torch.Tensor, gathered: torch.Tensor, *, shard0: int,
+                  want_base: bool = False, want_c: bool = False):
+    """mesh_exclusive (op "sum") then add_base in one launch: x[d, i, :]
+    += base[d, :] in place, where base[d] is the sum of gathered int32[D,
+    A]'s rows of the shards before shard0 + d (x int32[Dl, rows, A]).
+    Returns (base int32[Dl, A] if ``want_base``, C int32[A + 1] if
+    ``want_c``), each else None: the global checkpoints of
+    dist_build._shard_occ_base (occ_ckpt or the L1 rows, with C) and
+    _shard_marks (mark_ckpt, A = 1, with mark_base).  Kernel K18b's
+    add_base (its launch counts as one): every block sums its shard's base
+    from `gathered`, one block scans C; launched with no rows too, for C
+    and the base."""
+    kernels.check(x, "x", torch.int32, 3)
+    Dl, rows, A = x.shape
+    kernels.check(gathered, "gathered", torch.int32, 2)
+    D = gathered.shape[0]
+    kernels.check(gathered, "gathered", torch.int32, 2, (D, A))
+    _check_columns(A)
+    if not 0 <= shard0 <= D - Dl:
+        raise ValueError(f"shards {shard0}..{shard0 + Dl - 1} outside a mesh "
+                         f"of {D}")
+    if not kernels.on_card(x, gathered):
+        return add_mesh_base_plain(x, gathered, shard0=shard0,
+                                   want_base=want_base, want_c=want_c)
+    base, C = _prefix_out(Dl, A, want_base, want_c, x.device)
+    kernels.launch("add_base", x.data_ptr(), None, rows, A, Dl,
+                   gathered.data_ptr(), D, shard0, _ptr(base), _ptr(C))
+    return base, C
 
 
 # ---------------------------------------------------------------------------

@@ -21,9 +21,10 @@ single-device design:
 The collectives are the mesh's; every per-shard body is a kernel of
 ops/dist_ops.py (K18a-K18d) or of the single-device sort (H, L).  Each
 shard then packages its own rows through kernels A, A', F and B
-(ops/build_ops.py) and kernel K18b's cross-shard bases (mesh_exclusive,
-add_base).  The row tiers (vseg, vrle) add kernel M's symbol lists and
-N's slot counts per shard; those O(n_seg) statistics cross to the host
+(ops/build_ops.py) and kernel K18b's cross-shard bases (add_mesh_base:
+the prefix over the mesh and its add to the checkpoints in one launch).
+The row tiers (vseg, vrle) add kernel M's symbol lists and N's slot
+counts per shard; those O(n_seg) statistics cross to the host
 once (mesh.all_gather), the host picks one geometry for every shard
 (_row_plan), and M and N assemble each shard's rows with its global mark
 checkpoints inside them.  Kernel P lists each shard's segments' documents
@@ -861,23 +862,25 @@ def _package(mesh, sa, pull, doc_starts, used_np, *, n_pad: int, seg: int,
         mvals.append(mv)
         nmarks.append(cnt)
         seofs.append(torch.where(seof >= 0, seof + ids[j] * m, 0))
-    # the cross-shard bases: exclusive prefix over the mesh of the totals
-    tot = torch.stack(totals)                               # [Dl, A]
-    base, C = DO.mesh_exclusive(mesh.all_gather(tot), shard0=mesh.shard0,
-                                Dl=Dl, want_c=True)
+    # the cross-shard bases: exclusive prefix over the mesh of the totals,
+    # added to the checkpoints in the same launch
+    gathered = mesh.all_gather(torch.stack(totals))         # [D, A]
     if tier == "full":
         occ_ckpt = torch.stack(occs)
-        DO.add_base(occ_ckpt, base)
+        _, C = DO.add_mesh_base(occ_ckpt, gathered, shard0=mesh.shard0,
+                                want_c=True)
         occ_ckpt = occ_ckpt.view(Dl * nseg_local, -1)
         occ_l1 = torch.zeros((1, ALPHA_SIZE), dtype=torch.int32, device=dev)
     else:
         occ_l1 = torch.stack(l1s)
-        DO.add_base(occ_l1, base)
+        _, C = DO.add_mesh_base(occ_l1, gathered, shard0=mesh.shard0,
+                                want_c=True)
         occ_l1 = occ_l1.view(Dl * (nseg_local // grp), K)
     local_marks = torch.stack(nmarks).view(Dl)
-    mark_base = _exclusive_base(mesh, local_marks)
     mark_ckpt = torch.stack(mckpts).view(Dl, nseg_local, 1)
-    DO.add_base(mark_ckpt, mark_base.view(Dl, 1))
+    mark_base, _ = DO.add_mesh_base(
+        mark_ckpt, mesh.all_gather(local_marks.view(Dl, 1)),
+        shard0=mesh.shard0, want_base=True)
     n_marks = int(mesh.psum(local_marks))
     mark_of = int(mesh.pmax(torch.clamp(local_marks - cap_local, min=0)))
     fields = dict(

@@ -7,8 +7,10 @@ virtual devices.  The same seeded inputs go through both, and everything
 that leaves a module must agree exactly (no tolerance): delivered records
 (as sets per destination: the Valiant routes differ by design), sorted
 blocks, SA / BWT / a_row and LAST_BUILD_STATS, every FMArrays block of the
-full, compact and packed tiers, and count and locate answers of both
-schemes.  femto_tpu's sharded indexes are built once per module.
+full, compact and packed tiers, the cross-shard prefix of the checkpoints
+(kernel K18b's plain versions, also against numpy at edge shapes), and
+count and locate answers of both schemes.  femto_tpu's sharded indexes
+are built once per module.
 """
 
 import jax
@@ -28,6 +30,8 @@ from femto_tpu.parallel.dist_query import (
 from femto_tpu.parallel.dist_sort import dist_sort as j_dist_sort
 from femto_tpu.parallel.mesh import DEFAULT_AXIS, make_mesh
 from femto_tpu.search import pack_patterns
+from femto_tpu_torch.alphabet import ALPHA_SIZE
+from femto_tpu_torch.ops import dist_ops as DO
 from femto_tpu_torch.parallel import LocalMesh
 from femto_tpu_torch.parallel import bins as tbins
 from femto_tpu_torch.parallel import dist_build as tdb
@@ -168,6 +172,152 @@ def test_dist_sort_blocks(jmesh, tmesh, case):
         np.testing.assert_array_equal(got.reshape(-1).numpy(),
                                       np.asarray(ref))
         np.testing.assert_array_equal(got.reshape(-1).numpy(), want)
+
+
+# kernel K18b's prefix and add at edge shapes: (A, rows) with rows * A not
+# always a multiple of 4, on the meshes (Dl, shard0) of a D-shard mesh
+K18B_SHAPES = [(A, rows) for A in (1, 3, 256, 1024) for rows in (0, 1, 5)] \
+    + [(1, 1 << 18), (3, 1 << 18)]
+K18B_MESHES = ((1, 0), (1, 3), (4, 0), (4, 3))
+
+
+def _wrap32(a):
+    """int64 values as the int32 they wrap to."""
+    return (np.asarray(a, np.int64) & 0xFFFFFFFF).astype(np.uint32).view(
+        np.int32)
+
+
+def _np_prefix(g, shard0, Dl, op):
+    """numpy's (base int32[Dl, A], C int32[A + 1]) of gathered rows g."""
+    g = g.astype(np.int64)
+    base = np.zeros((Dl, g.shape[1]), np.int64)
+    for d in range(Dl):
+        if shard0 + d:
+            before = g[: shard0 + d]
+            base[d] = before.sum(0) if op == "sum" else \
+                np.maximum(before.max(0), 0)
+    return _wrap32(base), _wrap32(np.concatenate([[0], np.cumsum(g.sum(0))]))
+
+
+@pytest.mark.parametrize("A,rows", K18B_SHAPES)
+def test_k18b_prefix_and_add_like_numpy(A, rows):
+    """mesh_exclusive (sum and max: negative rows give a base of 0),
+    add_base and add_mesh_base on the CPU against numpy, int32 wrap
+    included (the rows are drawn over all of int32, so sums wrap)."""
+    rng = np.random.default_rng(A * 31 + rows)
+    for Dl, shard0 in K18B_MESHES:
+        g = rng.integers(-2**31, 2**31, size=(D, A)).astype(np.int32)
+        x0 = rng.integers(-2**31, 2**31, size=(Dl, rows, A)).astype(np.int32)
+        for op in ("sum", "max"):
+            for want_c in (False, True):
+                base, C = DO.mesh_exclusive(torch.from_numpy(g),
+                                            shard0=shard0, Dl=Dl, op=op,
+                                            want_c=want_c)
+                wb, wc = _np_prefix(g, shard0, Dl, op)
+                np.testing.assert_array_equal(base.numpy(), wb)
+                assert (C is None) != want_c
+                if want_c:
+                    np.testing.assert_array_equal(C.numpy(), wc)
+        wb, wc = _np_prefix(g, shard0, Dl, "sum")
+        want_x = _wrap32(x0.astype(np.int64) + wb[:, None, :].astype(
+            np.int64))
+        x = torch.from_numpy(x0.copy())
+        DO.add_base(x, torch.from_numpy(wb))
+        np.testing.assert_array_equal(x.numpy(), want_x)
+        for want_base in (False, True):
+            for want_c in (False, True):
+                x = torch.from_numpy(x0.copy())
+                base, C = DO.add_mesh_base(x, torch.from_numpy(g),
+                                           shard0=shard0,
+                                           want_base=want_base,
+                                           want_c=want_c)
+                np.testing.assert_array_equal(x.numpy(), want_x)
+                assert (base is None) != want_base
+                assert (C is None) != want_c
+                if want_base:
+                    np.testing.assert_array_equal(base.numpy(), wb)
+                if want_c:
+                    np.testing.assert_array_equal(C.numpy(), wc)
+
+
+def _shard_layouts():
+    """(Dl, shard0) of the D-shard mesh's two kinds: a LocalMesh (every
+    shard in one process) and each process of a DistMesh (one shard)."""
+    return [(D, 0)] + [(1, r) for r in range(D)]
+
+
+@pytest.mark.parametrize("dense", [False, True])
+def test_add_mesh_base_like_shard_occ_base(jmesh, dense):
+    """The fused prefix and add on a shard's relative checkpoints gives
+    femto_tpu's _shard_occ_base: occ_abs and C, on the full alphabet and
+    on the used columns (the compact tiers' dense rows)."""
+    rng = np.random.default_rng(13)
+    seg, nseg_local = 32, 6
+    m = seg * nseg_local
+    bwt = rng.integers(0, 40, size=D * m).astype(np.int32)
+    bwt[rng.random(D * m) < 0.05] = ALPHA_SIZE - 1
+    used = np.unique(bwt).astype(np.int32)
+
+    def f(b):
+        return jdb._shard_occ_base(b, jnp.asarray(used), seg=seg,
+                                   dense=dense, axis=AX)
+
+    _, jocc, jC = _smap(f, jmesh, 1, 2, 1)(jnp.asarray(bwt))
+    cols = used if dense else np.arange(ALPHA_SIZE)
+    A = len(cols)
+    per = (bwt.reshape(D, nseg_local, seg)[..., None] == cols).sum(2)
+    local = (np.cumsum(per, axis=1) - per).astype(np.int32)
+    gathered = torch.from_numpy(per.sum(1).astype(np.int32))
+    jocc = np.asarray(jocc).reshape(D, nseg_local, A)
+    for Dl, shard0 in _shard_layouts():
+        x = torch.from_numpy(local[shard0: shard0 + Dl].copy())
+        base, C = DO.add_mesh_base(x, gathered, shard0=shard0, want_c=True)
+        assert base is None
+        np.testing.assert_array_equal(x.numpy(),
+                                      jocc[shard0: shard0 + Dl])
+        np.testing.assert_array_equal(C.numpy(), np.asarray(jC))
+
+
+def test_add_mesh_base_like_exclusive_base(jmesh):
+    """The mark site: the fused entry's base of one value a shard (A = 1)
+    is femto_tpu's _exclusive_base, int32 wrap included, and the add puts
+    it on every mark checkpoint of the shard."""
+    rng = np.random.default_rng(17)
+    v = rng.integers(-2**31, 2**31, size=D).astype(np.int32)
+
+    def f(vb):
+        return (jdb._exclusive_base(vb[0], AX)[None],)
+
+    (jbase,) = _smap(f, jmesh, 1, 1)(jnp.asarray(v))
+    jbase = np.asarray(jbase)
+    ckpt = rng.integers(0, 1000, size=(D, 5, 1)).astype(np.int32)
+    for Dl, shard0 in _shard_layouts():
+        x = torch.from_numpy(ckpt[shard0: shard0 + Dl].copy())
+        base, C = DO.add_mesh_base(x, torch.from_numpy(v).view(D, 1),
+                                   shard0=shard0, want_base=True)
+        assert C is None
+        want = jbase[shard0: shard0 + Dl]
+        np.testing.assert_array_equal(base.view(-1).numpy(), want)
+        np.testing.assert_array_equal(
+            x.numpy(), _wrap32(ckpt[shard0: shard0 + Dl].astype(np.int64)
+                               + want[:, None, None]))
+
+
+@pytest.mark.parametrize("entry,on_meta", [
+    ("add_mesh_base", "x"), ("add_mesh_base", "gathered"),
+    ("add_base", "x"), ("add_base", "base")])
+def test_k18b_wrappers_refuse_mixed_devices(entry, on_meta):
+    """A CPU tensor beside one on another device raises: the wrappers take
+    the plain version for CPU tensors only."""
+    x = torch.zeros((1, 2, 3), dtype=torch.int32,
+                    device="meta" if on_meta == "x" else "cpu")
+    other = torch.zeros((1, 3), dtype=torch.int32,
+                        device="cpu" if on_meta == "x" else "meta")
+    with pytest.raises(ValueError, match="devices"):
+        if entry == "add_mesh_base":
+            DO.add_mesh_base(x, other, shard0=0, want_c=True)
+        else:
+            DO.add_base(x, other)
 
 
 def _five_docs():
