@@ -47,12 +47,14 @@ non-zero):
    the inputs a sharded build of the 8 MiB corpus gives it (seed keys,
    payload, splitters, the bucket exchange, the rebalance, group starts,
    scans, compaction, psum fetches, placements, the mesh prefix,
-   add_base and the fused add_mesh_base), the last three also at edge
+   add_base and add_mesh_base), the last three also at edge
    shapes (A of 1, 3, 256 and 1024 columns, 0, 1, 5 and 2^18 rows, 1 or
    4 local shards from shard 0 or 3 of 8, x 16-B aligned or not, int32
    values that wrap, op "max" on negative rows, C and the base on and
-   off), bucket_pack also past its capacity and with every record
-   of a shard bound for the next, the owner and masked occ / LF answers
+   off), bucket_pack also at edge shapes (0, 1 and past one block's
+   records a shard, tile multiples and a run over 9 tiles, 2 to 128
+   buckets, cap below, at and above the largest bucket, 1 to 8 columns,
+   valid flags, every record dropped), the owner and masked occ / LF answers
    on the full, compact and packed sharded indexes; the whole full-tier
    sharded build on the card against the same build on the CPU (every
    FMArrays block, meta, LAST_BUILD_STATS), dist_suffix_array's real rows
@@ -158,7 +160,9 @@ non-zero):
    with that path's own launch count and the card's name and power
    limit; kernel R's fork and merge and H are
    also held to their plain versions at the widest layers of APPROX 2
-   parameter and 0{1,64}1 on the prose vrle index;
+   parameter and 0{1,64}1 on the prose vrle index; kernel H's and K18a
+   bucket_pack's routes are each held against the other route (a build
+   of the source with another limit) on their paths' own calls;
 6. where the time goes: device time by kernel and the device's busy share
    over one build, count, locate and extract of the full tier, one
    build, count, locate and context of the packed tier, the vseg and vrle
@@ -167,7 +171,7 @@ non-zero):
    index (with the host time per layer) (torch.profiler);
    the two-chunk build of phase 4e, the cold paged count of 4f, the
    lcp_array of 4g and the sharded build of 4h (with their largest idle
-   gaps, and the sharded build's launches of K18b's prefix entries)
+   gaps, and the sharded build's launches of K18a's and K18b's entries)
    join these; a build or
    query whose
    device items include a library sort or scan fails, and
@@ -182,6 +186,7 @@ full record goes to chiprun_out/chip_smoke.json.
 from __future__ import annotations
 
 import argparse
+import contextlib
 import dataclasses
 import json
 import os
@@ -307,7 +312,8 @@ PATH_KERNELS = {
     # shard, K18g), the doc lists (P per shard) and sharded count and
     # locate, routed and psum (K18f on each layout)
     "sharded": ("bucket_pack", "owner_place", "splitter_bucket",
-                "rebalance_place", "mesh_exclusive", "add_base", "seed_keys",
+                "rebalance_place", "mesh_exclusive", "add_mesh_base",
+                "seed_keys",
                 "payload_block", "mesh_flags", "mesh_scan", "compact_rows",
                 "fetch_owned", "sym_hist", "radix_sort_pairs", "gather_rows",
                 "occ_build", "occ_build_compact", "pack_build",
@@ -402,8 +408,9 @@ KERNELS.update({
                        "femto_tpu/parallel/dist_build.py:88"),
     "add_base": ("femto_tpu_torch/csrc/sample_sort.cu",
                  "femto_tpu/parallel/dist_build.py:1010"),
-    # ops/dist_ops.add_mesh_base: the prefix inside add_base's launch,
-    # counted as add_base's (COUNTED_AS); its own row in phase 5
+    # ops/dist_ops.add_mesh_base: the prefix inside add_base's kernel, an
+    # entry of its own (the sharded path calls add_base with a given base
+    # nowhere)
     "add_mesh_base": ("femto_tpu_torch/csrc/sample_sort.cu",
                       "femto_tpu/parallel/dist_build.py:1010"),
     "seed_keys": ("femto_tpu_torch/csrc/dist_rounds.cu",
@@ -437,6 +444,10 @@ for _lay in ROW_LAYOUTS:
         "femto_tpu_torch/csrc/backward_search.cu", "femto_tpu/paged.py:64")
     KERNELS[f"lf_walk_step[{_lay}]"] = ("femto_tpu_torch/csrc/lf_walk.cu",
                                         "femto_tpu/paged.py:73")
+# entries that no path of the port calls (add_base: the sharded build
+# adds its bases through add_mesh_base, which runs add_base's kernel);
+# phase 5 times each at the call on the sharded path that runs its kernel
+NO_CALLER = ("add_base",)
 # device items that would mean a build or a query fell back to a library
 # sort or scan
 LIBRARY_SORT_NAMES = ("RadixSort", "Onesweep", "cub::", "thrust::")
@@ -454,17 +465,26 @@ H_ALTERNATIVES = {
 # kernels that lose to one library call by less than the cost of a call
 # (ROADMAP Q1): phase 5 also takes their own device items from
 # torch.profiler, beside the CUDA-event time of the whole call
-ITEM_ROWS = ("owner_place", "mesh_exclusive", "add_base", "add_mesh_base")
+ITEM_ROWS = ("owner_place", "mesh_exclusive", "add_base", "add_mesh_base",
+             "bucket_pack")
 # the device item of a row whose __global__ function has another name
-# than <row>_kernel, and the launch count of a row that is another
-# entry's: every add_base launch on the sharded path is add_mesh_base's
-ITEM_KERNELS = {"add_mesh_base": "add_base_kernel"}
-COUNTED_AS = {"add_mesh_base": "add_base"}
+# than <row>_kernel (a prefix of the names where a row has two kernels:
+# bucket_pack_block and bucket_pack_tile)
+ITEM_KERNELS = {"add_mesh_base": "add_base_kernel",
+                "bucket_pack": "bucket_pack_"}
 # kernels whose library call takes about their own time, where one round
 # in turns cannot say which is faster (host- and launch-bound times move
 # 20-90% from run to run, PERF.md): timed in turns this many rounds
 TURN_ROUNDS = {"radix_sort_pairs": 5, "mesh_exclusive": 5, "add_base": 5,
-               "add_mesh_base": 5}
+               "add_mesh_base": 5, "bucket_pack": 5, "owner_place": 5}
+# each of K18a bucket_pack's routes (k18a_route), the route its calls take
+# instead in a build of csrc/exchange.cu with the flag, and that flag: phase
+# 4h holds every route against the other on the sharded query path's own
+# calls (k18a_route_rows)
+K18A_ALTERNATIVES = {
+    "one_block": ("tiles", "-DFEMTO_K18A_ONE_BLOCK_MAX=0"),
+    "tiles": ("one_block", "-DFEMTO_K18A_ONE_BLOCK_MAX=0x7fffffff"),
+}
 for _lay in LAYOUTS:
     _row = _lay in ROW_LAYOUTS  # the row tiers' own steps (K11-K13)
     KERNELS.update({
@@ -685,9 +705,10 @@ def profiler_warm_up():
     time.sleep(0.05)
 
 
-def device_items(fn, reps=3):
-    """The median ms of each of fn's device items (kernels, copies, fills)
-    over reps calls after a warm-up, from torch.profiler: {name: ms}.  A
+def device_items(fn, reps=3, per_call=None):
+    """The median ms of each of fn's device items (kernels, copies, fills,
+    memsets) over reps calls after a warm-up, from torch.profiler: {name:
+    ms}; with a dict `per_call`, also each item's events a call there.  A
     median of an item's own events holds where the profiler drops some of
     them, as it has late in a long process; a sum over the calls would
     not."""
@@ -707,6 +728,8 @@ def device_items(fn, reps=3):
                 and SPIN_KERNEL not in e.name):
             each.setdefault(e.name, []).append(
                 (e.time_range.end - e.time_range.start) / 1e3)
+    if per_call is not None:
+        per_call.update({k: len(v) / reps for k, v in each.items()})
     return {k: statistics.median(v) for k, v in each.items()}
 
 
@@ -742,11 +765,15 @@ def item_fields(name, run_k, library, tries=5, reps=10):
     where none saw it."""
     item = ITEM_KERNELS.get(name, f"{name}_kernel")
     for attempt in range(1, tries + 1):
-        own = [ms for k, ms in device_items(run_k, reps).items() if item in k]
+        per_call = {}
+        own = [ms for k, ms in device_items(run_k, reps, per_call).items()
+               if item in k]
         if own:
             break
     out = {"kernel_device_ms": own[0] if own else "not measured",
            "kernel_item_sessions": attempt,
+           # the call's device operations (kernels, memsets, fills)
+           "kernel_items_per_call": {k[:100]: c for k, c in per_call.items()},
            "queued_ms": queued_ms(run_k)}
     if library is not None:
         for lib_attempt in range(1, tries + 1):
@@ -769,6 +796,23 @@ def h_fields(keys, bit_lo, bit_hi):
     return {"m": m, "bits": [bit_lo, bit_hi],
             "kernels_per_call": kernels.size("radix_sort_kernels", m, bit_lo,
                                              bit_hi)}
+
+
+def k18a_route(mm):
+    """The route K18a's bucket_pack takes for shards of mm records
+    (csrc/exchange.cu's own choice): "one_block" or "tiles"."""
+    from femto_tpu_torch import kernels
+
+    return "tiles" if kernels.size("bucket_pack_tile", mm) else "one_block"
+
+
+def k18a_shape(dest, cols, kw):
+    """bucket_pack's shape on a row: the shards, their records, D, cap,
+    the columns, whether valid flags were given, and the route."""
+    Dl, mm = dest.shape
+    return {"Dl": Dl, "mm": mm, "D": kw["D"], "cap": kw["cap"],
+            "ncols": len(cols), "valid_given": kw.get("valid") is not None,
+            "route": k18a_route(mm)}
 
 
 def h_route(m, bit_lo, bit_hi):
@@ -802,74 +846,155 @@ def h_call_sizes(sorts):
             "calls_by_bits": dict(sorted(widths.items()))}
 
 
-def start_h_route_builds():
-    """csrc/radix_sort.cu built with each flag of H_ALTERNATIVES, one nvcc
-    each, started now (beside kernels.build) and read by h_route_rows:
-    {route: (process, library path)}."""
+# the sources built again with other routes, and each one's alternatives
+ROUTE_BUILDS = {"radix_sort": H_ALTERNATIVES, "exchange": K18A_ALTERNATIVES}
+
+
+def start_route_builds():
+    """Each source of ROUTE_BUILDS built with each flag of its
+    alternatives, one nvcc each, started now (beside kernels.build) and
+    read by route_libs: {source: {route: (process, library path)}}."""
     from femto_tpu_torch import kernels
 
     os.makedirs(kernels.BUILD_DIR, exist_ok=True)
     out = {}
-    for route, (_, flag) in H_ALTERNATIVES.items():
-        so = os.path.join(kernels.BUILD_DIR, f"libradix_sort.not_{route}.so")
-        out[route] = (subprocess.Popen(
-            [kernels.nvcc_path(), *kernels.NVCC_FLAGS, flag, "-o", so,
-             os.path.join(kernels.CSRC, "radix_sort.cu")],
-            stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True), so)
+    for src, alternatives in ROUTE_BUILDS.items():
+        out[src] = {}
+        for route, (_, flag) in alternatives.items():
+            so = os.path.join(kernels.BUILD_DIR, f"lib{src}.not_{route}.so")
+            out[src][route] = (subprocess.Popen(
+                [kernels.nvcc_path(), *kernels.NVCC_FLAGS, flag, "-o", so,
+                 os.path.join(kernels.CSRC, src + ".cu")],
+                stdout=subprocess.PIPE, stderr=subprocess.STDOUT,
+                text=True), so)
     return out
 
 
-def h_route_rows(builds, sorts):
-    """Kernel H's routes against each other on the paths' own sorts.
-    sorts: {tag: (keys, bit_lo, bit_hi)}; builds: start_h_route_builds'.
-    Each sort by H as built and by the build that sends it down the route
-    H_ALTERNATIVES names (kernels.variant, both through sort_ops'
-    wrapper), both held bit for bit to the plain version, then timed in
-    turns (5 rounds, as built first) and queued behind a spin kernel:
-    {tag: row}."""
+# the libraries route_libs has bound, by path
+_ROUTE_LIBS = {}
+
+
+def route_libs(builds, src):
+    """The libraries of src's other-route builds (start_route_builds'
+    builds[src]), bound as kernels.bind binds the source, once each:
+    {route: lib}."""
     from femto_tpu_torch import kernels
-    from femto_tpu_torch.ops import sort_ops as SO
 
     libs = {}
     for route, (proc, so) in builds.items():
-        out, _ = proc.communicate()
-        check(proc.returncode == 0,
-              f"nvcc failed for radix_sort.cu {H_ALTERNATIVES[route][1]}:"
-              f"\n{out}")
-        libs[route] = kernels.bind(so, "radix_sort")
-    rows = {}
-    for tag, (keys, lo, hi) in sorts.items():
-        m, route = keys.shape[0], h_route(keys.shape[0], lo, hi)
-        other = H_ALTERNATIVES[route][0]
+        if so not in _ROUTE_LIBS:
+            out, _ = proc.communicate()
+            check(proc.returncode == 0,
+                  f"nvcc failed for {src}.cu {ROUTE_BUILDS[src][route][1]}:"
+                  f"\n{out}")
+            _ROUTE_LIBS[so] = kernels.bind(so, src)
+        libs[route] = _ROUTE_LIBS[so]
+    return libs
 
-        def run(lib):
-            # the same swap around both, so that both calls pay it
-            with kernels.variant("radix_sort", lib):
-                return SO.radix_sort_pairs(keys, None, lo, hi)
 
-        def as_built():
-            return run(None)
+def route_pair(src, lib, run, want, name, route, other):
+    """One call, run(), through csrc/<src>.cu as built and through `lib`,
+    the build of it that sends the call down route `other` instead
+    (kernels.variant around both, so that both pay the swap), both held
+    bit for bit to `want`, then timed in turns (5 rounds, as built first)
+    and queued behind a spin kernel: the row's fields."""
+    from femto_tpu_torch import kernels
 
-        def instead():
-            return run(libs[route])
+    def as_built():
+        with kernels.variant(src, None):
+            return run()
 
-        want = SO.radix_sort_pairs_plain(keys, None, lo, hi)
-        max_abs_err(f"radix_sort_pairs({tag})", as_built(), want)
-        max_abs_err(f"radix_sort_pairs({tag}, {other})", instead(), want)
-        del want
-        ms, other_ms, fours = in_turns(as_built, instead, 5)
-        rows[tag] = {
-            "m": m, "bits": [lo, hi], "route": route, "ms": ms,
-            "other_route": other, "other_ms": other_ms, "turns_ms": fours,
+    def instead():
+        with kernels.variant(src, lib):
+            return run()
+
+    max_abs_err(name, as_built(), want)
+    max_abs_err(f"{name}, {other}", instead(), want)
+    ms, other_ms, fours = in_turns(as_built, instead, 5)
+    return {"route": route, "ms": ms, "other_route": other,
+            "other_ms": other_ms, "turns_ms": fours,
             "built_ahead_rounds": sum(k1 + k2 < l1 + l2
                                       for k1, l1, l2, k2 in fours),
             "queued_ms": queued_ms(as_built),
             "other_queued_ms": queued_ms(instead)}
-        log(f"    H on {tag} (m={m}, bits {lo}:{hi}): {route} {ms:.4g} ms, "
-            f"{other} {other_ms:.4g}, first in "
-            f"{rows[tag]['built_ahead_rounds']} of 5 rounds; queued "
-            f"{rows[tag]['queued_ms']:.4g} / "
-            f"{rows[tag]['other_queued_ms']:.4g}")
+
+
+def log_route_row(what, row):
+    log(f"    {what}: {row['route']} {row['ms']:.4g} ms, {row['other_route']} "
+        f"{row['other_ms']:.4g}, first in {row['built_ahead_rounds']} of 5 "
+        f"rounds; queued {row['queued_ms']:.4g} / "
+        f"{row['other_queued_ms']:.4g}")
+
+
+def h_route_rows(builds, sorts):
+    """Kernel H's routes against each other on the paths' own sorts.
+    sorts: {tag: (keys, bit_lo, bit_hi)}; builds: start_route_builds'
+    builds["radix_sort"].
+    Each sort by H as built and by the build that sends it down the route
+    H_ALTERNATIVES names (route_pair, both through sort_ops' wrapper):
+    {tag: row}."""
+    from femto_tpu_torch.ops import sort_ops as SO
+
+    libs = route_libs(builds, "radix_sort")
+    rows = {}
+    for tag, (keys, lo, hi) in sorts.items():
+        m, route = keys.shape[0], h_route(keys.shape[0], lo, hi)
+        want = SO.radix_sort_pairs_plain(keys, None, lo, hi)
+        rows[tag] = {"m": m, "bits": [lo, hi], **route_pair(
+            "radix_sort", libs[route],
+            lambda: SO.radix_sort_pairs(keys, None, lo, hi), want,
+            f"radix_sort_pairs({tag})", route, H_ALTERNATIVES[route][0])}
+        del want
+        log_route_row(f"H on {tag} (m={m}, bits {lo}:{hi})", rows[tag])
+    return rows
+
+
+@contextlib.contextmanager
+def k18a_calls(got):
+    """While open, every call of ops/dist_ops.bucket_pack is recorded into
+    `got`: of each route (k18a_route) and power of two of the records a
+    shard, the call with the most records, its arguments copied at the
+    call, as {(route, bits): (mm, [dest, cols], kwargs)}, bits =
+    mm.bit_length().  Timed calls run outside it."""
+    from femto_tpu_torch.ops import dist_ops as DO
+
+    fn = DO.bucket_pack
+
+    def hook(dest, cols, **kw):
+        mm = dest.shape[1]
+        key = (k18a_route(mm), mm.bit_length())
+        if key not in got or mm > got[key][0]:
+            got[key] = (mm, _copied([dest, list(cols)]), _copied(kw))
+        return fn(dest, cols, **kw)
+
+    DO.bucket_pack = hook
+    try:
+        yield got
+    finally:
+        DO.bucket_pack = fn
+
+
+def k18a_route_rows(builds, calls):
+    """K18a bucket_pack's routes against each other on a path's own calls
+    (k18a_calls' record): each call through the source as built and
+    through the build that sends it down the other route
+    (K18A_ALTERNATIVES; route_pair, both through dist_ops' wrapper).
+    builds: start_route_builds' builds["exchange"].  {tag: row}."""
+    from femto_tpu_torch.ops import dist_ops as DO
+
+    libs = route_libs(builds, "exchange")
+    rows = {}
+    for (route, bits), (mm, (dest, cols), kw) in sorted(calls.items()):
+        tag = f"{route}, largest below 2^{bits}"
+        want = _flat(DO.bucket_pack_plain(dest, cols, **kw))
+        rows[tag] = {**k18a_shape(dest, cols, kw), **route_pair(
+            "exchange", libs[route],
+            lambda: _flat(DO.bucket_pack(dest, cols, **kw)), want,
+            f"bucket_pack({tag})", route, K18A_ALTERNATIVES[route][0])}
+        del want
+        log_route_row(f"bucket_pack on {tag} (Dl {dest.shape[0]}, mm {mm}, "
+                      f"D {kw['D']}, cap {kw['cap']}, {len(cols)} columns)",
+                      rows[tag])
     return rows
 
 
@@ -1159,12 +1284,12 @@ def phase_toolchain(record):
 
 
 def phase_build(record):
-    """Every source at once (kernels.build), and kernel H's other routes
-    beside them: returns start_h_route_builds'."""
+    """Every source at once (kernels.build), and kernel H's and K18a's
+    other routes beside them: returns start_route_builds'."""
     from femto_tpu_torch import kernels
 
     t0 = time.perf_counter()
-    routes = start_h_route_builds()
+    routes = start_route_builds()
     per = kernels.build()
     total = time.perf_counter() - t0
     record["build_seconds"] = {"total": total, **per}
@@ -2183,7 +2308,7 @@ def parity_query_kernels(indexes, pt, rng, errs, whole):
     return runs
 
 
-def phase_parity(record, rng):
+def phase_parity(record, rng, route_builds=None):
     """Every kernel against its plain version on an 8 MiB corpus."""
     import torch
 
@@ -2344,7 +2469,8 @@ def phase_parity(record, rng):
     paged_lcp = parity_paged_lcp(indexes, prose_ix, prepared, docs, text, sa,
                                  rng, errs)
     del indexes, prose_ix
-    sharded = parity_sharded(rng, docs, prepared, sa, errs)
+    sharded = parity_sharded(rng, docs, prepared, sa, errs,
+                             route_builds and route_builds["exchange"])
     record["parity_8mib"] = {"n": n, "ndocs": ndocs, "max_abs_err": errs,
                              "sort_regimes": regimes, "prose": prose_rec,
                              "query_runs": query_runs,
@@ -3232,7 +3358,8 @@ def timed_row(name, path, launches, run_k, run_p, nbytes, card,
             "kernel_device_ms", "queued_ms", "library_device_ms",
             "library_queued_ms", "library_full_ms",
             "library_full_turns_ms", "kernel_ahead_of_full_rounds",
-            "library_full_queued_ms", "at_occ_site")
+            "library_full_queued_ms", "at_occ_site", "route", "mm",
+            "kernel_items_per_call")
             if k in r))
     return r
 
@@ -4464,10 +4591,9 @@ def _owner_targets(idx, valid, recs, outs, base_mul, shard0):
 
 # the K18 build kernels of phase 5's rows, each with the call of it in a
 # full-tier sharded build that its row takes (a test of the call's
-# arguments; None: the first call), and the wrapper that makes that call
-# where another one does (CALLED_AS): the path launches add_base through
-# add_mesh_base, and add_base's row takes the occ site's call with the
-# base given
+# arguments; None: the first call).  add_base, which the path does not
+# call, takes add_mesh_base's call at the occ site with the base given
+# (sharded_cases).
 SHARDED_CALLS = (
     ("seed_keys", None), ("payload_block", None), ("splitter_bucket", None),
     ("bucket_pack", None),
@@ -4475,9 +4601,7 @@ SHARDED_CALLS = (
     ("mesh_flags", None), ("mesh_scan", None), ("compact_rows", None),
     ("fetch_owned", None), ("owner_place", None),
     ("mesh_exclusive", lambda a, kw: kw.get("op", "sum") == "sum"),
-    ("add_mesh_base", lambda a, kw: kw.get("want_c", False)),
-    ("add_base", lambda a, kw: kw.get("want_c", False)))
-CALLED_AS = {"add_base": "add_mesh_base"}
+    ("add_mesh_base", lambda a, kw: kw.get("want_c", False)))
 
 
 def library_prefix(g, shard0, Dl, want_c):
@@ -4496,8 +4620,8 @@ def library_prefix(g, shard0, Dl, want_c):
 
 
 def sharded_case(name, a, kw, occ=None):
-    """One K18 build kernel on its captured arguments a, kw (of
-    CALLED_AS[name]'s call where given): {"run_k", "run_p", "nbytes" (bytes
+    """One K18 build kernel on its captured arguments a, kw (add_base: of
+    add_mesh_base's call): {"run_k", "run_p", "nbytes" (bytes
     moved), "library" (a library call or None), "library_full" (the
     library's whole function where "library" computes less, or None),
     "more" (a call that returns more timed fields, or None), "extra" (the
@@ -4546,8 +4670,20 @@ def sharded_case(name, a, kw, occ=None):
             nbytes = 5 * a[0].numel() + 8 * sum(v.numel() for v in vals)
 
             def lib():
+                # the bare scatter of the targets found above
                 for o, v in zip(mine["library"], vals):
                     o.view(-1).index_put_((flat,), v)
+
+            def lib_full():
+                # the whole function: the targets, then the scatter
+                f, vs = _owner_targets(*a[:3], mine["library"], **kw)
+                for o, v in zip(mine["library"], vs):
+                    o.view(-1).index_put_((f,), v)
+            case["library_full"] = lib_full
+            case["extra"].update(
+                library="index_put_ of the targets found outside the call "
+                        "(the bare scatter)",
+                library_full="_owner_targets and index_put_")
         elif name == "add_base":
             nbytes = 8 * a[0].numel() + 4 * a[1].numel()
             case["extra"]["x"] = list(a[0].shape)
@@ -4580,11 +4716,19 @@ def sharded_case(name, a, kw, occ=None):
         nbytes = size(a[0]) + size([a[0][0]]) + size(a[1])
     elif name == "bucket_pack":
         dest, cols = a
-        nbytes = (size([dest, *cols])
-                  + (4 * len(cols) + 1) * dest.shape[0] * kw["D"] * kw["cap"])
+        valid = kw["valid"]
+        Dl, mm = dest.shape
+        slots = Dl * kw["D"] * kw["cap"]
+        nbytes = (size([dest, *cols]) + (4 * len(cols) + 1) * slots
+                  + (valid.numel() if valid is not None else 0))
+        case["extra"].update(k18a_shape(dest, cols, kw))
+        # what one allocation of every output would hold past the last
+        # column's send, over one allocation a column (parallel/bins.py)
+        case["extra"]["one_allocation_extra_bytes"] = (
+            (4 * (len(cols) - 1) + 1) * slots)
 
         def lib():
-            return _sort_scatter(dest, cols)
+            return _sort_scatter(dest, cols, valid, kw["D"])
     elif name == "rebalance_place":
         cols, v, base = a
         own = _owned(v, base, kw["m"], kw["off"], kw["shard0"])
@@ -4675,16 +4819,20 @@ def sharded_cases(mesh, prepared, seg, mark_period, occ_site=False):
         occ = (captured_call("add_mesh_base",
                              lambda a, kw: kw.get("want_c", False), build)
                if occ_site and name == "mesh_exclusive" else None)
-        case = sharded_case(name, *captured_call(CALLED_AS.get(name, name),
-                                                 pick, build), occ=occ)
-        yield {"name": name, "nbytes": case["nbytes"],
-               "extra": case["extra"],
-               **{k: (lambda k=k: case[k]()) if case[k] else None
-                  for k in ("run_k", "run_p", "library", "library_full",
-                            "more")}}
-        # the consumer may still hold the lambdas: empty what they reach
-        case.clear()
-        del occ
+        a, kw = captured_call(name, pick, build)
+        for row in [name] + (list(NO_CALLER) if name == "add_mesh_base"
+                             else []):
+            case = sharded_case(row, a, kw, occ=occ)
+            yield {"name": row, "nbytes": case["nbytes"],
+                   "extra": case["extra"],
+                   **{k: (lambda k=k, case=case: case[k]())
+                      if case[k] else None
+                      for k in ("run_k", "run_p", "library",
+                                "library_full", "more")}}
+            # the consumer may still hold the lambdas: empty what they
+            # reach
+            case.clear()
+        del occ, a, kw
 
 
 # kernels M, N and P of the sharded row-tier builds (K18g): phase 5 times
@@ -4913,11 +5061,14 @@ def _flat(xs):
     return out
 
 
-def _sort_scatter(dest, cols):
-    """bucket_pack's yardstick: one library sort of the destinations and
-    a scatter of every column through its order."""
+def _sort_scatter(dest, cols, valid=None, D=None):
+    """bucket_pack's yardstick: one library sort of the destinations (the
+    lanes whose valid flag is 0 sent to D first, where flags are given)
+    and a scatter of every column through its order."""
     import torch
 
+    if valid is not None:
+        dest = torch.where(valid.bool(), dest, D)
     order = torch.sort(dest.view(-1), stable=True)[1]
     return [torch.empty_like(c).view(-1).index_copy_(0, order, c.view(-1))
             for c in cols]
@@ -5085,7 +5236,112 @@ def parity_k18b_edges(rng):
     return {f"{k}[edges]": 0 for k in cases}
 
 
-def parity_sharded(rng, docs, prepared, sa, errs):
+def k18a_one_block_max():
+    """The most records a shard for which bucket_pack takes its one-block
+    route (csrc/exchange.cu's own limit, by bisection)."""
+    from femto_tpu_torch import kernels
+
+    lo, hi = 0, 2**31 - 1
+    if kernels.size("bucket_pack_tile", hi) == 0:
+        return hi
+    while hi - lo > 1:
+        mid = (lo + hi) // 2
+        if kernels.size("bucket_pack_tile", mid) == 0:
+            lo = mid
+        else:
+            hi = mid
+    return lo
+
+
+def parity_bucket_pack_edges(rng):
+    """K18a's bucket_pack on the card against its plain version, bit for
+    bit (the columns, the flags, over), at edge shapes: records a shard at
+    0, 1, the one-block limit and one past it, a multiple of the tile and
+    one either side, and nine tiles and more; D + 1 from 2 to 128
+    buckets; cap below, at and above the largest bucket; a bucket whose
+    run spans many tiles; every record dropped; destinations outside [0,
+    D]; 1 and 4 shards; 1 to 8 columns; with and without valid flags.
+    Checks that the limit and one past it take different routes and that
+    a cap below the largest bucket reports an overflow.  {"bucket_pack[
+    <case>]": max abs err}."""
+    import torch
+
+    from femto_tpu_torch import kernels
+    from femto_tpu_torch.ops import dist_ops as DO
+
+    dev = torch.device("cuda")
+    limit = k18a_one_block_max()
+    tile = kernels.size("bucket_pack_tile", limit + 1)
+    check(k18a_route(limit) == "one_block" and k18a_route(limit + 1)
+          == "tiles" and tile > 0, f"bucket_pack's routes at its limit "
+                                   f"{limit}: {k18a_route(limit)}, "
+                                   f"{k18a_route(limit + 1)}")
+    # a build that packs every call in one block (route rows') has no limit
+    # that fits the card: its edge cases take three tiles' records instead
+    limit, own_limit = min(limit, 3 * tile), limit
+    # (tag, shards, records a shard, D, columns, destinations, cap, valid)
+    cases = [
+        ("mm0", 4, 0, 4, 1, "uniform", "above", False),
+        ("mm1", 4, 1, 4, 2, "uniform", "above", False),
+        ("limit", 4, limit, 4, 3, "uniform", "at", True),
+        ("limit+1", 4, limit + 1, 4, 3, "uniform", "at", False),
+        ("tiles-1", 1, 3 * tile - 1, 7, 1, "uniform", "below", True),
+        ("tiles", 4, 3 * tile, 1, 8, "uniform", "above", False),
+        ("tiles+1, 128 buckets", 4, 3 * tile + 1, 127, 4, "uniform",
+         "above", True),
+        ("one block, 128 buckets", 4, min(limit, 3000), 127, 5, "uniform",
+         "below", False),
+        ("a run over 9 tiles", 4, 9 * tile + 5, 4, 2, "one_bucket", "above",
+         False),
+        ("a run over 9 tiles, capped", 1, 9 * tile + 5, 4, 2, "one_bucket",
+         "below", True),
+        ("one block, one run", 1, limit, 2, 8, "one_bucket", "at", True),
+        ("all dropped", 4, limit + 1, 4, 1, "dropped", "above", False),
+        ("outside [0, D]", 4, 2 * tile, 4, 2, "outside", "at", False),
+        ("outside [0, D], one block", 4, max(1, limit // 2), 4, 2,
+         "outside", "at", True),
+    ]
+    errs = {}
+    for tag, Dl, mm, D, ncols, kind, capk, with_valid in cases:
+        if kind == "uniform":
+            dest = rng.integers(0, D + 1, size=(Dl, mm))
+        elif kind == "one_bucket":
+            dest = np.where(rng.random((Dl, mm)) < 0.95, min(2, D - 1),
+                            rng.integers(0, D + 1, size=(Dl, mm)))
+        elif kind == "dropped":
+            dest = np.where(rng.random((Dl, mm)) < 0.5, D, -1)
+        else:
+            dest = rng.integers(-3, D + 4, size=(Dl, mm))
+        valid = (rng.random((Dl, mm)) < 0.8) if with_valid else None
+        keep = (dest >= 0) & (dest < D)
+        if valid is not None:
+            keep &= valid
+        largest = max([int(np.bincount(dest[j][keep[j]], minlength=D).max())
+                       for j in range(Dl)] + [0])
+        cap = {"below": max(1, largest // 2), "at": max(1, largest),
+               "above": largest + 7}[capk]
+        dt = torch.from_numpy(dest.astype(np.int32)).to(dev)
+        vt = (torch.from_numpy(valid.astype(np.uint8)).to(dev)
+              if valid is not None else None)
+        cols = [torch.from_numpy(rng.integers(-2**31, 2**31, size=(Dl, mm),
+                                              dtype=np.int64).astype(
+            np.int32)).to(dev) for _ in range(ncols)]
+        got = DO.bucket_pack(dt, cols, D=D, cap=cap, valid=vt)
+        want = DO.bucket_pack_plain(dt, cols, D=D, cap=cap, valid=vt)
+        torch.cuda.synchronize()
+        errs[f"bucket_pack[{tag}]"] = max_abs_err(
+            f"bucket_pack ({tag}: Dl {Dl}, mm {mm}, D {D}, cap {cap}, "
+            f"{ncols} columns)", _flat(got), _flat(want))
+        if capk == "below" and largest > 1:
+            check(int(got[2].max()) > 0,
+                  f"bucket_pack ({tag}): no overflow reported")
+        del got, want, dt, vt, cols
+    log(f"    bucket_pack at {len(cases)} edge shapes (one-block limit "
+        f"{own_limit} records a shard, tiles of {tile}): bit-equal")
+    return errs
+
+
+def parity_sharded(rng, docs, prepared, sa, errs, k18a_builds=None):
     """Phase 3's K18 checks on the 8 MiB corpus at D = SHARD_D on a
     LocalMesh: each K18 kernel against its plain version on the card at a
     sharded build's own inputs, bucket_pack also with a forced overflow
@@ -5098,7 +5354,7 @@ def parity_sharded(rng, docs, prepared, sa, errs):
     import torch
 
     import femto_tpu_torch as tt
-    from femto_tpu_torch.ops import dist_ops as DO
+    from femto_tpu_torch import kernels
     from femto_tpu_torch.parallel import (LocalMesh, build_index_sharded,
                                           dist_suffix_array,
                                           pad_text_for_mesh,
@@ -5118,26 +5374,15 @@ def parity_sharded(rng, docs, prepared, sa, errs):
         errs[f"{name}[sharded]"] = max_abs_err(f"{name} (sharded)", got,
                                                want)
         del got, want, case
-    # K18b's prefix and add at edge shapes
+    # K18b's prefix and add, K18a's bucket_pack at edge shapes (each of its
+    # routes, where the other-route builds are given)
     errs.update(parity_k18b_edges(rng))
-    # bucket_pack past its capacity and with every record of a shard for
-    # the next one (tests/test_dist.py's pair-concentrated case)
-    dev = torch.device("cuda")
-    mm = 1 << 16
-    vals = torch.arange(D * mm, dtype=torch.int32, device=dev).view(D, mm)
-    for tag, dest, cap in (
-            ("overflow", torch.from_numpy(rng.integers(
-                0, D + 1, size=(D, mm)).astype(np.int32)).to(dev),
-             mm // (2 * D)),
-            ("pair", ((torch.arange(D, device=dev)[:, None] + 1) % D).expand(
-                D, mm).to(torch.int32).contiguous(), mm)):
-        got = DO.bucket_pack(dest, [vals, vals * 3], D=D, cap=cap)
-        want = DO.bucket_pack_plain(dest, [vals, vals * 3], D=D, cap=cap)
-        torch.cuda.synchronize()
-        errs[f"bucket_pack[{tag}]"] = max_abs_err(
-            f"bucket_pack ({tag})", _flat(got), _flat(want))
-        if tag == "overflow":
-            check(int(got[2].max()) > 0, "bucket_pack: no overflow reported")
+    errs.update(parity_bucket_pack_edges(rng))
+    if k18a_builds is not None:
+        for route, lib in route_libs(k18a_builds, "exchange").items():
+            with kernels.variant("exchange", lib):
+                errs.update({f"{k}[not {route}]": e for k, e in
+                             parity_bucket_pack_edges(rng).items()})
     # the whole build: card against CPU (full tier), then every tier's
     # answers against the single-device index
     n = prepared.n
@@ -5631,7 +5876,7 @@ def phase_sharded(record, rng, st):
     for case in sharded_cases(mesh, prepared, 256, 20, occ_site=True):
         name = case["name"]
         rows5.append(timed_row(
-            name, "sharded", launches[COUNTED_AS.get(name, name)],
+            name, "sharded", launches[name],
             case["run_k"], case["run_p"], case["nbytes"], card,
             library=case["library"],
             extra=case["extra"], library_full=case["library_full"],
@@ -5690,10 +5935,10 @@ def phase_sharded(record, rng, st):
         entry = prof[f"sharded_build_{tier}"] = profile_with_gaps(
             f"sharded_build_{tier}", build)
         entry["launches"] = dict(counts)
-        log(f"[6] sharded {tier} build: K18b's prefix entries launched "
+        log(f"[6] sharded {tier} build launched "
             + ", ".join(f"{k} {counts.get(k, 0)}"
-                        for k in ("mesh_exclusive", "add_base"))
-            + " (every add_base launch is add_mesh_base's prefix and add)")
+                        for k in ("bucket_pack", "mesh_exclusive",
+                                  "add_mesh_base", "add_base")))
     record["sharded_path"] = {
         "D": D, "mib": MAIN_MIB, "n": n, "tiers": rec,
         "twin_stats": twin_stats,
@@ -5829,7 +6074,7 @@ def sharded_layer_rows(ix, mesh, q, fcap, lay, entries, launches, card):
     return rows, shape
 
 
-def phase_sharded_query(record, rng, st4, st8):
+def phase_sharded_query(record, rng, st4, st8, builds=None):
     """Phase 4h's query part, after phase 4d: bench.py's regexes on the
     sharded zipf indexes (run in 4h) held to phase 4d's answers; on 4h's
     sharded prose vseg and vrle indexes (seg PROSE_SEG), PROSE_QUERIES
@@ -5858,13 +6103,15 @@ def phase_sharded_query(record, rng, st4, st8):
     indexes = st8.pop("prose")
     kernels.reset_launches()
     out = {}
+    k18a = {}  # the path's bucket_pack calls (k18a_calls)
     for tier, ix in indexes.items():
         for name, (q, _, icase) in PROSE_QUERIES.items():
             RD.last_stats.clear()
-            count = sharded_count_query(ix, mesh, q, icase=icase)
-            stats = dict(RD.last_stats)
-            got_docs = [d for d, _, _ in sharded_docs_query(
-                ix, mesh, q, with_offsets=False, icase=icase)]
+            with k18a_calls(k18a):
+                count = sharded_count_query(ix, mesh, q, icase=icase)
+                stats = dict(RD.last_stats)
+                got_docs = [d for d, _, _ in sharded_docs_query(
+                    ix, mesh, q, with_offsets=False, icase=icase)]
             want_count, want_docs = st4["prose_answers"][tier, name]
             check(count == want_count and got_docs == want_docs,
                   f"sharded prose {tier} {name}: count {count} / "
@@ -5906,12 +6153,15 @@ def phase_sharded_query(record, rng, st4, st8):
     for tier, tix in indexes.items():
         def docs(tix=tix):
             sharded_docs_query(tix, mesh, bq)
+        with k18a_calls(k18a):
+            docs()  # with offsets: the routed locate's exchanges too
         names = ["owner_occ", "owner_lf"] + (
             ["bucket_pack", "owner_place"] if tier == "vrle" else [])
         for name in names:
             a, kw = captured_call(name, None, docs)
             key = name if name in ("bucket_pack", "owner_place") \
                 else f"{name}[{tier}]"
+            case = {"library_full": None, "extra": {}}
             if name in ("bucket_pack", "owner_place"):
                 case = sharded_case(name, a, kw)
                 run_k, run_p, nbytes, lib = (case["run_k"], case["run_p"],
@@ -5919,12 +6169,18 @@ def phase_sharded_query(record, rng, st4, st8):
             else:
                 run_k, run_p, nbytes, lib = owner_case(name, a, kw)
             rows5.append(timed_row(key, "sharded_query", q_launches[key],
-                                   run_k, run_p, nbytes, card, library=lib))
+                                   run_k, run_p, nbytes, card, library=lib,
+                                   library_full=case["library_full"],
+                                   extra=case["extra"]))
     del indexes, ix, tix
+    # bucket_pack's two routes on this path's own calls
+    routes = (k18a_route_rows(builds, k18a) if builds is not None
+              else "not measured")
+    del k18a
     ckpt = checkpoint_pass(mesh)
     record["sharded_query_path"] = {
         "queries": out, "launches": q_launches, "widest_layer": layer,
-        "checkpoint": ckpt, "card": card,
+        "k18a_routes": routes, "checkpoint": ckpt, "card": card,
         "seconds": time.perf_counter() - t_phase}
     log(f"[4h] the sharded query part took "
         f"{record['sharded_query_path']['seconds']:.1f}s")
@@ -6296,8 +6552,9 @@ def query_kernel_rows(kernel_row, st, st3, st4, h_builds=None):
     patterns, and, on zipf full, H and regex_merge after that layer's
     forks, H beside torch.sort on the same keys, and H's routes against
     each other on the query path's sorts (h_route_rows, given
-    phase_build's h_builds).  Then fork, H and merge held to their plain versions at the
-    widest layers of APPROX 2 parameter and 0{1,64}1 on prose vrle."""
+    phase_build's builds of radix_sort.cu).  Then fork, H and merge held
+    to their plain versions at the widest layers of APPROX 2 parameter
+    and 0{1,64}1 on prose vrle."""
     import torch
 
     from femto_tpu_torch.ops import regex_ops as RO
@@ -6837,8 +7094,8 @@ def main(argv=None):
 
     try:
         phase(phase_toolchain)
-        h_builds = phase(phase_build)
-        phase(phase_parity, rng)
+        builds = phase(phase_build)
+        phase(phase_parity, rng, builds)
         # the chunked path first, while the card holds nothing else
         st5 = phase(phase_chunked, rng)
         st = phase(phase_main, rng)
@@ -6848,11 +7105,11 @@ def main(argv=None):
         st3 = phase(phase_rows, rng, st, st2)
         st4 = phase(phase_query, rng, st, st2, st3)
         # the sharded query engine, held to phase 4d's answers
-        st9 = phase(phase_sharded_query, rng, st4, st8)
+        st9 = phase(phase_sharded_query, rng, st4, st8, builds["exchange"])
         st6 = phase(phase_paged, rng, st, st3, st4)
         st7 = phase(phase_lcp, rng, st, st3)
         own = (st5, st6, st7, st8, st9)
-        phase(phase_numbers, st, st2, st3, st4, own, h_builds)
+        phase(phase_numbers, st, st2, st3, st4, own, builds["radix_sort"])
         phase(phase_profile, st, st2, st3, st4, own)
     except SmokeError as e:
         print(f"chip_smoke: FAILED: {e}", file=sys.stderr)

@@ -1,5 +1,6 @@
 // Kernel K18b, the sample sort's and the mesh prefix's device side:
-// splitter_bucket, rebalance_place, mesh_exclusive and add_base.
+// splitter_bucket, rebalance_place, mesh_exclusive, add_base and
+// add_mesh_base.
 //
 // Replaces (femto_tpu/parallel/dist_sort.py): _bucket_of (40), the
 // [m, D-1] compare-and-sum of every key against every splitter, with one
@@ -11,11 +12,11 @@
 // 88, _group_state's carry 195): every shard's row arrives by the mesh's
 // all_gather, and one block sums (or takes the largest of) the rows of the
 // shards before each local shard.  add_base adds a base to a shard's
-// checkpoints, given or (add_mesh_base in ops/dist_ops.py) summed from
-// the mesh's gathered totals, so that the prefix and the add are one
-// launch (_shard_occ_base's base and C 1030-1041 on occ_ckpt or the L1
-// rows, _shard_marks' mark base 1069-1075 on mark_ckpt): each block sums
-// its shard's base from the gathered rows itself, one block scans C.
+// checkpoints, given; add_mesh_base (its own entry, the same kernel) sums
+// the base from the mesh's gathered totals, so that the prefix and the add
+// are one launch (_shard_occ_base's base and C 1030-1041 on occ_ckpt or
+// the L1 rows, _shard_marks' mark base 1069-1075 on mark_ckpt): each block
+// sums its shard's base from the gathered rows itself, one block scans C.
 // The local sorts and the sample and splitter gathers are kernels H and
 // L.  The shard dimension is blockIdx.y.
 //
@@ -327,16 +328,22 @@ extern "C" int femto_mesh_exclusive(const void* gathered, int D, int A,
   return static_cast<int>(cudaGetLastError());
 }
 
-// x int32[Dl, rows, A] += base int32[Dl, A] broadcast over the rows, or
-// (base null) += the sum of gathered int32[D, A]'s rows of the shards
-// before shard0 + d, written to base_out int32[Dl, A] and with C int32[A +
-// 1] as mesh_exclusive writes them (each where not null).
+// x int32[Dl, rows, A] += base int32[Dl, A] broadcast over the rows.
 extern "C" int femto_add_base(void* x, const void* base, long long rows,
-                              int A, int Dl, const void* gathered, int D,
-                              int shard0, void* base_out, void* C,
-                              void* stream) {
-  if ((base == nullptr) == (gathered == nullptr))
-    return static_cast<int>(cudaErrorInvalidValue);
-  return launch_add(x, rows, A, Dl, base, gathered, D, shard0, base_out, C,
+                              int A, int Dl, void* stream) {
+  if (base == nullptr) return static_cast<int>(cudaErrorInvalidValue);
+  return launch_add(x, rows, A, Dl, base, nullptr, 0, 0, nullptr, nullptr,
                     static_cast<cudaStream_t>(stream));
+}
+
+// x int32[Dl, rows, A] += the sum of gathered int32[D, A]'s rows of the
+// shards before shard0 + d, written to base_out int32[Dl, A] and with C
+// int32[A + 1] as mesh_exclusive writes them (each where not null): the
+// prefix inside add_base's kernel, one launch.
+extern "C" int femto_add_mesh_base(void* x, long long rows, int A, int Dl,
+                                   const void* gathered, int D, int shard0,
+                                   void* base_out, void* C, void* stream) {
+  if (gathered == nullptr) return static_cast<int>(cudaErrorInvalidValue);
+  return launch_add(x, rows, A, Dl, nullptr, gathered, D, shard0, base_out,
+                    C, static_cast<cudaStream_t>(stream));
 }

@@ -131,7 +131,7 @@ ENTRIES: Dict[str, Tuple[str, List]] = {
                                              _P, _I, _I, _I, _I, _I, _I, _I,
                                              _P, _P, _P]),
     # the sharded build and queries (ops/dist_ops.py, K18a-K18f)
-    "bucket_pack": ("exchange", [_P, _L, _I, _I, _I, _I] + [_P] * 16
+    "bucket_pack": ("exchange", [_P, _P, _L, _I, _I, _I, _I] + [_P] * 16
                     + [_P, _P, _P]),
     "owner_place": ("exchange", [_P, _P, _L, _I, _L, _I, _L, _L, _I, _I]
                     + [_P] * 8),
@@ -141,7 +141,9 @@ ENTRIES: Dict[str, Tuple[str, List]] = {
                                                    _I, _L, _I, _I]
                         + [_P] * 6 + [_P, _P]),
     "mesh_exclusive": ("sample_sort", [_P, _I, _I, _I, _I, _I, _P, _P]),
-    "add_base": ("sample_sort", [_P, _P, _L, _I, _I, _P, _I, _I, _P, _P]),
+    "add_base": ("sample_sort", [_P, _P, _L, _I, _I]),
+    # the cross-shard prefix summed inside add_base's kernel (one launch)
+    "add_mesh_base": ("sample_sort", [_P, _L, _I, _I, _P, _I, _I, _P, _P]),
     "seed_keys": ("dist_rounds", [_P, _L, _L, _I, _I, _L, _L, _P, _I, _I,
                                   _I, _P, _P, _P]),
     "payload_block": ("dist_rounds", [_P, _P, _L, _I, _I, _L, _P, _I, _I,
@@ -168,10 +170,14 @@ SIZES: Dict[str, Tuple[str, List]] = {
     "doc_lists_stride": ("doc_lists", [_I]),
     "lcp_compact_scratch": ("lcp", [_L]),
     "radix_sort_scratch": ("radix_sort", [_L]),
+    "bucket_pack_scratch": ("exchange", [_L, _I, _I]),
     # not sizes: the kernels one radix_sort_pairs call launches, and the
     # keys a tile there (0: one block sorts them all)
     "radix_sort_kernels": ("radix_sort", [_L, _I, _I]),
     "radix_sort_tile": ("radix_sort", [_L]),
+    # not a size: the records a tile in a bucket_pack call (0: one block a
+    # shard packs them all)
+    "bucket_pack_tile": ("exchange", [_L]),
 }
 # entries that take an FmView: one count per layout
 LAYOUT_ENTRIES = ("backward_search", "backward_search_steps", "backward_step",

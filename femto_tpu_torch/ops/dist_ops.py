@@ -15,10 +15,10 @@ between the steps are the mesh's (parallel/mesh.py), never a kernel's.
                             records into a shard's block)
   K18b csrc/sample_sort.cu  splitter_bucket, rebalance_place (dist_sort),
                             mesh_exclusive (the exclusive prefix over the
-                            mesh of per-shard totals) and add_base (a base
-                            added to a shard's checkpoints: given, or
-                            summed from the mesh's totals in the same
-                            launch, add_mesh_base)
+                            mesh of per-shard totals), add_base (a base
+                            added to a shard's checkpoints) and
+                            add_mesh_base (the base summed from the mesh's
+                            totals inside add_base's kernel, one launch)
   K18c csrc/dist_rounds.cu  seed_keys, payload_block, mesh_flags,
                             mesh_scan, compact_rows, fetch_owned (the
                             suffix sort's per-shard bodies and the
@@ -55,7 +55,6 @@ REBALANCE_COLS = 6    # csrc/sample_sort.cu kRebalanceCols
 MAX_COLUMNS = 1024    # csrc/sample_sort.cu kMaxColumns (the prefix's A)
 MAX_KEYS = 4          # csrc/sample_sort.cu kMaxKeys (splitter keys)
 FLAG_KEYS = 6         # csrc/dist_rounds.cu kFlagKeys (mesh_flags keys)
-_EXCHANGE_TILE = 1024  # csrc/exchange.cu kTile
 _SCAN_TILE = 4096      # csrc/dist_rounds.cu kScanTile
 
 
@@ -73,16 +72,19 @@ def _ptrs(ts: Sequence[Optional[torch.Tensor]], k: int) -> List:
 
 
 def bucket_pack_plain(dest: torch.Tensor, cols: Sequence[torch.Tensor], *,
-                      D: int, cap: int):
+                      D: int, cap: int,
+                      valid: Optional[torch.Tensor] = None):
     Dl, mm = dest.shape
     dev = dest.device
     bufs = [torch.zeros((Dl, D * cap), dtype=torch.int32, device=dev)
             for _ in cols]
-    valid = torch.zeros((Dl, D * cap), dtype=torch.uint8, device=dev)
+    vout = torch.zeros((Dl, D * cap), dtype=torch.uint8, device=dev)
     over = torch.empty(Dl, dtype=torch.int32, device=dev)
     for j in range(Dl):
         d = dest[j].long()
         d = torch.where((d < 0) | (d > D), D, d)
+        if valid is not None:
+            d = torch.where(valid[j].bool(), d, D)
         order = torch.sort(d, stable=True)[1]
         ds = d[order]
         counts = torch.bincount(ds, minlength=D + 1)
@@ -90,43 +92,77 @@ def bucket_pack_plain(dest: torch.Tensor, cols: Sequence[torch.Tensor], *,
         pos = torch.arange(mm, device=dev) - starts[ds]
         ok = (pos < cap) & (ds < D)
         slot = (ds * cap + pos)[ok]
-        valid[j, slot] = 1
+        vout[j, slot] = 1
         for b, c in zip(bufs, cols):
             b[j, slot] = c[j][order][ok]
         over[j] = int(counts[:D].max()) - cap
-    return bufs, valid, over
+    return bufs, vout, over
+
+
+# Output bytes up to which bucket_pack puts its columns in its one
+# allocation with the flags and the overflow; above it each column is an
+# allocation of its own, so that parallel/bins.py frees each once it is
+# sent (one allocation would hold every column until the last one is
+# sent: bins.py says what that would cost).
+ONE_ALLOCATION_BYTES = 1 << 26
+
+
+def _pack_out(Dl: int, W: int, ncols: int, scratch: int, dev):
+    """bucket_pack's outputs (ncols columns int32[Dl, W], the flags
+    uint8[Dl, W], over int32[Dl]) and its scratch (int32[scratch], or
+    None), as views of one int32 allocation: the scratch first (its status
+    words 8-byte aligned), then over, the columns where they are at most
+    ONE_ALLOCATION_BYTES (else one allocation each), the flags last."""
+    S = Dl * W
+    whole = 4 * ncols * S <= ONE_ALLOCATION_BYTES
+    nv = -(-S // 4)
+    sizes = [scratch, Dl] + ([ncols * S] if whole else []) + [nv]
+    parts = torch.empty(sum(sizes), dtype=torch.int32,
+                        device=dev).split(sizes)
+    if whole:
+        bufs = list(parts[2].view(ncols, Dl, W).unbind(0))
+    else:
+        bufs = [torch.empty((Dl, W), dtype=torch.int32, device=dev)
+                for _ in range(ncols)]
+    vout = parts[-1].view(torch.uint8)
+    if 4 * nv != S:
+        vout = vout[:S]
+    return bufs, vout.view(Dl, W), parts[1], parts[0] if scratch else None
 
 
 def bucket_pack(dest: torch.Tensor, cols: Sequence[torch.Tensor], *, D: int,
-                cap: int):
+                cap: int, valid: Optional[torch.Tensor] = None):
     """Records of each shard bucketed by destination: dest int32[Dl, mm] in
-    [0, D] (D drops the record), cols int32[Dl, mm] each.  Returns (bufs
-    int32[Dl, D*cap] per column, valid uint8[Dl, D*cap], over int32[Dl]):
-    a record with the p-th lowest index among those of its bucket d lands
-    in slot d*cap + p when p < cap (bins.exchange's stable argsort); the
-    other slots hold 0; over = max over d < D of the bucket's size - cap.
-    Kernel K18a on the card."""
+    [0, D] (D drops the record), cols int32[Dl, mm] each, valid uint8[Dl,
+    mm] or None (0 drops the record).  Returns (bufs int32[Dl, D*cap] per
+    column, valid uint8[Dl, D*cap], over int32[Dl]): a record with the
+    p-th lowest index among those of its bucket d lands in slot d*cap + p
+    when p < cap (bins.exchange's stable argsort); the other slots hold 0;
+    over = max over d < D of the bucket's size - cap.  Kernel K18a on the
+    card: one launch a call (and, above one block's records a shard, one
+    memset of its scratch); the outputs are views of one allocation
+    (_pack_out)."""
     kernels.check(dest, "dest", torch.int32, 2)
     Dl, mm = dest.shape
     for i, c in enumerate(cols):
         kernels.check(c, f"cols[{i}]", torch.int32, 2, (Dl, mm))
+    if valid is not None:
+        kernels.check(valid, "valid", torch.uint8, 2, (Dl, mm))
     if not 1 <= len(cols) <= MAX_COLS or not 1 <= D < MAX_BUCKETS \
             or cap < 1:
         raise ValueError(f"need 1 to {MAX_COLS} columns, 1 <= D < "
                          f"{MAX_BUCKETS} and cap >= 1")
-    if not kernels.on_card(dest, *cols):
-        return bucket_pack_plain(dest, cols, D=D, cap=cap)
-    dev = dest.device
-    bufs = [torch.zeros((Dl, D * cap), dtype=torch.int32, device=dev)
-            for _ in cols]
-    valid = torch.zeros((Dl, D * cap), dtype=torch.uint8, device=dev)
-    over = torch.full((Dl,), -INT32_MAX - 1, dtype=torch.int32, device=dev)
-    n_tiles = max(1, -(-mm // _EXCHANGE_TILE))
-    counts = torch.empty((Dl, n_tiles, D + 1), dtype=torch.int32, device=dev)
-    kernels.launch("bucket_pack", dest.data_ptr(), mm, Dl, D, cap, len(cols),
-                   *_ptrs(cols, MAX_COLS), *_ptrs(bufs, MAX_COLS),
-                   valid.data_ptr(), over.data_ptr(), counts.data_ptr())
-    return bufs, valid, over
+    ts = [dest, *cols] + ([valid] if valid is not None else [])
+    if not kernels.on_card(*ts):
+        return bucket_pack_plain(dest, cols, D=D, cap=cap, valid=valid)
+    bufs, vout, over, scratch = _pack_out(
+        Dl, D * cap, len(cols), kernels.size("bucket_pack_scratch", mm, Dl, D),
+        dest.device)
+    kernels.launch("bucket_pack", dest.data_ptr(), _ptr(valid), mm, Dl, D,
+                   cap, len(cols), *_ptrs(cols, MAX_COLS),
+                   *_ptrs(bufs, MAX_COLS), vout.data_ptr(), over.data_ptr(),
+                   _ptr(scratch))
+    return bufs, vout, over
 
 
 def owner_place_plain(idx, valid, recs, outs, *, base_mul: int, shard0: int):
@@ -356,8 +392,7 @@ def add_base(x: torch.Tensor, base: torch.Tensor) -> None:
     if not kernels.on_card(x, base):
         return add_base_plain(x, base)
     if rows:
-        kernels.launch("add_base", x.data_ptr(), base.data_ptr(), rows, A, Dl,
-                       None, 0, 0, None, None)
+        kernels.launch("add_base", x.data_ptr(), base.data_ptr(), rows, A, Dl)
 
 
 def add_mesh_base_plain(x, gathered, *, shard0, want_base, want_c):
@@ -376,9 +411,9 @@ def add_mesh_base(x: torch.Tensor, gathered: torch.Tensor, *, shard0: int,
     ``want_c``), each else None: the global checkpoints of
     dist_build._shard_occ_base (occ_ckpt or the L1 rows, with C) and
     _shard_marks (mark_ckpt, A = 1, with mark_base).  Kernel K18b's
-    add_base (its launch counts as one): every block sums its shard's base
-    from `gathered`, one block scans C; launched with no rows too, for C
-    and the base."""
+    add_base kernel through its own entry, add_mesh_base: every block sums
+    its shard's base from `gathered`, one block scans C; launched with no
+    rows too, for C and the base."""
     kernels.check(x, "x", torch.int32, 3)
     Dl, rows, A = x.shape
     kernels.check(gathered, "gathered", torch.int32, 2)
@@ -392,7 +427,7 @@ def add_mesh_base(x: torch.Tensor, gathered: torch.Tensor, *, shard0: int,
         return add_mesh_base_plain(x, gathered, shard0=shard0,
                                    want_base=want_base, want_c=want_c)
     base, C = _prefix_out(Dl, A, want_base, want_c, x.device)
-    kernels.launch("add_base", x.data_ptr(), None, rows, A, Dl,
+    kernels.launch("add_mesh_base", x.data_ptr(), rows, A, Dl,
                    gathered.data_ptr(), D, shard0, _ptr(base), _ptr(C))
     return base, C
 

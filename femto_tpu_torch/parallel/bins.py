@@ -46,14 +46,23 @@ def _valid_u8(valid: Optional[torch.Tensor]) -> Optional[torch.Tensor]:
 
 
 def _pack(mesh, dest, records, cap, valid):
-    """The send side of an exchange: (buffers, valid flags, overflow)."""
-    if valid is not None:
-        dest = torch.where(valid.bool(), dest, mesh.D)
-    return DO.bucket_pack(dest, list(records), D=mesh.D, cap=cap)
+    """The send side of an exchange: (buffers, valid flags, overflow); the
+    invalid lanes are dropped inside bucket_pack's launch."""
+    return DO.bucket_pack(dest, list(records), D=mesh.D, cap=cap,
+                          valid=_valid_u8(valid))
 
 
 def _send(mesh, bufs, send_valid, over, cap):
-    """The all_to_all of packed buffers, each freed once it is sent."""
+    """The all_to_all of packed buffers, each freed once it is sent.
+
+    bucket_pack puts its outputs in one allocation only up to
+    dist_ops.ONE_ALLOCATION_BYTES of columns.  One allocation lives until
+    its last view is freed, so above that it would hold every column sent
+    so far beside its copy: (4 (ncols - 1) + 1) Dl D cap bytes more at the
+    peak than one allocation a column.  At the sharded build's first call
+    (chip_smoke.py phase 4h: 2^28 symbols on 4 shards, 5 columns, cap =
+    m) that is about a third of the build's peak device memory (PERF.md,
+    K18a), so large calls keep one allocation a column."""
     Dl, D = send_valid.shape[0], mesh.D
     sent = []
     while bufs:

@@ -146,6 +146,122 @@ def test_exchange_overflow_reported(tmesh):
     assert int(of) == m - 16
 
 
+def _edge(edge, rng):
+    """One edge of the exchange: (dest int32[D * m], valid bool[D * m] or
+    None, cap of the one-hop exchange, cap of the Valiant one) on D shards
+    of m records."""
+    m = 0 if edge == "empty" else 32
+    src = np.arange(D * m) // max(m, 1)
+    dest = rng.integers(0, D, size=D * m).astype(np.int32)
+    valid = None
+    cap, vcap = m, 2 * m
+    if edge == "dropped":
+        valid = np.zeros(D * m, bool)
+        cap = vcap = 8
+    elif edge in ("at_cap", "past_cap"):
+        # records 0..15 (or 0..16) of each shard for shard s + 3, the rest
+        # spread over the others (at most 3 each): one bucket at (or one
+        # past) a cap of 16
+        k = np.arange(D * m) % m
+        first = 16 if edge == "at_cap" else 17
+        dest = np.where(k < first, (src + 3) % D,
+                        (src + 4 + k % (D - 1)) % D).astype(np.int32)
+        cap = 16
+        if edge == "past_cap":
+            # two hops: every record of every shard for shard 0 at a cap
+            # of m / 4 (a pair carries m of them on average)
+            vcap = m // 4
+    elif edge == "empty":
+        cap = vcap = 8
+    elif edge == "one_dest":
+        dest[:] = 5
+    elif edge == "valid":
+        valid = rng.random(D * m) < 0.7
+        valid[2 * m: 3 * m] = False  # shard 2 sends nothing
+    return dest, valid, cap, vcap
+
+
+@pytest.mark.parametrize("scheme", ["exchange", "valiant"])
+@pytest.mark.parametrize("edge", ["dropped", "at_cap", "past_cap", "empty",
+                                  "one_dest", "valid"])
+def test_exchange_edges_like_femto_tpu(jmesh, tmesh, scheme, edge):
+    """bins.exchange and bins.valiant_exchange against femto_tpu's at the
+    exchange's edges: every record dropped, one bucket at and one past
+    cap, empty shards (m = 0), every record to one shard, valid flags with
+    lanes off (and a shard with none on).  One hop: the received records,
+    flags and overflow slot for slot.  Two hops (the routes differ by
+    design): the records each shard receives as sets and their count, and
+    the overflow exactly where no record is sent, else its sign."""
+    rng = np.random.default_rng(11)
+    dest, valid, cap, vcap = _edge(edge, rng)
+    if scheme == "valiant" and edge == "past_cap":
+        dest = np.zeros_like(dest)
+    n = dest.shape[0]
+    vals = rng.integers(-1000, 1000, size=n).astype(np.int32)
+    ok = np.ones(n, bool) if valid is None else valid
+    c = cap if scheme == "exchange" else vcap
+
+    def f(v, d, okj, key):
+        if scheme == "exchange":
+            recs, rv, of = jbins.exchange(d, [v], cap=c, axis=AX, valid=okj)
+        else:
+            recs, rv, of = jbins.valiant_exchange(d, [v], cap=c, axis=AX,
+                                                  key=key, valid=okj)
+        return recs[0], rv, of
+
+    jr, jv, jof = _smap(f, jmesh, 4, 2, 1, rep_in=(3,))(
+        jnp.asarray(vals), jnp.asarray(dest), jnp.asarray(ok),
+        jax.random.PRNGKey(1))
+    tvalid = None if valid is None else _blocks(valid.astype(np.uint8))
+    if scheme == "exchange":
+        (tr,), tv, tof = tbins.exchange(tmesh, _blocks(dest), [_blocks(vals)],
+                                        c, valid=tvalid)
+        np.testing.assert_array_equal(tr.reshape(-1).numpy(), np.asarray(jr))
+        np.testing.assert_array_equal(tv.reshape(-1).numpy(),
+                                      np.asarray(jv).astype(np.uint8))
+        assert int(tof) == int(jof)
+        return
+    (tr,), tv, tof = tbins.valiant_exchange(
+        tmesh, _blocks(dest), [_blocks(vals)], c, key=1, valid=tvalid)
+    if not ok.any():
+        assert int(tof) == int(jof) == -c
+    else:
+        assert (int(tof) > 0) == (int(jof) > 0)
+    if int(tof) <= 0 and int(jof) <= 0:
+        want = [sorted(vals[ok & (dest == d)].tolist()) for d in range(D)]
+        assert _per_dest(tr.numpy(), tv.numpy()) == _per_dest(jr, jv) == want
+        assert int(tv.sum()) == int(np.asarray(jv).sum()) == int(ok.sum())
+    else:
+        # both dropped records: each delivered no more than it was sent
+        assert int(tv.sum()) < int(ok.sum())
+        assert int(np.asarray(jv).sum()) < int(ok.sum())
+
+
+@pytest.mark.parametrize("D_,mm,cap,ncols", [
+    (1, 0, 4, 1), (3, 1, 2, 2), (4, 100, 8, 3), (7, 257, 40, 8),
+    (127, 300, 3, 1)])
+def test_bucket_pack_plain_valid_is_dest_d(D_, mm, cap, ncols):
+    """bucket_pack_plain with valid flags equals the same call with dest
+    set to D (dropped) where the flag is 0, on every output."""
+    rng = np.random.default_rng(D_ + mm)
+    Dl = 3
+    dest = torch.from_numpy(rng.integers(-2, D_ + 2, size=(Dl, mm)).astype(
+        np.int32))
+    valid = torch.from_numpy((rng.random((Dl, mm)) < 0.6).astype(np.uint8))
+    cols = [torch.from_numpy(rng.integers(-99, 99, size=(Dl, mm)).astype(
+        np.int32)) for _ in range(ncols)]
+    got = DO.bucket_pack_plain(dest, cols, D=D_, cap=cap, valid=valid)
+    want = DO.bucket_pack_plain(
+        torch.where(valid.bool(), dest, D_), cols, D=D_, cap=cap)
+    for g, w in zip(got[0] + list(got[1:]), want[0] + list(want[1:])):
+        assert g.dtype == w.dtype
+        np.testing.assert_array_equal(g.numpy(), w.numpy())
+    # the wrapper takes the plain version for CPU tensors
+    wrapped = DO.bucket_pack(dest, cols, D=D_, cap=cap, valid=valid)
+    for g, w in zip(wrapped[0] + list(wrapped[1:]), got[0] + list(got[1:])):
+        np.testing.assert_array_equal(g.numpy(), w.numpy())
+
+
 @pytest.mark.parametrize("case", ["ties", "sorted"])
 def test_dist_sort_blocks(jmesh, tmesh, case):
     rng = np.random.default_rng(3)
