@@ -8,8 +8,17 @@ result.  It imports neither jax nor femto_tpu.  Phases (any failure exits
 non-zero):
 
 1. card and toolchain: nvidia-smi name and power limit, CUDA, nvcc, triton;
-2. build every kernel under femto_tpu_torch/csrc/ with nvcc for sm_90a;
-3. each kernel against its plain PyTorch version, bit for bit, on an 8 MiB
+2. build every kernel under femto_tpu_torch/csrc/ with nvcc for sm_90a
+   (and, beside them, the other-route builds of H, K18a and D and a
+   pointer-chase latency probe);
+3. kernel L's gather_rows and gather_cols at edge shapes (1 to 8 columns,
+   int32 and int64, idx views off a 16-byte boundary, -1 and
+   out-of-range indices, 0, 1, 65,536 and 2^26 rows), kernel D's extract
+   on both routes (a warp a walk, a thread a walk) at B = 1, 5, the
+   crossover and one past it, from the last segment's pad rows, side
+   segments and continued run-length segments on every layout, and
+   the paged one-step extract on both; then
+   each kernel against its plain PyTorch version, bit for bit, on an 8 MiB
    seeded corpus (zipf English with one document twice, a repeat-heavy, a
    binary and an empty doc): the suffix sort's kernels one by one and the
    sort as a whole in each of its regimes against the plain versions on
@@ -162,7 +171,17 @@ non-zero):
    also held to their plain versions at the widest layers of APPROX 2
    parameter and 0{1,64}1 on the prose vrle index; kernel H's and K18a
    bucket_pack's routes are each held against the other route (a build
-   of the source with another limit) on their paths' own calls;
+   of the source with another limit) on their paths' own calls; kernel L
+   in 5 rounds in turns with index_select at the pull and the direct
+   tier (the call, its own device item and its queued device work apart,
+   the host us of each part of one call), gather_cols against one gather_rows a column at the sharded
+   local sort's call; kernel D's extract in 5 rounds in turns with its
+   thread route (the design before, from a build with
+   -DFEMTO_D_WARP_MAX=0) on every layout's 8192-step walk and on the
+   context batch's backward walk, both routes at and past each layout's
+   limit (chip_d_routes.py times them over a wider range), and
+   each walk's latency floor (steps x the card's dependent-load latency
+   from a pointer chase over 1 GiB) beside its bytes bound;
 6. where the time goes: device time by kernel and the device's busy share
    over one build, count, locate and extract of the full tier, one
    build, count, locate and context of the packed tier, the vseg and vrle
@@ -171,7 +190,8 @@ non-zero):
    index (with the host time per layer) (torch.profiler);
    the two-chunk build of phase 4e, the cold paged count of 4f, the
    lcp_array of 4g and the sharded build of 4h (with their largest idle
-   gaps, and the sharded build's launches of K18a's and K18b's entries)
+   gaps, and the sharded build's launches of K18a's and K18b's entries
+   and kernel L's device ms and launches)
    join these; a build or
    query whose
    device items include a library sort or scan fails, and
@@ -316,6 +336,7 @@ PATH_KERNELS = {
                 "seed_keys",
                 "payload_block", "mesh_flags", "mesh_scan", "compact_rows",
                 "fetch_owned", "sym_hist", "radix_sort_pairs", "gather_rows",
+                "gather_cols",
                 "occ_build", "occ_build_compact", "pack_build",
                 "marks_build", "doc_lists", "flatten_ragged") + ROW_KERNELS
     + tuple(f"{k}[{lay}]" for k in ("owner_occ", "masked_occ", "owner_lf",
@@ -362,6 +383,9 @@ KERNELS = {  # entry -> (source, the femto_tpu function it replaces)
                    "femto_tpu/ops/build_ops.py:82"),
     "gather_rows": ("femto_tpu_torch/csrc/sa_payload.cu",
                     "femto_tpu/search.py:71"),
+    # the columns a sharded local sort carries through its sort
+    "gather_cols": ("femto_tpu_torch/csrc/sa_payload.cu",
+                    "femto_tpu/parallel/dist_sort.py:80"),
     "seg_syms": ("femto_tpu_torch/csrc/vseg_build.cu",
                  "femto_tpu/ops/build_ops.py:211"),
     "vseg_rows": ("femto_tpu_torch/csrc/vseg_build.cu",
@@ -466,17 +490,21 @@ H_ALTERNATIVES = {
 # (ROADMAP Q1): phase 5 also takes their own device items from
 # torch.profiler, beside the CUDA-event time of the whole call
 ITEM_ROWS = ("owner_place", "mesh_exclusive", "add_base", "add_mesh_base",
-             "bucket_pack")
+             "bucket_pack", "gather_rows", "gather_cols")
 # the device item of a row whose __global__ function has another name
 # than <row>_kernel (a prefix of the names where a row has two kernels:
-# bucket_pack_block and bucket_pack_tile)
+# bucket_pack_block and bucket_pack_tile; gather_cols_kernel behind both
+# of L's entries)
 ITEM_KERNELS = {"add_mesh_base": "add_base_kernel",
-                "bucket_pack": "bucket_pack_"}
+                "bucket_pack": "bucket_pack_",
+                "gather_rows": "gather_cols_",
+                "gather_cols": "gather_cols_"}
 # kernels whose library call takes about their own time, where one round
 # in turns cannot say which is faster (host- and launch-bound times move
 # 20-90% from run to run, PERF.md): timed in turns this many rounds
 TURN_ROUNDS = {"radix_sort_pairs": 5, "mesh_exclusive": 5, "add_base": 5,
-               "add_mesh_base": 5, "bucket_pack": 5, "owner_place": 5}
+               "add_mesh_base": 5, "bucket_pack": 5, "owner_place": 5,
+               "gather_rows": 5}
 # each of K18a bucket_pack's routes (k18a_route), the route its calls take
 # instead in a build of csrc/exchange.cu with the flag, and that flag: phase
 # 4h holds every route against the other on the sharded query path's own
@@ -812,7 +840,7 @@ def k18a_shape(dest, cols, kw):
     Dl, mm = dest.shape
     return {"Dl": Dl, "mm": mm, "D": kw["D"], "cap": kw["cap"],
             "ncols": len(cols), "valid_given": kw.get("valid") is not None,
-            "route": k18a_route(mm)}
+            "pack_route": k18a_route(mm)}
 
 
 def h_route(m, bit_lo, bit_hi):
@@ -846,25 +874,59 @@ def h_call_sizes(sorts):
             "calls_by_bits": dict(sorted(widths.items()))}
 
 
-# the sources built again with other routes, and each one's alternatives
-ROUTE_BUILDS = {"radix_sort": H_ALTERNATIVES, "exchange": K18A_ALTERNATIVES}
+# kernel D lf_extract's routes (csrc/lf_walk.cu femto_lf_extract_route),
+# the route a call takes instead in a build of csrc/lf_walk.cu with the
+# flag, and that flag: phase 3 holds both routes to the plain version and
+# phase 5 times the warp route against the thread route (the design before
+# it) through the same wrapper
+D_ALTERNATIVES = {
+    "warp": ("thread", "-DFEMTO_D_WARP_MAX=0"),
+    "thread": ("warp", "-DFEMTO_D_WARP_MAX=0x7fffffff"),
+}
+# the sources built again with other routes or settings, and each one's
+# alternatives
+ROUTE_BUILDS = {"radix_sort": H_ALTERNATIVES, "exchange": K18A_ALTERNATIVES,
+                "lf_walk": D_ALTERNATIVES}
+# The card's dependent global-load latency: one thread follows a random
+# cycle through an array past L2, one load waiting for the last (phase 5's
+# latency floor of the LF walks).  Built beside the sources in phase 2; a
+# measuring tool, not a kernel of the port.
+CHASE_SRC = r"""
+#include <cuda_runtime.h>
+__global__ void chase_kernel(const unsigned* __restrict__ next,
+                             long long steps, unsigned* out) {
+  unsigned i = *out;  // each run goes on where the last one stopped
+  for (long long t = 0; t < steps; ++t) i = __ldcg(next + i);
+  *out = i;
+}
+extern "C" int femto_chase(const void* next, long long steps, void* out,
+                           void* stream) {
+  chase_kernel<<<1, 1, 0, static_cast<cudaStream_t>(stream)>>>(
+      static_cast<const unsigned*>(next), steps, static_cast<unsigned*>(out));
+  return static_cast<int>(cudaGetLastError());
+}
+"""
+CHASE_WORDS = 1 << 28      # 1 GiB of uint32: 20 times L2
+CHASE_STEPS = 1 << 16
 
 
-def start_route_builds():
-    """Each source of ROUTE_BUILDS built with each flag of its
-    alternatives, one nvcc each, started now (beside kernels.build) and
-    read by route_libs: {source: {route: (process, library path)}}."""
+def start_route_builds(sources=None):
+    """Each source of ROUTE_BUILDS (or of `sources`, a list of its keys)
+    built with each flag of its alternatives, one nvcc each, started now
+    (beside kernels.build) and read by route_libs: {source: {route:
+    (process, library path)}}."""
     from femto_tpu_torch import kernels
 
     os.makedirs(kernels.BUILD_DIR, exist_ok=True)
     out = {}
-    for src, alternatives in ROUTE_BUILDS.items():
+    for src in sources or ROUTE_BUILDS:
+        alternatives = ROUTE_BUILDS[src]
         out[src] = {}
         for route, (_, flag) in alternatives.items():
             so = os.path.join(kernels.BUILD_DIR, f"lib{src}.not_{route}.so")
             out[src][route] = (subprocess.Popen(
-                [kernels.nvcc_path(), *kernels.NVCC_FLAGS, flag, "-o", so,
-                 os.path.join(kernels.CSRC, src + ".cu")],
+                [kernels.nvcc_path(), *kernels.NVCC_FLAGS, *flag.split(),
+                 "-o", so, os.path.join(kernels.CSRC, src + ".cu")],
                 stdout=subprocess.PIPE, stderr=subprocess.STDOUT,
                 text=True), so)
     return out
@@ -996,6 +1058,393 @@ def k18a_route_rows(builds, calls):
                       f"D {kw['D']}, cap {kw['cap']}, {len(cols)} columns)",
                       rows[tag])
     return rows
+
+
+def start_chase_build():
+    """CHASE_SRC compiled into the build directory: (process, library)."""
+    from femto_tpu_torch import kernels
+
+    os.makedirs(kernels.BUILD_DIR, exist_ok=True)
+    cu = os.path.join(kernels.BUILD_DIR, "chase.cu")
+    with open(cu, "w") as f:
+        f.write(CHASE_SRC)
+    so = os.path.join(kernels.BUILD_DIR, "libchase.so")
+    return (subprocess.Popen([kernels.nvcc_path(), *kernels.NVCC_FLAGS, "-o",
+                              so, cu], stdout=subprocess.PIPE,
+                             stderr=subprocess.STDOUT, text=True), so)
+
+
+def dependent_load_ns(build):
+    """The card's dependent global-load latency in ns: CHASE_STEPS loads
+    along one random cycle through CHASE_WORDS words (a warm-up run
+    first; median of 3), each waiting for the one before; each run goes
+    on along the cycle from where the last one stopped, so that no run
+    finds the last one's words in L2."""
+    import ctypes
+
+    import torch
+
+    proc, so = build
+    out, _ = proc.communicate()
+    check(proc.returncode == 0, f"nvcc failed for the latency probe:\n{out}")
+    lib = ctypes.CDLL(so)
+    fn = lib.femto_chase
+    fn.argtypes = [ctypes.c_void_p, ctypes.c_longlong, ctypes.c_void_p,
+                   ctypes.c_void_p]
+    fn.restype = ctypes.c_int
+    g = torch.Generator(device="cuda")
+    g.manual_seed(7)
+    perm = torch.randperm(CHASE_WORDS, device="cuda", generator=g)
+    nxt = torch.empty(CHASE_WORDS, dtype=torch.int64, device="cuda")
+    nxt[perm] = torch.roll(perm, -1)
+    nxt = nxt.to(torch.int32)
+    del perm
+    res = torch.zeros(1, dtype=torch.int32, device="cuda")
+
+    def run():
+        rc = fn(nxt.data_ptr(), CHASE_STEPS, res.data_ptr(),
+                torch.cuda.current_stream().cuda_stream)
+        check(rc == 0, f"the latency probe failed: cudaError_t {rc}")
+
+    ms = cuda_ms(run)
+    del nxt
+    return ms * 1e6 / CHASE_STEPS
+
+
+def d_route(B, lay):
+    """The route kernel D's extract takes for B walks on layout lay
+    (csrc/lf_walk.cu's own choice): "warp" or "thread"."""
+    from femto_tpu_torch import kernels
+
+    return ("warp" if kernels.size("lf_extract_route", B,
+                                   kernels.LAYOUTS.index(lay)) else "thread")
+
+
+def d_crossover(lay):
+    """The largest B that takes the warp route on layout lay (0: none;
+    None: every B up to 2^24 does)."""
+    lo, hi = 0, 1 << 24
+    if d_route(hi, lay) == "warp":
+        return None
+    while lo < hi:
+        mid = (lo + hi + 1) // 2
+        if d_route(mid, lay) == "warp":
+            lo = mid
+        else:
+            hi = mid - 1
+    return lo
+
+
+def extract_both_routes(libs, arrays, rows, steps, want, name):
+    """Kernel D's extract of rows through each route (the builds of
+    D_ALTERNATIVES, kernels.variant around the same wrapper), held bit
+    for bit to `want` and to each other."""
+    from femto_tpu_torch import kernels
+    from femto_tpu_torch.ops import search_ops as S
+
+    for route, lib in libs.items():
+        # libs[route] sends every call down the other route
+        with kernels.variant("lf_walk", lib):
+            got = S.extract_backward(arrays, rows, steps)
+        max_abs_err(f"{name}, {D_ALTERNATIVES[route][0]} route", got, want)
+
+
+def parity_extract_routes(indexes, libs, rng, errs):
+    """Phase 3's hold of kernel D's extract on both routes: on every
+    layout (the 8 MiB corpus's full, compact, packed, packed31, vseg,
+    vrle and the prose's vseg and vrle), walks of B = 1, of 5, of the
+    crossover B and one more (where the warp route has no limit, of
+    2^17 walks), from rows that reach the last segment's pad
+    rows (rows past n stay put and emit their pad code), from the side
+    segments (vseg) and from continued run-length segments (vrle), each
+    route and the wrapper as built against the plain version."""
+    import torch
+
+    from femto_tpu_torch.ops import rank as R
+    from femto_tpu_torch.ops import search_ops as S
+
+    rec = {}
+    for name, ix in indexes.items():
+        A = ix.arrays
+        n, seg = ix.meta.n, ix.meta.seg
+        lay = R.layout(A)
+        dev = A.bwt.device
+        cross = d_crossover(lay)
+        top = R.n_segments(A) * seg
+        sets = {
+            "B1": torch.tensor([n - 1], dtype=torch.int32),
+            "B5": torch.from_numpy(rng.integers(0, n, 5).astype(np.int32)),
+            # the last segment's rows up to its end: the pad rows past n
+            "pad": torch.arange(max(0, (n - 1) // seg * seg), top,
+                                dtype=torch.int32)[-64:],
+        }
+        for tag, size in ((("crossover", cross),
+                           ("crossover_plus_1", cross + 1))
+                          if cross is not None else (("large", 1 << 17),)):
+            sets[tag] = torch.from_numpy(
+                rng.integers(0, n, size).astype(np.int32))
+        if R.is_row_tier(A):
+            woff = A.seg_woff.cpu().numpy()
+            for kind, segs in (("side", np.nonzero(woff > 0)[0]),
+                               ("continued", np.nonzero(woff < -1)[0])):
+                if len(segs):
+                    pick = segs[rng.integers(0, len(segs), 256)]
+                    r = pick * seg + rng.integers(0, seg, 256)
+                    sets[kind] = torch.from_numpy(
+                        r[r < n].astype(np.int32))
+        for tag, rows in sets.items():
+            rows = rows.to(dev).contiguous()
+            steps = 8 if rows.shape[0] > 4096 else 200
+            want = S.extract_backward_plain(A, rows, steps)
+            got = S.extract_backward(A, rows, steps)
+            key = f"lf_extract[{name}]({tag}, B={rows.shape[0]})"
+            errs[key] = max_abs_err(key, got, want)
+            extract_both_routes(libs, A, rows, steps, want, key)
+            del want, got
+        rec[name] = {"crossover_B": cross,
+                     "sets": {k: int(v.shape[0]) for k, v in sets.items()}}
+    log(f"    D extract: both routes equal the plain version on every "
+        f"layout: {rec}")
+    return rec
+
+
+def parity_gather_edges(rng, errs):
+    """Phase 3's hold of kernel L at edge shapes: gather_rows and
+    gather_cols of 1, 3 and 8 columns, int32 and int64, idx views that
+    start 0, 4 and 12 bytes past a 16-B boundary (and outputs 4 or 8
+    bytes past one), -1 and out-of-range indices, at 0, 1, 65,536 and
+    2^26 rows (2^26: 1 and 8 columns), against the plain versions."""
+    import torch
+
+    from femto_tpu_torch.ops import sort_ops as SO
+
+    dev = torch.device("cuda")
+    n = 1 << 20
+    held = 0
+    for dtype in (torch.int32, torch.int64):
+        for m in (0, 1, 65536, 1 << 26):
+            for ncols in ((1, 8) if m == 1 << 26 else (1, 3, 8)):
+                for off in ((0, 3) if m == 1 << 26 else (0, 1, 3)):
+                    srcs = [torch.randint(-2**31, 2**31 - 1, (n,),
+                                          dtype=torch.int64,
+                                          device=dev).to(dtype)
+                            for _ in range(ncols)]
+                    big = torch.randint(-3, n + 3, (m + 3,),
+                                        dtype=torch.int32, device=dev)
+                    idx = big[off: off + m]
+                    outs = torch.empty((ncols, m + 1), dtype=dtype,
+                                       device=dev)[:, 1:]
+                    got = SO.gather_cols(srcs, idx, list(outs.unbind(0)))
+                    want = [SO.gather_rows_plain(c, idx) for c in srcs]
+                    tag = (f"gather_cols({dtype}, m={m}, ncols={ncols}, "
+                           f"idx +{4 * off} B)")
+                    errs[tag] = max_abs_err(tag, got, want)
+                    tag = f"gather_rows({dtype}, m={m}, idx +{4 * off} B)"
+                    errs[tag] = max_abs_err(
+                        tag, [SO.gather_rows(srcs[0], idx)], want[:1])
+                    held += 1
+                    del srcs, big, outs, got, want
+    log(f"    L: gather_rows and gather_cols equal their plain versions at "
+        f"{held} edge shapes")
+
+
+def _host_us(fn, reps=2000):
+    """Host us a call of fn (perf_counter over reps calls after 50)."""
+    import torch
+
+    for _ in range(50):
+        fn()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(reps):
+        fn()
+    us = (time.perf_counter() - t0) * 1e6 / reps
+    torch.cuda.synchronize()
+    return us
+
+
+def l_host_parts(src, idx):
+    """Host us of each part of one gather_rows call at these inputs (the
+    direct tier's): the wrapper's checks, on_card and the output's
+    allocation; in kernels.launch the name check, the cached bound
+    function and the raw stream handle; the ctypes call itself; the whole
+    launch, the whole call and index_select's."""
+    import torch
+
+    from femto_tpu_torch import kernels
+    from femto_tpu_torch.ops import sort_ops as SO
+
+    m = idx.shape[0]
+    out = torch.empty(m, dtype=src.dtype, device=src.device)
+    lib = kernels._lib("sa_payload")
+    fn = lib.femto_gather_rows
+    stream = torch.cuda.current_stream().cuda_stream
+    raw = lambda: torch._C._cuda_getCurrentRawStream(  # noqa: E731
+        torch._C._cuda_getDevice())
+    args = (src.data_ptr(), src.shape[0], src.element_size(), idx.data_ptr(),
+            m, out.data_ptr())
+
+    parts = {
+        "checks": lambda: (src.dtype in SO._GATHER_DTYPES,
+                           kernels.check(src, "src", src.dtype, 1),
+                           kernels.check(idx, "idx", torch.int32, 1)),
+        "on_card": lambda: kernels.on_card(src, idx),
+        "output_new_empty": lambda: src.new_empty(m),
+        "data_ptrs_and_sizes": lambda: (src.data_ptr(), src.shape[0],
+                                        src.element_size(), idx.data_ptr(),
+                                        idx.shape[0], out.data_ptr()),
+        "name_check": lambda: "gather_rows" in kernels.launches,
+        "cached_fn": lambda: kernels._fns.get("gather_rows"),
+        "stream_raw": raw,
+        "ctypes_call": lambda: fn(*args, stream),
+        "launch": lambda: kernels.launch("gather_rows", *args),
+        "whole_call": lambda: SO.gather_rows(src, idx),
+        "index_select_call": lambda: torch.index_select(src, 0, idx),
+    }
+    got = {k: _host_us(f) for k, f in parts.items()}
+    check(raw() == stream, "the raw stream handle is not the current "
+                           "stream's")
+    log(f"    L host us by part (direct tier, {m} rows): {got}")
+    return got
+
+
+def d_fields(libs, lay, B, steps, run, lat_ns):
+    """Kernel D's extract as built against its thread route (the build
+    that sends every call there, through the same wrapper in
+    kernels.variant; the design before the warp route), 5 rounds in
+    turns, both calls' queued_ms, the kernel's own device item, and the
+    walk's latency floor: steps times the card's dependent-load latency,
+    with the share of it reached."""
+    from femto_tpu_torch import kernels
+
+    def built():
+        with kernels.variant("lf_walk", None):
+            return run()
+
+    def thread():
+        with kernels.variant("lf_walk", libs["warp"]):
+            return run()
+
+    max_abs_err(f"lf_extract[{lay}] as built against its thread route",
+                built(), thread())
+    ms, t_ms, fours = in_turns(built, thread, 5)
+    items = {}
+    for _ in range(5):
+        items = {k: v for k, v in device_items(run, 3).items()
+                 if "lf_extract" in k}
+        if items:
+            break
+    floor = steps * lat_ns / 1e6
+    return {"d_route": d_route(B, lay), "B": B, "steps": steps,
+            "turns_built_ms": ms, "thread_route_ms": t_ms,
+            "turns_ms": fours,
+            "kernel_ahead_rounds": sum(k1 + k2 < l1 + l2
+                                       for k1, l1, l2, k2 in fours),
+            "queued_ms": queued_ms(built),
+            "thread_queued_ms": queued_ms(thread),
+            "kernel_device_ms": (sum(items.values()) if items
+                                 else "not measured"),
+            "kernel_items": {k[:80]: v for k, v in items.items()},
+            "latency_floor_ms": floor, "latency_floor_share": floor / ms}
+
+
+def d_route_probe(libs, indexes, rng, sizes, steps_list=(32,)):
+    """Kernel D's two routes (each forced by its build) on each layout's
+    index at the batch sizes sizes(layout): {layout: {steps: {B: {route,
+    warp_ms, thread_ms, warp_queued_ms, thread_queued_ms}}}}, both routes
+    held to each other; `route` is the one the source picks."""
+    import torch
+
+    from femto_tpu_torch import kernels
+    from femto_tpu_torch.ops import search_ops as S
+
+    out = {}
+    for lay, A, n in indexes:
+        out[lay] = {}
+        for steps in steps_list:
+            out[lay][steps] = {}
+            for B in sizes(lay):
+                rows = torch.from_numpy(
+                    rng.integers(0, n, B).astype(np.int32)).to(A.bwt.device)
+
+                def warp():
+                    with kernels.variant("lf_walk", libs["thread"]):
+                        return S.extract_backward(A, rows, steps)
+
+                def thread():
+                    with kernels.variant("lf_walk", libs["warp"]):
+                        return S.extract_backward(A, rows, steps)
+
+                max_abs_err(f"lf_extract[{lay}] routes, B={B}", warp(),
+                            thread())
+                out[lay][steps][B] = {
+                    "route": d_route(B, lay),
+                    "warp_ms": cuda_ms(warp), "thread_ms": cuda_ms(thread),
+                    "warp_queued_ms": queued_ms(warp),
+                    "thread_queued_ms": queued_ms(thread)}
+                del rows
+            log(f"    D routes on {lay}, {steps} steps (queued, warp / "
+                f"thread): " + ", ".join(
+                    f"B={B}: {v['warp_queued_ms']:.4g} / "
+                    f"{v['thread_queued_ms']:.4g}"
+                    for B, v in out[lay][steps].items()))
+    return out
+
+
+@contextlib.contextmanager
+def l_call_sizes(got):
+    """While open, kernel L's launches through the module attributes
+    ops/sort_ops.gather_rows and gather_cols are counted into `got` by
+    (entry, m, columns, bytes an element)."""
+    from femto_tpu_torch.ops import sort_ops as SO
+
+    rows_fn, cols_fn = SO.gather_rows, SO.gather_cols
+
+    def rows_hook(src, idx):
+        if idx.shape[0]:
+            key = ("gather_rows", idx.shape[0], 1, src.element_size())
+            got[key] = got.get(key, 0) + 1
+        return rows_fn(src, idx)
+
+    def cols_hook(srcs, idx, outs=None):
+        for k in range(0, len(srcs) if idx.shape[0] else 0,
+                       SO.MAX_GATHER_COLS):
+            key = ("gather_cols", idx.shape[0],
+                   len(srcs[k:k + SO.MAX_GATHER_COLS]),
+                   srcs[0].element_size())
+            got[key] = got.get(key, 0) + 1
+        return cols_fn(srcs, idx, outs)
+
+    SO.gather_rows, SO.gather_cols = rows_hook, cols_hook
+    try:
+        yield got
+    finally:
+        SO.gather_rows, SO.gather_cols = rows_fn, cols_fn
+
+
+def per_column_fields(a, run_k):
+    """gather_cols at a captured call (srcs, idx, outs) against the form
+    before it, one gather_rows a column and a copy into each output, in
+    5 rounds in turns (as timed_row's more)."""
+    from femto_tpu_torch.ops import sort_ops as SO
+
+    srcs, idx = a[0], a[1]
+    outs = [o.clone() for o in a[2]]
+
+    def per_column():
+        for c, o in zip(srcs, outs):
+            o.copy_(SO.gather_rows(c, idx))
+        return outs
+
+    max_abs_err("gather_cols against one gather_rows a column", run_k(),
+                _flat([per_column()]))
+    ms, pc_ms, fours = in_turns(run_k, per_column, 5)
+    return {"ncols": len(srcs), "m": idx.shape[0],
+            "turns_gather_cols_ms": ms, "per_column_ms": pc_ms,
+            "per_column_turns_ms": fours,
+            "ahead_of_per_column_rounds": sum(k1 + k2 < l1 + l2
+                                              for k1, l1, l2, k2 in fours),
+            "per_column_queued_ms": queued_ms(per_column)}
 
 
 def wall_runs(fn, reps=3):
@@ -1216,7 +1665,22 @@ def bound_psi(arrays, rows, num_steps):
     return total / HBM_BYTES_PER_S * 1e3
 
 
-SECTOR = 32  # bytes one gathered row of gather_rows moves at the least
+SECTOR = 32  # bytes of one DRAM sector: a random gathered row's traffic
+
+
+def gather_bytes(srcs, idx):
+    """Bytes kernel L must move for one call: idx read once, every
+    distinct row it gathers read once in each column, and each output
+    written once (this run's data: a permutation reads all of src).
+    With them the bytes of one 32-byte sector a gathered row (what a
+    random gather costs the card), as the row's sector_bound_ms."""
+    import torch
+
+    m, e = idx.numel(), srcs[0].element_size()
+    ok = (idx >= 0) & (idx < srcs[0].numel())
+    distinct = int(torch.unique(idx[ok]).numel())
+    return (4 * m + len(srcs) * (distinct + m) * e,
+            4 * m + len(srcs) * (SECTOR + e) * m)
 
 
 def bound_ms(nbytes):
@@ -1227,7 +1691,8 @@ def bound_sort_kernels(n, ndocs, m):
     """Bytes each suffix-sort function must move, whatever its design, at
     text length n with m tied slots: each element it reads and each it
     writes once, at the element's own size (a sort once, not once a pass);
-    gather_rows alone counts one sector for a gathered row."""
+    gather_rows: sa is a permutation, so every payload word is read once
+    (gather_bytes counts other calls)."""
     return {
         "sym_hist": 4 * n + 4 * 513,
         "sa_keys": 4 * n + 4 * 512 + 8 * n,
@@ -1243,7 +1708,7 @@ def bound_sort_kernels(n, ndocs, m):
         # per slot: slot, sorted pos and new base in, sa and rank out
         "round_commit": 12 * m + 8 * m,
         "sa_payload": 4 * n + 4 * (ndocs + 1) + 8 * n,
-        "gather_rows": 4 * n + SECTOR * n + 8 * n,
+        "gather_rows": 4 * n + 8 * n + 8 * n,
     }
 
 
@@ -1284,12 +1749,15 @@ def phase_toolchain(record):
 
 
 def phase_build(record):
-    """Every source at once (kernels.build), and kernel H's and K18a's
-    other routes beside them: returns start_route_builds'."""
+    """Every source at once (kernels.build), and kernel H's, K18a's and
+    D's other routes and the latency probe beside them:
+    returns start_route_builds' with the latency probe's build under
+    "chase"."""
     from femto_tpu_torch import kernels
 
     t0 = time.perf_counter()
     routes = start_route_builds()
+    routes["chase"] = start_chase_build()
     per = kernels.build()
     total = time.perf_counter() - t0
     record["build_seconds"] = {"total": total, **per}
@@ -2308,7 +2776,7 @@ def parity_query_kernels(indexes, pt, rng, errs, whole):
     return runs
 
 
-def phase_parity(record, rng, route_builds=None):
+def phase_parity(record, rng, route_builds):
     """Every kernel against its plain version on an 8 MiB corpus."""
     import torch
 
@@ -2327,6 +2795,7 @@ def phase_parity(record, rng, route_builds=None):
     ds = torch.from_numpy(prepared.doc_starts.astype(np.int32)).to(dev)
     errs = {}
 
+    parity_gather_edges(rng, errs)
     regimes = parity_sort_kernels(rng, docs, prepared, text, ds, errs)
     payload = BO.build_sa_payload(text, ds, n=n, mark_period=20, ndocs=ndocs)
     sa, pull = tt.suffix_array(text, payload=payload)
@@ -2463,18 +2932,23 @@ def phase_parity(record, rng, route_builds=None):
                 check(tt.extract_document(ix, d) == docs[d],
                       f"{name}: extract doc {d}")
     prose_rec = parity_prose_search(prose, prose_ix, rng, errs, edges)
+    d_libs = route_libs(route_builds["lf_walk"], "lf_walk")
+    d_routes = parity_extract_routes(
+        {**indexes, **{f"prose_{k}": v for k, v in prose_ix.items()
+                       if k != "full"}}, d_libs, rng, errs)
     query_runs = parity_query_kernels(
         {**indexes, **{f"prose_{k}": v for k, v in prose_ix.items()}}, pt,
         rng, errs, whole=LAYOUTS)
     paged_lcp = parity_paged_lcp(indexes, prose_ix, prepared, docs, text, sa,
-                                 rng, errs)
+                                 rng, errs, d_libs)
     del indexes, prose_ix
     sharded = parity_sharded(rng, docs, prepared, sa, errs,
-                             route_builds and route_builds["exchange"])
+                             route_builds["exchange"])
     record["parity_8mib"] = {"n": n, "ndocs": ndocs, "max_abs_err": errs,
                              "sort_regimes": regimes, "prose": prose_rec,
                              "query_runs": query_runs,
-                             "paged_lcp": paged_lcp, "sharded": sharded}
+                             "paged_lcp": paged_lcp, "sharded": sharded,
+                             "extract_routes": d_routes}
     log(f"[3] 8 MiB parity (n={n}): every kernel equals its plain version "
         f"bit for bit: {sorted(errs)}")
 
@@ -3358,7 +3832,7 @@ def timed_row(name, path, launches, run_k, run_p, nbytes, card,
             "kernel_device_ms", "queued_ms", "library_device_ms",
             "library_queued_ms", "library_full_ms",
             "library_full_turns_ms", "kernel_ahead_of_full_rounds",
-            "library_full_queued_ms", "at_occ_site", "route", "mm",
+            "library_full_queued_ms", "at_occ_site", "pack_route", "mm",
             "kernel_items_per_call")
             if k in r))
     return r
@@ -3759,11 +4233,13 @@ def half_cache(arrays, rng, errs, tag):
     return arrays._replace(bwt=cache, seg_slot=smap), mapped
 
 
-def parity_paged_steps(name, ix, rng, errs):
+def parity_paged_steps(name, ix, rng, errs, d_libs=None):
     """K16's steps (C's masked step, D's lf_walk_step, resolve_marks and
     the one-step extract) on a half-filled cache with a random seg_slot:
     each kernel against its plain version there and against itself on
-    the resident index (the indirection changes no answer)."""
+    the resident index (the indirection changes no answer); the one-step
+    extract also on each of kernel D's routes (d_libs) at B rows and at
+    1."""
     import torch
 
     from femto_tpu_torch.ops import search_ops as S
@@ -3811,6 +4287,13 @@ def parity_paged_steps(name, ix, rng, errs):
             f"{entry}[{name}] on a half-filled cache", got, want)
         max_abs_err(f"{entry}[{name}]: paged against resident", got,
                     resident)
+    if d_libs is not None:
+        for rr in (rows, rows[:1].contiguous()):
+            key = f"lf_extract(1 step)[{name}](paged, B={rr.shape[0]})"
+            want = S.extract_backward_plain(paged, rr, 1)
+            errs[key] = max_abs_err(key, S.extract_backward(paged, rr, 1),
+                                    want)
+            extract_both_routes(d_libs, paged, rr, 1, want, key)
 
 
 def parity_paged_index(name, ix, docs, rng, errs):
@@ -3970,14 +4453,15 @@ def parity_lcp(prepared, text, sa, errs):
 
 
 def parity_paged_lcp(indexes, prose_ix, prepared, docs, text, sa, rng,
-                     errs):
-    """Phase 3's K16 and K17 checks."""
+                     errs, d_libs):
+    """Phase 3's K16 and K17 checks (the one-step extract on both of
+    kernel D's routes: d_libs)."""
     pdocs = prose_docs(int(PARITY_PROSE_MIB * 2**20))
     rec = {}
     for name, ix, dd in (("vseg", indexes["vseg"], docs),
                          ("vrle", indexes["vrle"], docs),
                          ("prose_vrle", prose_ix["vrle"], pdocs)):
-        parity_paged_steps(name, ix, rng, errs)
+        parity_paged_steps(name, ix, rng, errs, d_libs)
         rec[name] = parity_paged_index(name, ix, dd, rng, errs)
     log(f"    K16: apply_faults, the masked step, lf_walk_step, "
         f"resolve_marks and the one-step extract equal their plain "
@@ -4927,6 +5411,7 @@ def sharded_build_calls():
             (SO, "sym_hist", None),
             (SO, "radix_sort_pairs", lambda a: a[0].numel()),
             (SO, "gather_rows", lambda a: a[1].numel()),
+            (SO, "gather_cols", lambda a: a[1].numel() * len(a[0])),
             (BO, "occ_build_compact", None), (BO, "pack_build", None)]
 
 
@@ -4942,13 +5427,19 @@ def build_case(name, a, kw):
     from femto_tpu_torch.ops import sort_ops as SO
 
     mod = DO if name == "shard_marks" else (
-        SO if name in ("sym_hist", "radix_sort_pairs", "gather_rows")
+        SO if name in ("sym_hist", "radix_sort_pairs", "gather_rows",
+                       "gather_cols")
         else BO)
     fk, fp = getattr(mod, name), getattr(mod, name + "_plain")
     pa, pkw = a, kw
     if name == "occ_build_compact":
         # its plain version takes no symbol map
         pa = [a[0], a[2]]
+    elif name == "gather_cols":
+        # the plain version writes into outputs of its own and returns none
+        pa = [a[0], a[1], [o.clone() for o in a[2]]]
+        fp = lambda s_, i_, o_: (  # noqa: E731
+            SO.gather_cols_plain(s_, i_, o_), list(o_))[1]
 
     def run_k():
         return _flat([fk(*a, **kw)])
@@ -5005,10 +5496,13 @@ def build_case(name, a, kw):
             return torch.sort(keys, stable=True)
     elif name == "gather_rows":
         src, idx = a
-        nbytes = (4 + SECTOR + src.element_size()) * idx.numel()
+        nbytes = gather_bytes([src], idx)[0]
 
         def lib():
             return torch.index_select(src, 0, idx)
+    elif name == "gather_cols":
+        srcs, idx = a[0], a[1]
+        nbytes = gather_bytes(srcs, idx)[0]
     else:
         raise ValueError(f"no phase 5 case for {name}")
     return name, run_k, run_p, nbytes, lib
@@ -5915,26 +6409,52 @@ def phase_sharded(record, rng, st):
         name, run_k, run_p, nbytes, lib = build_case(entry, a, kw)
         log(f"    {name} at its call in a sharded build: inputs "
             f"{[tuple(t.shape) for t in _flat(a) if torch.is_tensor(t)]}")
+        more = None
+        if name == "gather_rows":
+            more = (lambda a=a: {"sector_bound_ms": bound_ms(
+                gather_bytes([a[0]], a[1])[1])})
+        elif name == "gather_cols":
+            more = (lambda a=a, run_k=run_k: {
+                "sector_bound_ms": bound_ms(gather_bytes(a[0], a[1])[1]),
+                **per_column_fields(a, run_k)})
         rows5.append(timed_row(name, "sharded", launches[name], run_k, run_p,
                                nbytes, card, library=lib,
                                extra=h_fields(a[0], a[2], a[3])
-                               if name == "radix_sort_pairs" else None))
-        del a, kw, run_k, run_p, lib
+                               if name == "radix_sort_pairs" else None,
+                               more=more))
+        del a, kw, run_k, run_p, lib, more
     # phase 6: one sharded full and one sharded vrle build, each with the
     # launches of its last profiled call
     for tier in ("full", "vrle"):
         counts = {}
+        l_calls = {}
 
         def build():
             kernels.reset_launches()
-            build_index_sharded(prepared, mesh, seg=256, mark_period=20,
-                                tier=tier)
+            l_calls.clear()
+            with l_call_sizes(l_calls):
+                build_index_sharded(prepared, mesh, seg=256, mark_period=20,
+                                    tier=tier)
             counts.clear()
             counts.update({k: v for k, v in kernels.launches.items() if v})
 
         entry = prof[f"sharded_build_{tier}"] = profile_with_gaps(
             f"sharded_build_{tier}", build)
         entry["launches"] = dict(counts)
+        # kernel L in the build: its device ms, its launches, and the
+        # launches one gather_rows a column would have made
+        l_ms = [ms for k, ms in entry.get("by_port_kernel_ms", {}).items()
+                if k.startswith("gather_cols")]
+        entry["L"] = {
+            "ms": sum(l_ms) if l_ms else "not measured",
+            "launches": {k: counts.get(k, 0)
+                         for k in ("gather_rows", "gather_cols")},
+            "launches_one_a_column": sum(
+                c * k[2] for k, c in l_calls.items()),
+            "calls_by_shape": {f"{k[0]} m={k[1]} cols={k[2]} "
+                               f"{k[3]} B": c
+                               for k, c in sorted(l_calls.items())}}
+        log(f"[6] sharded {tier} build: L {entry['L']}")
         log(f"[6] sharded {tier} build launched "
             + ", ".join(f"{k} {counts.get(k, 0)}"
                         for k in ("bucket_pack", "mesh_exclusive",
@@ -6250,7 +6770,9 @@ def sort_kernel_rows(record, kernel_row, text, ds, sa, sa_direct, rows, *,
                      n, ndocs, mark_period):
     """Kernels G-L at the main path's shapes: the state after the first
     sort of the main corpus, one extension and one doubling round over its
-    tied slots, the payload and the two gathers."""
+    tied slots, the payload and the two gathers (each in 5 rounds in
+    turns with index_select, the call, its own item and its device work
+    apart; L's host us by part)."""
     import torch
 
     from femto_tpu_torch import suffix as TS
@@ -6345,29 +6867,34 @@ def sort_kernel_rows(record, kernel_row, text, ds, sa, sa_direct, rows, *,
     kernel_row("gather_rows", lambda: [SO.gather_rows(payload, sa)],
                lambda: [SO.gather_rows_plain(payload, sa)],
                bounds["gather_rows"],
-               library=lambda: torch.index_select(payload, 0, sa))
+               library=lambda: torch.index_select(payload, 0, sa),
+               extra={"sector_bound_ms": bound_ms((4 + SECTOR + 8) * n),
+                      **item_fields(
+                          "gather_rows", lambda: SO.gather_rows(payload, sa),
+                          lambda: torch.index_select(payload, 0, sa))})
     del payload
     max_abs_err("gather_rows(direct tier)",
                 [SO.gather_rows(sa_direct, rows)],
                 [SO.gather_rows_plain(sa_direct, rows)])
     B = rows.shape[0]
-    direct = {
-        "rows": B, "ms": cuda_ms(lambda: SO.gather_rows(sa_direct, rows)),
-        "bound_ms": bound_ms((4 + SECTOR + 4) * B),
-        "library_ms": cuda_ms(
-            lambda: torch.index_select(sa_direct, 0, rows)),
-        **item_fields("gather_rows",
-                      lambda: SO.gather_rows(sa_direct, rows),
-                      lambda: torch.index_select(sa_direct, 0, rows)),
-    }
+    run_k = lambda: SO.gather_rows(sa_direct, rows)  # noqa: E731
+    lib = lambda: torch.index_select(sa_direct, 0, rows)  # noqa: E731
+    ms, lib_ms, turns = turn_fields("gather_rows", run_k, lib)
+    nbytes, sector_bytes = gather_bytes([sa_direct], rows)
+    direct = {"rows": B, "ms": ms, "bound_ms": bound_ms(nbytes),
+              "sector_bound_ms": bound_ms(sector_bytes),
+              "library_ms": lib_ms, **turns,
+              **item_fields("gather_rows", run_k, lib),
+              "host_us_by_part": l_host_parts(sa_direct, rows)}
     record["gather_rows_direct_tier"] = direct
     log(f"    gather_rows at the direct tier's shape: {direct}")
 
 
-def row_kernel_rows(kernel_row, st3):
+def row_kernel_rows(kernel_row, st3, d_libs, lat_ns):
     """Kernels M and N at the shapes the prose builds give them (M on the
     vseg build, N on the vrle one), and C, D and E on the prose vseg and
-    vrle indexes (run-length, continued, fixed and side segments)."""
+    vrle indexes (run-length, continued, fixed and side segments); D's
+    extract also against its thread route (d_fields)."""
     import torch
 
     from femto_tpu_torch.alphabet import pattern_to_alpha
@@ -6415,7 +6942,10 @@ def row_kernel_rows(kernel_row, st3):
         kernel_row(f"lf_extract[{lay}]",
                    lambda: S.extract_backward(A, er, steps),
                    lambda: S.extract_backward_plain(A, er, steps),
-                   bound_extract(A, isa, seof, steps))
+                   bound_extract(A, isa, seof, steps),
+                   extra=d_fields(d_libs, lay, 1, steps,
+                                  lambda: S.extract_backward(A, er, steps),
+                                  lat_ns))
         kernel_row(f"psi_walk[{lay}]",
                    lambda: [S.psi_walk(A, ct, fwd)],
                    lambda: [S.psi_walk_plain(A, ct, fwd)],
@@ -6636,9 +7166,11 @@ def query_kernel_rows(kernel_row, st, st3, st4, h_builds=None):
     return shapes
 
 
-def phase_numbers(record, st, st2, st3, st4, own, h_builds=None):
+def phase_numbers(record, st, st2, st3, st4, own, builds):
     """End-to-end rates (medians of 3) and each kernel at the main paths'
-    shapes against its bound, its plain version and a library call."""
+    shapes against its bound, its plain version and a library call;
+    kernel D's extract rows also against its thread route and a latency
+    floor (the card's dependent-load latency, measured here)."""
     import torch
 
     import femto_tpu_torch as tt
@@ -6848,6 +7380,10 @@ def phase_numbers(record, st, st2, st3, st4, own, h_builds=None):
     rt = torch.from_numpy(rows).to(dev)
     sort_kernel_rows(record, kernel_row, text, ds, sa, index.sa_direct, rt,
                      n=n, ndocs=ndocs, mark_period=mp)
+    lat_ns = record["dependent_load_ns"] = dependent_load_ns(builds["chase"])
+    log(f"    dependent global-load latency: {lat_ns:.4g} ns "
+        f"({CHASE_STEPS} loads over {CHASE_WORDS * 4 >> 20} MiB)")
+    d_libs = route_libs(builds["lf_walk"], "lf_walk")
     pt = torch.from_numpy(pack_patterns(
         [pattern_to_alpha(p) for p in patterns],
         pad_b=len(patterns))[0]).to(dev)
@@ -6874,16 +7410,44 @@ def phase_numbers(record, st, st2, st3, st4, own, h_builds=None):
             lambda: S.extract_backward(A, er, EXTRACT_STEPS),
             lambda: S.extract_backward_plain(A, er, EXTRACT_STEPS),
             bound_extract(A, isa, int(prepared.doc_starts[d0 + 1]) - 1,
-                          EXTRACT_STEPS))
+                          EXTRACT_STEPS),
+            extra=d_fields(d_libs, lay, 1, EXTRACT_STEPS,
+                           lambda: S.extract_backward(A, er, EXTRACT_STEPS),
+                           lat_ns))
         kernel_row(
             f"psi_walk[{lay}]",
             lambda: [S.psi_walk(A, ct, fwd)],
             lambda: [S.psi_walk_plain(A, ct, fwd)],
             bound_psi(A, ct, fwd))
     del isa
-    row_kernel_rows(kernel_row, st3)
+    row_kernel_rows(kernel_row, st3, d_libs, lat_ns)
+    # the context batch's backward walk (packed, 4096 rows x 32 steps) on
+    # both of D's routes, and both routes on each layout at its limit and
+    # twice it (vseg and vrle, which have none: at 2^18 walks), enough to
+    # show that the limits of csrc/lf_walk.cu still hold (chip_d_routes.py
+    # times a wider range)
+    ca, ckw = captured_call(
+        "extract_backward", None,
+        lambda: tt.extract_context_batch(packed, ctx_rows, *CTX), mod=S)
+    record["context_backward_walk"] = d_fields(
+        d_libs, "packed", ca[1].shape[0], ca[2],
+        lambda: S.extract_backward(*ca, **ckw), lat_ns)
+    log(f"    context batch's backward walk: "
+        f"{record['context_backward_walk']}")
+    del ca, ckw
+    def limits(lay):
+        cross = d_crossover(lay)
+        return (1 << 18,) if cross is None else (cross, 2 * cross)
+
+    record["extract_routes"] = d_route_probe(
+        d_libs, [("full", walk.arrays, n),
+                 ("compact", st2["compact"].arrays, n),
+                 ("packed", packed.arrays, n),
+                 ("vseg", prows["vseg"].arrays, pprep.n),
+                 ("vrle", prows["vrle"].arrays, pprep.n)],
+        np.random.default_rng(5), limits)
     record["query_shapes"] = query_kernel_rows(kernel_row, st, st3, st4,
-                                               h_builds)
+                                               builds["radix_sort"])
     rows = kern + [r for o in own for r in o["kernel_rows"]]
     have = {(r["name"], r["path"]) for r in rows}
     missing = sorted((name, path) for path, counts in path_launches.items()
@@ -6891,6 +7455,9 @@ def phase_numbers(record, st, st2, st3, st4, own, h_builds=None):
                      if c and (name, path) not in have)
     check(not missing, f"kernels launched on a path with no phase 5 row: "
                        f"{missing}")
+    routes = sorted({r["route"] for r in rows} - {"cuda", "triton"})
+    check(not routes, f"kernel rows with a route other than cuda or "
+                      f"triton: {routes}")
     record["kernels"] = rows
 
 
@@ -7109,7 +7676,7 @@ def main(argv=None):
         st6 = phase(phase_paged, rng, st, st3, st4)
         st7 = phase(phase_lcp, rng, st, st3)
         own = (st5, st6, st7, st8, st9)
-        phase(phase_numbers, st, st2, st3, st4, own, builds["radix_sort"])
+        phase(phase_numbers, st, st2, st3, st4, own, builds)
         phase(phase_profile, st, st2, st3, st4, own)
     except SmokeError as e:
         print(f"chip_smoke: FAILED: {e}", file=sys.stderr)

@@ -456,6 +456,170 @@ int dispatch_row_layout(const FmView& ix, F&& launch) {
   return static_cast<int>(cudaGetLastError());
 }
 
+// ---- warp helpers: one warp walks one row (lf_walk.cu's warp route) ----
+
+constexpr unsigned kAllLanes = 0xffffffffu;
+// entries of a checkpoint row a lane holds: ceil(kAlpha / 32)
+constexpr int kRowRegs = (kAlpha + 31) / 32;
+
+// Asynchronous copy of one word from global to shared memory (cp.async:
+// no register is staged, so a lane issues all of its copies at once).
+__device__ __forceinline__ void cp_async4(unsigned* dst,
+                                          const unsigned* src) {
+  const unsigned d = static_cast<unsigned>(__cvta_generic_to_shared(dst));
+  asm volatile("cp.async.ca.shared.global [%0], [%1], 4;\n" ::"r"(d),
+               "l"(src)
+               : "memory");
+}
+
+// Wait for the lane's copies, then make every lane's visible to the warp.
+__device__ __forceinline__ void cp_async_wait_warp() {
+  asm volatile("cp.async.wait_all;\n" ::: "memory");
+  __syncwarp();
+}
+
+// Words [0, n) of src to dst, the lanes taking every 32nd word.
+__device__ __forceinline__ void warp_copy_words(unsigned* dst,
+                                                const unsigned* src, int n,
+                                                int lane) {
+  for (int i = lane; i < n; i += 32) cp_async4(dst + i, src + i);
+}
+
+// Entries [0, K) of a checkpoint row into registers, entry k in lane
+// k % 32's v[k / 32]: every load issued before any is used.
+template <class T>
+__device__ __forceinline__ void warp_row_regs(const T* __restrict__ row,
+                                              int K, int lane,
+                                              int (&v)[kRowRegs]) {
+#pragma unroll
+  for (int j = 0; j < kRowRegs; ++j) {
+    const int k = lane + 32 * j;
+    v[j] = k < K ? static_cast<int>(__ldg(row + k)) : 0;
+  }
+}
+
+// Entry c (the same on every lane) of a row that warp_row_regs loaded: a
+// shuffle of every register (a select by c >> 5 of the lane's own would
+// become an indexed load from local memory).
+__device__ __forceinline__ int warp_pick(const int (&v)[kRowRegs], int c) {
+  int x = 0;
+#pragma unroll
+  for (int j = 0; j < kRowRegs; ++j) {
+    const int y = __shfl_sync(kAllLanes, v[j], c & 31);
+    x = j == (c >> 5) ? y : x;
+  }
+  return x;
+}
+
+// Symbols of an 8-symbol uint16 chunk equal to c (cc = c in both halves
+// of a word) among its first `valid` symbols (valid >= 8: all of them).
+__device__ __forceinline__ int count8_u16(const uint4& q, unsigned cc,
+                                          int valid) {
+  const unsigned e0 = __vcmpeq2(q.x, cc), e1 = __vcmpeq2(q.y, cc);
+  const unsigned e2 = __vcmpeq2(q.z, cc), e3 = __vcmpeq2(q.w, cc);
+  // bit i: symbol i equal (each equal half-word is 0xFFFF)
+  const unsigned bits = (e0 & 1u) | ((e0 >> 15) & 2u) | ((e1 & 1u) << 2) |
+                        ((e1 >> 13) & 8u) | ((e2 & 1u) << 4) |
+                        ((e2 >> 11) & 32u) | ((e3 & 1u) << 6) |
+                        ((e3 >> 9) & 128u);
+  return __popc(valid >= 8 ? bits : bits & ((1u << valid) - 1u));
+}
+
+// Inclusive sum of x over the lanes up to this one.
+__device__ __forceinline__ int warp_inclusive_sum(int x, int lane) {
+#pragma unroll
+  for (int d = 1; d < 32; d <<= 1) {
+    const int y = __shfl_up_sync(kAllLanes, x, d);
+    if (lane >= d) x += y;
+  }
+  return x;
+}
+
+// swar_count over words in shared memory, the lanes taking every 32nd
+// word: fields of `w` bits equal to lq among the first `off` fields, the
+// whole warp's sum on every lane.
+__device__ __forceinline__ int warp_swar_count(const unsigned* words, int w,
+                                               int lq, int off, int lane) {
+  if (lq < 0 || lq >= (1 << w)) return 0;
+  const int per = 32 / w;
+  const unsigned lsbs = field_lsbs(w, per);
+  const unsigned rep = static_cast<unsigned>(lq) * lsbs;
+  const int nfull = off / per;
+  const int rem = off - nfull * per;
+  int cnt = 0;
+  for (int i = lane; i < nfull; i += 32)
+    cnt += __popc(zero_fields(words[i] ^ rep, w, lsbs));
+  if (rem > 0 && lane == 0)
+    cnt += __popc(zero_fields(words[nfull] ^ rep, w, lsbs) & lsbs &
+                  ((1u << (rem * w)) - 1u));
+  return __reduce_add_sync(kAllLanes, cnt);
+}
+
+// The w-bit field at position off of words in shared memory.
+__device__ __forceinline__ int smem_field(const unsigned* words, int w,
+                                          int off) {
+  const int per = 32 / w;
+  const int wi = off / per;
+  return static_cast<int>((words[wi] >> ((off - wi * per) * w)) &
+                          ((1u << w) - 1u));
+}
+
+// Slot k of a run-length stream in shared memory (nwords words, w-bit
+// slots: local code << lenbits | length).
+__device__ __forceinline__ void smem_slot(const unsigned* words, int w,
+                                          int lenbits, int k, int* lsym,
+                                          int* len) {
+  const int bit = k * w;
+  const int wi = bit >> 5, sh = bit & 31;
+  unsigned v = words[wi] >> sh;
+  if (sh + w > 32) v |= words[wi + 1] << (32 - sh);
+  v &= (1u << w) - 1u;
+  *len = static_cast<int>(v & ((1u << lenbits) - 1u));
+  *lsym = static_cast<int>(v >> lenbits);
+}
+
+// slots_code_at and slots_count of a stream in shared memory, a slot a
+// lane and 32 slots a round: the local code lq at position off (0 where
+// no slot holds it) and its occurrences among the first off positions,
+// from two passes over the slots, each a warp scan of the lengths a
+// round (the first stops at the slot that holds off, the second where
+// the slots start at or past off).  Every lane returns both.
+__device__ __forceinline__ void warp_slots(const unsigned* words, int nwords,
+                                           int nsym, int off, int lane,
+                                           int* lq_out, int* cnt_out) {
+  int w, lenbits;
+  slot_geom(nsym, &w, &lenbits);
+  const int kmax = (nwords * 32) / w;
+  int lq = 0, carry = 0;
+  for (int base = 0; base < kmax && carry <= off; base += 32) {
+    const int k = base + lane;
+    int ls = 0, len = 0;
+    if (k < kmax) smem_slot(words, w, lenbits, k, &ls, &len);
+    const int incl = warp_inclusive_sum(len, lane);
+    const int start = carry + incl - len;
+    const unsigned hit =
+        __ballot_sync(kAllLanes, k < kmax && start <= off && off < start + len);
+    if (hit) {
+      lq = __shfl_sync(kAllLanes, ls, __ffs(hit) - 1);
+      break;
+    }
+    carry += __shfl_sync(kAllLanes, incl, 31);
+  }
+  int cnt = 0;
+  carry = 0;
+  for (int base = 0; base < kmax && carry < off; base += 32) {
+    const int k = base + lane;
+    int ls = 0, len = 0;
+    if (k < kmax) smem_slot(words, w, lenbits, k, &ls, &len);
+    const int incl = warp_inclusive_sum(len, lane);
+    const int start = carry + incl - len;
+    if (k < kmax && ls == lq && start < off) cnt += min(off - start, len);
+    carry += __shfl_sync(kAllLanes, incl, 31);
+  }
+  *lq_out = lq;
+  *cnt_out = __reduce_add_sync(kAllLanes, cnt);
+}
+
 // Block-wide scans of one int per thread for the build kernels' stream
 // compactions and count tables.  kT threads (whole warps, at most 1024) all
 // call; `warp_vals` is an int[32] in shared memory.  Returns the combination

@@ -15,13 +15,24 @@
 // gather_rows replaces femto_tpu/search.py _locate_direct_jit (71), the
 // direct locate tier, and gives pull = payload[sa], which the reference
 // carries through its sorts as an operand (suffix.py 156): out[i] =
-// src[idx[i]], -1 where idx[i] lies outside [0, len).
+// src[idx[i]], -1 where idx[i] lies outside [0, len).  gather_cols is the
+// same gather of up to 8 columns of one dtype through one idx (the
+// sharded sorts' columns, parallel/dist_sort.py): each index is read once
+// and each column written straight into the caller's output.
 //
 // Bound on the H100 (3.35 TB/s): bytes.  sa_payload reads the text (4n)
 // and doc_starts and writes 8n: 3.2 GB, 0.96 ms at n = 2^28.  gather_rows
 // reads the index (4m), one 32-byte sector per gathered row, and writes
-// the output: 11.8 GB, 3.5 ms for the 2^28 payload words; the sectors
-// bound it, not the design.
+// the output: 11.8 GB, 3.5 ms for the 2^28 payload words.  What the card
+// gives is its rate of random 32-byte sectors: on the H100, builds with
+// one index a thread at 128 to 1024 threads a block, or with 1, 2 or 4
+// 16-B index vectors a thread and every src load of a column issued
+// before its first store, with or without streaming hints, ran within
+// 0.5% of each other at the 2^28 pull (and of index_select), so loads in
+// flight buy nothing there, and one index a thread led at the direct
+// tier's 65,536 rows.  So a thread takes one index, with streaming loads
+// of idx and stores of out (__ldcs / __stcs) that leave L2 to the
+// gathered sectors.  The columns of one call share each index load.
 #include "fm_common.cuh"
 
 namespace {
@@ -60,16 +71,64 @@ __global__ void sa_payload_kernel(const int* __restrict__ text, long long n,
   payload[p] = static_cast<long long>(text[prev]) | (aux << 9);
 }
 
+constexpr int kGatherThreads = 256;
+constexpr int kMaxCols = 8;
+
 template <class T>
-__global__ void gather_rows_kernel(const T* __restrict__ src,
-                                   long long len,
-                                   const int* __restrict__ idx, long long m,
-                                   T* __restrict__ out) {
+struct Cols {
+  const T* src[kMaxCols];
+  T* out[kMaxCols];
+};
+
+template <class T>
+__device__ __forceinline__ T gather_one(const T* __restrict__ src,
+                                        long long len, int j) {
+  return (j >= 0 && j < len) ? __ldg(src + j) : static_cast<T>(-1);
+}
+
+// One index a thread: a streaming load of idx, then each column's row
+// and a streaming store of it.  The column loop is unrolled over
+// kMaxCols: an index of cols by a variable would copy the whole
+// parameter block to local memory in every thread.
+template <class T>
+__global__ void __launch_bounds__(kGatherThreads) gather_cols_kernel(
+    Cols<T> cols, int ncols, long long len, const int* __restrict__ idx,
+    long long m) {
   const long long i =
-      static_cast<long long>(blockIdx.x) * blockDim.x + threadIdx.x;
+      static_cast<long long>(blockIdx.x) * kGatherThreads + threadIdx.x;
   if (i >= m) return;
-  const long long j = idx[i];
-  out[i] = (j >= 0 && j < len) ? src[j] : static_cast<T>(-1);
+  const int j = __ldcs(idx + i);
+#pragma unroll
+  for (int c = 0; c < kMaxCols; ++c)
+    if (c < ncols) __stcs(cols.out[c] + i, gather_one(cols.src[c], len, j));
+}
+
+template <class T>
+int gather_entry(const void* const* src, void* const* out, int ncols,
+                 long long len, const void* idx, long long m, void* stream) {
+  if (ncols < 1 || ncols > kMaxCols || m < 0)
+    return static_cast<int>(cudaErrorInvalidValue);
+  if (m == 0) return static_cast<int>(cudaGetLastError());
+  Cols<T> cols = {};
+  for (int c = 0; c < ncols; ++c) {
+    cols.src[c] = static_cast<const T*>(src[c]);
+    cols.out[c] = static_cast<T*>(out[c]);
+  }
+  gather_cols_kernel<T>
+      <<<static_cast<unsigned>((m + kGatherThreads - 1) / kGatherThreads),
+         kGatherThreads, 0, static_cast<cudaStream_t>(stream)>>>(
+          cols, ncols, len, static_cast<const int*>(idx), m);
+  return static_cast<int>(cudaGetLastError());
+}
+
+int gather_any(const void* const* src, void* const* out, int ncols,
+               long long len, int elem_bytes, const void* idx, long long m,
+               void* stream) {
+  if (elem_bytes == 4)
+    return gather_entry<int>(src, out, ncols, len, idx, m, stream);
+  if (elem_bytes == 8)
+    return gather_entry<long long>(src, out, ncols, len, idx, m, stream);
+  return static_cast<int>(cudaErrorInvalidValue);
 }
 
 }  // namespace
@@ -91,18 +150,23 @@ extern "C" int femto_sa_payload(const void* text, long long n,
 extern "C" int femto_gather_rows(const void* src, long long len,
                                  int elem_bytes, const void* idx, long long m,
                                  void* out, void* stream) {
-  cudaStream_t st = static_cast<cudaStream_t>(stream);
-  const unsigned grid = static_cast<unsigned>((m + kThreads - 1) / kThreads);
-  if (elem_bytes == 4) {
-    gather_rows_kernel<int><<<grid, kThreads, 0, st>>>(
-        static_cast<const int*>(src), len, static_cast<const int*>(idx), m,
-        static_cast<int*>(out));
-  } else if (elem_bytes == 8) {
-    gather_rows_kernel<long long><<<grid, kThreads, 0, st>>>(
-        static_cast<const long long*>(src), len, static_cast<const int*>(idx),
-        m, static_cast<long long*>(out));
-  } else {
-    return static_cast<int>(cudaErrorInvalidValue);
-  }
-  return static_cast<int>(cudaGetLastError());
+  const void* s[1] = {src};
+  void* o[1] = {out};
+  return gather_any(s, o, 1, len, elem_bytes, idx, m, stream);
+}
+
+// ncols (1 to 8) columns src_c int32[len] (elem_bytes 4) or int64[len] (8),
+// one idx int32[m] -> out_c[m] of their type: src0..src7, then
+// out0..out7 (nulls past ncols).
+extern "C" int femto_gather_cols(const void* idx, long long m, long long len,
+                                 int elem_bytes, int ncols, const void* s0,
+                                 const void* s1, const void* s2,
+                                 const void* s3, const void* s4,
+                                 const void* s5, const void* s6,
+                                 const void* s7, void* o0, void* o1, void* o2,
+                                 void* o3, void* o4, void* o5, void* o6,
+                                 void* o7, void* stream) {
+  const void* s[kMaxCols] = {s0, s1, s2, s3, s4, s5, s6, s7};
+  void* o[kMaxCols] = {o0, o1, o2, o3, o4, o5, o6, o7};
+  return gather_any(s, o, ncols, len, elem_bytes, idx, m, stream);
 }

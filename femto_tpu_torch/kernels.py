@@ -8,7 +8,9 @@ flags, and are built on first use: all sources at once, one ``nvcc`` each.
 
 Each C entry point launches its kernels on the stream it is given,
 allocates nothing, and returns ``cudaGetLastError()``; :func:`launch` raises
-when that is not 0 and otherwise adds one to the entry's launch count.  The
+when that is not 0 and otherwise adds one to the entry's launch count.  It
+keeps each entry's bound function after its first call and reads the raw
+stream handle, so that a small call costs little host time.  The
 search entries take the index as an :class:`FmView` and run one kernel
 instantiation per row layout (full, compact, packed, vseg, vrle); their
 launches are counted per layout, as ``"entry[layout]"`` (the paged steps
@@ -115,6 +117,8 @@ ENTRIES: Dict[str, Tuple[str, List]] = {
     "round_commit": ("sa_rounds", [_P, _P, _P, _P, _P, _L]),
     "sa_payload": ("sa_payload", [_P, _L, _P, _I, _I, _P]),
     "gather_rows": ("sa_payload", [_P, _L, _I, _P, _L, _P]),
+    # kernel L on up to 8 columns through one idx (the sharded sorts)
+    "gather_cols": ("sa_payload", [_P, _L, _L, _I, _I] + [_P] * 16),
     # chunked builds: the uint8 text upload and the doc lists (K14)
     "expand_u8": ("text_expand", [_P, _L, _L, _I, _P, _L, _I, _P, _L, _I,
                                   _P, _L, _I, _P]),
@@ -178,6 +182,9 @@ SIZES: Dict[str, Tuple[str, List]] = {
     # not a size: the records a tile in a bucket_pack call (0: one block a
     # shard packs them all)
     "bucket_pack_tile": ("exchange", [_L]),
+    # not a size: 1 where an lf_extract call of B walks on a layout takes
+    # a warp a walk, 0 where it takes a thread a walk
+    "lf_extract_route": ("lf_walk", [_I, _I]),
 }
 # entries that take an FmView: one count per layout
 LAYOUT_ENTRIES = ("backward_search", "backward_search_steps", "backward_step",
@@ -218,6 +225,9 @@ build_logs: Dict[str, str] = {}
 
 _libs: Dict[str, ctypes.CDLL] = {}
 _lock = threading.Lock()
+# entry -> its bound C function, filled by launch() on first use and
+# emptied whenever a library is swapped (variant)
+_fns: Dict[str, object] = {}
 
 
 def reset_launches() -> None:
@@ -315,11 +325,23 @@ def variant(src: str, lib: Optional[ctypes.CDLL]):
     built = _lib(src)
     with _lock:
         _libs[src] = built if lib is None else lib
+        _fns.clear()
     try:
         yield lib
     finally:
         with _lock:
             _libs[src] = built
+            _fns.clear()
+
+
+def _bound(entry: str):
+    """The entry's C function in its source's library (built on first
+    use), cached in _fns."""
+    src, _ = ENTRIES[entry]
+    fn = getattr(_lib(src), "femto_" + entry)
+    with _lock:
+        _fns[entry] = fn
+    return fn
 
 
 def launch(entry: str, *args, layout: Optional[str] = None) -> None:
@@ -329,10 +351,10 @@ def launch(entry: str, *args, layout: Optional[str] = None) -> None:
     name = counter(entry, layout)
     if name not in launches:
         raise ValueError(f"no kernel entry {name!r}")
-    src, _ = ENTRIES[entry]
-    fn = getattr(_lib(src), "femto_" + entry)
-    stream = torch.cuda.current_stream().cuda_stream
-    rc = fn(*args, stream)
+    fn = _fns.get(entry) or _bound(entry)
+    # the current stream's raw handle, with no Stream object a call
+    rc = fn(*args, torch._C._cuda_getCurrentRawStream(
+        torch._C._cuda_getDevice()))
     if rc != 0:
         raise RuntimeError(f"CUDA kernel {name} failed: cudaError_t {rc}")
     launches[name] += 1
@@ -349,9 +371,9 @@ def on_card(*tensors: torch.Tensor) -> bool:
     """True if every tensor lies on the card (launch the kernel), False if
     every one lies on the CPU (take the plain version); mixed or other
     devices raise."""
-    types = {t.device.type for t in tensors}
-    if types == {"cuda"}:
+    if tensors and all(t.is_cuda for t in tensors):
         return True
+    types = {t.device.type for t in tensors}
     if types == {"cpu"}:
         return False
     raise ValueError(f"tensors on mixed or unsupported devices: {types}")

@@ -21,7 +21,7 @@ from __future__ import annotations
 import torch
 
 from .. import kernels
-from ..alphabet import ALPHA_SIZE
+from ..alphabet import ALPHA_SIZE, INVALID_ALPHA
 from ..fmindex import FMArrays
 from . import rank as R
 
@@ -381,15 +381,28 @@ def resolve_marks(arrays: FMArrays, granks: torch.Tensor,
 def extract_backward_plain(arrays: FMArrays, rows: torch.Tensor,
                            num_steps: int):
     """femto_tpu's scan: num_steps LF steps, emitting each row's code,
-    unmapped to the alphabet at the end."""
+    unmapped to the alphabet.  A row outside the text (negative, or a pad
+    row past n, whose code is not below K) stays put and emits its pad
+    code (INVALID_ALPHA for a negative row), as kernel D does.  There the
+    port departs from femto_tpu, which reads such rows through clamped
+    indices and walks on to rows that stand for no text position."""
+    K = R.alpha_count(arrays)
     codes = []
     for _ in range(num_steps):
-        codes.append(R.bwt_code_at(arrays, rows))
-        rows = R.lf_step(arrays, rows)
+        live = rows >= 0
+        safe = torch.where(live, rows, 0)
+        code = R.bwt_code_at(arrays, safe)
+        pad = ~live | (code >= K)
+        step = torch.where(pad, 0, safe)
+        code_ok = torch.where(pad, 0, code)
+        codes.append(torch.where(
+            live, torch.where(pad, code, R.unmap_char(arrays, code_ok)),
+            INVALID_ALPHA).to(torch.int32))
+        rows = torch.where(pad, rows, R.lf_step(arrays, step))
     if not codes:
         return (torch.zeros((rows.shape[0], 0), dtype=torch.int32,
                             device=rows.device), rows)
-    return R.unmap_char(arrays, torch.stack(codes, dim=1)), rows
+    return torch.stack(codes, dim=1), rows
 
 
 def extract_backward(arrays: FMArrays, rows: torch.Tensor, num_steps: int):

@@ -15,7 +15,7 @@ agree bit for bit.
 
 from __future__ import annotations
 
-from typing import Optional, Tuple
+from typing import List, Optional, Sequence, Tuple
 
 import torch
 
@@ -368,19 +368,69 @@ def gather_rows_plain(src: torch.Tensor, idx: torch.Tensor) -> torch.Tensor:
     return out
 
 
+_GATHER_DTYPES = (torch.int32, torch.int64)
+
+
 def gather_rows(src: torch.Tensor, idx: torch.Tensor) -> torch.Tensor:
     """out[i] = src[idx[i]] for an int32 or int64 ``src`` and int32 ``idx``;
     -1 where the index lies outside src.  Kernel L on the card: the direct
     locate tier and the pull of the sort's payload."""
-    if src.dtype not in (torch.int32, torch.int64):
+    if src.dtype not in _GATHER_DTYPES:
         raise ValueError(f"src must be int32 or int64, got {src.dtype}")
     kernels.check(src, "src", src.dtype, 1)
     kernels.check(idx, "idx", torch.int32, 1)
     if not kernels.on_card(src, idx):
         return gather_rows_plain(src, idx)
-    out = _empty(src.device, src.dtype, idx.shape[0])
-    if idx.shape[0]:
+    m = idx.shape[0]
+    out = src.new_empty(m)
+    if m:
         kernels.launch("gather_rows", src.data_ptr(), src.shape[0],
-                       src.element_size(), idx.data_ptr(), idx.shape[0],
-                       out.data_ptr())
+                       src.element_size(), idx.data_ptr(), m, out.data_ptr())
     return out
+
+
+# columns one gather_cols launch takes (csrc/sa_payload.cu kMaxCols)
+MAX_GATHER_COLS = 8
+
+
+def gather_cols_plain(srcs: Sequence[torch.Tensor], idx: torch.Tensor,
+                      outs: Sequence[torch.Tensor]) -> None:
+    for src, out in zip(srcs, outs):
+        out.copy_(gather_rows_plain(src, idx))
+
+
+def gather_cols(srcs: Sequence[torch.Tensor], idx: torch.Tensor,
+                outs: Optional[Sequence[torch.Tensor]] = None
+                ) -> List[torch.Tensor]:
+    """gather_rows of each column through one ``idx``: outs[c][i] =
+    srcs[c][idx[i]], -1 outside [0, len); the columns are 1-D tensors of
+    one length and one dtype (int32 or int64), written into ``outs``
+    (contiguous 1-D tensors of len(idx) elements, e.g. rows of the
+    caller's arrays) or into new tensors.  Kernel L on the card: up to 8
+    columns a launch, each index read once.  Returns the outputs."""
+    if not srcs:
+        raise ValueError("gather_cols needs at least one column")
+    dtype, n = srcs[0].dtype, srcs[0].shape[0]
+    if dtype not in _GATHER_DTYPES:
+        raise ValueError(f"columns must be int32 or int64, got {dtype}")
+    kernels.check(idx, "idx", torch.int32, 1)
+    m = idx.shape[0]
+    for i, c in enumerate(srcs):
+        kernels.check(c, f"srcs[{i}]", dtype, 1, (n,))
+    if outs is None:
+        outs = [c.new_empty(m) for c in srcs]
+    elif len(outs) != len(srcs):
+        raise ValueError(f"{len(srcs)} columns but {len(outs)} outputs")
+    for i, o in enumerate(outs):
+        kernels.check(o, f"outs[{i}]", dtype, 1, (m,))
+    if not kernels.on_card(idx, *srcs, *outs):
+        gather_cols_plain(srcs, idx, outs)
+        return list(outs)
+    for k in range(0, len(srcs) if m else 0, MAX_GATHER_COLS):
+        cs, os_ = srcs[k:k + MAX_GATHER_COLS], outs[k:k + MAX_GATHER_COLS]
+        pad = [None] * (MAX_GATHER_COLS - len(cs))
+        kernels.launch("gather_cols", idx.data_ptr(), m, n,
+                       srcs[0].element_size(), len(cs),
+                       *[c.data_ptr() for c in cs], *pad,
+                       *[o.data_ptr() for o in os_], *pad)
+    return list(outs)

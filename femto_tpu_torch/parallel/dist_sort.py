@@ -11,7 +11,8 @@ INT32_MAX).
 
 The local sorts are LSD passes of kernel H's stable radix_sort_pairs (the
 last key first, 32 bits each, biased to unsigned, carrying a permutation),
-then one gather per column through the permutation (kernel L): jax's
+then one gather of every column through the permutation (kernel L's
+gather_cols, up to 8 columns a launch, straight into the outputs): jax's
 lax.sort is not stable, but with unique keys the orders agree.  The
 splitters' bucket and the rebalance are kernel K18b (ops/dist_ops.py).
 """
@@ -44,15 +45,17 @@ def local_sort(keys: Sequence[torch.Tensor],
             kj = k[j] if perm is None else SO.gather_rows(k[j], perm)
             _, perm = SO.radix_sort_pairs(kj.to(torch.int64) + _BIAS, perm,
                                           0, 32)
-        for o, c in zip(out, cols):
-            o[j] = SO.gather_rows(c[j], perm)
+        SO.gather_cols([c[j] for c in cols], perm, [o[j] for o in out])
     return out
 
 
 def _gather_cols(cols, idx):
     """int32[Dl, len(idx)] per column: each shard's values at idx."""
-    return [torch.stack([SO.gather_rows(c[j], idx) for j in range(c.shape[0])])
-            for c in cols]
+    out = [torch.empty((c.shape[0], idx.shape[0]), dtype=c.dtype,
+                       device=c.device) for c in cols]
+    for j in range(cols[0].shape[0]):
+        SO.gather_cols([c[j] for c in cols], idx, [o[j] for o in out])
+    return out
 
 
 def dist_sort(mesh, keys: Sequence[torch.Tensor],

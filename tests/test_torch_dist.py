@@ -36,6 +36,7 @@ from femto_tpu_torch.parallel import LocalMesh
 from femto_tpu_torch.parallel import bins as tbins
 from femto_tpu_torch.parallel import dist_build as tdb
 from femto_tpu_torch.parallel import dist_query as tdq
+from femto_tpu_torch.parallel.dist_sort import local_sort as t_local_sort
 from femto_tpu_torch.parallel.dist_sort import dist_sort as t_dist_sort
 from femto_tpu_torch.parallel.distributed import put_global
 from tests.oracle import naive_count, naive_locate
@@ -285,6 +286,56 @@ def test_dist_sort_blocks(jmesh, tmesh, case):
     order = np.lexsort((idx, k1))
     for got, ref, want in ((ts1, js1, k1[order]), (ts2, js2, idx[order]),
                            (tp, jp, pay[order])):
+        np.testing.assert_array_equal(got.reshape(-1).numpy(),
+                                      np.asarray(ref))
+        np.testing.assert_array_equal(got.reshape(-1).numpy(), want)
+
+
+@pytest.mark.parametrize("npay", [0, 1, 9])
+def test_local_sort_like_lax_sort(npay):
+    """local_sort's gathers (kernel L's gather_cols, up to 8 columns a
+    launch: 2 keys and 9 payload columns take two) against femto_tpu's
+    local sort, jax.lax.sort per shard with the keys first."""
+    rng = np.random.default_rng(40 + npay)
+    Dl, L = 3, 257
+    k1 = rng.integers(0, 9, size=(Dl, L)).astype(np.int32)
+    k2 = np.tile(np.arange(L, dtype=np.int32), (Dl, 1))
+    pay = [rng.integers(-2**31, 2**31 - 1, size=(Dl, L)).astype(np.int32)
+           for _ in range(npay)]
+    got = t_local_sort([torch.from_numpy(k1), torch.from_numpy(k2)],
+                         [torch.from_numpy(p) for p in pay])
+    assert len(got) == 2 + npay
+    for j in range(Dl):
+        want = jax.lax.sort(tuple(jnp.asarray(c[j]) for c in [k1, k2] + pay),
+                            num_keys=2)
+        for g, w in zip(got, want):
+            np.testing.assert_array_equal(g[j].numpy(), np.asarray(w))
+
+
+def test_dist_sort_many_payload_columns(jmesh, tmesh):
+    """dist_sort with 2 keys and 4 payload columns (6 columns, the most
+    the rebalance takes: one gather_cols launch of 6 a local sort)
+    against femto_tpu's."""
+    rng = np.random.default_rng(41)
+    m = 96
+    k1 = rng.integers(0, 20, size=D * m).astype(np.int32)
+    idx = np.arange(D * m, dtype=np.int32)
+    pays = [rng.integers(-9, 9, size=D * m).astype(np.int32)
+            for _ in range(4)]
+
+    def f(a, b, *cs):
+        (s1, s2), ps, of = j_dist_sort((a, b), tuple(cs), AX, cap=m)
+        return (s1, s2, *ps, of)
+
+    jout = _smap(f, jmesh, 6, 6, 1)(
+        jnp.asarray(k1), jnp.asarray(idx), *[jnp.asarray(p) for p in pays])
+    (ts1, ts2), tps, tof = t_dist_sort(
+        tmesh, [_blocks(k1), _blocks(idx)], [_blocks(p) for p in pays], m)
+    assert int(jout[-1]) <= 0 and int(tof) <= 0
+    order = np.lexsort((idx, k1))
+    for got, ref, want in zip([ts1, ts2, *tps], jout[:-1],
+                              [k1[order], idx[order]]
+                              + [p[order] for p in pays]):
         np.testing.assert_array_equal(got.reshape(-1).numpy(),
                                       np.asarray(ref))
         np.testing.assert_array_equal(got.reshape(-1).numpy(), want)

@@ -250,6 +250,50 @@ def test_row_tier_kernel_plain_versions_match_jax(row_case):
         np.asarray(want))
 
 
+EXTRACT_TIERS = ("full", "compact", "packed", "vseg", "vrle")
+
+
+@pytest.mark.parametrize("B", [1, 5, "last_segment"])
+@pytest.mark.parametrize("tier", EXTRACT_TIERS)
+def test_extract_backward_every_tier_like_jax(row_cases, tier, B):
+    """Kernel D's extract (its plain version on the CPU) on each of the
+    five layouts of the prose corpus at seg 256, against femto_tpu's
+    extract_backward: walks of 64 steps that cross segments, from rows in
+    the last segment (whose positions past n hold the pad code) and from
+    the ends of the text, or ("last_segment") from every row of the last
+    segment inside the text; vrle is row_cases' prose index (continued
+    RLE, plain RLE and side rows)."""
+    if tier == "vrle":
+        _, jix, ports, _ = row_cases("prose-vrle")
+        arrays = ports["carried"].arrays
+    else:
+        docs = CORPORA["prose"]()
+        jix = ft.build_index(ft.prepare_documents(docs), seg=256,
+                             mark_period=8, tier=tier)
+        arrays = _carry(jix).arrays
+    n, seg = jix.meta.n, jix.meta.seg
+    last = (n - 1) // seg * seg
+    rng = np.random.default_rng(60 + (B if B != "last_segment" else 0))
+    rows = np.concatenate([[n - 1, last, 0],
+                           rng.integers(0, n, size=8)]).astype(np.int32)
+    if B == "last_segment":
+        rows = np.arange(last, n, dtype=np.int32)
+    else:
+        rows = rows[:B] if B == 1 else rows[[0, 1, 2, 5, 9]]
+    wc, wr = JS.extract_backward(jix.arrays, jnp.asarray(rows), 64)
+    gc, gr = TS.extract_backward(arrays, torch.from_numpy(rows), 64)
+    np.testing.assert_array_equal(gc.numpy(), np.asarray(wc))
+    np.testing.assert_array_equal(gr.numpy(), np.asarray(wr))
+    # the walks cross segments and visit the last one
+    segs = {int(r) // seg for r in rows}
+    r = torch.from_numpy(rows)
+    for _ in range(64):
+        r = TR.lf_step(arrays, r)
+        segs.update((r // seg).tolist())
+    assert len(segs) > len(rows) // seg + 1 and last // seg in segs
+    assert n % seg != 0          # the last segment holds pad positions
+
+
 def test_row_tier_steps_match_jax(row_case):
     """The plain steps kernels C, D and E are built from, against
     femto_tpu's on the row layouts: codes, decoded segments (K13),

@@ -195,6 +195,30 @@ def test_extract_backward_plain_matches_jax(case):
     assert np.array_equal(gr.numpy(), np.asarray(wr))
 
 
+def test_extract_backward_plain_pad_rows_stay(case):
+    """The port's contract for rows outside the text (negative, or past
+    n in the last segment, whose code is the pad code), where it departs
+    from femto_tpu (which reads them through clamped indices and walks
+    on to rows that mean nothing): they stay put and emit their pad code,
+    as kernel D has always done; the other lanes of the batch walk as
+    femto_tpu's."""
+    docs, jix, ports = case
+    arrays = ports["carried"].arrays
+    n = jix.meta.n
+    rows = np.array([n - 1, -1, 5], np.int32)
+    pad = n if n % jix.meta.seg else None
+    if pad is not None:
+        rows = np.append(rows, np.int32(pad))
+    gc, gr = TS.extract_backward(arrays, torch.from_numpy(rows), 12)
+    assert (gc[1] == 511).all() and int(gr[1]) == -1
+    if pad is not None:
+        assert (gc[3] == 511).all() and int(gr[3]) == pad
+    ok = np.array([0, 2])
+    wc, wr = JS.extract_backward(jix.arrays, jnp.asarray(rows[ok]), 12)
+    np.testing.assert_array_equal(gc[ok].numpy(), np.asarray(wc))
+    np.testing.assert_array_equal(gr[ok].numpy(), np.asarray(wr))
+
+
 def test_direct_tier_parity(tmp_path):
     docs = _graft_docs()
     jix = ft.build_index(ft.prepare_documents(docs), seg=64, mark_period=8,

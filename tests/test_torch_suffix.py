@@ -438,6 +438,57 @@ def test_gather_rows_plain(dtype):
         SO.gather_rows(_t(src.astype(np.int16)), _t(idx))
 
 
+@pytest.mark.parametrize("dtype", [np.int32, np.int64])
+@pytest.mark.parametrize("ncols", [1, 3, 8])
+@pytest.mark.parametrize("m", [0, 1, 7, 4099])
+def test_gather_cols_plain(dtype, ncols, m):
+    """The multi-column form against per-column gather_rows_plain and
+    numpy: -1 and out-of-range indices, lengths that are no multiple of
+    4, idx and the outputs as views that start off a 16-byte boundary
+    (rows of the caller's arrays)."""
+    rng = np.random.default_rng(100 + 7 * ncols + m)
+    n = 1003
+    srcs = [rng.integers(-2**31, 2**31 - 1, size=n).astype(dtype)
+            for _ in range(ncols)]
+    big = rng.integers(0, n, size=m + 3).astype(np.int32)
+    if m:
+        big[1::5] = -1
+        big[2::7] = n
+        big[3::11] = 2**31 - 1
+    idx = _t(big)[3:]                    # 12 bytes past the allocation
+    outs = torch.full((ncols, m + 1), 7, dtype=_t(srcs[0]).dtype)[:, 1:]
+    rows = [outs[c].contiguous() for c in range(ncols)]
+    got = SO.gather_cols([_t(s) for s in srcs], idx, rows)
+    assert len(got) == ncols and all(g is r for g, r in zip(got, rows))
+    fresh = SO.gather_cols([_t(s) for s in srcs], idx)
+    i = big[3:].astype(np.int64)
+    inside = (i >= 0) & (i < n)
+    for c, s in enumerate(srcs):
+        want = np.where(inside, s[np.clip(i, 0, n - 1)], -1).astype(dtype)
+        assert got[c].dtype == _t(s).dtype
+        np.testing.assert_array_equal(got[c].numpy(), want)
+        np.testing.assert_array_equal(fresh[c].numpy(), want)
+        np.testing.assert_array_equal(
+            SO.gather_rows_plain(_t(s), idx).numpy(), want)
+
+
+def test_gather_cols_refuses():
+    a = torch.arange(10, dtype=torch.int32)
+    idx = torch.zeros(4, dtype=torch.int32)
+    with pytest.raises(ValueError):
+        SO.gather_cols([], idx)
+    with pytest.raises(ValueError):
+        SO.gather_cols([a, a.long()], idx)           # two dtypes
+    with pytest.raises(ValueError):
+        SO.gather_cols([a, a[:9].clone()], idx)      # two lengths
+    with pytest.raises(ValueError):
+        SO.gather_cols([a], idx, [torch.empty(3, dtype=torch.int32)])
+    with pytest.raises(ValueError):
+        SO.gather_cols([a], idx, [])
+    with pytest.raises(ValueError):
+        SO.gather_cols([a.to(torch.int16)], idx)
+
+
 def test_direct_locate_goes_through_gather_rows():
     docs = CORPORA["graft"]()
     ix = tt.build_index(tt.prepare_documents(docs), seg=64, mark_period=8,
