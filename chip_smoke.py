@@ -17,7 +17,12 @@ non-zero):
    on both routes (a warp a walk, a thread a walk) at B = 1, 5, the
    crossover and one past it, from the last segment's pad rows, side
    segments and continued run-length segments on every layout, and
-   the paged one-step extract on both; then
+   the paged one-step extract on both; kernel D's locate on both
+   routes on the row tiers (the 8 MiB corpus's, the prose's, and the
+   prose built at mark_period 3) at B = 1, 5, 65,536 and 2^17, from the
+   last segment's rows, side segments and continued segments, at the
+   build's mark_period and at a shorter one where walks reach no mark,
+   with the route each call took; then
    each kernel against its plain PyTorch version, bit for bit, on an 8 MiB
    seeded corpus (zipf English with one document twice, a repeat-heavy, a
    binary and an empty doc): the suffix sort's kernels one by one and the
@@ -46,7 +51,9 @@ non-zero):
    T's apply_faults (with evictions and dropped entries), C's masked step,
    D's lf_walk_step, resolve_marks and the one-step extract on half-filled
    caches with a random seg_slot of the 8 MiB vseg and vrle and the prose
-   vrle index, each also against itself on the resident index, and a
+   vrle index, each also against itself on the resident index, a whole
+   paged locate walk step by step on both of D's routes (done lanes'
+   segments evicted), and a
    whole PagedIndex on the card against the same file opened on the CPU
    (answers, stats, slot maps, clock, cache); kernel S's lcp_round and
    lcp_compact round by round (W 32 up to 4096, its twin document's
@@ -175,13 +182,18 @@ non-zero):
    in 5 rounds in turns with index_select at the pull and the direct
    tier (the call, its own device item and its queued device work apart,
    the host us of each part of one call), gather_cols against one gather_rows a column at the sharded
-   local sort's call; kernel D's extract in 5 rounds in turns with its
-   thread route (the design before, from a build with
-   -DFEMTO_D_WARP_MAX=0) on every layout's 8192-step walk and on the
-   context batch's backward walk, both routes at and past each layout's
-   limit (chip_d_routes.py times them over a wider range), and
-   each walk's latency floor (steps x the card's dependent-load latency
-   from a pointer chase over 1 GiB) beside its bytes bound;
+   local sort's call; kernel D's warp route (a build with
+   -DFEMTO_D_WARP_MAX=0x7fffffff) in 5 rounds in turns with its thread
+   route (the design before, a build with -DFEMTO_D_WARP_MAX=0), with
+   the route the source picks: extract on every layout's 8192-step walk
+   and on the context batch's backward walk, locate on the prose's
+   65,536 walks (vseg, vrle) and the paged lf_walk_step at phase 4f's
+   first step (zipf vseg and vrle quarter caches); both extract routes
+   at and past each layout's limit (chip_d_routes.py times every entry
+   over a wider range), the row tiers' walk locate rates on the thread
+   route too, and each walk's latency floor (steps x the card's
+   dependent-load latency from a pointer chase over 1 GiB) beside its
+   bytes bound;
 6. where the time goes: device time by kernel and the device's busy share
    over one build, count, locate and extract of the full tier, one
    build, count, locate and context of the packed tier, the vseg and vrle
@@ -874,11 +886,11 @@ def h_call_sizes(sorts):
             "calls_by_bits": dict(sorted(widths.items()))}
 
 
-# kernel D lf_extract's routes (csrc/lf_walk.cu femto_lf_extract_route),
-# the route a call takes instead in a build of csrc/lf_walk.cu with the
-# flag, and that flag: phase 3 holds both routes to the plain version and
-# phase 5 times the warp route against the thread route (the design before
-# it) through the same wrapper
+# kernel D's routes for extract, locate and the paged step (csrc/lf_walk.cu
+# femto_lf_walk_route), the route every call takes in a build of
+# csrc/lf_walk.cu with the flag, and that flag: phase 3 holds both routes to
+# the plain version and phase 5 times the warp route against the thread
+# route (the design before it) through the same wrapper
 D_ALTERNATIVES = {
     "warp": ("thread", "-DFEMTO_D_WARP_MAX=0"),
     "thread": ("warp", "-DFEMTO_D_WARP_MAX=0x7fffffff"),
@@ -1074,17 +1086,24 @@ def start_chase_build():
                              stderr=subprocess.STDOUT, text=True), so)
 
 
+# dependent_load_ns' reading, by the probe's library: measured once a run
+# (phases 4f and 5 read it)
+_LATENCY_NS = {}
+
+
 def dependent_load_ns(build):
     """The card's dependent global-load latency in ns: CHASE_STEPS loads
     along one random cycle through CHASE_WORDS words (a warm-up run
     first; median of 3), each waiting for the one before; each run goes
     on along the cycle from where the last one stopped, so that no run
-    finds the last one's words in L2."""
+    finds the last one's words in L2.  Measured at the first call."""
     import ctypes
 
     import torch
 
     proc, so = build
+    if so in _LATENCY_NS:
+        return _LATENCY_NS[so]
     out, _ = proc.communicate()
     check(proc.returncode == 0, f"nvcc failed for the latency probe:\n{out}")
     lib = ctypes.CDLL(so)
@@ -1108,53 +1127,78 @@ def dependent_load_ns(build):
 
     ms = cuda_ms(run)
     del nxt
-    return ms * 1e6 / CHASE_STEPS
+    _LATENCY_NS[so] = ms * 1e6 / CHASE_STEPS
+    return _LATENCY_NS[so]
 
 
-def d_route(B, lay):
-    """The route kernel D's extract takes for B walks on layout lay
-    (csrc/lf_walk.cu's own choice): "warp" or "thread"."""
+def d_block_bytes(arrays, B, entry="lf_extract"):
+    """The dynamic shared memory of a block on the warp route that kernel
+    D's `entry` (lf_extract, lf_locate or lf_walk_step) takes for B walks
+    on an index, 0 where the call takes the thread route (csrc/
+    lf_walk.cu's own choice, femto_lf_walk_route)."""
     from femto_tpu_torch import kernels
+    from femto_tpu_torch.ops import search_ops as S
 
-    return ("warp" if kernels.size("lf_extract_route", B,
-                                   kernels.LAYOUTS.index(lay)) else "thread")
+    view, _ = S.fm_view(arrays)
+    return kernels.size("lf_walk_route", view, B, int(entry == "lf_extract"))
 
 
-def d_crossover(lay):
-    """The largest B that takes the warp route on layout lay (0: none;
+def d_route(arrays, B, entry="lf_extract"):
+    """The route of kernel D's `entry` for B walks on an index: "warp" or
+    "thread"."""
+    return "warp" if d_block_bytes(arrays, B, entry) else "thread"
+
+
+def d_crossover(arrays, entry="lf_extract"):
+    """The largest B that takes the warp route on an index (0: none;
     None: every B up to 2^24 does)."""
     lo, hi = 0, 1 << 24
-    if d_route(hi, lay) == "warp":
+    if d_route(arrays, hi, entry) == "warp":
         return None
     while lo < hi:
         mid = (lo + hi + 1) // 2
-        if d_route(mid, lay) == "warp":
+        if d_route(arrays, mid, entry) == "warp":
             lo = mid
         else:
             hi = mid - 1
     return lo
 
 
-def extract_both_routes(libs, arrays, rows, steps, want, name):
-    """Kernel D's extract of rows through each route (the builds of
+def d_both_routes(libs, run, want, name):
+    """A call of kernel D, run(), through each route (the builds of
     D_ALTERNATIVES, kernels.variant around the same wrapper), held bit
-    for bit to `want` and to each other."""
+    for bit to `want`."""
     from femto_tpu_torch import kernels
-    from femto_tpu_torch.ops import search_ops as S
 
     for route, lib in libs.items():
         # libs[route] sends every call down the other route
         with kernels.variant("lf_walk", lib):
-            got = S.extract_backward(arrays, rows, steps)
+            got = run()
         max_abs_err(f"{name}, {D_ALTERNATIVES[route][0]} route", got, want)
+
+
+def segment_kind_rows(A, n, seg, rng, k=256):
+    """Up to k in-text rows of a row-tier index's side segments (vseg and
+    vrle) and of its continued run-length segments (vrle): {kind: rows}."""
+    import torch
+
+    woff = A.seg_woff.cpu().numpy()
+    sets = {}
+    for kind, segs in (("side", np.nonzero(woff > 0)[0]),
+                       ("continued", np.nonzero(woff < -1)[0])):
+        if len(segs):
+            pick = segs[rng.integers(0, len(segs), k)]
+            r = pick * seg + rng.integers(0, seg, k)
+            sets[kind] = torch.from_numpy(r[r < n].astype(np.int32))
+    return sets
 
 
 def parity_extract_routes(indexes, libs, rng, errs):
     """Phase 3's hold of kernel D's extract on both routes: on every
     layout (the 8 MiB corpus's full, compact, packed, packed31, vseg,
     vrle and the prose's vseg and vrle), walks of B = 1, of 5, of the
-    crossover B and one more (where the warp route has no limit, of
-    2^17 walks), from rows that reach the last segment's pad
+    crossover B and one more (where the warp route's limit lies past
+    2^17 walks, of 2^17 walks), from rows that reach the last segment's pad
     rows (rows past n stay put and emit their pad code), from the side
     segments (vseg) and from continued run-length segments (vrle), each
     route and the wrapper as built against the plain version."""
@@ -1167,9 +1211,8 @@ def parity_extract_routes(indexes, libs, rng, errs):
     for name, ix in indexes.items():
         A = ix.arrays
         n, seg = ix.meta.n, ix.meta.seg
-        lay = R.layout(A)
         dev = A.bwt.device
-        cross = d_crossover(lay)
+        cross = d_crossover(A)
         top = R.n_segments(A) * seg
         sets = {
             "B1": torch.tensor([n - 1], dtype=torch.int32),
@@ -1180,18 +1223,12 @@ def parity_extract_routes(indexes, libs, rng, errs):
         }
         for tag, size in ((("crossover", cross),
                            ("crossover_plus_1", cross + 1))
-                          if cross is not None else (("large", 1 << 17),)):
+                          if cross is not None and cross <= 1 << 17
+                          else (("large", 1 << 17),)):
             sets[tag] = torch.from_numpy(
                 rng.integers(0, n, size).astype(np.int32))
         if R.is_row_tier(A):
-            woff = A.seg_woff.cpu().numpy()
-            for kind, segs in (("side", np.nonzero(woff > 0)[0]),
-                               ("continued", np.nonzero(woff < -1)[0])):
-                if len(segs):
-                    pick = segs[rng.integers(0, len(segs), 256)]
-                    r = pick * seg + rng.integers(0, seg, 256)
-                    sets[kind] = torch.from_numpy(
-                        r[r < n].astype(np.int32))
+            sets.update(segment_kind_rows(A, n, seg, rng))
         for tag, rows in sets.items():
             rows = rows.to(dev).contiguous()
             steps = 8 if rows.shape[0] > 4096 else 200
@@ -1199,12 +1236,72 @@ def parity_extract_routes(indexes, libs, rng, errs):
             got = S.extract_backward(A, rows, steps)
             key = f"lf_extract[{name}]({tag}, B={rows.shape[0]})"
             errs[key] = max_abs_err(key, got, want)
-            extract_both_routes(libs, A, rows, steps, want, key)
+            d_both_routes(libs, lambda: S.extract_backward(A, rows, steps),
+                          want, key)
             del want, got
         rec[name] = {"crossover_B": cross,
-                     "sets": {k: int(v.shape[0]) for k, v in sets.items()}}
+                     "sets": {k: {"B": int(v.shape[0]),
+                                  "route": d_route(A, int(v.shape[0]))}
+                              for k, v in sets.items()}}
     log(f"    D extract: both routes equal the plain version on every "
         f"layout: {rec}")
+    return rec
+
+
+def parity_locate_routes(indexes, libs, rng, errs):
+    """Phase 3's hold of kernel D's locate on both routes on the row tiers
+    (indexes: {name: (index, the suffix array of its text)}): walks of B
+    = 1, 5, 65,536 and 2^17 rows, every in-text row of the last segment,
+    rows in side segments and in continued run-length segments, each at
+    the build's mark_period (offsets held to the suffix array too) and at
+    3 or, on a period-3 build, 1, where some walks reach no mark; each
+    route and the wrapper as built against the plain version, bit for
+    bit, with the route each call took and its block's shared memory."""
+    import torch
+
+    from femto_tpu_torch.ops import search_ops as S
+
+    rec = {}
+    for name, (ix, sa) in indexes.items():
+        A = ix.arrays
+        n, seg, mp = ix.meta.n, ix.meta.seg, ix.meta.mark_period
+        dev = A.bwt.device
+        sets = {
+            "B1": torch.tensor([n - 1], dtype=torch.int32),
+            "B5": torch.from_numpy(rng.integers(0, n, 5).astype(np.int32)),
+            "B65536": torch.from_numpy(
+                rng.integers(0, n, 65536).astype(np.int32)),
+            "B131072": torch.from_numpy(
+                rng.integers(0, n, 1 << 17).astype(np.int32)),
+            "last_segment": torch.arange((n - 1) // seg * seg, n,
+                                         dtype=torch.int32),
+            **segment_kind_rows(A, n, seg, rng),
+        }
+        rec[name] = {"mark_period": mp, "sets": {}}
+        for tag, rows in sets.items():
+            rows = rows.to(dev).contiguous()
+            B = rows.shape[0]
+            for period in (mp, 3 if mp > 3 else 1):
+                if B > 65536 and period != mp:
+                    continue
+                want = S.locate_rows_plain(A, period, rows)
+                got = S.locate_rows(A, period, rows)
+                key = f"lf_locate[{name}]({tag}, B={B}, period {period})"
+                errs[key] = max_abs_err(key, [got], [want])
+                d_both_routes(libs, lambda: [S.locate_rows(A, period, rows)],
+                              [want], key)
+                if period == mp:
+                    check(torch.equal(want, sa[rows.long()]),
+                          f"{key}: offsets != the suffix array")
+                elif B >= 64:
+                    check(bool((want < 0).any()),
+                          f"{key}: every walk reached a mark")
+                del want, got
+            rec[name]["sets"][tag] = {
+                "B": B, "route": d_route(A, B, "lf_locate"),
+                "block_bytes": d_block_bytes(A, B, "lf_locate")}
+    log(f"    D locate: both routes equal the plain version on the row "
+        f"tiers: {rec}")
     return rec
 
 
@@ -1308,39 +1405,42 @@ def l_host_parts(src, idx):
     return got
 
 
-def d_fields(libs, lay, B, steps, run, lat_ns):
-    """Kernel D's extract as built against its thread route (the build
-    that sends every call there, through the same wrapper in
-    kernels.variant; the design before the warp route), 5 rounds in
-    turns, both calls' queued_ms, the kernel's own device item, and the
-    walk's latency floor: steps times the card's dependent-load latency,
-    with the share of it reached."""
+def d_fields(libs, entry, arrays, B, steps, run, lat_ns):
+    """Kernel D's `entry` (lf_extract, lf_locate or lf_walk_step) on each
+    route, each forced by its build (D_ALTERNATIVES, kernels.variant
+    around the same wrapper): the warp route against the thread route
+    (the design before it), 5 rounds in turns, both routes' queued_ms,
+    the own device item of the route the source picks (d_route), and the
+    walk's latency floor: steps (the longest walk's dependent steps) times
+    the card's dependent-load latency, with the share of it the warp
+    route reached."""
     from femto_tpu_torch import kernels
 
-    def built():
-        with kernels.variant("lf_walk", None):
+    def warp():
+        with kernels.variant("lf_walk", libs["thread"]):
             return run()
 
     def thread():
         with kernels.variant("lf_walk", libs["warp"]):
             return run()
 
-    max_abs_err(f"lf_extract[{lay}] as built against its thread route",
-                built(), thread())
-    ms, t_ms, fours = in_turns(built, thread, 5)
+    max_abs_err(f"{entry}: the warp route against the thread route",
+                warp(), thread())
+    ms, t_ms, fours = in_turns(warp, thread, 5)
     items = {}
     for _ in range(5):
         items = {k: v for k, v in device_items(run, 3).items()
-                 if "lf_extract" in k}
+                 if entry in k}
         if items:
             break
     floor = steps * lat_ns / 1e6
-    return {"d_route": d_route(B, lay), "B": B, "steps": steps,
-            "turns_built_ms": ms, "thread_route_ms": t_ms,
+    return {"d_route": d_route(arrays, B, entry),
+            "block_bytes": d_block_bytes(arrays, B, entry), "B": B,
+            "steps": steps, "warp_route_ms": ms, "thread_route_ms": t_ms,
             "turns_ms": fours,
-            "kernel_ahead_rounds": sum(k1 + k2 < l1 + l2
-                                       for k1, l1, l2, k2 in fours),
-            "queued_ms": queued_ms(built),
+            "warp_ahead_rounds": sum(k1 + k2 < l1 + l2
+                                     for k1, l1, l2, k2 in fours),
+            "warp_queued_ms": queued_ms(warp),
             "thread_queued_ms": queued_ms(thread),
             "kernel_device_ms": (sum(items.values()) if items
                                  else "not measured"),
@@ -1348,11 +1448,34 @@ def d_fields(libs, lay, B, steps, run, lat_ns):
             "latency_floor_ms": floor, "latency_floor_share": floor / ms}
 
 
-def d_route_probe(libs, indexes, rng, sizes, steps_list=(32,)):
+def locate_checks(arrays, mark_period, rows):
+    """The most mark checks a locate walk of these rows makes (each a
+    dependent step): the lockstep walk's rounds until every walk is done
+    or mark_period + 1 checks are made."""
+    import torch
+
+    from femto_tpu_torch.ops import rank as R
+
+    done = torch.zeros_like(rows, dtype=torch.bool)
+    r = rows
+    for i in range(mark_period + 1):
+        nxt, bit, _ = R.lf_grank_step(arrays, r)
+        done = done | bit
+        if bool(done.all()):
+            return i + 1
+        r = torch.where(done, r, nxt)
+    return mark_period + 1
+
+
+def d_route_probe(libs, indexes, rng, sizes, steps_list=(32,),
+                  entry="lf_extract"):
     """Kernel D's two routes (each forced by its build) on each layout's
-    index at the batch sizes sizes(layout): {layout: {steps: {B: {route,
-    warp_ms, thread_ms, warp_queued_ms, thread_queued_ms}}}}, both routes
-    held to each other; `route` is the one the source picks."""
+    index at the batch sizes sizes(layout, arrays): {layout: {steps: {B:
+    {route, warp_ms, thread_ms, warp_queued_ms, thread_queued_ms}}}},
+    both routes held to each other; `route` is the one the source picks.
+    entry "lf_extract": walks of `steps` steps; "lf_locate": locate at
+    mark_period `steps`; "lf_walk_step": the first step of a paged walk
+    (`steps` unused) on the index as given."""
     import torch
 
     from femto_tpu_torch import kernels
@@ -1363,27 +1486,37 @@ def d_route_probe(libs, indexes, rng, sizes, steps_list=(32,)):
         out[lay] = {}
         for steps in steps_list:
             out[lay][steps] = {}
-            for B in sizes(lay):
+            for B in sizes(lay, A):
                 rows = torch.from_numpy(
                     rng.integers(0, n, B).astype(np.int32)).to(A.bwt.device)
 
+                zero = torch.zeros_like(rows)
+                done = torch.zeros(B, dtype=torch.bool, device=rows.device)
+
+                def call():
+                    if entry == "lf_locate":
+                        return [S.locate_rows(A, steps, rows)]
+                    if entry == "lf_walk_step":
+                        return S.lf_walk_step(A, rows, zero, zero, done, 0)
+                    return S.extract_backward(A, rows, steps)
+
                 def warp():
                     with kernels.variant("lf_walk", libs["thread"]):
-                        return S.extract_backward(A, rows, steps)
+                        return call()
 
                 def thread():
                     with kernels.variant("lf_walk", libs["warp"]):
-                        return S.extract_backward(A, rows, steps)
+                        return call()
 
-                max_abs_err(f"lf_extract[{lay}] routes, B={B}", warp(),
+                max_abs_err(f"{entry}[{lay}] routes, B={B}", warp(),
                             thread())
                 out[lay][steps][B] = {
-                    "route": d_route(B, lay),
+                    "route": d_route(A, B, entry),
                     "warp_ms": cuda_ms(warp), "thread_ms": cuda_ms(thread),
                     "warp_queued_ms": queued_ms(warp),
                     "thread_queued_ms": queued_ms(thread)}
-                del rows
-            log(f"    D routes on {lay}, {steps} steps (queued, warp / "
+                del rows, zero, done
+            log(f"    D {entry} routes on {lay}, {steps} (queued, warp / "
                 f"thread): " + ", ".join(
                     f"B={B}: {v['warp_queued_ms']:.4g} / "
                     f"{v['thread_queued_ms']:.4g}"
@@ -2936,6 +3069,15 @@ def phase_parity(record, rng, route_builds):
     d_routes = parity_extract_routes(
         {**indexes, **{f"prose_{k}": v for k, v in prose_ix.items()
                        if k != "full"}}, d_libs, rng, errs)
+    # locate on the row tiers, also on prose builds at mark_period 3
+    psa = prose_ix["full"].sa_direct
+    d_locate = parity_locate_routes(
+        {**{lay: (indexes[lay], sa) for lay in ROW_LAYOUTS},
+         **{f"prose_{lay}": (prose_ix[lay], psa) for lay in ROW_LAYOUTS},
+         **{f"prose_{lay}_mp3": (tt.build_index(
+             prose, seg=PROSE_SEG, mark_period=3, tier=lay, device="cuda"),
+             psa) for lay in ROW_LAYOUTS}}, d_libs, rng, errs)
+    del psa
     query_runs = parity_query_kernels(
         {**indexes, **{f"prose_{k}": v for k, v in prose_ix.items()}}, pt,
         rng, errs, whole=LAYOUTS)
@@ -2948,7 +3090,8 @@ def phase_parity(record, rng, route_builds):
                              "sort_regimes": regimes, "prose": prose_rec,
                              "query_runs": query_runs,
                              "paged_lcp": paged_lcp, "sharded": sharded,
-                             "extract_routes": d_routes}
+                             "extract_routes": d_routes,
+                             "locate_routes": d_locate}
     log(f"[3] 8 MiB parity (n={n}): every kernel equals its plain version "
         f"bit for bit: {sorted(errs)}")
 
@@ -3828,7 +3971,9 @@ def timed_row(name, path, launches, run_k, run_p, nbytes, card,
         f"plain {r['plain_ms']:.4g} ms, library {r['library_ms']}); "
         f"launches on the {path} path {r['launches']}"
         + "".join(f"; {k} {r[k]}" for k in (
-            "turns_ms", "kernel_ahead_rounds", "kernels_per_call",
+            "turns_ms", "kernel_ahead_rounds", "d_route", "warp_route_ms",
+            "thread_route_ms", "warp_ahead_rounds", "warp_queued_ms",
+            "thread_queued_ms", "kernels_per_call",
             "kernel_device_ms", "queued_ms", "library_device_ms",
             "library_queued_ms", "library_full_ms",
             "library_full_turns_ms", "kernel_ahead_of_full_rounds",
@@ -4239,7 +4384,8 @@ def parity_paged_steps(name, ix, rng, errs, d_libs=None):
     each kernel against its plain version there and against itself on
     the resident index (the indirection changes no answer); the one-step
     extract also on each of kernel D's routes (d_libs) at B rows and at
-    1."""
+    1, and then a whole walk of lf_walk_step (paged_walk_parity, whose
+    record it returns)."""
     import torch
 
     from femto_tpu_torch.ops import search_ops as S
@@ -4287,13 +4433,108 @@ def parity_paged_steps(name, ix, rng, errs, d_libs=None):
             f"{entry}[{name}] on a half-filled cache", got, want)
         max_abs_err(f"{entry}[{name}]: paged against resident", got,
                     resident)
-    if d_libs is not None:
-        for rr in (rows, rows[:1].contiguous()):
-            key = f"lf_extract(1 step)[{name}](paged, B={rr.shape[0]})"
-            want = S.extract_backward_plain(paged, rr, 1)
-            errs[key] = max_abs_err(key, S.extract_backward(paged, rr, 1),
+    if d_libs is None:
+        return None
+    for rr in (rows, rows[:1].contiguous()):
+        key = f"lf_extract(1 step)[{name}](paged, B={rr.shape[0]})"
+        want = S.extract_backward_plain(paged, rr, 1)
+        errs[key] = max_abs_err(key, S.extract_backward(paged, rr, 1),
+                                want)
+        d_both_routes(d_libs, lambda: S.extract_backward(paged, rr, 1), want,
+                      key)
+    return paged_walk_parity(name, ix, paged, mapped, rng, errs, d_libs)
+
+
+def walk_faults(rows, done, seg, smap, slot_seg):
+    """Map, before a step of a paged locate walk, the segments of the
+    lanes not done (numpy rows and done flags), as PagedIndex faults them
+    in: the segments of the done lanes that no lane left needs are
+    evicted first (those lanes read no row), then each missing segment
+    takes a free slot, or one whose segment no lane left needs.  Updates
+    smap (int32[n_seg], 0: unmapped) and slot_seg (int64[cache_rows], -1:
+    free; slot 0 the dummy) in place.  Returns (slots, segments) to copy
+    and the number of done lanes' segments evicted."""
+    need = np.unique(rows[~done] // seg)
+    gone = np.setdiff1d(np.unique(rows[done] // seg), need)
+    gone = gone[smap[gone] > 0]
+    slot_seg[smap[gone]] = -1
+    smap[gone] = 0
+    miss = need[smap[need] == 0]
+    free = np.nonzero(slot_seg[1:] < 0)[0] + 1
+    if len(free) < len(miss):
+        spare = np.nonzero((slot_seg >= 0) & ~np.isin(slot_seg, need))[0]
+        take = spare[: len(miss) - len(free)]
+        smap[slot_seg[take]] = 0
+        slot_seg[take] = -1
+        free = np.concatenate([free, take])
+    slots = free[: len(miss)]
+    slot_seg[slots] = miss
+    smap[miss] = slots
+    return slots, miss, len(gone)
+
+
+def paged_walk_parity(name, ix, paged, mapped, rng, errs, d_libs):
+    """A whole paged locate walk, step by step (i = 0 ... mark_period),
+    on half_cache's half-filled cache (paged; mapped: bool[n_seg] of its
+    mapped segments), from B rows of mapped segments (as many as half the
+    cache serves, at most 4096) and from one, the cache updated before
+    each step by walk_faults (done lanes' segments evicted); every step by
+    lf_walk_step as built and on both of kernel D's routes (d_libs)
+    against its plain version, bit for bit; the offsets after the walk
+    against locate on the resident index."""
+    import torch
+
+    from femto_tpu_torch.ops import search_ops as S
+
+    arrays = ix.arrays
+    dev = arrays.bwt.device
+    seg, n, mp = ix.meta.seg, ix.meta.n, ix.meta.mark_period
+    cache, smap = paged.bwt.view(torch.int32), paged.seg_slot
+    smap_np = smap.cpu().numpy().copy()
+    slot_seg = np.full(cache.shape[0], -1, np.int64)
+    slot_seg[smap_np[smap_np > 0]] = np.nonzero(smap_np > 0)[0]
+    t = lambda a: torch.from_numpy(np.ascontiguousarray(a)).to(dev)  # noqa
+    rec = {}
+    for B in (min(4096, (cache.shape[0] - 1) // 2), 1):
+        r = rng.integers(0, n, size=8 * B)
+        rows = t(r[mapped[r // seg]][:B].astype(np.int32))
+        start = rows
+        granks = torch.zeros_like(rows)
+        steps = torch.zeros_like(rows)
+        done = torch.zeros(B, dtype=torch.bool, device=dev)
+        faults = evicted = 0
+        for i in range(mp + 1):
+            slots, segs, gone = walk_faults(rows.cpu().numpy(),
+                                            done.cpu().numpy(), seg,
+                                            smap_np, slot_seg)
+            if len(segs):
+                cache[t(slots).long()] = arrays.bwt.view(torch.int32)[
+                    t(segs).long()]
+            smap.copy_(t(smap_np))
+            faults += len(segs)
+            evicted += gone
+            state = (rows, granks, steps, done)
+            want = S.lf_walk_step_plain(paged, *state, i)
+            key = f"lf_walk_step[{name}](paged walk, B={B}, i={i})"
+            errs[key] = max_abs_err(key, S.lf_walk_step(paged, *state, i),
                                     want)
-            extract_both_routes(d_libs, paged, rr, 1, want, key)
+            d_both_routes(d_libs, lambda: S.lf_walk_step(paged, *state, i),
+                          want, key)
+            rows, granks, steps, done = want
+            if bool(done.all()):
+                break
+        check(bool(done.all()), f"lf_walk_step[{name}]: a paged walk of "
+                                f"{mp + 1} steps left a lane without a mark")
+        check(torch.equal(S.resolve_marks_plain(paged, granks, steps),
+                          S.locate_rows(arrays, mp, start)),
+              f"lf_walk_step[{name}]: the paged walk's offsets differ from "
+              f"the resident locate")
+        rec[B] = {"steps": i + 1, "faults": faults,
+                  "done_segments_evicted": evicted,
+                  "route": d_route(paged, B, "lf_walk_step")}
+    check(any(v["done_segments_evicted"] for v in rec.values()),
+          f"lf_walk_step[{name}]: no done lane's segment was evicted")
+    return rec
 
 
 def parity_paged_index(name, ix, docs, rng, errs):
@@ -4461,7 +4702,8 @@ def parity_paged_lcp(indexes, prose_ix, prepared, docs, text, sa, rng,
     for name, ix, dd in (("vseg", indexes["vseg"], docs),
                          ("vrle", indexes["vrle"], docs),
                          ("prose_vrle", prose_ix["vrle"], pdocs)):
-        parity_paged_steps(name, ix, rng, errs, d_libs)
+        rec[f"{name} walk"] = parity_paged_steps(name, ix, rng, errs,
+                                                 d_libs)
         rec[name] = parity_paged_index(name, ix, dd, rng, errs)
     log(f"    K16: apply_faults, the masked step, lf_walk_step, "
         f"resolve_marks and the one-step extract equal their plain "
@@ -4501,7 +4743,7 @@ def profile_with_gaps(name, fn):
     return entry
 
 
-def phase_paged(record, rng, st, st3, st4):
+def phase_paged(record, rng, st, st3, st4, builds):
     """Phase 4f, paged serving (K16) at full size: phase 4c's zipf vrle
     (at a quarter and half of its rows) and vseg (a quarter) indexes and
     its prose vrle index (a quarter, seg 2048), each saved with save_flat
@@ -4512,7 +4754,9 @@ def phase_paged(record, rng, st, st3, st4):
     document of 8191 bytes (the prose in 8 KiB documents, seg 2048).
     Every answer equals the resident index's; a warm repeat adds no fault
     whenever the cold call's faults fit the cache.  Then the paged
-    kernels' phase 5 rows and one cold count profiled for phase 6."""
+    kernels' phase 5 rows (D's lf_walk_step also against its thread
+    route: d_fields with builds' other-route library and latency probe)
+    and one cold count profiled for phase 6."""
     import torch
 
     import femto_tpu_torch as tt
@@ -4664,6 +4908,8 @@ def phase_paged(record, rng, st, st3, st4):
     # phase 5's rows at the zipf cells' shapes (a quarter of the rows)
     log("[5] the paged path's kernels (zipf, a quarter of the rows):")
     rows5 = []
+    d_libs = route_libs(builds["lf_walk"], "lf_walk")
+    lat_ns = dependent_load_ns(builds["chase"])
     pv = {lay: TP.load_paged(paths[f"zipf {lay}"],
                              paged_budget(paths[f"zipf {lay}"], 0.25),
                              device="cuda") for lay in ROW_LAYOUTS}
@@ -4724,7 +4970,10 @@ def phase_paged(record, rng, st, st3, st4):
             f"lf_walk_step[{lay}]", "paged", launches[f"lf_walk_step[{lay}]"],
             lambda: S.lf_walk_step(A, loc, z, z, done, 0),
             lambda: S.lf_walk_step_plain(A, loc, z, z, done, 0),
-            bound_walk_step(A_res, loc), card))
+            bound_walk_step(A_res, loc), card,
+            extra=d_fields(d_libs, "lf_walk_step", A, loc.shape[0], 1,
+                           lambda: S.lf_walk_step(A, loc, z, z, done, 0),
+                           lat_ns)))
     granks = t32(rng.integers(0, res.meta.n_marks, loc.shape[0]))
     steps = t32(rng.integers(0, 21, loc.shape[0]))
     A = pv["vrle"].arrays
@@ -6894,7 +7143,7 @@ def row_kernel_rows(kernel_row, st3, d_libs, lat_ns):
     """Kernels M and N at the shapes the prose builds give them (M on the
     vseg build, N on the vrle one), and C, D and E on the prose vseg and
     vrle indexes (run-length, continued, fixed and side segments); D's
-    extract also against its thread route (d_fields)."""
+    extract and locate also on both routes (d_fields)."""
     import torch
 
     from femto_tpu_torch.alphabet import pattern_to_alpha
@@ -6937,13 +7186,17 @@ def row_kernel_rows(kernel_row, st3, d_libs, lat_ns):
         kernel_row(f"lf_locate[{lay}]",
                    lambda: [S.locate_rows(A, mp, rt)],
                    lambda: [S.locate_rows_plain(A, mp, rt)],
-                   bound_locate(A, mp, rt))
+                   bound_locate(A, mp, rt),
+                   extra=d_fields(d_libs, "lf_locate", A, rt.shape[0],
+                                  locate_checks(A, mp, rt),
+                                  lambda: [S.locate_rows(A, mp, rt)],
+                                  lat_ns))
         er = A.doc_seof_rows[d0: d0 + 1].contiguous()
         kernel_row(f"lf_extract[{lay}]",
                    lambda: S.extract_backward(A, er, steps),
                    lambda: S.extract_backward_plain(A, er, steps),
                    bound_extract(A, isa, seof, steps),
-                   extra=d_fields(d_libs, lay, 1, steps,
+                   extra=d_fields(d_libs, "lf_extract", A, 1, steps,
                                   lambda: S.extract_backward(A, er, steps),
                                   lat_ns))
         kernel_row(f"psi_walk[{lay}]",
@@ -7169,11 +7422,14 @@ def query_kernel_rows(kernel_row, st, st3, st4, h_builds=None):
 def phase_numbers(record, st, st2, st3, st4, own, builds):
     """End-to-end rates (medians of 3) and each kernel at the main paths'
     shapes against its bound, its plain version and a library call;
-    kernel D's extract rows also against its thread route and a latency
-    floor (the card's dependent-load latency, measured here)."""
+    kernel D's extract and locate rows also against its thread route and
+    a latency floor (the card's dependent-load latency), and the row
+    tiers' walk locate rates also on the thread route."""
     import torch
 
     import femto_tpu_torch as tt
+    from femto_tpu_torch import kernels
+    from femto_tpu_torch.ops import rank as R
     from femto_tpu_torch.ops import build_ops as BO
     from femto_tpu_torch.ops import search_ops as S
     from femto_tpu_torch.alphabet import pattern_to_alpha
@@ -7242,7 +7498,21 @@ def phase_numbers(record, st, st2, st3, st4, own, builds):
         rates[f"context_{name}_rows_per_s"] = summary(
             [len(ctx_rows) / t for t in wall_runs(
                 lambda: tt.extract_context_batch(ix, ctx_rows, *CTX))])
-    # the row tiers on both corpora (phase 4c)
+    # the row tiers on both corpora (phase 4c); their walk locate also on
+    # kernel D's thread route (the design before its warp route there)
+    thread_d = route_libs(builds["lf_walk"], "lf_walk")["warp"]
+
+    def locate_rates(key, ix, loc):
+        def thread():
+            with kernels.variant("lf_walk", thread_d):
+                tt.locate_rows_array(ix, loc)
+
+        rates[key] = summary([len(loc) / t for t in wall_runs(
+            lambda: tt.locate_rows_array(ix, loc))])
+        if R.is_row_tier(ix.arrays):
+            rates[key.replace("_rows_per_s", "_thread_route_rows_per_s")] = \
+                summary([len(loc) / t for t in wall_runs(thread)])
+
     pprep, prows, pwalk = st3["pprep"], st3["prows"], st3["pwalk"]
     pmib = pprep.n / 2**20
     psteps = len(st3["ppats"]) * PATLEN
@@ -7254,9 +7524,7 @@ def phase_numbers(record, st, st2, st3, st4, own, builds):
                 device="cuda"))])
         rates[f"count_{tier}_steps_per_s"] = summary(
             [steps / t for t in wall_runs(lambda: tt.count(ix, patterns))])
-        rates[f"locate_walk_{tier}_rows_per_s"] = summary(
-            [len(rows) / t
-             for t in wall_runs(lambda: tt.locate_rows_array(ix, rows))])
+        locate_rates(f"locate_walk_{tier}_rows_per_s", ix, rows)
         rates[f"context_{tier}_rows_per_s"] = summary(
             [len(ctx_rows) / t for t in wall_runs(
                 lambda: tt.extract_context_batch(ix, ctx_rows, *CTX))])
@@ -7269,9 +7537,8 @@ def phase_numbers(record, st, st2, st3, st4, own, builds):
         rates[f"prose_count_{tier}_steps_per_s"] = summary(
             [psteps / t
              for t in wall_runs(lambda: tt.count(ix, st3["ppats"]))])
-        rates[f"prose_locate_walk_{tier}_rows_per_s"] = summary(
-            [len(st3["ploc"]) / t for t in wall_runs(
-                lambda: tt.locate_rows_array(ix, st3["ploc"]))])
+        locate_rates(f"prose_locate_walk_{tier}_rows_per_s", ix,
+                     st3["ploc"])
         rates[f"prose_context_{tier}_rows_per_s"] = summary(
             [len(st3["pctx"]) / t for t in wall_runs(
                 lambda: tt.extract_context_batch(ix, st3["pctx"], *CTX))])
@@ -7411,7 +7678,7 @@ def phase_numbers(record, st, st2, st3, st4, own, builds):
             lambda: S.extract_backward_plain(A, er, EXTRACT_STEPS),
             bound_extract(A, isa, int(prepared.doc_starts[d0 + 1]) - 1,
                           EXTRACT_STEPS),
-            extra=d_fields(d_libs, lay, 1, EXTRACT_STEPS,
+            extra=d_fields(d_libs, "lf_extract", A, 1, EXTRACT_STEPS,
                            lambda: S.extract_backward(A, er, EXTRACT_STEPS),
                            lat_ns))
         kernel_row(
@@ -7430,14 +7697,15 @@ def phase_numbers(record, st, st2, st3, st4, own, builds):
         "extract_backward", None,
         lambda: tt.extract_context_batch(packed, ctx_rows, *CTX), mod=S)
     record["context_backward_walk"] = d_fields(
-        d_libs, "packed", ca[1].shape[0], ca[2],
+        d_libs, "lf_extract", ca[0], ca[1].shape[0], ca[2],
         lambda: S.extract_backward(*ca, **ckw), lat_ns)
     log(f"    context batch's backward walk: "
         f"{record['context_backward_walk']}")
     del ca, ckw
-    def limits(lay):
-        cross = d_crossover(lay)
-        return (1 << 18,) if cross is None else (cross, 2 * cross)
+    def limits(lay, A):
+        cross = d_crossover(A)
+        return ((1 << 18,) if cross is None or cross > 1 << 19
+                else (cross, 2 * cross))
 
     record["extract_routes"] = d_route_probe(
         d_libs, [("full", walk.arrays, n),
@@ -7673,7 +7941,7 @@ def main(argv=None):
         st4 = phase(phase_query, rng, st, st2, st3)
         # the sharded query engine, held to phase 4d's answers
         st9 = phase(phase_sharded_query, rng, st4, st8, builds["exchange"])
-        st6 = phase(phase_paged, rng, st, st3, st4)
+        st6 = phase(phase_paged, rng, st, st3, st4, builds)
         st7 = phase(phase_lcp, rng, st, st3)
         own = (st5, st6, st7, st8, st9)
         phase(phase_numbers, st, st2, st3, st4, own, builds)

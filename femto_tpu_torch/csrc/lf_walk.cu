@@ -12,8 +12,8 @@
 // rank.py unmap_char does).
 //
 // The TPU walked every lane in lockstep for the longest walk and gathered
-// whole [B, seg] rows per step; here each thread walks its own row and
-// stops at its own mark, so there is no lockstep tail (the reason
+// whole [B, seg] rows per step; here each walk is a thread's or a warp's
+// own and stops at its own mark, so there is no lockstep tail (the reason
 // femto_tpu's locate_rows_pyramid exists), and each step reads only the
 // segment prefix it counts.  On the row tiers (vseg, vrle; K11-K13) one
 // serving row gives the code, the symbol list, the checkpoint, the count
@@ -25,32 +25,45 @@
 // the walk above per launch, its state (row, mark rank, step, done) kept
 // per lane in device memory between launches, so that the host can fault
 // in the rows of the next step (paged serving reads every row through the
-// view's seg_slot).  A done lane is left as it is; a marked lane takes its
-// mark rank and the step number i; any other lane steps LF.
-// resolve_marks replaces paged.py _resolve_marks (86): mark_offset(g) +
-// steps per lane, after the walk.  Both are one thread per lane; their
-// bound is the bytes of one row prefix per live lane (lf_walk_step) and of
-// the lane arrays and two or three mark_vals words a lane (resolve_marks).
+// view's seg_slot).  A done lane is left as it is and reads no row; a
+// marked lane takes its mark rank and the step number i; any other lane
+// steps LF.  resolve_marks replaces paged.py _resolve_marks (86):
+// mark_offset(g) + steps per lane, after the walk, a thread a lane.
 //
-// extract has two routes, chosen inside femto_lf_extract by B and the
-// layout (femto_lf_extract_route).  The thread route walks a row per
-// thread with lf_step below: on the row tiers every step walks the
+// Two routes, one rule for the three walking entries (warp_route_smem,
+// exposed as femto_lf_walk_route): extract on every layout, locate and
+// the paged step on vseg and vrle take the warp route up to
+// warp_route_max walks (8192 on full, compact and packed; on vseg and
+// vrle a limit that grows with seg and with the index's side and
+// continued segments) where a block's buffers fit an SM; locate on full,
+// compact and packed keeps the thread route.  The thread route walks a
+// row per thread with lf_step below: on the row tiers every step walks the
 // segment's slots or fields twice (code, then count) through dependent
 // loads, on the other layouts it reads the code, then its checkpoint,
-// then the counted prefix.  The warp route (lf_extract_warp_kernel) walks
-// a row per warp: each step first issues every load that depends only on
-// the row -- the symbol or word at the offset, the counted prefix (16-B
-// chunks or words, the lanes taking every 32nd), the segment's whole
-// checkpoint row (full: K ints; compact, packed: K uint16 and the L1
-// row; row tiers: the L1 row in registers and the row's code area,
-// symbol list and relative checkpoints copied to shared memory by
-// cp.async) -- then decodes and counts from registers and shared memory
-// (SWAR per lane, warp scans of run lengths, a warp sum), picks the
-// checkpoint by a shuffle, and takes C[c] and alpha_rev from shared
-// memory: one dependent DRAM round trip a step, two on a side segment
-// (its side row) or a continued run-length segment (its granules), whose
-// addresses come from seg_woff.  A large batch on full, compact or
-// packed keeps the thread route, which moves fewer bytes a step.
+// then the counted prefix.  The warp route walks a row per warp: each step
+// first issues every load that depends only on the row -- the symbol or
+// word at the offset, the counted prefix (16-B chunks or words, the lanes
+// taking every 32nd), the segment's whole checkpoint row (full: K ints;
+// compact, packed: K uint16 and the L1 row; row tiers: warp_row_fetch,
+// the L1 row in registers and the row's code area, symbol list and
+// relative checkpoints, for locate with the mark words and the mark
+// checkpoint between them, copied to shared memory by cp.async) -- then
+// checks the mark (warp_row_mark: the bit, and on a hit a popcount a lane
+// of the earlier mark words and a warp sum), decodes and counts from
+// registers and shared memory (SWAR per lane, warp scans of run lengths,
+// a warp sum), picks the checkpoint by a shuffle, and takes C[c] and
+// alpha_rev from shared memory: one dependent DRAM round trip a step, two
+// on a side segment (its side row) or a continued run-length segment (its
+// granules), whose addresses come from seg_woff, on a step that misses
+// its mark.  extract and locate share that body (warp_row_fetch,
+// warp_row_lf).  A large batch on full, compact or packed keeps the
+// thread route, which moves fewer bytes a step.  A warp's buffer on a row
+// tier (row_buf_words) is the stream area, the larger of the code area
+// with its granules and a side row, and the row from its symbol list on,
+// seg / 32 + 1 words more than extract alone needed (the mark words and
+// the mark checkpoint); on 8 MiB of English prose at seg 2048 (phase 3 of
+// chip_smoke.py prints it) 672 words on vrle and 664 on vseg, 12,020 and
+// 11,892 bytes a block of four walks with C and alpha_rev.
 //
 // Bound on the H100: bytes of dependent random gathers.  Per step: one
 // mark word, one symbol (word), the checkpoint and the counted row prefix;
@@ -279,41 +292,101 @@ __host__ __device__ __forceinline__ int row_stream_words(
   return code > ix.side_words ? code : ix.side_words;
 }
 
-// One LF step from row r on vseg or vrle, by the whole warp; buf: the
-// warp's shared memory (the stream area, then the symbol list, then the
-// relative checkpoints).  The count is of the row's own (local) code, as
-// lf_step's.
+// A warp's shared-memory buffer on a row tier, in words: the stream area,
+// then the serving row from its symbol list to its end (the symbol list,
+// the mark words, the mark checkpoint and the relative checkpoints, at
+// their row offsets less off_syms).
+__host__ __device__ __forceinline__ int row_buf_words(
+    const femto::FmView& ix) {
+  return row_stream_words(ix) + ix.row_words - ix.off_syms;
+}
+
+// What one warp step fetched of row r's segment s (warp_row_fetch): the
+// row's offset in it, its side or run-length word, its symbol count and
+// the segment's L1 checkpoint row (entry k in lane k % 32's l1[k / 32]).
+struct RowFetch {
+  long long s;
+  int off, woff, nsym;
+  int l1[femto::kRowRegs];
+};
+
+// The first round trip of a warp step from row r on vseg or vrle: every
+// load that depends only on the row, issued at once -- the L1 row into
+// registers, seg_woff and seg_nsym, and by cp.async into buf the code area
+// (vrle: all of it, as a run-length segment is read by a walk over its
+// slots; vseg: the prefix up to off's word), the symbol list and the
+// relative checkpoints and, when `marks`, the mark words and the mark
+// checkpoint between them (then the row from off_syms on is one
+// contiguous copy) -- then waited for.
 template <int L>
-__device__ __forceinline__ long long warp_step_row(const femto::FmView& ix,
-                                                   long long r, int lane,
-                                                   const int* Cs,
-                                                   unsigned* buf,
-                                                   int* code) {
+__device__ __forceinline__ void warp_row_fetch(const femto::FmView& ix,
+                                               long long r, bool marks,
+                                               int lane, unsigned* buf,
+                                               RowFetch& f) {
   // rows lie below 2^31: a 32-bit division, 64-bit offsets after it
   const unsigned su =
       static_cast<unsigned>(r) / static_cast<unsigned>(ix.seg);
-  const int off = static_cast<int>(static_cast<unsigned>(r) -
-                                   su * static_cast<unsigned>(ix.seg));
-  const long long s = su;
-  const int wsym = ix.off_mk - ix.off_syms;
-  unsigned* syms = buf + row_stream_words(ix);
-  unsigned* rel = syms + wsym;
+  f.off = static_cast<int>(static_cast<unsigned>(r) -
+                           su * static_cast<unsigned>(ix.seg));
+  f.s = su;
+  unsigned* tail = buf + row_stream_words(ix);
   __syncwarp();  // the last step's reads of buf are done
-  const unsigned* row = femto::row_of(ix, s);
-  const int woff = __ldg(ix.seg_woff + s);
-  int nsym = 0;
-  if constexpr (L == femto::kVrle) nsym = __ldg(ix.seg_nsym + s);
-  int l1[femto::kRowRegs];
-  femto::warp_row_regs(ix.occ_l1 + (s / ix.grp) * ix.K, ix.K, lane, l1);
-  // vrle: the whole code area (a run-length segment is read by a walk
-  // over its slots); vseg: the prefix up to off's word
+  const unsigned* row = femto::row_of(ix, f.s);
+  f.woff = __ldg(ix.seg_woff + f.s);
+  f.nsym = 0;
+  if constexpr (L == femto::kVrle) f.nsym = __ldg(ix.seg_nsym + f.s);
+  femto::warp_row_regs(ix.occ_l1 + (f.s / ix.grp) * ix.K, ix.K, lane, f.l1);
   const int ncode = L == femto::kVrle ? ix.code_words
-                                      : off / (32 / ix.w_main) + 1;
+                                      : f.off / (32 / ix.w_main) + 1;
   femto::warp_copy_words(buf, row, ncode, lane);
-  femto::warp_copy_words(syms, row + ix.off_syms, wsym, lane);
-  femto::warp_copy_words(rel, row + ix.off_rel, ix.row_words - ix.off_rel,
-                         lane);
+  if (marks) {
+    femto::warp_copy_words(tail, row + ix.off_syms,
+                           ix.row_words - ix.off_syms, lane);
+  } else {
+    femto::warp_copy_words(tail, row + ix.off_syms, ix.off_mk - ix.off_syms,
+                           lane);
+    femto::warp_copy_words(tail + (ix.off_rel - ix.off_syms),
+                           row + ix.off_rel, ix.row_words - ix.off_rel,
+                           lane);
+  }
   femto::cp_async_wait_warp();
+}
+
+// The mark bit of the fetched row (warp_row_fetch with marks) and, when
+// set, its mark rank: the mark checkpoint, the popcounts of the segment's
+// earlier mark words (a word a lane, then a warp sum) and of the bits
+// below it in its own word.  Every lane returns the same.
+__device__ __forceinline__ bool warp_row_mark(const femto::FmView& ix,
+                                              const unsigned* buf,
+                                              const RowFetch& f, int lane,
+                                              int* grank) {
+  const unsigned* tail = buf + row_stream_words(ix);
+  const unsigned* words = tail + (ix.off_mk - ix.off_syms);
+  const int wl = f.off >> 5;
+  const unsigned w = words[wl];
+  const unsigned bit = static_cast<unsigned>(f.off & 31);
+  if (!((w >> bit) & 1u)) return false;
+  int g = 0;
+  for (int k = lane; k < wl; k += 32) g += __popc(words[k]);
+  g = __reduce_add_sync(femto::kAllLanes, g);
+  *grank = g + static_cast<int>(tail[ix.off_mck - ix.off_syms]) +
+           __popc(w & ((1u << bit) - 1u));
+  return true;
+}
+
+// The LF step from the fetched row: LF(r) = C[c] + occ(c, r), the count of
+// the row's own (local) code as lf_step's, decoded and counted from buf
+// (a side segment first copies its side row, a continued run-length
+// segment its ngr granule rows: the second round trip, addresses from
+// seg_woff); *code the dense code, -1 on a pad row.  Cs: C in shared
+// memory.
+template <int L>
+__device__ __forceinline__ long long warp_row_lf(const femto::FmView& ix,
+                                                 const RowFetch& f, int lane,
+                                                 const int* Cs,
+                                                 unsigned* buf, int* code) {
+  const unsigned* tail = buf + row_stream_words(ix);
+  const int off = f.off, woff = f.woff;
   int lc, cnt;
   if (woff > 0) {
     // a side segment: its global codes in the side table
@@ -341,7 +414,7 @@ __device__ __forceinline__ long long warp_step_row(const femto::FmView& ix,
       femto::cp_async_wait_warp();
       nwords += total;
     }
-    femto::warp_slots(buf, nwords, nsym, off, lane, &lc, &cnt);
+    femto::warp_slots(buf, nwords, f.nsym, off, lane, &lc, &cnt);
   } else {
     lc = femto::smem_field(buf, ix.w_main, off);
     cnt = femto::warp_swar_count(buf, ix.w_main, lc, off, lane);
@@ -349,36 +422,84 @@ __device__ __forceinline__ long long warp_step_row(const femto::FmView& ix,
   int c = lc;
   if (woff <= 0) {
     const int k = min(max(lc, 0), ix.S - 1);
-    c = ix.wide ? static_cast<int>((syms[k >> 1] >> ((k & 1) * 16)) & 0xFFFFu)
-                : static_cast<int>((syms[k >> 2] >> ((k & 3) * 8)) & 0xFFu);
+    c = ix.wide ? static_cast<int>((tail[k >> 1] >> ((k & 1) * 16)) & 0xFFFFu)
+                : static_cast<int>((tail[k >> 2] >> ((k & 3) * 8)) & 0xFFu);
   }
   *code = c;
   if (c >= ix.K) return -1;
-  const unsigned w = rel[c >> 1];
-  return static_cast<long long>(Cs[c]) + femto::warp_pick(l1, c) +
+  const unsigned w = tail[(ix.off_rel - ix.off_syms) + (c >> 1)];
+  return static_cast<long long>(Cs[c]) + femto::warp_pick(f.l1, c) +
          static_cast<int>((w >> ((c & 1) * 16)) & 0xFFFFu) + cnt;
 }
 
+// One LF step from row r on vseg or vrle, by the whole warp (extract's
+// step): one fetch without the marks, then the count.  buf: the warp's
+// row_buf_words words of shared memory.
+template <int L>
+__device__ __forceinline__ long long warp_step_row(const femto::FmView& ix,
+                                                   long long r, int lane,
+                                                   const int* Cs,
+                                                   unsigned* buf,
+                                                   int* code) {
+  RowFetch f;
+  warp_row_fetch<L>(ix, r, false, lane, buf, f);
+  return warp_row_lf<L>(ix, f, lane, Cs, buf, code);
+}
+
+// One locate step from row r >= 0 on vseg or vrle, by the whole warp (the
+// thread route's row_mark, then lf_step): one fetch with the marks; true,
+// with *grank its mark rank, where r is marked; else, when `step`, *r
+// becomes LF(r) (-1 on a pad row) from the same fetch.
+template <int L>
+__device__ __forceinline__ bool warp_locate_row(const femto::FmView& ix,
+                                                long long* r, bool step,
+                                                int lane, const int* Cs,
+                                                unsigned* buf, int* grank) {
+  RowFetch f;
+  warp_row_fetch<L>(ix, *r, true, lane, buf, f);
+  if (warp_row_mark(ix, buf, f, lane, grank)) return true;
+  if (step) {
+    int c;
+    *r = warp_row_lf<L>(ix, f, lane, Cs, buf, &c);
+  }
+  return false;
+}
+
+// The warp route's dynamic shared memory, in words from its start: C
+// (K + 1 ints), alpha_rev (K ints, read by extract when the index is
+// remapped), then row_buf_words words a warp on the row tiers.
+__host__ __device__ __forceinline__ int warp_buf_start(
+    const femto::FmView& ix) {
+  return 2 * ix.K + 1;
+}
+
+// C into shared memory (and alpha_rev, when `rev` and the index is
+// remapped), by the whole block.
+__device__ __forceinline__ void block_load_c(const femto::FmView& ix,
+                                             unsigned* smem, bool rev) {
+  int* Cs = reinterpret_cast<int*>(smem);
+  for (int i = threadIdx.x; i <= ix.K; i += blockDim.x)
+    Cs[i] = __ldg(ix.C + i);
+  if (rev && ix.alpha_rev != nullptr)
+    for (int i = threadIdx.x; i < ix.K; i += blockDim.x)
+      Cs[ix.K + 1 + i] = __ldg(ix.alpha_rev + i);
+  __syncthreads();
+}
+
 // lf_extract_kernel's walks, a warp each (blockDim.x / 32 walks a block).
-// Dynamic shared memory: C (K + 1 ints) and alpha_rev (K ints, when the
-// index is remapped), then buf_words words a warp (row tiers).
 template <int L>
 __global__ void __launch_bounds__(kWarpWalks * 32) lf_extract_warp_kernel(
     femto::FmView ix, const int* __restrict__ rows, int B, int num_steps,
     int* __restrict__ chars, int* __restrict__ final_rows, int buf_words) {
   extern __shared__ unsigned smem[];
-  int* Cs = reinterpret_cast<int*>(smem);
-  int* rev = Cs + ix.K + 1;
+  block_load_c(ix, smem, true);
+  const int* Cs = reinterpret_cast<const int*>(smem);
+  const int* rev = Cs + ix.K + 1;
   const bool remapped = ix.alpha_rev != nullptr;
-  for (int i = threadIdx.x; i <= ix.K; i += blockDim.x) Cs[i] = __ldg(ix.C + i);
-  if (remapped)
-    for (int i = threadIdx.x; i < ix.K; i += blockDim.x)
-      rev[i] = __ldg(ix.alpha_rev + i);
-  __syncthreads();
   const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
   const int b = blockIdx.x * (blockDim.x >> 5) + warp;
   if (b >= B) return;
-  unsigned* buf = smem + 2 * ix.K + 1 + warp * buf_words;
+  unsigned* buf = smem + warp_buf_start(ix) + warp * buf_words;
   long long r = rows[b];
   int* out = chars + static_cast<long long>(b) * num_steps;
   int mine = 0;  // lane t % 32 keeps step t's symbol until 32 are stored
@@ -404,7 +525,36 @@ __global__ void __launch_bounds__(kWarpWalks * 32) lf_extract_warp_kernel(
   if (lane == 0) final_rows[b] = static_cast<int>(r);
 }
 
-// The largest batch that takes the warp route, by layout.  Builds with
+// lf_locate_kernel's walks on vseg and vrle, a warp each: each walk stops
+// at its own mark; -1 where no mark is within reach or on a pad row.
+template <int L>
+__global__ void __launch_bounds__(kWarpWalks * 32) lf_locate_warp_kernel(
+    femto::FmView ix, const int* __restrict__ rows, int B,
+    const unsigned* __restrict__ mark_vals, long long mark_vals_len,
+    const int* __restrict__ mark_meta, int mark_period,
+    int* __restrict__ out, int buf_words) {
+  extern __shared__ unsigned smem[];
+  block_load_c(ix, smem, false);
+  const int* Cs = reinterpret_cast<const int*>(smem);
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  const int b = blockIdx.x * (blockDim.x >> 5) + warp;
+  if (b >= B) return;
+  unsigned* buf = smem + warp_buf_start(ix) + warp * buf_words;
+  long long r = rows[b];
+  int result = -1;
+  for (int i = 0; i <= mark_period && r >= 0; ++i) {
+    int g;
+    if (warp_locate_row<L>(ix, &r, i < mark_period, lane, Cs, buf, &g)) {
+      if (lane == 0)
+        result = mark_offset(mark_vals, mark_vals_len, mark_meta, g) + i;
+      break;
+    }
+    if (i == mark_period) break;  // no mark within reach: -1
+  }
+  if (lane == 0) out[b] = result;
+}
+
+// The largest batch that takes the warp route on an index.  Builds with
 // -DFEMTO_D_WARP_MAX=0 (every call a thread a walk) or 0x7fffffff (every
 // call a warp a walk) let chip_smoke.py hold each route against the other.
 #ifndef FEMTO_D_WARP_MAX
@@ -413,25 +563,60 @@ __global__ void __launch_bounds__(kWarpWalks * 32) lf_extract_warp_kernel(
 // chip_d_routes.py (H100): on full, compact and packed the thread route
 // draws level at 8192 walks of 32 steps and leads from 16384 (it moves a
 // row prefix a step, the warp route a checkpoint row and the prefix in
-// whole chunks); on vseg and vrle the warp route leads at every B
-// measured, up to 2^20 walks of 32 steps or of one, so there only the
-// shared-memory check below limits it.
+// whole chunks).  On vseg and vrle the thread route's step scans the row
+// prefix a field at a time and walks a run-length segment's slots a load
+// after the last, so it costs more the longer the segment and where side
+// or continued run-length segments exist; the warp route's step is one
+// round trip.  Extract, locate and the paged step cross at about the same
+// B: zipf text (neither kind of segment) near 8192 walks at seg 256,
+// 131,072 at seg 1024 and 2^19 at seg 2048; English prose (side
+// segments; vrle also continued ones) at 4 and 8 times those, past 2^20
+// at seg 2048.  Hence kWarpMaxFixed x (seg / 256)^2, 4 times that with
+// side or continued segments, 8 times with continued ones.
 constexpr int kWarpMaxFixed = 8192;
 
-int warp_route_max(int layout) {
+int warp_route_max(const femto::FmView& ix) {
   if (FEMTO_D_WARP_MAX >= 0) return FEMTO_D_WARP_MAX;
-  return layout == femto::kVseg || layout == femto::kVrle ? 0x7fffffff
-                                                          : kWarpMaxFixed;
+  if (ix.layout != femto::kVseg && ix.layout != femto::kVrle)
+    return kWarpMaxFixed;
+  const bool cont = ix.ngr > 0, side = ix.n_side > 1;
+  const double r = ix.seg / 256.0;
+  const double max = kWarpMaxFixed * r * r * (cont ? 8 : side ? 4 : 1);
+  return max < 0x7fffffff ? static_cast<int>(max) : 0x7fffffff;
 }
 
-// Dynamic shared memory of a warp-route block of `walks` warps, in words,
-// and each warp's share (0 on full, compact and packed).
-int warp_smem_words(const femto::FmView& ix, int walks, int* buf_words) {
+// The route of a call of B walks, one rule for the three entries:
+// extract on every layout, locate and the paged step on vseg and vrle (on
+// full, compact and packed locate keeps a thread a walk).  The warp
+// route's block holds min(B, kWarpWalks) warps; returns its dynamic
+// shared memory in bytes, with *buf_words each warp's share (0 on full,
+// compact and packed), or 0 where the call takes the thread route: past
+// warp_route_max, where a checkpoint row does not fit the warp's
+// registers, or where the block's shared memory would not fit an SM.
+long long warp_route_smem(const femto::FmView& ix, int B, bool extract,
+                          int* buf_words) {
   const bool row = ix.layout == femto::kVseg || ix.layout == femto::kVrle;
-  *buf_words = row ? row_stream_words(ix) + (ix.off_mk - ix.off_syms) +
-                         (ix.row_words - ix.off_rel)
-                   : 0;
-  return 2 * ix.K + 1 + walks * *buf_words;
+  *buf_words = row ? row_buf_words(ix) : 0;
+  const int walks = B < kWarpWalks ? B : kWarpWalks;
+  const long long bytes =
+      4ll * (warp_buf_start(ix) + static_cast<long long>(walks) * *buf_words);
+  const bool warp = B > 0 && (extract || row) &&
+                    B <= warp_route_max(ix) &&
+                    ix.K <= 32 * femto::kRowRegs && bytes <= 227 * 1024;
+  return warp ? bytes : 0;
+}
+
+// Launch `kernel` on the warp route: blocks of min(B, kWarpWalks) warps
+// with `bytes` of dynamic shared memory (opted in past 48 KiB).
+template <class K, class... A>
+void launch_warps(K kernel, int B, long long bytes, cudaStream_t st,
+                  A... args) {
+  const int walks = B < kWarpWalks ? B : kWarpWalks;
+  if (bytes > 48 * 1024)
+    cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                         static_cast<int>(bytes));
+  kernel<<<(B + walks - 1) / walks, walks * 32, static_cast<size_t>(bytes),
+           st>>>(args...);
 }
 
 // The mark bit of row r in a row tier's serving row and, when set, its mark
@@ -477,6 +662,40 @@ __global__ void lf_walk_step_kernel(
   done_out[b] = d;
 }
 
+// lf_walk_step_kernel's lanes, a warp each.  A done lane reads no row (its
+// segment may have left the cache) and copies its state; so does a lane
+// on a negative row, which no walk reaches.
+template <int L>
+__global__ void __launch_bounds__(kWarpWalks * 32) lf_walk_step_warp_kernel(
+    femto::FmView ix, const int* __restrict__ rows,
+    const int* __restrict__ granks, const int* __restrict__ steps,
+    const unsigned char* __restrict__ done, int B, int i,
+    int* __restrict__ rows_out, int* __restrict__ granks_out,
+    int* __restrict__ steps_out, unsigned char* __restrict__ done_out,
+    int buf_words) {
+  extern __shared__ unsigned smem[];
+  block_load_c(ix, smem, false);
+  const int* Cs = reinterpret_cast<const int*>(smem);
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  const int b = blockIdx.x * (blockDim.x >> 5) + warp;
+  if (b >= B) return;
+  unsigned* buf = smem + warp_buf_start(ix) + warp * buf_words;
+  long long r = rows[b];
+  int g = granks[b], st = steps[b];
+  unsigned char d = done[b];
+  if (!d && r >= 0 &&
+      warp_locate_row<L>(ix, &r, true, lane, Cs, buf, &g)) {
+    st = i;
+    d = 1;
+  }
+  if (lane == 0) {
+    rows_out[b] = static_cast<int>(r);
+    granks_out[b] = g;
+    steps_out[b] = st;
+    done_out[b] = d;
+  }
+}
+
 __global__ void resolve_marks_kernel(const int* __restrict__ granks,
                                      const int* __restrict__ steps, int B,
                                      const unsigned* __restrict__ mark_vals,
@@ -491,17 +710,30 @@ __global__ void resolve_marks_kernel(const int* __restrict__ granks,
 
 }  // namespace
 
-// rows int32[B] -> offsets int32[B] (-1 where no mark was reached).
+// rows int32[B] -> offsets int32[B] (-1 where no mark was reached).  The
+// route by warp_route_smem.
 extern "C" int femto_lf_locate(const femto::FmView* ix, const void* rows,
                                int B, const void* mark_bits,
                                const void* mark_ckpt, const void* mark_vals,
                                long long mark_vals_len, const void* mark_meta,
                                int mark_period, void* out, void* stream) {
   if (B <= 0) return static_cast<int>(cudaGetLastError());
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+  int buf_words = 0;
+  const long long smem = warp_route_smem(*ix, B, false, &buf_words);
   return femto::dispatch_layout(*ix, [&](auto layout) {
     constexpr int L = decltype(layout)::value;
-    lf_locate_kernel<L><<<(B + 127) / 128, 128, 0,
-                          static_cast<cudaStream_t>(stream)>>>(
+    if constexpr (femto::is_row<L>()) {
+      if (smem > 0) {
+        launch_warps(lf_locate_warp_kernel<L>, B, smem, st, *ix,
+                     static_cast<const int*>(rows), B,
+                     static_cast<const unsigned*>(mark_vals), mark_vals_len,
+                     static_cast<const int*>(mark_meta), mark_period,
+                     static_cast<int*>(out), buf_words);
+        return;
+      }
+    }
+    lf_locate_kernel<L><<<(B + 127) / 128, 128, 0, st>>>(
         *ix, static_cast<const int*>(rows), B,
         static_cast<const unsigned*>(mark_bits),
         static_cast<const int*>(mark_ckpt),
@@ -511,39 +743,31 @@ extern "C" int femto_lf_locate(const femto::FmView* ix, const void* rows,
   });
 }
 
-// 1 where a call of B walks on `layout` takes the warp route, else 0.
-extern "C" long long femto_lf_extract_route(int B, int layout) {
-  return B <= warp_route_max(layout) ? 1 : 0;
+// The route a call of B walks on the view takes (warp_route_smem): the
+// warp route's dynamic shared memory a block in bytes, 0 on the thread
+// route.  extract: 1 for lf_extract, 0 for lf_locate and lf_walk_step.
+extern "C" long long femto_lf_walk_route(const femto::FmView* ix, int B,
+                                         int extract) {
+  int buf_words = 0;
+  return warp_route_smem(*ix, B, extract != 0, &buf_words);
 }
 
 // rows int32[B] -> chars int32[B, num_steps], final_rows int32[B].  The
-// route by B and the layout (femto_lf_extract_route); the thread route
-// also where a checkpoint row does not fit the warp's registers or a
-// block's shared memory would not fit an SM.
+// route by warp_route_smem.
 extern "C" int femto_lf_extract(const femto::FmView* ix, const void* rows,
                                 int B, int num_steps, void* chars,
                                 void* final_rows, void* stream) {
   if (B <= 0) return static_cast<int>(cudaGetLastError());
   cudaStream_t st = static_cast<cudaStream_t>(stream);
-  const int walks = B < kWarpWalks ? B : kWarpWalks;
   int buf_words = 0;
-  const long long smem_bytes =
-      4ll * warp_smem_words(*ix, walks, &buf_words);
-  const bool warp = B <= warp_route_max(ix->layout) &&
-                    ix->K <= 32 * femto::kRowRegs &&
-                    smem_bytes <= 227 * 1024;
+  const long long smem = warp_route_smem(*ix, B, true, &buf_words);
   return femto::dispatch_layout(*ix, [&](auto layout) {
     constexpr int L = decltype(layout)::value;
-    if (warp) {
-      if (smem_bytes > 48 * 1024)
-        cudaFuncSetAttribute(lf_extract_warp_kernel<L>,
-                             cudaFuncAttributeMaxDynamicSharedMemorySize,
-                             static_cast<int>(smem_bytes));
-      lf_extract_warp_kernel<L><<<(B + walks - 1) / walks, walks * 32,
-                                  static_cast<size_t>(smem_bytes), st>>>(
-          *ix, static_cast<const int*>(rows), B, num_steps,
-          static_cast<int*>(chars), static_cast<int*>(final_rows),
-          buf_words);
+    if (smem > 0) {
+      launch_warps(lf_extract_warp_kernel<L>, B, smem, st, *ix,
+                   static_cast<const int*>(rows), B, num_steps,
+                   static_cast<int*>(chars), static_cast<int*>(final_rows),
+                   buf_words);
     } else {
       lf_extract_kernel<L><<<(B + 127) / 128, 128, 0, st>>>(
           *ix, static_cast<const int*>(rows), B, num_steps,
@@ -554,6 +778,7 @@ extern "C" int femto_lf_extract(const femto::FmView* ix, const void* rows,
 
 // One paged locate step on a row-tier view: (rows, granks, steps int32[B],
 // done uint8[B]) and the step number i -> the same four after the step.
+// The route by warp_route_smem.
 extern "C" int femto_lf_walk_step(const femto::FmView* ix, const void* rows,
                                   const void* granks, const void* steps,
                                   const void* done, int B, int i,
@@ -561,15 +786,26 @@ extern "C" int femto_lf_walk_step(const femto::FmView* ix, const void* rows,
                                   void* steps_out, void* done_out,
                                   void* stream) {
   if (B <= 0) return static_cast<int>(cudaGetLastError());
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+  int buf_words = 0;
+  const long long smem = warp_route_smem(*ix, B, false, &buf_words);
   return femto::dispatch_row_layout(*ix, [&](auto layout) {
     constexpr int L = decltype(layout)::value;
-    lf_walk_step_kernel<L><<<(B + 127) / 128, 128, 0,
-                             static_cast<cudaStream_t>(stream)>>>(
-        *ix, static_cast<const int*>(rows), static_cast<const int*>(granks),
-        static_cast<const int*>(steps),
-        static_cast<const unsigned char*>(done), B, i,
-        static_cast<int*>(rows_out), static_cast<int*>(granks_out),
-        static_cast<int*>(steps_out), static_cast<unsigned char*>(done_out));
+    const int* in[3] = {static_cast<const int*>(rows),
+                        static_cast<const int*>(granks),
+                        static_cast<const int*>(steps)};
+    int* o[3] = {static_cast<int*>(rows_out), static_cast<int*>(granks_out),
+                 static_cast<int*>(steps_out)};
+    const auto* d = static_cast<const unsigned char*>(done);
+    auto* d_out = static_cast<unsigned char*>(done_out);
+    if (smem > 0) {
+      launch_warps(lf_walk_step_warp_kernel<L>, B, smem, st, *ix, in[0],
+                   in[1], in[2], d, B, i, o[0], o[1], o[2], d_out,
+                   buf_words);
+    } else {
+      lf_walk_step_kernel<L><<<(B + 127) / 128, 128, 0, st>>>(
+          *ix, in[0], in[1], in[2], d, B, i, o[0], o[1], o[2], d_out);
+    }
   });
 }
 

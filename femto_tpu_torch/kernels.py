@@ -182,9 +182,11 @@ SIZES: Dict[str, Tuple[str, List]] = {
     # not a size: the records a tile in a bucket_pack call (0: one block a
     # shard packs them all)
     "bucket_pack_tile": ("exchange", [_L]),
-    # not a size: 1 where an lf_extract call of B walks on a layout takes
-    # a warp a walk, 0 where it takes a thread a walk
-    "lf_extract_route": ("lf_walk", [_I, _I]),
+    # kernel D's route for a call of B walks on an index (view, B,
+    # extract: 1 for lf_extract, 0 for lf_locate and lf_walk_step): the
+    # bytes of a warp-a-walk block's dynamic shared memory, 0 where the
+    # call takes a thread a walk
+    "lf_walk_route": ("lf_walk", [_V, _I, _I]),
 }
 # entries that take an FmView: one count per layout
 LAYOUT_ENTRIES = ("backward_search", "backward_search_steps", "backward_step",

@@ -289,6 +289,60 @@ def test_plain_steps_match_femto_tpu_on_the_same_cache(pair):
     same_state(jpg, tpg)
 
 
+def test_paged_walk_every_step_matches_femto_tpu(pair):
+    """A whole paged locate walk, i = 0 ... mark_period, step by step on a
+    half-filled cache with a random seg_slot: before each step
+    chip_smoke.walk_faults maps the segments of the lanes not done, after
+    evicting those of the lanes that are done (a done lane reads no row);
+    every step of the port's lf_walk_step (its plain version here) equals
+    femto_tpu's _walk_step on the same cache, and the offsets after the
+    walk equal locate on the resident index."""
+    from chip_smoke import walk_faults
+
+    docs, ix, jpg, tpg = pair
+    rng = np.random.default_rng(23)
+    bwt = ix.arrays.bwt.numpy()
+    n_seg, W = bwt.shape
+    seg, n, mp = ix.meta.seg, ix.meta.n, ix.meta.mark_period
+    cache_rows = n_seg // 2 + 1
+    cache = np.zeros((cache_rows, W), np.uint32)
+    smap = np.zeros(n_seg, np.int32)
+    slot_seg = np.full(cache_rows, -1, np.int64)
+    segs = rng.permutation(n_seg)[: cache_rows - 1]
+    slots = rng.permutation(cache_rows - 1) + 1
+    cache[slots], smap[segs], slot_seg[slots] = bwt[segs], slots, segs
+    B = 48
+    r = rng.integers(0, n, 8 * B)
+    start = r[smap[r // seg] > 0][:B].astype(np.int32)
+    rows, granks, steps = start, np.zeros(B, np.int32), np.zeros(B, np.int32)
+    done = np.zeros(B, bool)
+    t = lambda a: torch.from_numpy(np.ascontiguousarray(a))  # noqa: E731
+    evicted = 0
+    for i in range(mp + 1):
+        slots, segs, gone = walk_faults(rows, done, seg, smap, slot_seg)
+        cache[slots] = bwt[segs]
+        evicted += gone
+        assert (smap[rows[~done] // seg] > 0).all()
+        t_arr = tpg.arrays._replace(bwt=t(cache.copy()),
+                                    seg_slot=t(smap.copy()))
+        j_arr = jpg.arrays._replace(bwt=jnp.asarray(cache),
+                                    seg_slot=jnp.asarray(smap))
+        got = TS.lf_walk_step(t_arr, t(rows), t(granks), t(steps), t(done),
+                              i)
+        want = JP._walk_step(j_arr, jnp.asarray(rows), jnp.asarray(granks),
+                             jnp.asarray(steps), jnp.asarray(done),
+                             jnp.int32(i))
+        for g, w in zip(got, want):
+            np.testing.assert_array_equal(g.numpy(), np.asarray(w))
+        rows, granks, steps, done = (np.array(w) for w in want)
+        if done.all():
+            break
+    assert done.all() and evicted > 0
+    np.testing.assert_array_equal(
+        TS.resolve_marks(t_arr, t(granks), t(steps)).numpy(),
+        TS.locate_rows(ix.arrays, mp, t(start)).numpy())
+
+
 def test_plain_apply_faults_matches_femto_tpu(pair):
     """The cache update with out-of-range (dropped) entries on copies of
     the two caches."""

@@ -294,6 +294,54 @@ def test_extract_backward_every_tier_like_jax(row_cases, tier, B):
     assert n % seg != 0          # the last segment holds pad positions
 
 
+# (tier, case) of test_locate_rows_every_row_tier_like_jax: vseg is the
+# bytes corpus (side rows, u16 symbol lists), vrle the prose (continued
+# RLE, plain RLE and side rows); vseg has no run-length segments
+LOCATE_CASES = [(tier, case) for tier in ("vseg", "vrle")
+                for case in ("B1", "B5", "last_segment", "side", "continued",
+                             "period1", "period3")
+                if (tier, case) != ("vseg", "continued")]
+
+
+@pytest.mark.parametrize("tier,case", LOCATE_CASES)
+def test_locate_rows_every_row_tier_like_jax(row_cases, tier, case):
+    """Kernel D's locate (its plain version on the CPU) on the row tiers
+    against femto_tpu's locate_rows at the index's mark_period: walks of
+    B = 1 and 5, from every in-text row of the last segment, from rows in
+    side segments and in continued run-length segments; and at
+    mark_period 1 and 3 (below the build's 8), where some walks reach no
+    mark and give -1."""
+    _, jix, ports, _ = row_cases("prose-vrle" if tier == "vrle"
+                                 else "bytes-vseg")
+    arrays = ports["carried"].arrays
+    n, seg, mp = jix.meta.n, jix.meta.seg, jix.meta.mark_period
+    rng = np.random.default_rng(70 + len(case))
+    woff = arrays.seg_woff.numpy()
+    if case in ("side", "continued"):
+        segs = np.nonzero(woff > 0 if case == "side" else woff < -1)[0]
+        assert len(segs) > 0
+        rows = segs[rng.integers(0, len(segs), 24)] * seg + \
+            rng.integers(0, seg, 24)
+        rows = rows[rows < n]
+    elif case == "last_segment":
+        rows = np.arange((n - 1) // seg * seg, n)
+    elif case in ("B1", "B5"):
+        rows = np.concatenate([[n - 1], rng.integers(0, n, 4)])[
+            : int(case[1:])]
+    else:
+        rows = rng.integers(0, n, 64)
+        mp = int(case[-1])
+    rows = rows.astype(np.int32)
+    want = np.asarray(jax.jit(JS.locate_rows, static_argnums=1)(
+        jix.arrays, mp, jnp.asarray(rows)))
+    got = TS.locate_rows(arrays, mp, torch.from_numpy(rows)).numpy()
+    np.testing.assert_array_equal(got, want)
+    if case.startswith("period"):
+        assert (got < 0).any() and (got >= 0).any()
+    else:
+        assert (got >= 0).all()
+
+
 def test_row_tier_steps_match_jax(row_case):
     """The plain steps kernels C, D and E are built from, against
     femto_tpu's on the row layouts: codes, decoded segments (K13),
