@@ -344,7 +344,7 @@ PATH_KERNELS = {
     # shard, K18g), the doc lists (P per shard) and sharded count and
     # locate, routed and psum (K18f on each layout)
     "sharded": ("bucket_pack", "owner_place", "splitter_bucket",
-                "rebalance_place", "mesh_exclusive", "add_mesh_base",
+                "rebalance_local", "mesh_exclusive", "add_mesh_base",
                 "seed_keys",
                 "payload_block", "mesh_flags", "mesh_scan", "compact_rows",
                 "fetch_owned", "sym_hist", "radix_sort_pairs", "gather_rows",
@@ -438,6 +438,10 @@ KERNELS.update({
                     "femto_tpu/parallel/bins.py:148"),
     "splitter_bucket": ("femto_tpu_torch/csrc/sample_sort.cu",
                         "femto_tpu/parallel/dist_sort.py:40"),
+    # dist_sort's rebalance, one launch a sort; rebalance_place, the same
+    # kernel, serves a DistMesh's offsets to other processes
+    "rebalance_local": ("femto_tpu_torch/csrc/sample_sort.cu",
+                        "femto_tpu/parallel/dist_sort.py:51"),
     "rebalance_place": ("femto_tpu_torch/csrc/sample_sort.cu",
                         "femto_tpu/parallel/dist_sort.py:51"),
     "mesh_exclusive": ("femto_tpu_torch/csrc/sample_sort.cu",
@@ -480,10 +484,12 @@ for _lay in ROW_LAYOUTS:
         "femto_tpu_torch/csrc/backward_search.cu", "femto_tpu/paged.py:64")
     KERNELS[f"lf_walk_step[{_lay}]"] = ("femto_tpu_torch/csrc/lf_walk.cu",
                                         "femto_tpu/paged.py:73")
-# entries that no path of the port calls (add_base: the sharded build
-# adds its bases through add_mesh_base, which runs add_base's kernel);
-# phase 5 times each at the call on the sharded path that runs its kernel
-NO_CALLER = ("add_base",)
+# entries that no path of the port calls, each with the entry whose call
+# on the sharded path runs its kernel: phase 5 times it at that call
+# (add_base: the sharded build adds its bases through add_mesh_base;
+# rebalance_place: the offsets of a DistMesh, at rebalance_local's call
+# of the seed sort, at the neighbour offset that moves more records)
+NO_CALLER = {"add_base": "add_mesh_base", "rebalance_place": "rebalance_local"}
 # device items that would mean a build or a query fell back to a library
 # sort or scan
 LIBRARY_SORT_NAMES = ("RadixSort", "Onesweep", "cub::", "thrust::")
@@ -502,7 +508,8 @@ H_ALTERNATIVES = {
 # (ROADMAP Q1): phase 5 also takes their own device items from
 # torch.profiler, beside the CUDA-event time of the whole call
 ITEM_ROWS = ("owner_place", "mesh_exclusive", "add_base", "add_mesh_base",
-             "bucket_pack", "gather_rows", "gather_cols")
+             "bucket_pack", "gather_rows", "gather_cols", "owner_lf[vseg]",
+             "owner_lf[vrle]")
 # the device item of a row whose __global__ function has another name
 # than <row>_kernel (a prefix of the names where a row has two kernels:
 # bucket_pack_block and bucket_pack_tile; gather_cols_kernel behind both
@@ -510,7 +517,10 @@ ITEM_ROWS = ("owner_place", "mesh_exclusive", "add_base", "add_mesh_base",
 ITEM_KERNELS = {"add_mesh_base": "add_base_kernel",
                 "bucket_pack": "bucket_pack_",
                 "gather_rows": "gather_cols_",
-                "gather_cols": "gather_cols_"}
+                "gather_cols": "gather_cols_",
+                # owner_lf_kernel (a thread a request), owner_lf_warp_kernel
+                "owner_lf[vseg]": "owner_lf_",
+                "owner_lf[vrle]": "owner_lf_"}
 # kernels whose library call takes about their own time, where one round
 # in turns cannot say which is faster (host- and launch-bound times move
 # 20-90% from run to run, PERF.md): timed in turns this many rounds
@@ -887,8 +897,10 @@ def h_call_sizes(sorts):
 
 
 # kernel D's routes for extract, locate and the paged step (csrc/lf_walk.cu
-# femto_lf_walk_route), the route every call takes in a build of
-# csrc/lf_walk.cu with the flag, and that flag: phase 3 holds both routes to
+# femto_lf_walk_route) and K18f owner_lf's on the row tiers (csrc/
+# dist_query.cu femto_owner_lf_route; the rule of csrc/fm_common.cuh), the
+# route every call takes in a build of csrc/lf_walk.cu or csrc/
+# dist_query.cu with the flag, and that flag: phase 3 holds both routes to
 # the plain version and phase 5 times the warp route against the thread
 # route (the design before it) through the same wrapper
 D_ALTERNATIVES = {
@@ -898,7 +910,7 @@ D_ALTERNATIVES = {
 # the sources built again with other routes or settings, and each one's
 # alternatives
 ROUTE_BUILDS = {"radix_sort": H_ALTERNATIVES, "exchange": K18A_ALTERNATIVES,
-                "lf_walk": D_ALTERNATIVES}
+                "lf_walk": D_ALTERNATIVES, "dist_query": D_ALTERNATIVES}
 # The card's dependent global-load latency: one thread follows a random
 # cycle through an array past L2, one load waiting for the last (phase 5's
 # latency floor of the LF walks).  Built beside the sources in phase 2; a
@@ -3085,7 +3097,8 @@ def phase_parity(record, rng, route_builds):
                                  rng, errs, d_libs)
     del indexes, prose_ix
     sharded = parity_sharded(rng, docs, prepared, sa, errs,
-                             route_builds["exchange"])
+                             route_builds["exchange"], prose,
+                             route_builds["dist_query"])
     record["parity_8mib"] = {"n": n, "ndocs": ndocs, "max_abs_err": errs,
                              "sort_regimes": regimes, "prose": prose_rec,
                              "query_runs": query_runs,
@@ -5294,14 +5307,15 @@ def first_calls(entries, builds):
     return got
 
 
-def _owned(v, base, m, off, shard0):
-    """The records that rebalance_place moves at offset off: those of
-    shard d (global positions base[d] .. base[d] + v[d]) that shard
-    d + off owns."""
+def _records_in(v, base, R, m, blocks):
+    """The records of local shards d (global positions base[d] .. base[d]
+    + min(v[d], R)) that fall in the blocks of m of the shards blocks(d)
+    (global indexes): those that rebalance_local or rebalance_place
+    moves."""
     n = 0
     for j, (vj, bj) in enumerate(zip(v.tolist(), base.tolist())):
-        lo = (shard0 + j + off) * m
-        n += max(0, min(bj + vj, lo + m) - max(bj, lo))
+        for k in blocks(j):
+            n += max(0, min(bj + min(vj, R), (k + 1) * m) - max(bj, k * m))
     return n
 
 
@@ -5330,7 +5344,7 @@ def _owner_targets(idx, valid, recs, outs, base_mul, shard0):
 SHARDED_CALLS = (
     ("seed_keys", None), ("payload_block", None), ("splitter_bucket", None),
     ("bucket_pack", None),
-    ("rebalance_place", lambda a, kw: kw["off"] == 0),
+    ("rebalance_local", None),
     ("mesh_flags", None), ("mesh_scan", None), ("compact_rows", None),
     ("fetch_owned", None), ("owner_place", None),
     ("mesh_exclusive", lambda a, kw: kw.get("op", "sum") == "sum"),
@@ -5367,6 +5381,16 @@ def sharded_case(name, a, kw, occ=None):
 
     from femto_tpu_torch.ops import dist_ops as DO
 
+    if name == "rebalance_place":
+        # a DistMesh process's buffer for a neighbour: the seed sort's
+        # records at the offset, +1 or -1, that moves more of them
+        cols, v, base = a
+
+        def moved(off):
+            return _records_in(v, base, cols[0].shape[1], kw["m"],
+                               lambda j: [kw["shard0"] + j + off])
+        kw = {"m": kw["m"], "off": max((1, -1), key=moved),
+              "shard0": kw["shard0"]}
     if name == "add_base":
         # the occ site's x with the base its prefix gives
         x, g = a
@@ -5462,14 +5486,24 @@ def sharded_case(name, a, kw, occ=None):
 
         def lib():
             return _sort_scatter(dest, cols, valid, kw["D"])
-    elif name == "rebalance_place":
+    elif name in ("rebalance_local", "rebalance_place"):
         cols, v, base = a
-        own = _owned(v, base, kw["m"], kw["off"], kw["shard0"])
-        # the owned records read, every output written once (the wrapper
-        # fills bufs and vbuf whole), v, base and far
-        nbytes = (4 * len(cols) * own
-                  + (4 * len(cols) + 1) * v.shape[0] * kw["m"]
-                  + 12 * v.shape[0])
+        Dl, R = cols[0].shape
+        if name == "rebalance_local":
+            W = kw["W"]
+            moved = _records_in(v, base, R, kw["m"], lambda j: range(
+                kw["shard0"] + max(j - W, 0),
+                kw["shard0"] + min(j + W, Dl - 1) + 1))
+            out = 4 * len(cols)  # a place's bytes: the columns
+        else:
+            moved = _records_in(v, base, R, kw["m"],
+                                lambda j: [kw["shard0"] + j + kw["off"]])
+            out = 4 * len(cols) + 1  # and the flag
+        # the moved records read once, every place written once, v, base
+        # (and far)
+        nbytes = 4 * len(cols) * moved + out * Dl * kw["m"] + 12 * Dl
+        case["extra"].update(Dl=Dl, R=R, m=kw["m"], ncols=len(cols),
+                             records_moved=moved)
     elif name == "mesh_flags":
         nbytes = size(a[0]) + a[0][0].numel() + size(a[1])
     elif name == "mesh_scan":
@@ -5553,8 +5587,7 @@ def sharded_cases(mesh, prepared, seg, mark_period, occ_site=False):
                              lambda a, kw: kw.get("want_c", False), build)
                if occ_site and name == "mesh_exclusive" else None)
         a, kw = captured_call(name, pick, build)
-        for row in [name] + (list(NO_CALLER) if name == "add_mesh_base"
-                             else []):
+        for row in [name] + [k for k, v in NO_CALLER.items() if v == name]:
             case = sharded_case(row, a, kw, occ=occ)
             yield {"name": row, "nbytes": case["nbytes"],
                    "extra": case["extra"],
@@ -5901,6 +5934,201 @@ def sharded_query_cases(index, mesh, rng, B):
     }
 
 
+# phase 3's rebalance shapes (parity_rebalance_edges): a mesh of REB_D
+# shards, blocks of m places (one m not a multiple of a kernel block's 1024
+# places), REB_COLS columns, and each case's received counts as fractions
+# of m (base their exclusive prefix, at most REB_D * m in all) with its
+# window W: uneven blocks; an empty shard, with places left unfilled; and
+# at W = 1 a far owner (shard 0's records reach shard 2)
+REB_D = 4
+REB_MS = (1000, 1 << 20)
+REB_COLS = 5
+REB_CASES = {"uneven": ((0.5, 1.75, 1.0, 0.75), 3),
+             "empty_unfilled": ((1.5, 0.0, 1.25, 1.0), 3),
+             "far_owner": ((2.5, 0.5, 0.5, 0.5), 1)}
+
+
+def parity_rebalance_edges(rng):
+    """K18b's rebalance on the card against its plain versions on the same
+    card tensors, bit for bit, at every case of REB_CASES and m of REB_MS
+    (R three records past the largest count): rebalance_local at Dl =
+    REB_D (a LocalMesh) and at Dl = 1 with each shard0 in 0..REB_D - 1
+    (one DistMesh process's view), and at Dl = 1 rebalance_place at every
+    offset of the window; far set exactly where the case has a far owner.
+    {key: max abs err}."""
+    import torch
+
+    from femto_tpu_torch.ops import dist_ops as DO
+
+    errs = {}
+    dev = torch.device("cuda")
+    D = REB_D
+
+    def hold(tag, fk, fp, **kw):
+        got, want = _flat([fk(**kw)]), _flat([fp(**kw)])
+        torch.cuda.synchronize()
+        errs[tag] = max_abs_err(tag, got, want)
+        return want
+
+    def i32(x):
+        return torch.from_numpy(np.asarray(x, np.int32)).to(dev)
+
+    for m in REB_MS:
+        for case, (fracs, W) in REB_CASES.items():
+            vn = (np.asarray(fracs) * m).astype(np.int64)
+            R = int(vn.max()) + 3
+            cols = [i32(rng.integers(-2**31, 2**31 - 1, size=(D, R)))
+                    for _ in range(REB_COLS)]
+            v, base = i32(vn), i32(np.cumsum(vn) - vn)
+            tag = f"rebalance({case}, m={m}, W={W}"
+            far = hold(f"{tag}, Dl {D})", DO.rebalance_local,
+                       DO.rebalance_local_plain, cols=cols, v=v, base=base,
+                       m=m, W=W, shard0=0)[-1]
+            check(bool(far.any()) == (case == "far_owner"),
+                  f"{tag}): far {far.tolist()}")
+            for p in range(D):
+                one = dict(cols=[c[p: p + 1] for c in cols], v=v[p: p + 1],
+                           base=base[p: p + 1], m=m, shard0=p)
+                hold(f"{tag}, Dl 1, shard0 {p})", DO.rebalance_local,
+                     DO.rebalance_local_plain, W=W, **one)
+                for off in range(-W, W + 1):
+                    if off:
+                        hold(f"{tag}, Dl 1, shard0 {p}, offset {off})",
+                             DO.rebalance_place, DO.rebalance_place_plain,
+                             off=off, **one)
+            del cols
+    log(f"    K18b rebalance: the local placement (Dl {D} and Dl 1 at each "
+        f"shard0) and every offset's buffers equal the plain versions at "
+        f"{list(REB_CASES)}, m {REB_MS}")
+    return errs
+
+
+# K18f owner_lf's requests a shard in phase 3's hold of its routes
+OWNER_LF_R = 4096
+
+
+def owner_lf_requests(ix, D, rng, R=OWNER_LF_R):
+    """K18f owner_lf's requests over a sharded row-tier index of D
+    shards: R slots a shard, of in-text rows (from row0 on) of that
+    shard's block -- its last segment's rows, rows of its side and of its
+    continued run-length segments, the rest at random -- with about one
+    slot in 8 invalid (a row of the next shard, which the warp route does
+    not read): (rows int32[D, R], valid uint8[D, R]) on the index's
+    device."""
+    import torch
+
+    seg, n_rows, row0 = ix.meta.seg, ix.meta.n_rows, ix.meta.row0
+    nsl = ix.meta.n_seg // D
+    rps = nsl * seg
+    woff = ix.arrays.seg_woff.cpu().numpy()
+    rows = np.empty((D, R), np.int64)
+    for d in range(D):
+        lo, hi = max(d * rps, row0), min((d + 1) * rps, n_rows)
+        segs = np.arange(d * nsl, (d + 1) * nsl)
+        parts = [np.arange(max(hi - seg, lo), hi)]
+        for kind in (woff[segs] > 0, woff[segs] < -1):
+            pick = segs[kind]
+            if len(pick):
+                r = (pick[rng.integers(0, len(pick), 256)] * seg
+                     + rng.integers(0, seg, 256))
+                parts.append(r[(r >= lo) & (r < hi)])
+        parts.append(rng.integers(lo, hi, R))
+        rows[d] = np.concatenate(parts)[:R]
+    valid = rng.random((D, R)) >= 0.125
+    rows = np.where(valid, rows, (rows + rps) % (D * rps))
+    dev = ix.arrays.bwt.device
+    return (torch.from_numpy(rows.astype(np.int32)).to(dev),
+            torch.from_numpy(valid.astype(np.uint8)).to(dev))
+
+
+def owner_lf_route(arrays, Dl, R):
+    """The route K18f owner_lf takes for Dl x R requests (csrc/
+    dist_query.cu's own choice): ("warp" or "thread", the warp route's
+    shared memory a block in bytes)."""
+    from femto_tpu_torch import kernels
+    from femto_tpu_torch.ops import search_ops as S
+
+    smem = kernels.size("owner_lf_route", S.fm_view(arrays)[0], R, Dl)
+    return ("warp" if smem else "thread"), smem
+
+
+def owner_lf_route_fields(libs, arrays, Dl, R, run, name):
+    """Phase 5's fields of K18f owner_lf's two routes on one call, run()
+    (Dl x R requests): the call as built and sent down the other route by
+    a build of csrc/dist_query.cu (libs: route_libs' of D_ALTERNATIVES),
+    held to each other bit for bit and timed in turns (route_pair), and
+    the other route's own device item (item_fields; the route as built's
+    is the row's, ITEM_ROWS)."""
+    from femto_tpu_torch import kernels
+
+    route, smem = owner_lf_route(arrays, Dl, R)
+    other = D_ALTERNATIVES[route][0]
+
+    def instead():
+        with kernels.variant("dist_query", libs[route]):
+            return run()
+
+    row = route_pair("dist_query", libs[route], run, run(), name, route,
+                     other)
+    row["block_bytes"] = smem
+    # the route as built: the row's kernel_device_ms (ITEM_ROWS)
+    row["other_item_ms"] = item_fields(name, instead,
+                                       None)["kernel_device_ms"]
+    log_route_row(f"{name} at Dl {Dl} x R {R}", row)
+    log(f"      the {other} route's own item: {row['other_item_ms']} ms")
+    return {"owner_lf_routes": row}
+
+
+def parity_owner_lf_routes(mesh, corpora, libs, rng, errs):
+    """Phase 3's hold of K18f owner_lf on both routes on the sharded row
+    tiers (Dl = mesh.D): each corpus (name: (prepared, seg)) built at
+    mark_period 20 and 3, OWNER_LF_R requests a shard (owner_lf_requests:
+    marked and unmarked rows, side and continued segments where the index
+    has them, each shard's last segment, invalid slots), the wrapper as
+    built and each route forced (the builds of csrc/dist_query.cu with
+    D_ALTERNATIVES' flags, through the same wrapper) against the plain
+    version, bit for bit.  {case: route as built, its block's bytes, the
+    answers marked and unmarked, the segments by mode}."""
+    import torch
+
+    from femto_tpu_torch import kernels
+    from femto_tpu_torch.ops import dist_ops as DO
+    from femto_tpu_torch.parallel import build_index_sharded
+
+    rec = {}
+    for cname, (prep, seg) in corpora.items():
+        for period in (20, 3):
+            for tier in ROW_LAYOUTS:
+                ix = build_index_sharded(prep, mesh, seg=seg,
+                                         mark_period=period, tier=tier)
+                A = ix.arrays
+                rows, valid = owner_lf_requests(ix, mesh.D, rng)
+                kw = dict(nseg_local=ix.meta.n_seg // mesh.D, shard0=0)
+                want = DO.owner_lf_plain(A, rows, valid, **kw)
+                key = f"owner_lf[{tier}]({cname} seg {seg}, period {period})"
+                errs[key] = max_abs_err(key, [DO.owner_lf(A, rows, valid,
+                                                          **kw)], [want])
+                for route, lib in libs.items():
+                    with kernels.variant("dist_query", lib):
+                        got = DO.owner_lf(A, rows, valid, **kw)
+                    other = f"{key}, {D_ALTERNATIVES[route][0]} route"
+                    errs[other] = max_abs_err(other, [got], [want])
+                torch.cuda.synchronize()
+                ans = want[valid.bool()]
+                marked, unmarked = int((ans >= 0).sum()), int((ans < 0).sum())
+                check(marked > 0 and unmarked > 0,
+                      f"{key}: {marked} marked and {unmarked} unmarked "
+                      f"answers")
+                route, smem = owner_lf_route(A, *rows.shape)
+                rec[key] = {"route": route, "block_bytes": smem,
+                            "marked": marked, "unmarked": unmarked,
+                            "modes": seg_modes(A.seg_woff)}
+                del ix, A, rows, valid, want, ans
+    log(f"    K18f owner_lf: both routes equal the plain version on the "
+        f"sharded row tiers: {rec}")
+    return rec
+
+
 # phase 3's edge shapes of K18b's prefix and add (parity_k18b_edges): the
 # columns, the rows a shard and the (local shards, first shard) of a mesh
 # of K18B_D shards
@@ -6084,12 +6312,16 @@ def parity_bucket_pack_edges(rng):
     return errs
 
 
-def parity_sharded(rng, docs, prepared, sa, errs, k18a_builds=None):
+def parity_sharded(rng, docs, prepared, sa, errs, k18a_builds=None,
+                   prose=None, lf_builds=None):
     """Phase 3's K18 checks on the 8 MiB corpus at D = SHARD_D on a
     LocalMesh: each K18 kernel against its plain version on the card at a
     sharded build's own inputs, bucket_pack also with a forced overflow
-    and a pair-concentrated dest; K18f on the full, compact and packed
-    sharded indexes; the whole full-tier sharded build on the card against
+    and a pair-concentrated dest, the rebalance at crafted counts
+    (parity_rebalance_edges); K18f on the full, compact and packed
+    sharded indexes, and owner_lf's two routes on the row tiers of this
+    corpus and of the prose (parity_owner_lf_routes, with lf_builds: the
+    other-route builds of csrc/dist_query.cu); the whole full-tier sharded build on the card against
     the same build on the CPU (every FMArrays block, meta and
     LAST_BUILD_STATS), dist_suffix_array's SA against the single-device
     suffix array, and count and locate of both schemes against the
@@ -6121,6 +6353,7 @@ def parity_sharded(rng, docs, prepared, sa, errs, k18a_builds=None):
     # routes, where the other-route builds are given)
     errs.update(parity_k18b_edges(rng))
     errs.update(parity_bucket_pack_edges(rng))
+    errs.update(parity_rebalance_edges(rng))
     if k18a_builds is not None:
         for route, lib in route_libs(k18a_builds, "exchange").items():
             with kernels.variant("exchange", lib):
@@ -6182,6 +6415,10 @@ def parity_sharded(rng, docs, prepared, sa, errs, k18a_builds=None):
             errs[f"{name}[{tier}]"] = max_abs_err(f"{name} ({tier})", got,
                                                   want)
     del ix, single
+    rec["owner_lf_routes"] = (parity_owner_lf_routes(
+        card, {"zipf": (prepared, 256), "prose": (prose, PROSE_SEG)},
+        route_libs(lf_builds, "dist_query"), rng, errs)
+        if lf_builds is not None else "not run")
     rec["rows"] = parity_sharded_rows(card, cpu, prepared, rng, errs)
     rec["seconds"] = time.perf_counter() - t0
     log(f"    K18: every sharded kernel equals its plain version at D={D}; "
@@ -6401,7 +6638,7 @@ def check_doc_lists(ix, mesh, rng, n, doc_starts):
     return int(cd.shape[0])
 
 
-def phase_sharded(record, rng, st):
+def phase_sharded(record, rng, st, builds=None):
     """Phase 4h, the sharded index on a LocalMesh of SHARD_D shards on one
     card at full size: phase 4's corpus built in all five tiers (vrle with
     doc lists), each held to phase 4's single-device index (the SA of the
@@ -6593,12 +6830,22 @@ def phase_sharded(record, rng, st):
     # then the build kernels at this corpus's shapes
     log("[5] the sharded path's kernels (D=4 on phase 4's corpus):")
     rows5 = []
+    lf_libs = (route_libs(builds["dist_query"], "dist_query")
+               if builds is not None else None)
+    B5 = 2 * len(patterns) // D
     for tier, ix in indexes.items():
         for name, (run_k, run_p, nbytes) in sharded_query_cases(
-                ix, mesh, rng, 2 * len(patterns) // D).items():
+                ix, mesh, rng, B5).items():
             key = f"{name}[{tier}]"
+            more = None
+            if name == "owner_lf" and tier in ROW_LAYOUTS and lf_libs:
+                # both routes at the locate's lane counts (seg 256: the
+                # thread route by the limit)
+                more = (lambda ix=ix, run_k=run_k, key=key:
+                        owner_lf_route_fields(lf_libs, ix.arrays, D, B5,
+                                              run_k, key))
             rows5.append(timed_row(key, "sharded", launches[key], run_k,
-                                   run_p, nbytes, card))
+                                   run_p, nbytes, card, more=more))
     # the sharded_query path's masked_occ on the zipf full and packed
     # indexes (bench.py's regexes above; the row tiers' rows are at the
     # prose's widest layer, in the query part)
@@ -6677,13 +6924,20 @@ def phase_sharded(record, rng, st):
     for tier in ("full", "vrle"):
         counts = {}
         l_calls = {}
+        sorts = []
 
         def build():
             kernels.reset_launches()
             l_calls.clear()
-            with l_call_sizes(l_calls):
-                build_index_sharded(prepared, mesh, seg=256, mark_period=20,
-                                    tier=tier)
+            sorts.clear()
+            sort = DB.dist_sort
+            DB.dist_sort = lambda *a, **k: sorts.append(1) or sort(*a, **k)
+            try:
+                with l_call_sizes(l_calls):
+                    build_index_sharded(prepared, mesh, seg=256,
+                                        mark_period=20, tier=tier)
+            finally:
+                DB.dist_sort = sort
             counts.clear()
             counts.update({k: v for k, v in kernels.launches.items() if v})
 
@@ -6704,10 +6958,25 @@ def phase_sharded(record, rng, st):
                                f"{k[3]} B": c
                                for k, c in sorted(l_calls.items())}}
         log(f"[6] sharded {tier} build: L {entry['L']}")
+        # the rebalance: one launch a sort on the LocalMesh, and the torch
+        # fills, rolls and wheres left in the build
+        check(counts.get("rebalance_local", 0) == len(sorts)
+              and not counts.get("rebalance_place"),
+              f"sharded {tier} build: {counts.get('rebalance_local', 0)} / "
+              f"{counts.get('rebalance_place', 0)} rebalance launches "
+              f"(local / offset) for {len(sorts)} dist_sort calls")
+        entry["rebalance"] = {
+            "sorts": len(sorts),
+            "launches": counts.get("rebalance_local", 0),
+            "ms": entry.get("by_port_kernel_ms", {}).get(
+                "rebalance_kernel", "not measured"),
+            "torch_items": torch_items_by_kind(entry)}
+        log(f"[6] sharded {tier} build: rebalance {entry['rebalance']}")
         log(f"[6] sharded {tier} build launched "
             + ", ".join(f"{k} {counts.get(k, 0)}"
                         for k in ("bucket_pack", "mesh_exclusive",
-                                  "add_mesh_base", "add_base")))
+                                  "add_mesh_base", "add_base",
+                                  "rebalance_local")))
     record["sharded_path"] = {
         "D": D, "mib": MAIN_MIB, "n": n, "tiers": rec,
         "twin_stats": twin_stats,
@@ -6718,6 +6987,25 @@ def phase_sharded(record, rng, st):
     return {"launches": launches, "query_launches": q_launches,
             "zipf_regex": zipf_regex, "prose": prose, "kernel_rows": rows5,
             "profile": prof}
+
+
+# phase 6's PyTorch device items of a sharded build by kind (the name a
+# kernel of that kind carries): what the per-offset rebalance's buffers
+# cost as fills, rolls and wheres, beside the copies
+TORCH_ITEM_KINDS = {"fill": "FillFunctor", "roll": "roll_cuda_kernel",
+                    "where": "where_kernel_impl",
+                    "copy": "direct_copy_kernel"}
+
+
+def torch_items_by_kind(entry):
+    """{kind: {"ms", "calls"}} of a profiled step's items outside the
+    port's kernels (profile_step's outside_port_kernels) by
+    TORCH_ITEM_KINDS."""
+    items = entry.get("outside_port_kernels", [])
+    return {kind: {"ms": sum(o["ms"] for o in items if tag in o["op"]),
+                   "calls": sum(o["calls"] for o in items
+                                if tag in o["op"])}
+            for kind, tag in TORCH_ITEM_KINDS.items()}
 
 
 # lanes a plain row-tier decode takes at once in phase 5's rows at the
@@ -6770,7 +7058,10 @@ def owner_case(name, a, kw):
                  .sum()) if r.numel() else 0)
     nbytes = (13 if name == "owner_occ" else 17) * rows.numel() + lanes
     fk, fp = getattr(DO, name), getattr(DO, name + "_plain")
-    return (lambda: [fk(*a, **kw)], lambda: [fp(*a, **kw)], nbytes, None)
+    # the routed locate passes owner_lf its view of the index (the lean
+    # call); the plain version takes none
+    kwp = {k: v for k, v in kw.items() if k != "view"}
+    return (lambda: [fk(*a, **kw)], lambda: [fp(*a, **kwp)], nbytes, None)
 
 
 def bound_fork_ranked(n_live, nd, E):
@@ -6917,8 +7208,11 @@ def phase_sharded_query(record, rng, st4, st8, builds=None):
         log(f"    the sharded prose {tier} {q!r} widest layer: "
             f"{layer[tier]}")
     # the routed exchanges and owner answers at a docs query's shapes:
-    # each kernel's first call in the query, stopped there
+    # each kernel's first call in the query, stopped there; owner_lf on
+    # both routes (the warp route as built at seg PROSE_SEG)
     bq = PROSE_QUERIES["and"][0]
+    lf_libs = (route_libs(builds["dist_query"], "dist_query")
+               if builds is not None else None)
     for tier, tix in indexes.items():
         def docs(tix=tix):
             sharded_docs_query(tix, mesh, bq)
@@ -6937,13 +7231,19 @@ def phase_sharded_query(record, rng, st4, st8, builds=None):
                                              case["nbytes"], case["library"])
             else:
                 run_k, run_p, nbytes, lib = owner_case(name, a, kw)
+            more = None
+            if name == "owner_lf" and lf_libs:
+                more = (lambda a=a, run_k=run_k, key=key:
+                        owner_lf_route_fields(lf_libs, a[0], *a[1].shape,
+                                              run_k, key))
             rows5.append(timed_row(key, "sharded_query", q_launches[key],
                                    run_k, run_p, nbytes, card, library=lib,
                                    library_full=case["library_full"],
-                                   extra=case["extra"]))
+                                   extra=case["extra"], more=more))
     del indexes, ix, tix
     # bucket_pack's two routes on this path's own calls
-    routes = (k18a_route_rows(builds, k18a) if builds is not None
+    routes = (k18a_route_rows(builds["exchange"], k18a)
+              if builds is not None
               else "not measured")
     del k18a
     ckpt = checkpoint_pass(mesh)
@@ -7935,12 +8235,12 @@ def main(argv=None):
         st5 = phase(phase_chunked, rng)
         st = phase(phase_main, rng)
         # the sharded path next, while the card holds phase 4's index only
-        st8 = phase(phase_sharded, rng, st)
+        st8 = phase(phase_sharded, rng, st, builds)
         st2 = phase(phase_tiers, rng, st)
         st3 = phase(phase_rows, rng, st, st2)
         st4 = phase(phase_query, rng, st, st2, st3)
         # the sharded query engine, held to phase 4d's answers
-        st9 = phase(phase_sharded_query, rng, st4, st8, builds["exchange"])
+        st9 = phase(phase_sharded_query, rng, st4, st8, builds)
         st6 = phase(phase_paged, rng, st, st3, st4, builds)
         st7 = phase(phase_lcp, rng, st, st3)
         own = (st5, st6, st7, st8, st9)

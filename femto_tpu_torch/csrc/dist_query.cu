@@ -32,9 +32,26 @@
 // checkpoint ride its serving row, and mark_ckpt int32[Dl] holds each
 // local shard's global mark base (femto_tpu's grank - mark_ckpt[0]).
 //
+// owner_lf on vseg and vrle takes kernel D's warp route (fm_common.cuh) up
+// to the same limit on the number of requests (Dl x R slots) as D's
+// locate: a warp a request, which fetches the serving row with its marks
+// once (one dependent round trip; two on a side segment or a continued
+// run-length segment that misses its mark), then answers from shared
+// memory.  A warp reads the flags and rows of two slots at once and
+// answers the valid ones (kLfSlots below); an invalid slot gets its 0 and
+// no row is read for it.  Past the limit, and on full, compact and packed,
+// a thread a request, which scans the row prefix a field at a time and
+// walks a run-length segment's slots a load after the last.  masked_lf
+// keeps a thread a request.
+//
 // Bound on the H100: bytes of dependent gathers, as kernels C and D: per
 // request the checkpoint and the counted row prefix (plus, for LF, the
 // code and the segment's mark words and two or three mark_vals words).
+// The warp route moves more: each valid request's whole row from its
+// symbol list on (symbols, mark words, relative checkpoints) and its L1
+// row, in one round trip.  A prose docs query's first call holds 48,060
+// slots a shard, a sixth of them valid, so there the warp route meets the
+// bytes of its fetches and the thread route its chains of loads.
 #include "fm_common.cuh"
 
 namespace {
@@ -258,6 +275,60 @@ __global__ void owner_lf_kernel(FmView ix, long long nseg_local, int shard0,
   out[k] = res;
 }
 
+// Slots a warp of owner_lf's warp route.  The routed locate's calls hold
+// about six capacity slots a valid request, in runs (each bucket's
+// requests first): a warp a slot spends most warps on slots that hold
+// none, and a warp of many slots answers a run of valid ones one after
+// another.  Two slots a warp read their flags and rows in one round trip.
+constexpr int kLfSlots = 2;
+
+// owner_lf_kernel's requests on vseg and vrle, a warp a request: warp w
+// takes slots k = w * kLfSlots .. of the Dl x R (slot k = d * R + i), their
+// valid flags and rows a lane a slot, writes 0 to the invalid ones, then
+// for each valid one fetches the serving row in shard d's view with its
+// marks once and answers the mark value or -1 - LF from it.  C is read
+// from global memory: a request reads one entry of it, so no block copies
+// it into shared memory.
+template <int L>
+__global__ void __launch_bounds__(femto::kWarpWalks * 32) owner_lf_warp_kernel(
+    FmView ix, long long nseg_local, int shard0, int Dl,
+    const int* __restrict__ rows, const unsigned char* __restrict__ valid,
+    long long R, Marks mk, int* __restrict__ out, int buf_words) {
+  extern __shared__ unsigned smem[];
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  const long long n = R * Dl;
+  const long long k0 =
+      (static_cast<long long>(blockIdx.x) * (blockDim.x >> 5) + warp) *
+      kLfSlots;
+  if (k0 >= n) return;
+  const long long kl = k0 + lane;
+  const bool here = lane < kLfSlots && kl < n;
+  const bool mine = here && valid[kl];
+  const int my_row = mine ? rows[kl] : 0;
+  if (here && !mine) out[kl] = 0;
+  unsigned* buf = smem + warp * buf_words;
+  for (unsigned todo = __ballot_sync(femto::kAllLanes, mine); todo != 0;
+       todo &= todo - 1) {
+    const int j = __ffs(todo) - 1;
+    const long long k = k0 + j;
+    const int d = static_cast<int>(k / R);
+    const long long r = __shfl_sync(femto::kAllLanes, my_row, j);
+    long long sl =
+        r / ix.seg - (static_cast<long long>(shard0) + d) * nseg_local;
+    sl = min(max(sl, 0LL), nseg_local - 1);
+    // the row in the shard's view: its segment there, its offset in it
+    long long rv = sl * ix.seg + r % ix.seg;
+    int g, res;
+    if (femto::warp_locate_row<L>(shard_view<L>(ix, d, Dl, nseg_local), &rv,
+                                  true, lane, ix.C, buf, &g))
+      res = mark_offset(mk.vals + d * mk.store_len, mk.store_len, mk.meta,
+                        g - __ldg(mk.ckpt + d));
+    else
+      res = static_cast<int>(-1 - rv);  // 0 on a pad row (LF -1)
+    if (lane == 0) out[k] = res;
+  }
+}
+
 template <int L>
 __global__ void masked_lf_kernel(FmView ix, long long nseg_local, int shard0,
                                  const int* __restrict__ rows, long long B,
@@ -283,6 +354,30 @@ __global__ void masked_lf_kernel(FmView ix, long long nseg_local, int shard0,
 dim3 grid_of(long long n, int Dl) {
   return dim3(static_cast<unsigned>((n + 255) / 256),
               static_cast<unsigned>(Dl));
+}
+
+// The route of an owner_lf call of Dl x R slots (warp_route_smem on the
+// view of one shard, whose side table and continuation store hold n_side
+// / Dl and X / Dl rows): the warp route's dynamic shared memory a block in
+// bytes with *buf_words a warp's share, 0 on the thread route (full,
+// compact and packed always).
+long long owner_lf_smem(const FmView& ix, long long R, int Dl,
+                        int* buf_words) {
+  *buf_words = 0;
+  if ((ix.layout != femto::kVseg && ix.layout != femto::kVrle) || Dl < 1)
+    return 0;
+  FmView v = ix;
+  v.n_side = ix.n_side / Dl;
+  if (ix.ngr > 0) v.X = ix.X / Dl;
+  const long long B = R * Dl;
+  if (femto::warp_route_smem(v, B < INT32_MAX ? static_cast<int>(B)
+                                              : INT32_MAX,
+                             false, buf_words) == 0)
+    return 0;
+  // the warps' buffers alone (C stays in global memory)
+  const long long warps = (B + kLfSlots - 1) / kLfSlots;
+  return 4ll * (warps < femto::kWarpWalks ? warps : femto::kWarpWalks) *
+         *buf_words;
 }
 
 }  // namespace
@@ -319,7 +414,8 @@ extern "C" int femto_masked_occ(const FmView* ix, long long nseg_local,
   });
 }
 
-// rows int32[Dl, R], valid uint8[Dl, R] -> out int32[Dl, R].
+// rows int32[Dl, R], valid uint8[Dl, R] -> out int32[Dl, R].  The route
+// by owner_lf_smem.
 extern "C" int femto_owner_lf(const FmView* ix, long long nseg_local,
                               int shard0, const void* rows,
                               const void* valid, long long R, int Dl,
@@ -333,13 +429,37 @@ extern "C" int femto_owner_lf(const FmView* ix, long long nseg_local,
                     static_cast<const unsigned*>(mark_vals), mv_len / Dl,
                     static_cast<const int*>(mark_meta)};
   cudaStream_t st = static_cast<cudaStream_t>(stream);
+  int buf_words = 0;
+  const long long smem = owner_lf_smem(*ix, R, Dl, &buf_words);
   return femto::dispatch_layout(*ix, [&](auto lay) {
     constexpr int L = decltype(lay)::value;
+    if constexpr (femto::is_row<L>()) {
+      if (smem > 0) {
+        femto::launch_warps(owner_lf_warp_kernel<L>,
+                            static_cast<int>((R * Dl + kLfSlots - 1) /
+                                             kLfSlots),
+                            smem, st, *ix,
+                            nseg_local, shard0, Dl,
+                            static_cast<const int*>(rows),
+                            static_cast<const unsigned char*>(valid), R, mk,
+                            static_cast<int*>(out), buf_words);
+        return;
+      }
+    }
     owner_lf_kernel<L><<<grid_of(R, Dl), 256, 0, st>>>(
         *ix, nseg_local, shard0, static_cast<const int*>(rows),
         static_cast<const unsigned char*>(valid), R, mk,
         static_cast<int*>(out));
   });
+}
+
+// The route an owner_lf call of Dl x R slots on the view takes
+// (owner_lf_smem): the warp route's dynamic shared memory a block in
+// bytes, 0 on the thread route.
+extern "C" long long femto_owner_lf_route(const FmView* ix, long long R,
+                                          int Dl) {
+  int buf_words = 0;
+  return owner_lf_smem(*ix, R, Dl, &buf_words);
 }
 
 // rows int32[B] (replicated) -> out int32[Dl, B].

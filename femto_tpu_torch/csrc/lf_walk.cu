@@ -71,9 +71,22 @@
 // mark_vals words.  chip_smoke.py sums those over this run's steps and
 // divides by 3.35 TB/s; the walk itself is a chain of dependent loads, so
 // latency, not bandwidth, is what this kernel meets.
+//
+// The row tiers' warp step and the route rule live in fm_common.cuh,
+// which csrc/dist_query.cu's owner_lf shares.
 #include "fm_common.cuh"
 
 namespace {
+
+using femto::block_load_c;
+using femto::kWarpWalks;
+using femto::launch_warps;
+using femto::RowFetch;
+using femto::warp_buf_start;
+using femto::warp_locate_row;
+using femto::warp_route_smem;
+using femto::warp_row_fetch;
+using femto::warp_row_lf;
 
 // One LF step from row r: LF(r) = C[c] + occ(c, r) with c = the code at r.
 // Returns -1 (and leaves *code the pad code) on a pad row.
@@ -187,8 +200,6 @@ __global__ void lf_extract_kernel(femto::FmView ix,
 
 // ---- the warp route of extract: one warp a walk ----
 
-// walks (warps) a block on the warp route
-constexpr int kWarpWalks = 4;
 // 16-B chunks (full, compact) or words (packed) of the counted prefix a
 // lane loads at once: one round for segments up to 2048 symbols
 constexpr int kLaneChunks = 8;
@@ -282,155 +293,6 @@ __device__ __forceinline__ long long warp_step_fixed(const femto::FmView& ix,
   return static_cast<long long>(Cs[c]) + base + cnt;
 }
 
-// Words of the warp route's shared-memory stream area on a row tier: the
-// code area with its continuation granules (vrle) or a side row, the
-// larger.
-__host__ __device__ __forceinline__ int row_stream_words(
-    const femto::FmView& ix) {
-  const int code = ix.code_words + (ix.layout == femto::kVrle
-                                        ? ix.ngr * ix.G : 0);
-  return code > ix.side_words ? code : ix.side_words;
-}
-
-// A warp's shared-memory buffer on a row tier, in words: the stream area,
-// then the serving row from its symbol list to its end (the symbol list,
-// the mark words, the mark checkpoint and the relative checkpoints, at
-// their row offsets less off_syms).
-__host__ __device__ __forceinline__ int row_buf_words(
-    const femto::FmView& ix) {
-  return row_stream_words(ix) + ix.row_words - ix.off_syms;
-}
-
-// What one warp step fetched of row r's segment s (warp_row_fetch): the
-// row's offset in it, its side or run-length word, its symbol count and
-// the segment's L1 checkpoint row (entry k in lane k % 32's l1[k / 32]).
-struct RowFetch {
-  long long s;
-  int off, woff, nsym;
-  int l1[femto::kRowRegs];
-};
-
-// The first round trip of a warp step from row r on vseg or vrle: every
-// load that depends only on the row, issued at once -- the L1 row into
-// registers, seg_woff and seg_nsym, and by cp.async into buf the code area
-// (vrle: all of it, as a run-length segment is read by a walk over its
-// slots; vseg: the prefix up to off's word), the symbol list and the
-// relative checkpoints and, when `marks`, the mark words and the mark
-// checkpoint between them (then the row from off_syms on is one
-// contiguous copy) -- then waited for.
-template <int L>
-__device__ __forceinline__ void warp_row_fetch(const femto::FmView& ix,
-                                               long long r, bool marks,
-                                               int lane, unsigned* buf,
-                                               RowFetch& f) {
-  // rows lie below 2^31: a 32-bit division, 64-bit offsets after it
-  const unsigned su =
-      static_cast<unsigned>(r) / static_cast<unsigned>(ix.seg);
-  f.off = static_cast<int>(static_cast<unsigned>(r) -
-                           su * static_cast<unsigned>(ix.seg));
-  f.s = su;
-  unsigned* tail = buf + row_stream_words(ix);
-  __syncwarp();  // the last step's reads of buf are done
-  const unsigned* row = femto::row_of(ix, f.s);
-  f.woff = __ldg(ix.seg_woff + f.s);
-  f.nsym = 0;
-  if constexpr (L == femto::kVrle) f.nsym = __ldg(ix.seg_nsym + f.s);
-  femto::warp_row_regs(ix.occ_l1 + (f.s / ix.grp) * ix.K, ix.K, lane, f.l1);
-  const int ncode = L == femto::kVrle ? ix.code_words
-                                      : f.off / (32 / ix.w_main) + 1;
-  femto::warp_copy_words(buf, row, ncode, lane);
-  if (marks) {
-    femto::warp_copy_words(tail, row + ix.off_syms,
-                           ix.row_words - ix.off_syms, lane);
-  } else {
-    femto::warp_copy_words(tail, row + ix.off_syms, ix.off_mk - ix.off_syms,
-                           lane);
-    femto::warp_copy_words(tail + (ix.off_rel - ix.off_syms),
-                           row + ix.off_rel, ix.row_words - ix.off_rel,
-                           lane);
-  }
-  femto::cp_async_wait_warp();
-}
-
-// The mark bit of the fetched row (warp_row_fetch with marks) and, when
-// set, its mark rank: the mark checkpoint, the popcounts of the segment's
-// earlier mark words (a word a lane, then a warp sum) and of the bits
-// below it in its own word.  Every lane returns the same.
-__device__ __forceinline__ bool warp_row_mark(const femto::FmView& ix,
-                                              const unsigned* buf,
-                                              const RowFetch& f, int lane,
-                                              int* grank) {
-  const unsigned* tail = buf + row_stream_words(ix);
-  const unsigned* words = tail + (ix.off_mk - ix.off_syms);
-  const int wl = f.off >> 5;
-  const unsigned w = words[wl];
-  const unsigned bit = static_cast<unsigned>(f.off & 31);
-  if (!((w >> bit) & 1u)) return false;
-  int g = 0;
-  for (int k = lane; k < wl; k += 32) g += __popc(words[k]);
-  g = __reduce_add_sync(femto::kAllLanes, g);
-  *grank = g + static_cast<int>(tail[ix.off_mck - ix.off_syms]) +
-           __popc(w & ((1u << bit) - 1u));
-  return true;
-}
-
-// The LF step from the fetched row: LF(r) = C[c] + occ(c, r), the count of
-// the row's own (local) code as lf_step's, decoded and counted from buf
-// (a side segment first copies its side row, a continued run-length
-// segment its ngr granule rows: the second round trip, addresses from
-// seg_woff); *code the dense code, -1 on a pad row.  Cs: C in shared
-// memory.
-template <int L>
-__device__ __forceinline__ long long warp_row_lf(const femto::FmView& ix,
-                                                 const RowFetch& f, int lane,
-                                                 const int* Cs,
-                                                 unsigned* buf, int* code) {
-  const unsigned* tail = buf + row_stream_words(ix);
-  const int off = f.off, woff = f.woff;
-  int lc, cnt;
-  if (woff > 0) {
-    // a side segment: its global codes in the side table
-    femto::warp_copy_words(buf, femto::side_of(ix, woff),
-                           off / (32 / ix.w_side) + 1, lane);
-    femto::cp_async_wait_warp();
-    lc = femto::smem_field(buf, ix.w_side, off);
-    cnt = femto::warp_swar_count(buf, ix.w_side, lc, off, lane);
-  } else if (L == femto::kVrle && woff < 0) {
-    // a run-length segment; continued (woff < -1): its ngr granule rows
-    // after the code area, read as SlotStream reads them.  A segment
-    // without a continuation holds its whole stream in the code area, so
-    // its walk stops there.
-    int nwords = ix.code_words;
-    if (woff < -1 && ix.ngr > 0) {
-      const long long g0 = static_cast<long long>(-woff - 2) / ix.G;
-      const long long g = min(g0, ix.X - 1);
-      const int total = ix.ngr * ix.G;
-      for (int t = lane; t < total; t += 32) {
-        const int i = t / ix.G;
-        femto::cp_async4(buf + ix.code_words + t,
-                         ix.seg_cont + min(g + i, ix.X - 1) * ix.G +
-                             (t - i * ix.G));
-      }
-      femto::cp_async_wait_warp();
-      nwords += total;
-    }
-    femto::warp_slots(buf, nwords, f.nsym, off, lane, &lc, &cnt);
-  } else {
-    lc = femto::smem_field(buf, ix.w_main, off);
-    cnt = femto::warp_swar_count(buf, ix.w_main, lc, off, lane);
-  }
-  int c = lc;
-  if (woff <= 0) {
-    const int k = min(max(lc, 0), ix.S - 1);
-    c = ix.wide ? static_cast<int>((tail[k >> 1] >> ((k & 1) * 16)) & 0xFFFFu)
-                : static_cast<int>((tail[k >> 2] >> ((k & 3) * 8)) & 0xFFu);
-  }
-  *code = c;
-  if (c >= ix.K) return -1;
-  const unsigned w = tail[(ix.off_rel - ix.off_syms) + (c >> 1)];
-  return static_cast<long long>(Cs[c]) + femto::warp_pick(f.l1, c) +
-         static_cast<int>((w >> ((c & 1) * 16)) & 0xFFFFu) + cnt;
-}
 
 // One LF step from row r on vseg or vrle, by the whole warp (extract's
 // step): one fetch without the marks, then the count.  buf: the warp's
@@ -446,45 +308,6 @@ __device__ __forceinline__ long long warp_step_row(const femto::FmView& ix,
   return warp_row_lf<L>(ix, f, lane, Cs, buf, code);
 }
 
-// One locate step from row r >= 0 on vseg or vrle, by the whole warp (the
-// thread route's row_mark, then lf_step): one fetch with the marks; true,
-// with *grank its mark rank, where r is marked; else, when `step`, *r
-// becomes LF(r) (-1 on a pad row) from the same fetch.
-template <int L>
-__device__ __forceinline__ bool warp_locate_row(const femto::FmView& ix,
-                                                long long* r, bool step,
-                                                int lane, const int* Cs,
-                                                unsigned* buf, int* grank) {
-  RowFetch f;
-  warp_row_fetch<L>(ix, *r, true, lane, buf, f);
-  if (warp_row_mark(ix, buf, f, lane, grank)) return true;
-  if (step) {
-    int c;
-    *r = warp_row_lf<L>(ix, f, lane, Cs, buf, &c);
-  }
-  return false;
-}
-
-// The warp route's dynamic shared memory, in words from its start: C
-// (K + 1 ints), alpha_rev (K ints, read by extract when the index is
-// remapped), then row_buf_words words a warp on the row tiers.
-__host__ __device__ __forceinline__ int warp_buf_start(
-    const femto::FmView& ix) {
-  return 2 * ix.K + 1;
-}
-
-// C into shared memory (and alpha_rev, when `rev` and the index is
-// remapped), by the whole block.
-__device__ __forceinline__ void block_load_c(const femto::FmView& ix,
-                                             unsigned* smem, bool rev) {
-  int* Cs = reinterpret_cast<int*>(smem);
-  for (int i = threadIdx.x; i <= ix.K; i += blockDim.x)
-    Cs[i] = __ldg(ix.C + i);
-  if (rev && ix.alpha_rev != nullptr)
-    for (int i = threadIdx.x; i < ix.K; i += blockDim.x)
-      Cs[ix.K + 1 + i] = __ldg(ix.alpha_rev + i);
-  __syncthreads();
-}
 
 // lf_extract_kernel's walks, a warp each (blockDim.x / 32 walks a block).
 template <int L>
@@ -554,70 +377,6 @@ __global__ void __launch_bounds__(kWarpWalks * 32) lf_locate_warp_kernel(
   if (lane == 0) out[b] = result;
 }
 
-// The largest batch that takes the warp route on an index.  Builds with
-// -DFEMTO_D_WARP_MAX=0 (every call a thread a walk) or 0x7fffffff (every
-// call a warp a walk) let chip_smoke.py hold each route against the other.
-#ifndef FEMTO_D_WARP_MAX
-#define FEMTO_D_WARP_MAX -1
-#endif
-// chip_d_routes.py (H100): on full, compact and packed the thread route
-// draws level at 8192 walks of 32 steps and leads from 16384 (it moves a
-// row prefix a step, the warp route a checkpoint row and the prefix in
-// whole chunks).  On vseg and vrle the thread route's step scans the row
-// prefix a field at a time and walks a run-length segment's slots a load
-// after the last, so it costs more the longer the segment and where side
-// or continued run-length segments exist; the warp route's step is one
-// round trip.  Extract, locate and the paged step cross at about the same
-// B: zipf text (neither kind of segment) near 8192 walks at seg 256,
-// 131,072 at seg 1024 and 2^19 at seg 2048; English prose (side
-// segments; vrle also continued ones) at 4 and 8 times those, past 2^20
-// at seg 2048.  Hence kWarpMaxFixed x (seg / 256)^2, 4 times that with
-// side or continued segments, 8 times with continued ones.
-constexpr int kWarpMaxFixed = 8192;
-
-int warp_route_max(const femto::FmView& ix) {
-  if (FEMTO_D_WARP_MAX >= 0) return FEMTO_D_WARP_MAX;
-  if (ix.layout != femto::kVseg && ix.layout != femto::kVrle)
-    return kWarpMaxFixed;
-  const bool cont = ix.ngr > 0, side = ix.n_side > 1;
-  const double r = ix.seg / 256.0;
-  const double max = kWarpMaxFixed * r * r * (cont ? 8 : side ? 4 : 1);
-  return max < 0x7fffffff ? static_cast<int>(max) : 0x7fffffff;
-}
-
-// The route of a call of B walks, one rule for the three entries:
-// extract on every layout, locate and the paged step on vseg and vrle (on
-// full, compact and packed locate keeps a thread a walk).  The warp
-// route's block holds min(B, kWarpWalks) warps; returns its dynamic
-// shared memory in bytes, with *buf_words each warp's share (0 on full,
-// compact and packed), or 0 where the call takes the thread route: past
-// warp_route_max, where a checkpoint row does not fit the warp's
-// registers, or where the block's shared memory would not fit an SM.
-long long warp_route_smem(const femto::FmView& ix, int B, bool extract,
-                          int* buf_words) {
-  const bool row = ix.layout == femto::kVseg || ix.layout == femto::kVrle;
-  *buf_words = row ? row_buf_words(ix) : 0;
-  const int walks = B < kWarpWalks ? B : kWarpWalks;
-  const long long bytes =
-      4ll * (warp_buf_start(ix) + static_cast<long long>(walks) * *buf_words);
-  const bool warp = B > 0 && (extract || row) &&
-                    B <= warp_route_max(ix) &&
-                    ix.K <= 32 * femto::kRowRegs && bytes <= 227 * 1024;
-  return warp ? bytes : 0;
-}
-
-// Launch `kernel` on the warp route: blocks of min(B, kWarpWalks) warps
-// with `bytes` of dynamic shared memory (opted in past 48 KiB).
-template <class K, class... A>
-void launch_warps(K kernel, int B, long long bytes, cudaStream_t st,
-                  A... args) {
-  const int walks = B < kWarpWalks ? B : kWarpWalks;
-  if (bytes > 48 * 1024)
-    cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
-                         static_cast<int>(bytes));
-  kernel<<<(B + walks - 1) / walks, walks * 32, static_cast<size_t>(bytes),
-           st>>>(args...);
-}
 
 // The mark bit of row r in a row tier's serving row and, when set, its mark
 // rank (the checkpoint + popcounts of the segment's earlier mark words).

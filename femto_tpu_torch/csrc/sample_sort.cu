@@ -1,29 +1,41 @@
 // Kernel K18b, the sample sort's and the mesh prefix's device side:
-// splitter_bucket, rebalance_place, mesh_exclusive, add_base and
-// add_mesh_base.
+// splitter_bucket, rebalance_local and rebalance_place (one kernel),
+// mesh_exclusive, add_base and add_mesh_base.
 //
 // Replaces (femto_tpu/parallel/dist_sort.py): _bucket_of (40), the
 // [m, D-1] compare-and-sum of every key against every splitter, with one
 // binary search per key tuple among the sorted splitters; and dist_sort's
-// windowed rebalance (51, lines 120-141), whose per-offset masked scatters
+// windowed rebalance (51, lines 112-146), whose per-offset masked scatters
 // place each received element at global position base + i into the block
-// of its owner shard me + off.  mesh_exclusive replaces the exclusive
-// prefix over the mesh of per-shard values (dist_build.py _exclusive_base
-// 88, _group_state's carry 195): every shard's row arrives by the mesh's
-// all_gather, and one block sums (or takes the largest of) the rows of the
-// shards before each local shard.  add_base adds a base to a shard's
-// checkpoints, given; add_mesh_base (its own entry, the same kernel) sums
-// the base from the mesh's gathered totals, so that the prefix and the add
-// are one launch (_shard_occ_base's base and C 1030-1041 on occ_ckpt or
-// the L1 rows, _shard_marks' mark base 1069-1075 on mark_ckpt): each block
-// sums its shard's base from the gathered rows itself, one block scans C.
-// The local sorts and the sample and splitter gathers are kernels H and
-// L.  The shard dimension is blockIdx.y.
+// of its owner shard me + off, a ppermute and a where an offset.  The
+// rebalance kernel computes it by destination, each place of a block
+// written once: in one launch a call (rebalance_local), every block whose
+// owner shard is a local one, each place from the first local shard within
+// the window whose records cover it, INT32_MAX where none does (on a
+// LocalMesh, where every shard is local, that is the whole rebalance: no
+// buffer, roll or where); or (rebalance_place) one offset's buffer and
+// flags, for owners in another process, which the mesh's ppermute and a
+// where then merge as before.  A shard's records in a block lie between
+// two cut points (k * m - base[d] and the next), so no place or record
+// needs a division.  mesh_exclusive replaces the exclusive prefix over the
+// mesh of per-shard values (dist_build.py _exclusive_base 88,
+// _group_state's carry 195): every shard's row arrives by the mesh's
+// all_gather, and one block sums (or takes the largest of) the rows of
+// the shards before each local shard.  add_base
+// adds a base to a shard's checkpoints, given; add_mesh_base (its own
+// entry, the same kernel) sums the base from the mesh's gathered totals,
+// so that the prefix and the add are one launch (_shard_occ_base's base
+// and C 1030-1041 on occ_ckpt or the L1 rows, _shard_marks' mark base
+// 1069-1075 on mark_ckpt): each block sums its shard's base from the
+// gathered rows itself, one block scans C.  The local sorts and the
+// sample and splitter gathers are kernels H and L.  The shard dimension
+// is blockIdx.y.
 //
 // Bound on the H100 (3.35 TB/s): bytes.  splitter_bucket reads nk keys and
-// writes one int per element (the D-1 splitters stay in L1);
-// rebalance_place reads the received columns and writes the records of one
-// offset; add_base reads and writes the checkpoints once, a 16-B vector
+// writes one int per element (the D-1 splitters stay in L1); rebalance
+// reads each placed record once and writes each place of the blocks once
+// (streaming loads and stores, four places a thread for loads in flight);
+// add_base reads and writes the checkpoints once, a 16-B vector
 // a thread, with the base row in shared memory and no 64-bit division
 // below a block (one a block, then a 32-bit one a thread).  Its grid is
 // sized to the work, one thread a vector: on the H100 that ran faster than
@@ -36,6 +48,9 @@ namespace {
 
 constexpr int kMaxKeys = 4;
 constexpr int kRebalanceCols = 6;
+constexpr int kMaxWindow = 3;  // dist_sort's W: 2W + 1 source shards a block
+constexpr int kRebalanceThreads = 256;
+constexpr int kRebalanceItems = 4;  // places a thread, a block's width apart
 constexpr int kMaxColumns = 1024;  // the prefix's and the add's A
 constexpr int kPrefixThreads = 256;
 constexpr int kAddThreads = 256;
@@ -78,29 +93,85 @@ __global__ void splitter_bucket_kernel(Keys k, int nk, long long m, Keys s,
   dest[d * m + i] = lo;
 }
 
-// Element i < v[d] of shard d's sorted received records sits at global
-// position base[d] + i; the ones whose owner (position / m) is shard
-// me + off go to their place in that block.  far[d] = 1 (when given) if
-// an owner lies more than W shards away.
-__global__ void rebalance_place_kernel(RCols cols, int ncols, long long R,
-                                       const int* __restrict__ v,
-                                       const int* __restrict__ base,
-                                       int shard0, long long m, int off,
-                                       int W,
-                                       unsigned char* __restrict__ vbuf,
-                                       int* __restrict__ far) {
-  const int d = blockIdx.y;
-  const long long i =
-      static_cast<long long>(blockIdx.x) * blockDim.x + threadIdx.x;
-  if (i >= R || i >= v[d]) return;
-  const long long me = shard0 + d;
-  const long long gpos = static_cast<long long>(base[d]) + i;
-  const long long owner = gpos / m;
-  if (far && (owner - me > W || me - owner > W)) far[d] = 1;
-  if (owner != me + off) return;
-  const long long p = gpos - (me + off) * m;
-  for (int c = 0; c < ncols; ++c) cols.out[c][d * m + p] = cols.in[c][d * R + i];
-  vbuf[d * m + p] = 1;
+// floor(a / b) for b > 0.
+__device__ __forceinline__ long long floor_div(long long a, long long b) {
+  const long long q = a / b;
+  return (a % b != 0 && a < 0) ? q - 1 : q;
+}
+
+// dist_sort's rebalance by destination.  Element i < n_d = min(v[d], R) of
+// local shard d's sorted received records sits at global position base[d]
+// + i, at place base[d] + i - k * m of the block of its owner shard k.
+// Block row j (blockIdx.y) writes places [0, m) of one block:
+//   local: local shard j's own (k = shard0 + j), each place q from the
+//   first local shard d in [j - W, j + W] whose records cover it (q between
+//   d's cut points base[d] - k * m and that plus n_d: the record q less the
+//   first), INT32_MAX where none does; and far[j] = 1 where shard j's first
+//   or last record's owner (the owners rise with i) lies more than W shards
+//   away;
+//   an offset: local shard j's buffer for the block of shard k = shard0 + j
+//   + off, from j's own records, 0 and vbuf 0 where none lands there.
+__global__ void __launch_bounds__(kRebalanceThreads) rebalance_kernel(
+    RCols cols, int ncols, long long R, const int* __restrict__ v,
+    const int* __restrict__ base, int Dl, int shard0, long long m, int W,
+    int local, int off, unsigned char* __restrict__ vbuf,
+    int* __restrict__ far) {
+  constexpr int kCands = 2 * kMaxWindow + 1;
+  const int j = blockIdx.y;
+  const long long me = static_cast<long long>(shard0) + j;
+  const long long k = local ? me : me + off;
+  const int dlo = local ? max(j - W, 0) : j;
+  const int nc = local ? min(j + W, Dl - 1) - dlo + 1 : 1;
+  // each source's places in the block: [lo, hi), empty past the sources
+  long long lo[kCands], hi[kCands];
+#pragma unroll
+  for (int c = 0; c < kCands; ++c) {
+    lo[c] = hi[c] = 0;
+    if (c < nc) {
+      const int d = dlo + c;
+      const long long n = min(static_cast<long long>(__ldg(v + d)), R);
+      lo[c] = __ldg(base + d) - k * m;
+      hi[c] = n > 0 ? lo[c] + n : lo[c];
+    }
+  }
+  if (local && far != nullptr && blockIdx.x == 0 && threadIdx.x == 0) {
+    const long long n = min(static_cast<long long>(__ldg(v + j)), R);
+    const long long g0 = __ldg(base + j);
+    far[j] = n > 0 && (floor_div(g0, m) < me - W ||
+                       floor_div(g0 + n - 1, m) > me + W);
+  }
+  const int fill = local ? INT32_MAX : 0;
+  const long long q0 =
+      static_cast<long long>(blockIdx.x) * (kRebalanceThreads *
+                                            kRebalanceItems) +
+      threadIdx.x;
+#pragma unroll
+  for (int t = 0; t < kRebalanceItems; ++t) {
+    const long long q = q0 + t * kRebalanceThreads;
+    if (q < m) {
+      // the lowest source shard last, so that it wins where two overlap
+      // (none do when base is the exclusive prefix of v)
+      int src = -1;
+      long long i = 0;
+#pragma unroll
+      for (int c = kCands - 1; c >= 0; --c) {
+        if (q >= lo[c] && q < hi[c]) {
+          src = dlo + c;
+          i = q - lo[c];
+        }
+      }
+      int val[kRebalanceCols];
+#pragma unroll
+      for (int c = 0; c < kRebalanceCols; ++c)
+        val[c] = c < ncols && src >= 0 ? __ldcs(cols.in[c] + src * R + i)
+                                       : fill;
+      const long long o = j * m + q;
+#pragma unroll
+      for (int c = 0; c < kRebalanceCols; ++c)
+        if (c < ncols) __stcs(cols.out[c] + o, val[c]);
+      if (vbuf != nullptr) vbuf[o] = src >= 0;
+    }
+  }
 }
 
 // int32 addition that wraps, as the plain versions' int32 tensors do.
@@ -291,31 +362,66 @@ extern "C" int femto_splitter_bucket(const void* k0, const void* k1,
   return static_cast<int>(cudaGetLastError());
 }
 
-// cols: ncols int32[Dl, R]; v, base int32[Dl] -> outs int32[Dl, m] and
-// vbuf uint8[Dl, m] (zeroed by the caller), far int32[Dl] (zeroed) or null.
-extern "C" int femto_rebalance_place(
-    const void* i0, const void* i1, const void* i2, const void* i3,
-    const void* i4, const void* i5, int ncols, long long R, const void* v,
-    const void* base, int Dl, int D, int shard0, long long m, int off, int W,
-    void* o0, void* o1, void* o2, void* o3, void* o4, void* o5, void* vbuf,
-    void* far, void* stream) {
-  if (ncols < 1 || ncols > kRebalanceCols || Dl < 1 || D < 1)
+namespace {
+
+// rebalance_kernel over cols int32[Dl, R] (ncols of them), v, base
+// int32[Dl] into outs int32[Dl, m] per column: the local shards' blocks
+// with far (local), else offset off's buffers with vbuf.
+int launch_rebalance(const void* const* in, int ncols, long long R,
+                     const void* v, const void* base, int Dl, int shard0,
+                     long long m, int W, int local, int off,
+                     void* const* out, void* vbuf, void* far, void* stream) {
+  if (ncols < 1 || ncols > kRebalanceCols || Dl < 1 || m < 1 || R < 0 ||
+      W < 0 || W > kMaxWindow)
     return static_cast<int>(cudaErrorInvalidValue);
-  RCols cols = {{static_cast<const int*>(i0), static_cast<const int*>(i1),
-                 static_cast<const int*>(i2), static_cast<const int*>(i3),
-                 static_cast<const int*>(i4), static_cast<const int*>(i5)},
-                {static_cast<int*>(o0), static_cast<int*>(o1),
-                 static_cast<int*>(o2), static_cast<int*>(o3),
-                 static_cast<int*>(o4), static_cast<int*>(o5)}};
-  rebalance_place_kernel<<<dim3(static_cast<unsigned>((R + 255) / 256), Dl),
-                           256, 0, static_cast<cudaStream_t>(stream)>>>(
+  RCols cols;
+  for (int c = 0; c < kRebalanceCols; ++c) {
+    cols.in[c] = static_cast<const int*>(in[c]);
+    cols.out[c] = static_cast<int*>(out[c]);
+  }
+  constexpr long long kPer = kRebalanceThreads * kRebalanceItems;
+  rebalance_kernel<<<dim3(static_cast<unsigned>((m + kPer - 1) / kPer), Dl),
+                     kRebalanceThreads, 0,
+                     static_cast<cudaStream_t>(stream)>>>(
       cols, ncols, R, static_cast<const int*>(v),
-      static_cast<const int*>(base), shard0, m, off, W,
+      static_cast<const int*>(base), Dl, shard0, m, W, local, off,
       static_cast<unsigned char*>(vbuf), static_cast<int*>(far));
   return static_cast<int>(cudaGetLastError());
 }
 
-// gathered int32[D, A] -> base int32[Dl, A], C int32[A + 1] or null.
+}  // namespace
+
+// dist_sort's rebalance of every local owner's records, one launch: cols
+// int32[Dl, R] (ncols of them), v, base int32[Dl] -> outs int32[Dl, m]
+// per column (INT32_MAX where no local record lands), far int32[Dl].
+extern "C" int femto_rebalance_local(
+    const void* i0, const void* i1, const void* i2, const void* i3,
+    const void* i4, const void* i5, int ncols, long long R, const void* v,
+    const void* base, int Dl, int shard0, long long m, int W, void* o0,
+    void* o1, void* o2, void* o3, void* o4, void* o5, void* far,
+    void* stream) {
+  const void* in[kRebalanceCols] = {i0, i1, i2, i3, i4, i5};
+  void* out[kRebalanceCols] = {o0, o1, o2, o3, o4, o5};
+  return launch_rebalance(in, ncols, R, v, base, Dl, shard0, m, W, 1, 0, out,
+                          nullptr, far, stream);
+}
+
+// One offset of dist_sort's rebalance, for owners in another process:
+// the same inputs -> bufs int32[Dl, m] per column (0 where no record
+// lands) and vbuf uint8[Dl, m].
+extern "C" int femto_rebalance_place(
+    const void* i0, const void* i1, const void* i2, const void* i3,
+    const void* i4, const void* i5, int ncols, long long R, const void* v,
+    const void* base, int Dl, int shard0, long long m, int off, void* o0,
+    void* o1, void* o2, void* o3, void* o4, void* o5, void* vbuf,
+    void* stream) {
+  if (vbuf == nullptr) return static_cast<int>(cudaErrorInvalidValue);
+  const void* in[kRebalanceCols] = {i0, i1, i2, i3, i4, i5};
+  void* out[kRebalanceCols] = {o0, o1, o2, o3, o4, o5};
+  return launch_rebalance(in, ncols, R, v, base, Dl, shard0, m, 0, 0, off,
+                          out, vbuf, nullptr, stream);
+}
+
 extern "C" int femto_mesh_exclusive(const void* gathered, int D, int A,
                                     int shard0, int Dl, int op, void* base,
                                     void* C, void* stream) {

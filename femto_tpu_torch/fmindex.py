@@ -156,6 +156,11 @@ class FMIndex:
     chunk_doc_offsets_np: Optional[np.ndarray] = None
     chunk_docs_np: Optional[np.ndarray] = None
     sa_direct: Optional[torch.Tensor] = None  # int32[n], locate="direct"
+    # a sharded index's K18f owner_lf view (ops/dist_ops.owner_lf_view),
+    # made on its first routed locate (parallel/dist_query.py) and kept
+    # with the arrays and the shard size it was made for
+    owner_lf_view: Optional[tuple] = dataclasses.field(
+        default=None, init=False, repr=False, compare=False)
 
     @property
     def n(self) -> int:

@@ -141,9 +141,12 @@ ENTRIES: Dict[str, Tuple[str, List]] = {
                     + [_P] * 8),
     "splitter_bucket": ("sample_sort", [_P] * 4 + [_I, _L, _I] + [_P] * 4
                         + [_I, _P]),
+    # the rebalance by destination, one kernel: the local shards' blocks,
+    # or one offset's buffers for owners in another process
+    "rebalance_local": ("sample_sort", [_P] * 6 + [_I, _L, _P, _P, _I, _I,
+                                                   _L, _I] + [_P] * 7),
     "rebalance_place": ("sample_sort", [_P] * 6 + [_I, _L, _P, _P, _I, _I,
-                                                   _I, _L, _I, _I]
-                        + [_P] * 6 + [_P, _P]),
+                                                   _L, _I] + [_P] * 7),
     "mesh_exclusive": ("sample_sort", [_P, _I, _I, _I, _I, _I, _P, _P]),
     "add_base": ("sample_sort", [_P, _P, _L, _I, _I]),
     # the cross-shard prefix summed inside add_base's kernel (one launch)
@@ -187,6 +190,9 @@ SIZES: Dict[str, Tuple[str, List]] = {
     # bytes of a warp-a-walk block's dynamic shared memory, 0 where the
     # call takes a thread a walk
     "lf_walk_route": ("lf_walk", [_V, _I, _I]),
+    # K18f owner_lf's route for a call of (view, R, Dl): the same rule on
+    # its Dl x R requests, 0 on the thread route
+    "owner_lf_route": ("dist_query", [_V, _L, _I]),
 }
 # entries that take an FmView: one count per layout
 LAYOUT_ENTRIES = ("backward_search", "backward_search_steps", "backward_step",

@@ -13,7 +13,9 @@ between the steps are the mesh's (parallel/mesh.py), never a kernel's.
                             capacity-padded scatter), owner_place (every
                             ``.at[idx].set`` of routed or replicated
                             records into a shard's block)
-  K18b csrc/sample_sort.cu  splitter_bucket, rebalance_place (dist_sort),
+  K18b csrc/sample_sort.cu  splitter_bucket, rebalance_local and
+                            rebalance_place (dist_sort's rebalance, one
+                            kernel),
                             mesh_exclusive (the exclusive prefix over the
                             mesh of per-shard totals), add_base (a base
                             added to a shard's checkpoints) and
@@ -38,7 +40,7 @@ integers: kernel and plain version agree bit for bit.
 
 from __future__ import annotations
 
-from typing import List, Optional, Sequence
+from typing import List, NamedTuple, Optional, Sequence
 
 import torch
 
@@ -52,6 +54,7 @@ MAX_COLS = 8          # csrc/exchange.cu kMaxCols
 MAX_BUCKETS = 128     # csrc/exchange.cu kMaxBuckets (D + 1 buckets)
 PLACE_COLS = 4        # csrc/exchange.cu owner_place columns per launch
 REBALANCE_COLS = 6    # csrc/sample_sort.cu kRebalanceCols
+REBALANCE_WINDOW = 3  # csrc/sample_sort.cu kMaxWindow (dist_sort's W)
 MAX_COLUMNS = 1024    # csrc/sample_sort.cu kMaxColumns (the prefix's A)
 MAX_KEYS = 4          # csrc/sample_sort.cu kMaxKeys (splitter keys)
 FLAG_KEYS = 6         # csrc/dist_rounds.cu kFlagKeys (mesh_flags keys)
@@ -264,59 +267,108 @@ def splitter_bucket(keys: Sequence[torch.Tensor],
     return dest
 
 
-def rebalance_place_plain(cols, v, base, *, m, off, W, D, shard0, flag):
-    Dl, Rn = cols[0].shape
-    dev = cols[0].device
-    bufs = [torch.zeros((Dl, m), dtype=torch.int32, device=dev)
-            for _ in cols]
-    vbuf = torch.zeros((Dl, m), dtype=torch.uint8, device=dev)
-    far = torch.zeros(Dl, dtype=torch.int32, device=dev) if flag else None
-    i = torch.arange(Rn, device=dev)
-    for j in range(Dl):
-        me = shard0 + j
-        ok = i < int(v[j])
-        gpos = int(base[j]) + i
-        owner = gpos // m
-        sel = ok & (owner == me + off)
-        p = (gpos - (me + off) * m)[sel]
-        vbuf[j, p] = 1
-        for b, c in zip(bufs, cols):
-            b[j, p] = c[j][sel]
-        if flag:
-            far[j] = int((ok & ((owner - me).abs() > W)).any())
-    return bufs, vbuf, far
-
-
-def rebalance_place(cols: Sequence[torch.Tensor], v: torch.Tensor,
-                    base: torch.Tensor, *, m: int, off: int, W: int, D: int,
-                    shard0: int, flag: bool = False):
-    """dist_sort's windowed rebalance, one offset: element i < v[d] of
-    shard d's sorted received records sits at global position base[d] + i;
-    the ones owned by shard d + off (position // m) go to their place in
-    its block.  Returns (bufs int32[Dl, m] per column, vbuf uint8[Dl, m],
-    and with ``flag`` int32[Dl]: 1 where an element's owner lies more than
-    W shards away).  Kernel K18b on the card."""
+def _check_rebalance(cols, v, base, m):
+    """(Dl, R) of the rebalance's inputs, after checking them."""
     kernels.check(cols[0], "cols[0]", torch.int32, 2)
     Dl, Rn = cols[0].shape
     for i, c in enumerate(cols):
         kernels.check(c, f"cols[{i}]", torch.int32, 2, (Dl, Rn))
     kernels.check(v, "v", torch.int32, 1, (Dl,))
     kernels.check(base, "base", torch.int32, 1, (Dl,))
-    if not 1 <= len(cols) <= REBALANCE_COLS:
-        raise ValueError(f"need 1 to {REBALANCE_COLS} columns")
+    if not 1 <= len(cols) <= REBALANCE_COLS or m < 1:
+        raise ValueError(f"need 1 to {REBALANCE_COLS} columns and m >= 1")
+    return Dl, Rn
+
+
+def rebalance_local_plain(cols, v, base, *, m, W, shard0):
+    Dl, Rn = cols[0].shape
+    dev = cols[0].device
+    outs = [torch.full((Dl, m), INT32_MAX, dtype=torch.int32, device=dev)
+            for _ in cols]
+    far = torch.zeros(Dl, dtype=torch.int32, device=dev)
+    i = torch.arange(Rn, device=dev)
+    # the highest shard first, so that the lowest wins where two overlap
+    for j in reversed(range(Dl)):
+        me = shard0 + j
+        ok = i < int(v[j])
+        gpos = int(base[j]) + i
+        owner = gpos // m
+        far[j] = int((ok & ((owner - me).abs() > W)).any())
+        sel = (ok & ((owner - me).abs() <= W) & (owner >= shard0)
+               & (owner < shard0 + Dl))
+        place = (gpos - shard0 * m)[sel]
+        for o, c in zip(outs, cols):
+            o.view(-1)[place] = c[j][sel]
+    return outs, far
+
+
+def rebalance_local(cols: Sequence[torch.Tensor], v: torch.Tensor,
+                    base: torch.Tensor, *, m: int, W: int, shard0: int):
+    """dist_sort's rebalance of every record whose owner shard is local:
+    element i < v[d] of shard d's sorted received records (cols int32[Dl,
+    R] each) sits at global position base[d] + i and belongs to shard
+    (base[d] + i) // m; one whose owner is a local shard at most W shards
+    from d lands at its place in that shard's block.  Returns (outs
+    int32[Dl, m] per column, INT32_MAX at the places no local record
+    fills; far int32[Dl], 1 where a record's owner lies more than W shards
+    away, its record left out).  Where two shards' records would fill one
+    place (never when base is the exclusive prefix of v) the lower shard's
+    wins, as the per-offset merge's did.  On a LocalMesh that is the whole
+    rebalance.  Kernel K18b on the card (its rebalance kernel): one launch,
+    each place written once."""
+    Dl, Rn = _check_rebalance(cols, v, base, m)
+    if not 0 <= W <= REBALANCE_WINDOW:
+        raise ValueError(f"need 0 <= W <= {REBALANCE_WINDOW}")
     if not kernels.on_card(*cols, v, base):
-        return rebalance_place_plain(cols, v, base, m=m, off=off, W=W, D=D,
-                                     shard0=shard0, flag=flag)
-    dev = v.device
+        return rebalance_local_plain(cols, v, base, m=m, W=W, shard0=shard0)
+    outs = [torch.empty((Dl, m), dtype=torch.int32, device=v.device)
+            for _ in cols]
+    far = torch.empty(Dl, dtype=torch.int32, device=v.device)
+    kernels.launch("rebalance_local", *_ptrs(cols, REBALANCE_COLS),
+                   len(cols), Rn, v.data_ptr(), base.data_ptr(), Dl, shard0,
+                   m, W, *_ptrs(outs, REBALANCE_COLS), far.data_ptr())
+    return outs, far
+
+
+def rebalance_place_plain(cols, v, base, *, m, off, shard0):
+    Dl, Rn = cols[0].shape
+    dev = cols[0].device
     bufs = [torch.zeros((Dl, m), dtype=torch.int32, device=dev)
             for _ in cols]
     vbuf = torch.zeros((Dl, m), dtype=torch.uint8, device=dev)
-    far = torch.zeros(Dl, dtype=torch.int32, device=dev) if flag else None
+    i = torch.arange(Rn, device=dev)
+    for j in range(Dl):
+        me = shard0 + j
+        ok = i < int(v[j])
+        gpos = int(base[j]) + i
+        sel = ok & (gpos // m == me + off)
+        p = (gpos - (me + off) * m)[sel]
+        vbuf[j, p] = 1
+        for b, c in zip(bufs, cols):
+            b[j, p] = c[j][sel]
+    return bufs, vbuf
+
+
+def rebalance_place(cols: Sequence[torch.Tensor], v: torch.Tensor,
+                    base: torch.Tensor, *, m: int, off: int, shard0: int):
+    """dist_sort's windowed rebalance, one offset, for owners in another
+    process (a DistMesh): the records of shard d (as rebalance_local's)
+    that shard d + off owns go to their place in a buffer of its block,
+    for the mesh's ppermute.  Returns (bufs int32[Dl, m] per column, 0
+    where no record lands; vbuf uint8[Dl, m], 1 where one does).  Kernel
+    K18b on the card (rebalance_local's kernel), one offset a launch."""
+    Dl, Rn = _check_rebalance(cols, v, base, m)
+    if not kernels.on_card(*cols, v, base):
+        return rebalance_place_plain(cols, v, base, m=m, off=off,
+                                     shard0=shard0)
+    dev = v.device
+    bufs = [torch.empty((Dl, m), dtype=torch.int32, device=dev)
+            for _ in cols]
+    vbuf = torch.empty((Dl, m), dtype=torch.uint8, device=dev)
     kernels.launch("rebalance_place", *_ptrs(cols, REBALANCE_COLS),
-                   len(cols), Rn, v.data_ptr(), base.data_ptr(), Dl, D,
-                   shard0, m, off, W, *_ptrs(bufs, REBALANCE_COLS),
-                   vbuf.data_ptr(), _ptr(far))
-    return bufs, vbuf, far
+                   len(cols), Rn, v.data_ptr(), base.data_ptr(), Dl, shard0,
+                   m, off, *_ptrs(bufs, REBALANCE_COLS), vbuf.data_ptr())
+    return bufs, vbuf
 
 
 def mesh_exclusive_plain(gathered, *, shard0, Dl, op, want_c):
@@ -1051,32 +1103,67 @@ def _check_marks(arrays, nseg_local):
     return Dl
 
 
+class OwnerLfView(NamedTuple):
+    """owner_lf's index arguments over one index on the card, checked once
+    (owner_lf_view): the K18f view and its layout, the local shards, the
+    mark fields' pointers and the arrays they point into."""
+
+    view: kernels.FmView
+    layout: str
+    Dl: int
+    nseg_local: int
+    marks: tuple
+    arrays: FMArrays
+
+
+def owner_lf_view(arrays: FMArrays,
+                  nseg_local: int) -> Optional[OwnerLfView]:
+    """owner_lf's view of an index (fm_view and the mark checks), made once
+    for many calls: a sharded index's arrays do not change after its build
+    (paged indexes are never sharded).  None for an index on the CPU,
+    whose calls take the plain version."""
+    Dl = _check_marks(arrays, nseg_local)
+    if not kernels.on_card(*_index_tensors(arrays), *_mark_tensors(arrays)):
+        return None
+    view, lay = fm_view(arrays)
+    marks = (arrays.mark_bits.data_ptr(), arrays.mark_ckpt.data_ptr(),
+             arrays.mark_vals.data_ptr(), arrays.mark_vals.shape[0],
+             arrays.mark_meta.data_ptr())
+    return OwnerLfView(view, lay, Dl, nseg_local, marks, arrays)
+
+
 def owner_lf(arrays: FMArrays, rows: torch.Tensor, valid: torch.Tensor, *,
-             nseg_local: int, shard0: int) -> torch.Tensor:
+             nseg_local: int, shard0: int,
+             view: Optional[OwnerLfView] = None) -> torch.Tensor:
     """dist_query._locate_routed_body's owner_answer for rows routed to
     their owner (rows int32[Dl, R], valid uint8[Dl, R]): the mark value if
     the row is marked (its rank less the shard's first checkpoint, decoded
     from the shard's own mark store), else -1 - LF(row); 0 on invalid
     lanes.  On the row tiers the marks ride the serving rows and the
-    shard's base is mark_ckpt[shard].  Kernel K18f on the card."""
+    shard's base is mark_ckpt[shard].  ``view``: owner_lf_view(arrays,
+    nseg_local), made once (a call then checks only rows and valid: one
+    allocation and one launch).  Kernel K18f on the card: on vseg and vrle
+    a warp a request up to kernel D's route limit (csrc/fm_common.cuh), a
+    thread a request past it and on the other layouts."""
     kernels.check(rows, "rows", torch.int32, 2)
     kernels.check(valid, "valid", torch.uint8, 2, tuple(rows.shape))
-    _check_marks(arrays, nseg_local)
-    if not kernels.on_card(rows, valid, *_index_tensors(arrays),
-                           *_mark_tensors(arrays)):
-        return owner_lf_plain(arrays, rows, valid, nseg_local=nseg_local,
-                              shard0=shard0)
-    view, lay = fm_view(arrays)
+    if view is None:
+        _check_marks(arrays, nseg_local)
+        if not kernels.on_card(rows, valid, *_index_tensors(arrays),
+                               *_mark_tensors(arrays)):
+            return owner_lf_plain(arrays, rows, valid,
+                                  nseg_local=nseg_local, shard0=shard0)
+        view = owner_lf_view(arrays, nseg_local)
+    elif view.arrays is not arrays or view.nseg_local != nseg_local \
+            or rows.shape[0] != view.Dl or not kernels.on_card(rows, valid):
+        raise ValueError("owner_lf: the view is of other arrays or shards, "
+                         "or the requests are not on the card")
     out = torch.empty_like(rows)
     if rows.numel():
-        kernels.launch("owner_lf", view, nseg_local, shard0, rows.data_ptr(),
-                       valid.data_ptr(), rows.shape[1], rows.shape[0],
-                       arrays.mark_bits.data_ptr(),
-                       arrays.mark_ckpt.data_ptr(),
-                       arrays.mark_vals.data_ptr(),
-                       arrays.mark_vals.shape[0],
-                       arrays.mark_meta.data_ptr(), out.data_ptr(),
-                       layout=lay)
+        kernels.launch("owner_lf", view.view, nseg_local, shard0,
+                       rows.data_ptr(), valid.data_ptr(), rows.shape[1],
+                       rows.shape[0], *view.marks, out.data_ptr(),
+                       layout=view.layout)
     return out
 
 

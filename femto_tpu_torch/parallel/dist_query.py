@@ -176,11 +176,25 @@ def sharded_backward_search(index: FMIndex, mesh, pats: np.ndarray,
     return _backward_search_psum(index, mesh, _to_mesh(pats, mesh))
 
 
+def _owner_lf_view(index, nseg_local):
+    """K18f owner_lf's view of a sharded index (dist_ops.owner_lf_view),
+    made once and kept on the index: the view of a sharded index does not
+    change after its build, so a routed locate step pays one allocation
+    and one launch for its owner answers."""
+    kept = index.owner_lf_view
+    if kept is None or kept[0] is not index.arrays or kept[1] != nseg_local:
+        kept = index.owner_lf_view = (
+            index.arrays, nseg_local,
+            DO.owner_lf_view(index.arrays, nseg_local))
+    return kept[2]
+
+
 def _locate_routed(index, mesh, rows_local, *, cap: int, key: int):
     arrays, meta = index.arrays, index.meta
     D = mesh.D
     Dl, B_local = rows_local.shape
     nseg_local = _nseg_local(index, mesh)
+    lf_view = _owner_lf_view(index, nseg_local)
     rows_per_shard = nseg_local * meta.seg
     dev = rows_local.device
     rid = (shard_ids(mesh)[:, None] * B_local
@@ -196,7 +210,7 @@ def _locate_routed(index, mesh, rows_local, *, cap: int, key: int):
         recs, v, of1 = bins.valiant_exchange(mesh, dest, [rows, rid], cap,
                                              kkey)
         ans = DO.owner_lf(arrays, recs[0], v, nseg_local=nseg_local,
-                          shard0=mesh.shard0)
+                          shard0=mesh.shard0, view=lf_view)
         back, v2, of2 = bins.valiant_exchange(
             mesh, torch.div(recs[1], B_local, rounding_mode="floor"),
             [recs[1], ans], cap, bins.fold_in(kkey, 1), valid=v)

@@ -3,11 +3,12 @@
 The counterpart of femto_tpu/parallel/dist_sort.py: pass 1 = a local sort
 of each shard's block, D * OVERSAMPLE regular samples, D - 1 splitters and
 one (Valiant) exchange of every record to its splitter bucket; pass 2 = a
-local sort of what arrived and an exact rebalance to equal blocks of m
-through a window of ppermutes.  Keys are tuples of int32 columns compared
-lexicographically; callers append a unique tiebreak key, so every output
-is deterministic whatever the routes.  Invalid lanes sort last (every key
-INT32_MAX).
+local sort of what arrived and an exact rebalance to equal blocks of m:
+every record whose owner shard is local placed straight into its block
+(on a LocalMesh, all of them: one launch), the others through a window of
+ppermutes.  Keys are tuples of int32 columns compared lexicographically;
+callers append a unique tiebreak key, so every output is deterministic
+whatever the routes.  Invalid lanes sort last (every key INT32_MAX).
 
 The local sorts are LSD passes of kernel H's stable radix_sort_pairs (the
 last key first, 32 bits each, biased to unsigned, carrying a permutation),
@@ -119,20 +120,22 @@ def dist_sort(mesh, keys: Sequence[torch.Tensor],
                                 shard0=mesh.shard0, Dl=Dl)
     base = base.view(Dl).contiguous()
     W = min(3, D - 1)
-    outs = [torch.full((Dl, m), DO.INT32_MAX, dtype=torch.int32, device=dev)
-            for _ in received]
-    far = None
-    for off in range(-W, W + 1):
-        bufs, vbuf, f = DO.rebalance_place(received, v, base, m=m, off=off,
-                                           W=W, D=D, shard0=mesh.shard0,
-                                           flag=off == 0)
-        if f is not None:
-            far = f
-        if off != 0:
+    # every record whose owner shard is local, straight into its place:
+    # on a LocalMesh the whole rebalance, one launch
+    outs, far = DO.rebalance_local(received, v, base, m=m, W=W,
+                                   shard0=mesh.shard0)
+    if mesh.Dl < D:
+        # owners in other processes: a buffer, a ppermute and a where an
+        # offset
+        for off in range(-W, W + 1):
+            if off == 0:
+                continue
+            bufs, vbuf = DO.rebalance_place(received, v, base, m=m, off=off,
+                                            shard0=mesh.shard0)
             vbuf = mesh.ppermute(vbuf, off)
             bufs = [mesh.ppermute(b, off) for b in bufs]
-        got = vbuf.bool()
-        outs = [torch.where(got, b, o) for b, o in zip(bufs, outs)]
+            got = vbuf.bool()
+            outs = [torch.where(got, b, o) for b, o in zip(bufs, outs)]
     # an element owned outside the window is a rebalance failure (overflow)
     overflow = torch.maximum(overflow1, mesh.pmax(far))
     return outs[:nk], outs[nk:], overflow

@@ -13,6 +13,8 @@ count and locate answers of both schemes.  femto_tpu's sharded indexes
 are built once per module.
 """
 
+import importlib
+
 import jax
 import jax.numpy as jnp
 import numpy as np
@@ -339,6 +341,130 @@ def test_dist_sort_many_payload_columns(jmesh, tmesh):
         np.testing.assert_array_equal(got.reshape(-1).numpy(),
                                       np.asarray(ref))
         np.testing.assert_array_equal(got.reshape(-1).numpy(), want)
+
+
+# dist_sort's rebalance at crafted received counts v (the exchange handed
+# each shard v[d] records of REB_M-record blocks, base v's exclusive
+# prefix): uneven blocks; two empty shards with places left unfilled
+# (sum v < D * m); a far owner (shard 0's records reach shard 4, more
+# than W = 3 shards away).
+REB_M = 16
+REBALANCE_CASES = {
+    "uneven": [10, 25, 16, 5, 30, 12, 20, 10],
+    "empty_shard": [20, 0, 30, 16, 16, 0, 30, 10],
+    "far_owner": [80, 8, 8, 8, 8, 8, 8, 0],
+}
+
+
+def _crafted_received(v):
+    """Each shard's received records, D * REB_M slots of which the first
+    v[d] are valid: keys (k1, unique id) and one payload column."""
+    rng = np.random.default_rng(sum(v) + len(set(v)))
+    S = D * REB_M
+    k1 = rng.integers(0, 40, size=(D, S)).astype(np.int32)
+    ids = rng.permutation(D * S).astype(np.int32).reshape(D, S)
+    pay = rng.integers(-9, 9, size=(D, S)).astype(np.int32)
+    valid = np.arange(S)[None, :] < np.asarray(v)[:, None]
+    return [k1, ids, pay], valid
+
+
+@pytest.fixture(scope="module")
+def femto_rebalance(jmesh):
+    """femto_tpu's dist_sort on a D x REB_M corpus whose exchange returns
+    the crafted records (given as inputs, so one compile serves every
+    case): the sorted keys, payload and overflow."""
+    # the module (femto_tpu.parallel's dist_sort attribute is the function)
+    jds = importlib.import_module("femto_tpu.parallel.dist_sort")
+    held = {}
+    orig = jds.exchange
+
+    def crafted(dest, cols, cap, axis):
+        return held["cols"], held["valid"], jnp.int32(0)
+
+    def f(a, b, c, r1, r2, r3, rv):
+        held["cols"], held["valid"] = [r1, r2, r3], rv
+        (s1, s2), (p1,), of = j_dist_sort((a, b), (c,), AX, cap=REB_M)
+        return s1, s2, p1, of
+
+    jds.exchange = crafted
+    try:
+        fn = _smap(f, jmesh, 7, 3, 1)
+        k = np.arange(D * REB_M, dtype=np.int32)
+        out = {}
+        for case, v in REBALANCE_CASES.items():
+            cols, valid = _crafted_received(v)
+            out[case] = [np.asarray(x) for x in fn(
+                jnp.asarray(k), jnp.asarray(k), jnp.asarray(k),
+                *[jnp.asarray(c.reshape(-1)) for c in cols],
+                jnp.asarray(valid.reshape(-1)))]
+    finally:
+        jds.exchange = orig
+    return out
+
+
+def _slices_rebalance(cols, v, base, m, W):
+    """dist_sort's rebalance as D one-shard processes (a DistMesh, Dl 1)
+    would run it: each process's local placement, then each offset's
+    buffers sent to shard (p + off) mod D and merged by a where."""
+    outs, far = [], []
+    one = [([c[p:p + 1] for c in cols], v[p:p + 1], base[p:p + 1])
+           for p in range(D)]
+    for p, (c, vp, bp) in enumerate(one):
+        o, f = DO.rebalance_local(c, vp, bp, m=m, W=W, shard0=p)
+        outs.append(o)
+        far.append(int(f[0]))
+    for off in range(-W, W + 1):
+        if off == 0:
+            continue
+        sent = [DO.rebalance_place(c, vp, bp, m=m, off=off, shard0=p)
+                for p, (c, vp, bp) in enumerate(one)]
+        for p in range(D):
+            bufs, vbuf = sent[(p - off) % D]
+            got = vbuf.bool()
+            outs[p] = [torch.where(got, b, o) for b, o in zip(bufs, outs[p])]
+    return [torch.cat([o[c] for o in outs]) for c in range(len(cols))], \
+        max(far)
+
+
+@pytest.mark.parametrize("mesh_view", ["local", "slices"])
+@pytest.mark.parametrize("case", list(REBALANCE_CASES))
+def test_rebalance_like_dist_sort(femto_rebalance, tmesh, monkeypatch, case,
+                                  mesh_view):
+    """The port's dist_sort at crafted received counts equals femto_tpu's
+    (keys, payload, overflow), its rebalance by rebalance_local alone on
+    the LocalMesh (one call a sort, no offset buffers); "slices" runs the
+    same rebalance inputs as D DistMesh processes would (Dl 1, each
+    shard0), through rebalance_local and the per-offset
+    rebalance_place."""
+    v = REBALANCE_CASES[case]
+    cols, valid = _crafted_received(v)
+    calls = {"rebalance_local": [], "rebalance_place": []}
+
+    def exchange(mesh, dest, records, cap, valid_in=None):
+        return ([torch.from_numpy(c) for c in cols],
+                torch.from_numpy(valid.astype(np.uint8)),
+                torch.zeros((), dtype=torch.int32))
+
+    for name in calls:
+        def spy(*a, _f=getattr(DO, name), _n=name, **kw):
+            calls[_n].append((a, kw))
+            return _f(*a, **kw)
+        monkeypatch.setattr(DO, name, spy)
+    monkeypatch.setattr(tbins, "exchange", exchange)
+    k = torch.arange(D * REB_M, dtype=torch.int32).reshape(D, REB_M)
+    (ts1, ts2), (tp,), tof = t_dist_sort(tmesh, [k, k.clone()], [k.clone()],
+                                         REB_M)
+    monkeypatch.undo()
+    js1, js2, jp, jof = femto_rebalance[case]
+    assert len(calls["rebalance_local"]) == 1 and not calls["rebalance_place"]
+    assert int(tof) == int(jof) == int(case == "far_owner")
+    got = [ts1, ts2, tp]
+    if mesh_view == "slices":
+        (rcols, rv, rbase), kw = calls["rebalance_local"][0]
+        got, far = _slices_rebalance(rcols, rv, rbase, REB_M, kw["W"])
+        assert far == int(jof)
+    for g, want in zip(got, (js1, js2, jp)):
+        np.testing.assert_array_equal(g.reshape(-1).numpy(), want)
 
 
 # kernel K18b's prefix and add at edge shapes: (A, rows) with rows * A not

@@ -40,6 +40,7 @@ from femto_tpu.query.nfa import compile_nfa as j_compile
 from femto_tpu.query.parser import parse_query as j_parse
 from femto_tpu.query.planning import streamline as j_streamline
 from femto_tpu.search import pack_patterns
+from femto_tpu_torch.ops import dist_ops as DO
 from femto_tpu_torch.ops import regex_ops as RO
 from femto_tpu_torch.parallel import LocalMesh
 from femto_tpu_torch.parallel import dist_build as tdb
@@ -226,6 +227,36 @@ def test_row_tier_count_locate(built, femto_five, tmesh, corpus, tier,
     doc, off = tt.offsets_to_docs(tix, got[: l - f].astype(np.int64))
     assert sorted(zip(doc.tolist(), off.tolist())) == naive_locate(docs,
                                                                    pats[1])
+
+
+@pytest.mark.parametrize("tier", ["vseg", "vrle"])
+def test_owner_lf_view_made_once(built, tmesh, monkeypatch, tier):
+    """The routed locate makes K18f owner_lf's view of a sharded index
+    once and keeps it on the index with its arrays (on the CPU the view is
+    None: the plain version answers); a second locate reuses it with the
+    same answers, which equal the psum walk's; a view of other arrays is
+    refused."""
+    _, _, tix, _, _ = built["five", tier]
+    made = []
+    orig = DO.owner_lf_view
+    monkeypatch.setattr(DO, "owner_lf_view",
+                        lambda *a: made.append(a) or orig(*a))
+    tix.owner_lf_view = None
+    rows = _lane_pad(np.arange(tix.meta.row0, tix.meta.row0 + 100,
+                               dtype=np.int32))
+    first = tdq.sharded_locate(tix, tmesh, rows).numpy()
+    again = tdq.sharded_locate(tix, tmesh, rows).numpy()
+    nseg_local = tix.meta.n_seg // D
+    assert len(made) == 1 and tix.owner_lf_view[:2] == (tix.arrays,
+                                                         nseg_local)
+    np.testing.assert_array_equal(again, first)
+    np.testing.assert_array_equal(
+        tdq.sharded_locate(tix, tmesh, rows, routed=False).numpy(), first)
+    other = DO.OwnerLfView(None, tier, D, nseg_local, (), None)
+    req = torch.zeros((D, 4), dtype=torch.int32)
+    with pytest.raises(ValueError, match="view"):
+        DO.owner_lf(tix.arrays, req, req.to(torch.uint8),
+                    nseg_local=nseg_local, shard0=0, view=other)
 
 
 @pytest.mark.parametrize("tier", ["vseg", "vrle"])
