@@ -9,8 +9,8 @@ non-zero):
 
 1. card and toolchain: nvidia-smi name and power limit, CUDA, nvcc, triton;
 2. build every kernel under femto_tpu_torch/csrc/ with nvcc for sm_90a
-   (and, beside them, the other-route builds of H, K18a and D and a
-   pointer-chase latency probe);
+   (and, beside them, the other-route builds of H, K18a, D and of the
+   all-symbol rank in R and K18f, and a pointer-chase latency probe);
 3. kernel L's gather_rows and gather_cols at edge shapes (1 to 8 columns,
    int32 and int64, idx views off a 16-byte boundary, -1 and
    out-of-range indices, 0, 1, 65,536 and 2^26 rows), kernel D's extract
@@ -34,9 +34,17 @@ non-zero):
    31-symbol alphabet, vseg and vrle also on the prose); the query
    engine's kernels on each of those indexes: kernel C's backward_step
    (with -1, absent and out-of-alphabet lanes) and backward_search_steps,
-   one layer of kernel R's regex_fork, H and regex_merge from fixed
+   one layer of kernel R's regex_fork (also on each rank route forced:
+   an entry's rows ranked for every code at once, or each fork's by
+   femto::occ; on the row tiers from ranges whose ends lie on side and
+   continued segments, and from ranges between row0 - 1, row0, row0 + 1,
+   n_rows - 1 and n_rows), H and regex_merge from fixed
    frontiers (exact, approximate, an NFA too wide for shared memory; the
-   merge also at capacities that overflow), and on the five layouts a
+   merge also at capacities that overflow), K18f's masked_occ_rows as one
+   shard at edge rows (row0 and its neighbours, segment ends, the last
+   segment, n_rows, the segments' end, side and continued segments) on
+   both routes, regex_fork's layers and masked_occ_rows also on pad_shape
+   builds (row0 > 0: full, vseg and vrle), and on the five layouts a
    whole run_regexp_device on the card against the same search on a CPU
    copy of the index (the plain versions) and the host engine, with a
    forced capacity retry; the chunked path's kernels: P's doc_lists and
@@ -71,7 +79,9 @@ non-zero):
    records a shard, tile multiples and a run over 9 tiles, 2 to 128
    buckets, cap below, at and above the largest bucket, 1 to 8 columns,
    valid flags, every record dropped), the owner and masked occ / LF answers
-   on the full, compact and packed sharded indexes; the whole full-tier
+   on the full, compact and packed sharded indexes, masked_occ_rows at
+   edge rows and each shard's block ends on every tier and at a sharded
+   search's widest layer, on both rank routes; the whole full-tier
    sharded build on the card against the same build on the CPU (every
    FMArrays block, meta, LAST_BUILD_STATS), dist_suffix_array's real rows
    against the suffix array, and every tier's count (routed and psum) of
@@ -118,7 +128,11 @@ non-zero):
    (bins.exchange, a sharded build and the count of 4096 patterns equal
    to LocalMesh(1)'s); the launch counts of this path alone (path
    "sharded"); its kernels' phase 5 rows at its shapes; one sharded
-   build profiled for phase 6;
+   build profiled for phase 6; then the sharded query engine (the
+   "sharded_query" path): bench.py's regexes on every tier and the prose
+   queries held to phase 4d's answers, K18f masked_occ_rows' device ms
+   summed over the regex and approximate queries' calls as built and on
+   each rank route, and its rows at the widest layers;
 4b. the second main path on the same corpora: build_index of the compact
    and packed tiers, a .ftpu round trip of the packed index (save_flat,
    load), then on both tiers count, locate and extract as in 4, and on all
@@ -146,7 +160,10 @@ non-zero):
    their terms; per query the median of 3 latencies, layers, the widest
    live frontier, match ranges and host reads of the device (syncs); the
    launch counts of the device part (path "query") and of the host
-   engine's run (path "query_host") are read apart;
+   engine's run (path "query_host") are read apart; then regex_fork's
+   device ms summed over one pass of the regex and approximate queries
+   (CUDA events around each call, queued behind a spin kernel), as built
+   and on each rank route forced, the answers equal;
 4f. paged serving (K16): phase 4c's zipf vrle index (at a quarter and
    half of its rows), its zipf vseg index (a quarter) and its prose vrle
    index (a quarter, seg 2048) through save_flat and load_paged, each
@@ -185,7 +202,13 @@ non-zero):
    local sort's call; kernel D's warp route (a build with
    -DFEMTO_D_WARP_MAX=0x7fffffff) in 5 rounds in turns with its thread
    route (the design before, a build with -DFEMTO_D_WARP_MAX=0), with
-   the route the source picks: extract on every layout's 8192-step walk
+   the route the source picks: kernel R's regex_fork and K18f's
+   masked_occ_rows on their two rank routes (each forced by a build with
+   -DFEMTO_R_ROW_RANK=0 or =1) in 5 rounds in turns at the widest layers
+   (regex_fork also at an exact and a class layer on every layout, with
+   the codes its entries rank; chip_rank_routes.py times both routes
+   over more layers, layouts and segs), each beside a second bound (each
+   entry's or row's rows read once); D's routes: extract on every layout's 8192-step walk
    and on the context batch's backward walk, locate on the prose's
    65,536 walks (vseg, vrle) and the paged lf_walk_step at phase 4f's
    first step (zipf vseg and vrle quarter caches); both extract routes
@@ -355,14 +378,14 @@ PATH_KERNELS = {
                                     "masked_lf")
             for lay in SHARD_LAYOUTS),
     # phase 4h's query engine over the sharded indexes (K18h): bench.py's
-    # regexes on the zipf full, packed, vseg and vrle ones, the prose
+    # regexes on the zipf ones of every tier, the prose
     # queries on the prose vseg and vrle ones (count and docs queries),
-    # the frontier's ranks by K18f's masked_occ, R's given-ranges fork, H
-    # and R's merge; literal terms and offsets through the routed search
-    # and locate
+    # the frontier's ranks by K18f's masked_occ_rows, R's given-ranges
+    # fork, H and R's merge; literal terms and offsets through the routed
+    # search and locate
     "sharded_query": ("regex_fork_ranked", "radix_sort_pairs", "regex_merge",
                       "bucket_pack", "owner_place")
-    + tuple(f"masked_occ[{lay}]" for lay in ("full", "packed") + ROW_LAYOUTS)
+    + tuple(f"masked_occ_rows[{lay}]" for lay in SHARD_LAYOUTS)
     + tuple(f"{k}[{lay}]" for k in ("owner_occ", "owner_lf")
             for lay in ROW_LAYOUTS),
 }
@@ -474,6 +497,10 @@ for _lay in SHARD_LAYOUTS:
                                "femto_tpu/parallel/dist_query.py:216"),
         f"masked_occ[{_lay}]": ("femto_tpu_torch/csrc/dist_query.cu",
                                 "femto_tpu/parallel/dist_query.py:58"),
+        # the sharded frontier's ranks: _occ_local_dense of every symbol
+        # at each row, in backward_step_pair_sharded
+        f"masked_occ_rows[{_lay}]": ("femto_tpu_torch/csrc/dist_query.cu",
+                                     "femto_tpu/parallel/dist_query.py:99"),
         f"owner_lf[{_lay}]": ("femto_tpu_torch/csrc/dist_query.cu",
                               "femto_tpu/parallel/dist_query.py:320"),
         f"masked_lf[{_lay}]": ("femto_tpu_torch/csrc/dist_query.cu",
@@ -907,10 +934,26 @@ D_ALTERNATIVES = {
     "warp": ("thread", "-DFEMTO_D_WARP_MAX=0"),
     "thread": ("warp", "-DFEMTO_D_WARP_MAX=0x7fffffff"),
 }
-# the sources built again with other routes or settings, and each one's
+# the all-symbol rank's routes (csrc/fm_common.cuh row_rank_min): kernel
+# R's regex_fork ranks an entry's two rows for every code at once ("rows")
+# or a fork's first and last by femto::occ ("codes"), K18f's
+# masked_occ_rows a row a warp ("rows") or a (row, symbol) lane a thread
+# ("codes", masked_occ's design); the route every call takes in a build of
+# csrc/regex_frontier.cu or csrc/dist_query.cu with the flag, and that
+# flag: phase 3 holds both routes to the plain versions, phases 4d and 4h
+# sum each route's device ms over the query paths' calls and phase 5 times
+# one route against the other in turns
+R_ALTERNATIVES = {
+    "rows": ("codes", "-DFEMTO_R_ROW_RANK=0"),
+    "codes": ("rows", "-DFEMTO_R_ROW_RANK=1"),
+}
+# the builds of sources with other routes or settings (a name, or
+# "source:what" where one source has two sets), each with its
 # alternatives
 ROUTE_BUILDS = {"radix_sort": H_ALTERNATIVES, "exchange": K18A_ALTERNATIVES,
-                "lf_walk": D_ALTERNATIVES, "dist_query": D_ALTERNATIVES}
+                "lf_walk": D_ALTERNATIVES, "dist_query": D_ALTERNATIVES,
+                "regex_frontier": R_ALTERNATIVES,
+                "dist_query:rank": R_ALTERNATIVES}
 # The card's dependent global-load latency: one thread follows a random
 # cycle through an array past L2, one load waiting for the last (phase 5's
 # latency floor of the LF walks).  Built beside the sources in phase 2; a
@@ -943,12 +986,13 @@ def start_route_builds(sources=None):
 
     os.makedirs(kernels.BUILD_DIR, exist_ok=True)
     out = {}
-    for src in sources or ROUTE_BUILDS:
-        alternatives = ROUTE_BUILDS[src]
-        out[src] = {}
+    for name in sources or ROUTE_BUILDS:
+        alternatives = ROUTE_BUILDS[name]
+        src = name.split(":")[0]
+        out[name] = {}
         for route, (_, flag) in alternatives.items():
             so = os.path.join(kernels.BUILD_DIR, f"lib{src}.not_{route}.so")
-            out[src][route] = (subprocess.Popen(
+            out[name][route] = (subprocess.Popen(
                 [kernels.nvcc_path(), *kernels.NVCC_FLAGS, *flag.split(),
                  "-o", so, os.path.join(kernels.CSRC, src + ".cu")],
                 stdout=subprocess.PIPE, stderr=subprocess.STDOUT,
@@ -960,22 +1004,118 @@ def start_route_builds(sources=None):
 _ROUTE_LIBS = {}
 
 
-def route_libs(builds, src):
-    """The libraries of src's other-route builds (start_route_builds'
-    builds[src]), bound as kernels.bind binds the source, once each:
-    {route: lib}."""
+def route_libs(builds, name):
+    """The libraries of the other-route builds `name` of ROUTE_BUILDS
+    (start_route_builds' builds[name]), bound as kernels.bind binds their
+    source, once each: {route: lib}."""
     from femto_tpu_torch import kernels
 
+    src = name.split(":")[0]
     libs = {}
     for route, (proc, so) in builds.items():
         if so not in _ROUTE_LIBS:
             out, _ = proc.communicate()
             check(proc.returncode == 0,
-                  f"nvcc failed for {src}.cu {ROUTE_BUILDS[src][route][1]}:"
+                  f"nvcc failed for {src}.cu {ROUTE_BUILDS[name][route][1]}:"
                   f"\n{out}")
             _ROUTE_LIBS[so] = kernels.bind(so, src)
         libs[route] = _ROUTE_LIBS[so]
     return libs
+
+
+def rank_forced(builds, name):
+    """The builds of `name` ("regex_frontier" or "dist_query:rank") that
+    force each route of the all-symbol rank: {route: lib}."""
+    libs = route_libs(builds[name], name)
+    return {R_ALTERNATIVES[route][0]: lib for route, lib in libs.items()}
+
+
+def rank_route_fields(src, forced, run, name, rounds=5):
+    """Phase 5's fields of a rank entry's two routes on one call, run():
+    each forced by its build of csrc/<src>.cu (forced: rank_forced's),
+    held to each other bit for bit, timed in turns (`rounds` rounds, rows
+    first) and queued behind a spin kernel."""
+    from femto_tpu_torch import kernels
+
+    def on(route):
+        def call():
+            with kernels.variant(src, forced[route]):
+                return run()
+        return call
+
+    rows, codes = on("rows"), on("codes")
+    max_abs_err(f"{name}: rows route against codes route", _flat([rows()]),
+                _flat([codes()]))
+    ms, other_ms, fours = in_turns(rows, codes, rounds)
+    out = {"rows_ms": ms, "codes_ms": other_ms, "turns_ms": fours,
+           "rows_ahead_rounds": sum(k1 + k2 < l1 + l2
+                                    for k1, l1, l2, k2 in fours),
+           "rows_queued_ms": queued_ms(rows),
+           "codes_queued_ms": queued_ms(codes)}
+    log(f"    {name}: rows route {ms:.4g} ms, codes route {other_ms:.4g}, "
+        f"rows first in {out['rows_ahead_rounds']} of {rounds}; queued "
+        f"{out['rows_queued_ms']:.4g} / {out['codes_queued_ms']:.4g}")
+    return {"rank_routes": out}
+
+
+# cycles of the spin kernel queued before each call that route_sums times
+# (longer than a wrapper's host part: the events then time the device work)
+SUM_SPIN_CYCLES = 400_000
+
+
+def route_sums(mod, entry, src, forced, runs):
+    """The device ms of `entry`'s calls (mod.entry, a wrapper) summed over
+    one pass of runs ({key: fn}, each returning what its answer is held
+    by), as built and with each rank route forced (forced: rank_forced's
+    builds of csrc/<src>.cu), after a pass untimed: every call between two
+    CUDA events queued behind a spin kernel, so that its host part is
+    hidden.  Each forced
+    pass's answers equal the as-built pass's.  {route: {"ms", "calls",
+    "per_run_ms"}}."""
+    import torch
+
+    from femto_tpu_torch import kernels
+
+    orig = getattr(mod, entry)
+    out, answers = {}, {}
+    for fn in runs.values():  # a pass untimed: the first pays the warm-up
+        fn()
+    for route, lib in [("as_built", None)] + sorted(forced.items()):
+        events, key = [], [None]
+
+        def timed(*a, **kw):
+            torch.cuda._sleep(SUM_SPIN_CYCLES)
+            s, e = (torch.cuda.Event(enable_timing=True),
+                    torch.cuda.Event(enable_timing=True))
+            s.record()
+            res = orig(*a, **kw)
+            e.record()
+            events.append((key[0], s, e))
+            return res
+
+        setattr(mod, entry, timed)
+        try:
+            with kernels.variant(src, lib):
+                for k, fn in runs.items():
+                    key[0] = k
+                    got = fn()
+                    if route == "as_built":
+                        answers[k] = got
+                    else:
+                        check(got == answers[k], f"{entry} {k}: the {route} "
+                                                 f"route's answer differs")
+        finally:
+            setattr(mod, entry, orig)
+        torch.cuda.synchronize()
+        per = {}
+        for k, s, e in events:
+            per[k] = per.get(k, 0.0) + s.elapsed_time(e)
+        out[route] = {"ms": sum(per.values()), "calls": len(events),
+                      "per_run_ms": per}
+    log(f"    {entry}'s device ms summed over the path's calls: "
+        + ", ".join(f"{r} {v['ms']:.4g} ms ({v['calls']} calls)"
+                    for r, v in out.items()))
+    return out
 
 
 def route_pair(src, lib, run, want, name, route, other):
@@ -2804,17 +2944,59 @@ def fixed_frontier(ix, pt, nd, cfg, rng, n_live, F):
     return first, last, costs
 
 
-def parity_query_layer(ix, tag, pt, rng, errs):
-    """One layer of regex_fork + H + regex_merge from fixed frontiers,
-    kernel against plain, exact, approximate and over the wide NFA; the
-    merge also at capacities that overflow."""
+def segment_kind_ranges(ix, rng, k=64):
+    """Up to k (first, last) ranges of a row-tier index whose ends lie on
+    its side and continued run-length segments (segment_kind_rows, end
+    rows paired and ordered), or None where it has neither."""
     import torch
 
+    from femto_tpu_torch.ops import rank as R
+
+    if not R.is_row_tier(ix.arrays):
+        return None
+    kinds = segment_kind_rows(ix.arrays, ix.meta.n_rows,
+                              R.seg_size(ix.arrays), rng, k)
+    if not kinds:
+        return None
+    r = torch.cat(list(kinds.values()))
+    r = r[torch.randperm(r.numel(), generator=torch.Generator().manual_seed(
+        int(rng.integers(0, 2**31))))]
+    h = min(k, r.numel() // 2)
+    a, b = r[:h], r[h: 2 * h]
+    return torch.minimum(a, b), torch.maximum(a, b) + 1
+
+
+def edge_ranges(ix):
+    """(first, last) ranges between rank_edge_rows' row0 - 1, row0,
+    row0 + 1, n_rows - 1 and n_rows (those at or past 0, first < last),
+    int32 on the CPU."""
+    import torch
+
+    meta = ix.meta
+    ends = sorted({r for r in (meta.row0 - 1, meta.row0, meta.row0 + 1,
+                               meta.n_rows - 1, meta.n_rows) if r >= 0})
+    pairs = [(a, b) for a in ends for b in ends if a < b]
+    return (torch.tensor([a for a, _ in pairs], dtype=torch.int32),
+            torch.tensor([b for _, b in pairs], dtype=torch.int32))
+
+
+def parity_query_layer(ix, tag, pt, rng, errs, r_forced=None):
+    """One layer of regex_fork + H + regex_merge from fixed frontiers,
+    kernel against plain, exact, approximate and over the wide NFA; the
+    merge also at capacities that overflow; regex_fork also on each rank
+    route forced (r_forced: rank_forced's builds), where on a row tier
+    the frontier's first entries span rows of side and continued
+    segments, and the next ones ranges between row0 - 1, row0, row0 + 1,
+    n_rows - 1 and n_rows (edge_ranges)."""
+    import torch
+
+    from femto_tpu_torch import kernels
     from femto_tpu_torch.ops import regex_ops as RO
     from femto_tpu_torch.ops import sort_ops as SO
     from femto_tpu_torch.query import regexp_device as RD
 
     dev = pt.device
+    kinds = segment_kind_ranges(ix, rng)
     for kind, q, n_live, F, depth in (
             ("exact", '(the|and|[a-z]i)n[gd] ', 300, 512, 1),
             ("approx", "APPROX 2 there", 300, 512, 2),
@@ -2823,6 +3005,13 @@ def parity_query_layer(ix, tag, pt, rng, errs):
         node, nfa = query_nfa(q)
         nd, cfg, _ = RD._initial_state(ix, nfa, node.approx, F, 64)
         first, last, costs = fixed_frontier(ix, pt, nd, cfg, rng, n_live, F)
+        h = 0
+        if kinds is not None:
+            h = min(kinds[0].numel(), n_live)
+            first[:h], last[:h] = kinds[0][:h].to(dev), kinds[1][:h].to(dev)
+        e_f, e_l = edge_ranges(ix)
+        e = min(e_f.numel(), n_live - h)
+        first[h: h + e], last[h: h + e] = e_f[:e].to(dev), e_l[:e].to(dev)
         name = f"regex_fork[{tag}]({kind})"
         got = RO.regex_fork(ix.arrays, first, last, costs, n_live, nd, cfg,
                             depth > 0)
@@ -2830,6 +3019,13 @@ def parity_query_layer(ix, tag, pt, rng, errs):
                                    nd, cfg, depth > 0)
         torch.cuda.synchronize()
         errs[name] = max_abs_err(name, got, want)
+        for route, lib in (r_forced or {}).items():
+            with kernels.variant("regex_frontier", lib):
+                alt = RO.regex_fork(ix.arrays, first, last, costs, n_live,
+                                    nd, cfg, depth > 0)
+            torch.cuda.synchronize()
+            errs[f"{name}, {route} route"] = max_abs_err(
+                f"{name}, {route} route", alt, want)
         keys, fcosts = got
         skeys, sidx = SO.radix_sort_pairs(keys, None, 0, 2 * cfg.half_bits)
         for F2, R2 in ((F, 4096), (4, 3)):
@@ -2852,11 +3048,12 @@ def parity_query_layer(ix, tag, pt, rng, errs):
                   f"{tag}: the merge at capacity 4 did not overflow")
 
 
-def parity_query_kernels(indexes, pt, rng, errs, whole):
+def parity_query_kernels(indexes, pt, rng, errs, whole, r_forced=None):
     """Kernel C's backward_step and backward_search_steps and kernel R on
     every index of the parity phase, each against its plain version bit
-    for bit; on the indexes in `whole`, a whole run_regexp_device on the
-    card against the same search on a CPU copy of the index (the plain
+    for bit (regex_fork also on each rank route forced: r_forced); on
+    the indexes in `whole`, a whole run_regexp_device on the card
+    against the same search on a CPU copy of the index (the plain
     versions), exact and approximate, with a forced capacity retry."""
     import torch
 
@@ -2895,7 +3092,7 @@ def parity_query_kernels(indexes, pt, rng, errs, whole):
               and torch.equal(got[1][ne], c_l[ne])
               and bool((c_l[~ne] <= c_f[~ne]).all()),
               f"{name}: backward_search_steps' range differs from C's")
-        parity_query_layer(ix, name, pt, rng, errs)
+        parity_query_layer(ix, name, pt, rng, errs, r_forced)
     runs = {}
     for name in whole:
         ix = indexes[name]
@@ -2919,6 +3116,93 @@ def parity_query_kernels(indexes, pt, rng, errs, whole):
     log(f"    query kernels equal their plain versions on {sorted(indexes)}"
         f"; whole device searches with capacity retries: {runs}")
     return runs
+
+
+# rows a plain all-symbol rank takes at once (its lanes are rows x 261)
+RANK_CHUNK = 128
+
+
+def masked_occ_rows_in_chunks(arrays, rows, **kw):
+    """masked_occ_rows_plain over RANK_CHUNK rows at a time (a row's
+    answers are its own)."""
+    import torch
+
+    from femto_tpu_torch.ops import dist_ops as DO
+
+    return torch.cat([DO.masked_occ_rows_plain(arrays, rows[i: i + RANK_CHUNK],
+                                               **kw)
+                      for i in range(0, rows.numel(), RANK_CHUNK)], dim=1)
+
+
+def rank_edge_rows(ix, rng, nseg_local=None, k=64):
+    """Rows for the all-symbol rank's holds (int32 on the index's
+    device): row0 and its neighbours, the ends of the first, second,
+    middle and last segments (and of each shard's block, given
+    nseg_local), rows of the last segment, n_rows, the segments' end, rows
+    of side and continued segments (segment_kind_rows) and drawn rows."""
+    import torch
+
+    from femto_tpu_torch.ops import rank as R
+
+    A, meta = ix.arrays, ix.meta
+    seg, n_seg = R.seg_size(A), meta.n_seg
+    end = n_seg * seg
+    rows = [meta.row0 - 1, meta.row0, meta.row0 + 1, meta.n_rows - 1,
+            meta.n_rows, meta.n_rows + 1, end - 1, end]
+    for s_ in (1, 2, n_seg // 2, n_seg - 1):
+        rows += [s_ * seg - 1, s_ * seg, s_ * seg + 1, (s_ + 1) * seg - 1]
+    if nseg_local is not None:
+        for b in range(nseg_local * seg, end, nseg_local * seg):
+            rows += [b - 1, b, b + 1]
+    rows += list(range((n_seg - 1) * seg, end, max(1, seg // 64)))
+    rows += list(rng.integers(0, end, size=k))
+    if R.is_row_tier(A):
+        for r in segment_kind_rows(A, meta.n_rows, seg, rng, k).values():
+            rows += r.tolist()
+    r = np.unique(np.clip(np.asarray(rows, np.int64), 0, end))
+    return torch.from_numpy(r.astype(np.int32)).to(A.C.device)
+
+
+def parity_rank_rows(indexes, forced, rng, errs):
+    """Phase 3's hold of the all-symbol rank (csrc/fm_common.cuh
+    warp_rank_row) at edge rows (rank_edge_rows) of every parity index,
+    through K18f's masked_occ_rows on the index as one shard (Dl 1) as
+    built and on each route forced (forced: rank_forced's builds of
+    csrc/dist_query.cu), against its plain version bit for bit.  {index:
+    rows, the route as built}."""
+    import torch
+
+    from femto_tpu_torch import kernels
+    from femto_tpu_torch.ops import dist_ops as DO
+    from femto_tpu_torch.ops import rank as R
+    from femto_tpu_torch.ops import search_ops as S
+
+    rec = {}
+    for name, ix in indexes.items():
+        A = ix.arrays
+        n_seg, seg = ix.meta.n_seg, R.seg_size(A)
+        rows = rank_edge_rows(ix, rng)
+        kw = dict(Dl=1, nseg_local=n_seg, shard0=0,
+                  n_rows_total=n_seg * seg)
+        want = masked_occ_rows_in_chunks(A, rows, **kw)
+        key = f"masked_occ_rows[{name}] (one shard, edge rows)"
+        errs[key] = max_abs_err(key, [DO.masked_occ_rows(A, rows, **kw)],
+                                [want])
+        for route, lib in forced.items():
+            with kernels.variant("dist_query", lib):
+                got = DO.masked_occ_rows(A, rows, **kw)
+            torch.cuda.synchronize()
+            errs[f"{key}, {route} route"] = max_abs_err(
+                f"{key}, {route} route", [got], [want])
+        smem = kernels.size("masked_occ_rows_route", S.fm_view(A)[0],
+                            rows.numel(), 1)
+        rec[name] = {"rows": rows.numel(),
+                     "route": "rows" if smem else "codes",
+                     "block_bytes": smem}
+        del want
+    log(f"    the all-symbol rank (masked_occ_rows as one shard) equals its "
+        f"plain version at edge rows on both routes: {rec}")
+    return rec
 
 
 def phase_parity(record, rng, route_builds):
@@ -3090,18 +3374,33 @@ def phase_parity(record, rng, route_builds):
              prose, seg=PROSE_SEG, mark_period=3, tier=lay, device="cuda"),
              psa) for lay in ROW_LAYOUTS}}, d_libs, rng, errs)
     del psa
+    r_forced = rank_forced(route_builds, "regex_frontier")
     query_runs = parity_query_kernels(
         {**indexes, **{f"prose_{k}": v for k, v in prose_ix.items()}}, pt,
-        rng, errs, whole=LAYOUTS)
+        rng, errs, whole=LAYOUTS, r_forced=r_forced)
+    # pad_shape builds (row0 > 0; remapped on vseg and vrle): kernel R's
+    # layers and the all-symbol rank at the pad rows, on both routes
+    pads = {f"pad_{tier}": tt.build_index(
+        prepared, seg=seg, mark_period=20, tier=tier, device="cuda",
+        pad_shape=(n + 5000, ndocs + 2)) for tier in ("full", "vseg", "vrle")}
+    for name, ix in pads.items():
+        check(ix.meta.row0 > 0, f"{name}: row0 is 0")
+        parity_query_layer(ix, name, pt, rng, errs, r_forced)
+    rank_rows = parity_rank_rows(
+        {**indexes, **{f"prose_{k}": v for k, v in prose_ix.items()},
+         **pads}, rank_forced(route_builds, "dist_query:rank"), rng, errs)
+    del pads
     paged_lcp = parity_paged_lcp(indexes, prose_ix, prepared, docs, text, sa,
                                  rng, errs, d_libs)
     del indexes, prose_ix
     sharded = parity_sharded(rng, docs, prepared, sa, errs,
                              route_builds["exchange"], prose,
-                             route_builds["dist_query"])
+                             route_builds["dist_query"],
+                             rank_forced(route_builds, "dist_query:rank"))
     record["parity_8mib"] = {"n": n, "ndocs": ndocs, "max_abs_err": errs,
                              "sort_regimes": regimes, "prose": prose_rec,
                              "query_runs": query_runs,
+                             "rank_rows": rank_rows,
                              "paged_lcp": paged_lcp, "sharded": sharded,
                              "extract_routes": d_routes,
                              "locate_routes": d_locate}
@@ -3689,7 +3988,7 @@ def steps_patterns(patterns, dev):
         pad_b=len(patterns))[0]).to(dev)
 
 
-def phase_query(record, rng, st, st2, st3):
+def phase_query(record, rng, st, st2, st3, builds=None):
     """The fourth main path (4d): the query engine at full size.  (a)
     bench.py's two regex queries through run_regexp_device on phase 4's
     256 MiB zipf full, compact and packed indexes; (b) regex, approximate
@@ -3700,13 +3999,17 @@ def phase_query(record, rng, st, st2, st3):
     device part must launch no backward_step), exact regexes to a text
     scan with Python re, Boolean document sets to scans of their terms.
     The kernels' launch counts are read around the device part (the
-    "query" path) and around the host engine's run ("query_host")."""
+    "query" path) and around the host engine's run ("query_host").  Then
+    kernel R's regex_fork's device ms summed over one pass of the regex
+    and approximate queries, as built and on each rank route (given
+    phase_build's builds)."""
     import torch
 
     import femto_tpu_torch as tt
     from femto_tpu_torch import kernels
     from femto_tpu_torch import ops as O
     from femto_tpu_torch import query as Q
+    from femto_tpu_torch.ops import regex_ops as RO
     from femto_tpu_torch.ops import sort_ops as SO
     from femto_tpu_torch.query import regexp_device as RD
     from femto_tpu_torch.query.engine import apply_icase, term_ranges
@@ -3894,10 +4197,30 @@ def phase_query(record, rng, st, st2, st3):
         f"range on all five layouts; no query took the host engine "
         f"(launches {device_launches}; the host engine's {host_launches})")
     log(f"    H's sorts on the query path: {h_calls}")
+    rank_sums = "not measured"
+    if builds is not None:
+        runs = {}
+        for key, val in answers.items():
+            if key[0] == "zipf":
+                ix, nfa, node, _ = val
+                fcap = ZIPF_QUERIES[key[2]][1]
+                runs[" ".join(key)] = (
+                    lambda ix=ix, nfa=nfa, node=node, fcap=fcap: sorted(
+                        (m.first, m.last, m.cost)
+                        for m in RD.run_regexp_device(
+                            ix, nfa, node.approx, frontier_cap=fcap)))
+            elif PROSE_QUERIES[key[2]][1] is not None:
+                q, _, icase = PROSE_QUERIES[key[2]]
+                runs[" ".join(key)] = (
+                    lambda ix=val[0], q=q, icase=icase: Q.count_query(
+                        ix, q, icase=icase))
+        rank_sums = route_sums(RO, "regex_fork", "regex_frontier",
+                               rank_forced(builds, "regex_frontier"), runs)
     record["query_path"] = {"queries": out, "host_engine_s": host_s,
                             "scan_s": t_scan, "launches": device_launches,
                             "host_launches": host_launches,
-                            "h_calls": h_calls}
+                            "h_calls": h_calls,
+                            "regex_fork_sums": rank_sums}
     return dict(launches=device_launches, host_launches=host_launches,
                 zipf=zipf, zsteps=zsteps, psteps=psteps,
                 h_sorts={f"{route}, largest below 2^{b}": (k, lo, hi)
@@ -5794,7 +6117,7 @@ def sharded_layer_calls(ix, mesh, q, fcap):
     """The widest layer of the sharded search of q on ix
     (sharded_regexp_matches from frontier cap fcap, its retries included):
     (depth, n_live, {entry: (positional, keyword)}) of that layer's calls
-    of K18f masked_occ, R regex_fork_ranked, H radix_sort_pairs and R
+    of K18f masked_occ_rows, R regex_fork_ranked, H radix_sort_pairs and R
     regex_merge, each captured at its call there (captured_call: the
     search runs again and stops before the kernel)."""
     from femto_tpu_torch.ops import dist_ops as DO
@@ -5807,12 +6130,12 @@ def sharded_layer_calls(ix, mesh, q, fcap):
     sharded_regexp_matches(ix, mesh, nfa, node.approx, frontier_cap=fcap,
                            on_layer=lambda d, n_live, *_: seen.append(
                                (d, n_live)))
-    # a layer each: one masked_occ, fork, sort and merge; the run that
-    # answered starts at the last depth 0
+    # a layer each: one masked_occ_rows, fork, sort and merge; the run
+    # that answered starts at the last depth 0
     start = max(i for i, (d, _) in enumerate(seen) if d == 0)
     k = max(range(start, len(seen)), key=lambda i: seen[i][1])
     calls = {}
-    for name, mod in (("masked_occ", DO), ("regex_fork_ranked", RO),
+    for name, mod in (("masked_occ_rows", DO), ("regex_fork_ranked", RO),
                       ("radix_sort_pairs", SO), ("regex_merge", RO)):
         count = [0]
 
@@ -6312,8 +6635,35 @@ def parity_bucket_pack_edges(rng):
     return errs
 
 
+def parity_masked_occ_rows(ix, mesh, rng, errs, tag, forced=None):
+    """K18f's masked_occ_rows on a sharded index at edge rows
+    (rank_edge_rows with each shard's block ends), as built and on each
+    rank route forced (forced: rank_forced's builds of
+    csrc/dist_query.cu), against its plain version bit for bit."""
+    import torch
+
+    from femto_tpu_torch import kernels
+    from femto_tpu_torch.ops import dist_ops as DO
+    from femto_tpu_torch.ops import rank as R
+
+    A = ix.arrays
+    nseg_local = ix.meta.n_seg // mesh.D
+    rows = rank_edge_rows(ix, rng, nseg_local)
+    kw = dict(Dl=mesh.Dl, nseg_local=nseg_local, shard0=mesh.shard0,
+              n_rows_total=mesh.D * nseg_local * R.seg_size(A))
+    want = masked_occ_rows_in_chunks(A, rows, **kw)
+    key = f"masked_occ_rows[{tag}] (edge rows)"
+    errs[key] = max_abs_err(key, [DO.masked_occ_rows(A, rows, **kw)], [want])
+    for route, lib in (forced or {}).items():
+        with kernels.variant("dist_query", lib):
+            got = DO.masked_occ_rows(A, rows, **kw)
+        torch.cuda.synchronize()
+        errs[f"{key}, {route} route"] = max_abs_err(
+            f"{key}, {route} route", [got], [want])
+
+
 def parity_sharded(rng, docs, prepared, sa, errs, k18a_builds=None,
-                   prose=None, lf_builds=None):
+                   prose=None, lf_builds=None, rank_builds=None):
     """Phase 3's K18 checks on the 8 MiB corpus at D = SHARD_D on a
     LocalMesh: each K18 kernel against its plain version on the card at a
     sharded build's own inputs, bucket_pack also with a forced overflow
@@ -6321,7 +6671,9 @@ def parity_sharded(rng, docs, prepared, sa, errs, k18a_builds=None,
     (parity_rebalance_edges); K18f on the full, compact and packed
     sharded indexes, and owner_lf's two routes on the row tiers of this
     corpus and of the prose (parity_owner_lf_routes, with lf_builds: the
-    other-route builds of csrc/dist_query.cu); the whole full-tier sharded build on the card against
+    other-route builds of csrc/dist_query.cu), masked_occ_rows at edge
+    rows on every tier, on both rank routes (rank_builds: rank_forced's
+    builds of csrc/dist_query.cu); the whole full-tier sharded build on the card against
     the same build on the CPU (every FMArrays block, meta and
     LAST_BUILD_STATS), dist_suffix_array's SA against the single-device
     suffix array, and count and locate of both schemes against the
@@ -6414,12 +6766,14 @@ def parity_sharded(rng, docs, prepared, sa, errs, k18a_builds=None,
             torch.cuda.synchronize()
             errs[f"{name}[{tier}]"] = max_abs_err(f"{name} ({tier})", got,
                                                   want)
+        parity_masked_occ_rows(tix, card, rng, errs, tier, rank_builds)
     del ix, single
     rec["owner_lf_routes"] = (parity_owner_lf_routes(
         card, {"zipf": (prepared, 256), "prose": (prose, PROSE_SEG)},
         route_libs(lf_builds, "dist_query"), rng, errs)
         if lf_builds is not None else "not run")
-    rec["rows"] = parity_sharded_rows(card, cpu, prepared, rng, errs)
+    rec["rows"] = parity_sharded_rows(card, cpu, prepared, rng, errs,
+                                      rank_builds)
     rec["seconds"] = time.perf_counter() - t0
     log(f"    K18: every sharded kernel equals its plain version at D={D}; "
         f"the sharded builds on the card equal the CPU's (full, vseg and "
@@ -6479,18 +6833,20 @@ def cpu_row_builds(prepared, mesh, kws):
     return out
 
 
-def parity_sharded_rows(card, cpu, prepared, rng, errs):
+def parity_sharded_rows(card, cpu, prepared, rng, errs, rank_builds=None):
     """Phase 3's K18g / K18h checks on the 8 MiB corpus: the sharded vseg
     and vrle builds (vrle with doc lists) on the card against the CPU
     mesh's (its own sort; every FMArrays block, meta, the doc lists and
     LAST_BUILD_STATS), K18f's row-tier entries against their plain
-    versions at the build's own shapes, and on each a sharded APPROX 1
+    versions at the build's own shapes (masked_occ_rows also at edge rows
+    on both rank routes: rank_builds), and on each a sharded APPROX 1
     search held to the single-device index of the tier, with K18f's
-    masked_occ and kernel R's regex_fork_ranked held to their plain
-    versions at the search's widest layer."""
+    masked_occ_rows (both rank routes) and kernel R's regex_fork_ranked
+    held to their plain versions at the search's widest layer."""
     import torch
 
     import femto_tpu_torch as tt
+    from femto_tpu_torch import kernels
     from femto_tpu_torch.ops import dist_ops as DO
     from femto_tpu_torch.ops import regex_ops as RO
     from femto_tpu_torch.parallel import (build_index_sharded,
@@ -6518,6 +6874,7 @@ def parity_sharded_rows(card, cpu, prepared, rng, errs):
             torch.cuda.synchronize()
             errs[f"{name}[{tier}]"] = max_abs_err(f"{name} ({tier})", got,
                                                   want)
+        parity_masked_occ_rows(ix, card, rng, errs, tier, rank_builds)
         single = tt.build_index(prepared, seg=256, mark_period=20,
                                 tier=tier, device="cuda")
         got = sharded_regexp_matches(ix, card, nfa, node.approx)
@@ -6528,7 +6885,8 @@ def parity_sharded_rows(card, cpu, prepared, rng, errs):
             f"sharded {tier} {q!r} differs from the single-device index's")
         depth, n_live, calls = sharded_layer_calls(ix, card, q, fcap)
         for name, fk, fp in (
-                ("masked_occ", DO.masked_occ, masked_occ_in_chunks),
+                ("masked_occ_rows", DO.masked_occ_rows,
+                 masked_occ_rows_in_chunks),
                 ("regex_fork_ranked", RO.regex_fork_ranked,
                  RO.regex_fork_ranked_plain)):
             a, kw = calls[name]
@@ -6537,6 +6895,14 @@ def parity_sharded_rows(card, cpu, prepared, rng, errs):
             errs[f"{name}[{tier}] layer"] = max_abs_err(
                 f"{name} ({tier}, layer {depth}, {n_live} live)", _flat([k]),
                 _flat([p]))
+            if name == "masked_occ_rows":
+                for route, lib in (rank_builds or {}).items():
+                    with kernels.variant("dist_query", lib):
+                        k = fk(*a, **kw)
+                    torch.cuda.synchronize()
+                    errs[f"{name}[{tier}] layer, {route} route"] = \
+                        max_abs_err(f"{name} ({tier}, layer {depth}), "
+                                    f"{route} route", [k], [p])
         out[tier] = {"modes": seg_modes(ix.arrays.seg_woff),
                      "matches": len(got), "widest": n_live, "stats": stats}
         del ix, single, calls
@@ -6652,8 +7018,9 @@ def phase_sharded(record, rng, st, builds=None):
     it); the twin corpus once (the replicated doubling tail at full
     size); the DistMesh pass on NCCL; then phase 5's rows at these shapes
     (K18f on every tier, the K18 build kernels, M, N and P at their first
-    calls in this path's row-tier builds, masked_occ of the sharded_query
-    path on full and packed) and one sharded full and vrle build and one
+    calls in this path's row-tier builds, masked_occ_rows of the
+    sharded_query path on full and packed) and one sharded full and vrle
+    build and one
     sharded APPROX 1 query profiled for phase 6."""
     import torch
 
@@ -6729,24 +7096,23 @@ def phase_sharded(record, rng, st, builds=None):
                 ix, mesh, rng, n, prepared.doc_starts)
         torch.cuda.synchronize()
         add_launches(launches, kernels.launches)
-        if tier != "compact":
-            # bench.py's regexes through the sharded engine
-            kernels.reset_launches()
-            for name, (q, fcap) in ZIPF_QUERIES.items():
-                node, nfa = query_nfa(q)
+        # bench.py's regexes through the sharded engine
+        kernels.reset_launches()
+        for name, (q, fcap) in ZIPF_QUERIES.items():
+            node, nfa = query_nfa(q)
 
-                def run():
-                    return sharded_regexp_matches(ix, mesh, nfa, node.approx,
-                                                  frontier_cap=fcap)
-                ms = run()
-                qstats = dict(RD.last_stats)
-                lat = wall_runs(run)
-                zipf_regex[tier, name] = sorted(
-                    (m.first - row0, m.last - row0, m.cost) for m in ms)
-                r[f"query_{name}"] = {"query": q, "latency_s": summary(lat),
-                                      "ranges": len(ms), **qstats}
-            torch.cuda.synchronize()
-            add_launches(q_launches, kernels.launches)
+            def run():
+                return sharded_regexp_matches(ix, mesh, nfa, node.approx,
+                                              frontier_cap=fcap)
+            ms = run()
+            qstats = dict(RD.last_stats)
+            lat = wall_runs(run)
+            zipf_regex[tier, name] = sorted(
+                (m.first - row0, m.last - row0, m.cost) for m in ms)
+            r[f"query_{name}"] = {"query": q, "latency_s": summary(lat),
+                                  "ranges": len(ms), **qstats}
+        torch.cuda.synchronize()
+        add_launches(q_launches, kernels.launches)
         rec[tier] = r
         indexes[tier] = ix
         del ix
@@ -6769,7 +7135,7 @@ def phase_sharded(record, rng, st, builds=None):
                       f"{v['retries']}" for k, v in r.items()
                       if k.startswith("query_")))
     for name in ZIPF_QUERIES:
-        for tier in ("packed", "vseg", "vrle"):
+        for tier in ("compact", "packed", "vseg", "vrle"):
             check(zipf_regex[tier, name] == zipf_regex["full", name],
                   f"sharded {tier} {name} differs from the sharded full "
                   f"index's")
@@ -6846,13 +7212,15 @@ def phase_sharded(record, rng, st, builds=None):
                                               run_k, key))
             rows5.append(timed_row(key, "sharded", launches[key], run_k,
                                    run_p, nbytes, card, more=more))
-    # the sharded_query path's masked_occ on the zipf full and packed
-    # indexes (bench.py's regexes above; the row tiers' rows are at the
-    # prose's widest layer, in the query part)
-    for tier in ("full", "packed"):
+    # the sharded_query path's masked_occ_rows on the zipf full, compact
+    # and packed indexes (bench.py's regexes above; the row tiers' rows are at the
+    # prose's widest layer, in the query part), on both rank routes
+    rank = (rank_forced(builds, "dist_query:rank") if builds is not None
+            else None)
+    for tier in ("full", "compact", "packed"):
         rows, shape = sharded_layer_rows(
             indexes[tier], mesh, *ZIPF_QUERIES["approx1"], tier,
-            ["masked_occ"], q_launches, card)
+            ["masked_occ_rows"], q_launches, card, rank)
         rows5 += rows
         log(f"    the sharded zipf {tier} widest layer: {shape}")
     # phase 6: one sharded APPROX 1 query (zipf vrle)
@@ -7064,6 +7432,51 @@ def owner_case(name, a, kw):
     return (lambda: [fk(*a, **kw)], lambda: [fp(*a, **kwp)], nbytes, None)
 
 
+def rank_rows_bytes(arrays, rows, nseg_local=None):
+    """Bytes of ranking each row once for every code (warp_rank_row):
+    per row inside the segments its checkpoint row (K entries: int32, or
+    uint16 + the L1 int32), the counted prefix (_layout_bytes' prefix, in
+    the row's own shard given nseg_local) and on the row tiers the symbol
+    list; C once where a row lies past the segments."""
+    import torch
+
+    from femto_tpu_torch.ops import rank as R
+
+    A = arrays
+    K, seg = R.alpha_count(A), R.seg_size(A)
+    if nseg_local is None:
+        _, _, prefix, _ = _layout_bytes(A)
+        end = R.n_segments(A) * seg
+    else:
+        _, prefix = sharded_prefix_bytes(A, nseg_local)
+        end = (A.bwt.shape[0] // nseg_local) * nseg_local * seg
+    code = 4 if R.layout(A) == "full" else 6
+    lst = 0
+    if R.is_row_tier(A):
+        g = R.VsegGeom(A)
+        lst = g.S * (2 if g.wide else 1)
+    r = rows.long()
+    inside = r[r < end]
+    total = 4 * (K + 1) if bool((r >= end).any()) else 0
+    for i in range(0, inside.numel(), PLAIN_LANES):
+        c = inside[i: i + PLAIN_LANES]
+        total += int((K * code + lst + prefix(c // seg, c % seg)).sum())
+    return total
+
+
+def bound_masked_occ_rows(arrays, rows, kw):
+    """masked_occ_rows' rows in, Dl x 261 answers a row out, and each
+    owned row ranked once (rank_rows_bytes in its shard's view)."""
+    from femto_tpu_torch.ops import rank as R
+
+    owned = rows[rows < kw["n_rows_total"]]
+    total = 4 * rows.numel() + 4 * kw["Dl"] * 261 * rows.numel()
+    total += rank_rows_bytes(arrays, owned, kw["nseg_local"])
+    if bool((rows >= kw["n_rows_total"]).any()):
+        total += 4 * (R.alpha_count(arrays) + 1)
+    return total
+
+
 def bound_fork_ranked(n_live, nd, E):
     """Each live entry's cost row, the forks' ranges and the NFA in; every
     fork's key and cost row out."""
@@ -7073,14 +7486,19 @@ def bound_fork_ranked(n_live, nd, E):
             + 4 * (1 + RO.MASK_WORDS) * nd.T + E * (8 + 4 * nd.S))
 
 
-def sharded_layer_rows(ix, mesh, q, fcap, lay, entries, launches, card):
+def sharded_layer_rows(ix, mesh, q, fcap, lay, entries, launches, card,
+                       rank=None):
     """Phase 5's sharded_query rows of `entries` (of sharded_layer_calls)
     at the widest layer of q on the sharded index ix of layout lay, each
-    held to its plain version on the captured inputs: (rows, the layer's
+    held to its plain version on the captured inputs, masked_occ_rows
+    with the bound of masked_occ over its expanded lanes (the lane
+    route's) beside its own and, given rank (rank_forced's builds of
+    csrc/dist_query.cu), its two routes in turns: (rows, the layer's
     shape)."""
     import torch
 
     from femto_tpu_torch.ops import dist_ops as DO
+    from femto_tpu_torch.ops import rank as R
     from femto_tpu_torch.ops import regex_ops as RO
     from femto_tpu_torch.ops import sort_ops as SO
 
@@ -7089,14 +7507,27 @@ def sharded_layer_rows(ix, mesh, q, fcap, lay, entries, launches, card):
     rows = []
     for name in entries:
         a, kw = calls[name]
-        key, lib = name, None
-        if name == "masked_occ":
-            key = f"masked_occ[{lay}]"
-            arrays, codes, lanes = a
-            run_k = (lambda: [DO.masked_occ(*a, **kw)])
-            run_p = (lambda: [masked_occ_in_chunks(*a, **kw)])
-            nbytes = bound_masked_occ(arrays, codes, lanes, kw)
-            shape["lanes"] = lanes.numel()
+        key, lib, more = name, None, None
+        if name == "masked_occ_rows":
+            key = f"masked_occ_rows[{lay}]"
+            arrays, rows_ = a
+            run_k = (lambda: [DO.masked_occ_rows(*a, **kw)])
+            run_p = (lambda: [masked_occ_rows_in_chunks(*a, **kw)])
+            nbytes = bound_masked_occ_rows(arrays, rows_, kw)
+            cd = R.map_char(arrays, torch.arange(261, dtype=torch.int32,
+                                                 device=rows_.device))
+            lane_ms = bound_ms(bound_masked_occ(
+                arrays, cd.repeat(rows_.numel()),
+                rows_.repeat_interleave(261), kw))
+            shape["rows"] = rows_.numel()
+            shape["lanes"] = 261 * rows_.numel()
+
+            def more(run_k=run_k, key=key, lane_ms=lane_ms):
+                out = {"lane_bound_ms": lane_ms}
+                if rank is not None:
+                    out.update(rank_route_fields("dist_query", rank, run_k,
+                                                 key))
+                return out
         elif name == "regex_fork_ranked":
             nf, _, _, nl_, nd, _ = a[:6]
             run_k = (lambda: RO.regex_fork_ranked(*a, **kw))
@@ -7130,7 +7561,8 @@ def sharded_layer_rows(ix, mesh, q, fcap, lay, entries, launches, card):
         rows.append(timed_row(key, "sharded_query", launches[key], run_k,
                               run_p, nbytes, card, library=lib,
                               extra=h_fields(a[0], a[2], a[3])
-                              if name == "radix_sort_pairs" else None))
+                              if name == "radix_sort_pairs" else None,
+                              more=more))
     return rows, shape
 
 
@@ -7140,8 +7572,10 @@ def phase_sharded_query(record, rng, st4, st8, builds=None):
     sharded prose vseg and vrle indexes (seg PROSE_SEG), PROSE_QUERIES
     through sharded_count_query and sharded_docs_query held to phase 4d's
     single-device answers, ms per query and layers (the "sharded_query"
-    path, with 4h's regex launches); phase 5's rows of K18f masked_occ,
-    R regex_fork_ranked, H and R regex_merge at the widest layer of APPROX
+    path, with 4h's regex launches), K18f masked_occ_rows' device ms
+    summed over the regex and approximate queries' calls on each rank
+    route; phase 5's rows of K18f masked_occ_rows (both rank routes in
+    turns), R regex_fork_ranked, H and R regex_merge at the widest layer of APPROX
     2 parameter on the sharded prose indexes, and of the routed exchanges
     and owner answers at a docs query's first calls; a checkpointed
     dist_suffix_array of a 2^24-symbol zipf corpus that keeps its seed
@@ -7193,17 +7627,31 @@ def phase_sharded_query(record, rng, st4, st8, builds=None):
     for name in PATH_KERNELS["sharded_query"]:
         check(q_launches.get(name, 0) >= 1,
               f"kernel {name} was not launched on the sharded_query path")
-    # phase 5: K18f's masked_occ (both row tiers), R's given-ranges fork,
-    # H and R's merge (vrle) at the widest layer of APPROX 2 parameter on
-    # the sharded prose indexes, each at its call there
+    # masked_occ_rows' device ms summed over one pass of the regex and
+    # approximate prose queries, as built and on each rank route
+    rank = (rank_forced(builds, "dist_query:rank") if builds is not None
+            else None)
+    rank_sums = "not measured"
+    if rank is not None:
+        from femto_tpu_torch.ops import dist_ops as DO
+        rank_sums = route_sums(DO, "masked_occ_rows", "dist_query", rank, {
+            f"{tier} {name}": (lambda ix=ix, q=q, icase=icase:
+                               sharded_count_query(ix, mesh, q, icase=icase))
+            for tier, ix in indexes.items()
+            for name, (q, pyre, icase) in PROSE_QUERIES.items()
+            if pyre is not None})
+    # phase 5: K18f's masked_occ_rows (both row tiers), R's given-ranges
+    # fork, H and R's merge (vrle) at the widest layer of APPROX 2
+    # parameter on the sharded prose indexes, each at its call there
     q = PROSE_QUERIES["approx2"][0]
     rows5, layer = [], {}
     for tier, ix in indexes.items():
-        entries = ["masked_occ"] + (
+        entries = ["masked_occ_rows"] + (
             ["regex_fork_ranked", "radix_sort_pairs", "regex_merge"]
             if tier == "vrle" else [])
         rows, layer[tier] = sharded_layer_rows(ix, mesh, q, 256, tier,
-                                               entries, q_launches, card)
+                                               entries, q_launches, card,
+                                               rank)
         rows5 += rows
         log(f"    the sharded prose {tier} {q!r} widest layer: "
             f"{layer[tier]}")
@@ -7249,6 +7697,7 @@ def phase_sharded_query(record, rng, st4, st8, builds=None):
     ckpt = checkpoint_pass(mesh)
     record["sharded_query_path"] = {
         "queries": out, "launches": q_launches, "widest_layer": layer,
+        "masked_occ_rows_sums": rank_sums,
         "k18a_routes": routes, "checkpoint": ckpt, "card": card,
         "seconds": time.perf_counter() - t_phase}
     log(f"[4h] the sharded query part took "
@@ -7554,11 +8003,12 @@ def bound_regex_merge(skeys, state, nd, cfg):
     return bound_ms(regex_merge_bytes(skeys, state, nd, cfg))
 
 
-def widest_frontier(ix, q, fcap):
+def widest_frontier(ix, q, fcap, by_forks=False, at_depth=None):
     """The device search of q on ix (run_regexp_device from frontier cap
     fcap, its retries included), with the frontier before the widest layer
-    of the run that answered: (nfa arrays, layer settings, depth, n_live,
-    [first, last, costs])."""
+    of the run that answered (by_forks: the layer whose entries reach the
+    most forks, reached_counts; at_depth: the layer at that depth):
+    (nfa arrays, layer settings, depth, n_live, [first, last, costs])."""
     from femto_tpu_torch.query import regexp_device as RD
 
     node, nfa = query_nfa(q)
@@ -7567,9 +8017,15 @@ def widest_frontier(ix, q, fcap):
     def snap(depth, n_live, nd, cfg, bufs):
         if depth == 0:  # a run starts (again, after a retry)
             box.clear()
-        if n_live > box.get("n_live", 0):
-            box.update(n_live=n_live, depth=depth, nd=nd, cfg=cfg,
-                       fr=[b.clone() for b in bufs[:3]])
+        size = n_live
+        if at_depth is not None:
+            size = 1 if depth == at_depth else 0
+        elif by_forks:
+            size = reached_counts(ix.arrays, bufs[2], n_live, nd,
+                                  cfg)["mean"] * n_live
+        if size > box.get("size", 0):
+            box.update(size=size, n_live=n_live, depth=depth, nd=nd,
+                       cfg=cfg, fr=[b.clone() for b in bufs[:3]])
 
     RD.run_regexp_device(ix, nfa, node.approx, frontier_cap=fcap,
                          on_layer=snap)
@@ -7626,7 +8082,83 @@ def hold_layer(ix, q, fcap):
     }
 
 
-def query_kernel_rows(kernel_row, st, st3, st4, h_builds=None):
+def bound_regex_fork_rows(arrays, first, last, costs, n_live, nd, cfg):
+    """bound_regex_fork with each entry's first and last rows ranked once
+    for every code (rank_rows_bytes) in place of every reached fork's two
+    FM steps."""
+    import torch
+
+    from femto_tpu_torch.ops import regex_ops as RO
+
+    A, S_ = 261, nd.S
+    rows = torch.cat([first[:n_live], last[:n_live]])
+    total = (n_live * (8 + 4 * S_) + 4 * (S_ + 1)
+             + 4 * (1 + RO.MASK_WORDS) * nd.T
+             + A * n_live * (8 + 4 * S_) + rank_rows_bytes(arrays, rows))
+    return total / HBM_BYTES_PER_S * 1e3
+
+
+def reached_counts(arrays, costs, n_live, nd, cfg):
+    """The codes each live entry's forks rank (the symbols regex_fork's
+    reach holds, from the plain version's rule, that the index maps to a
+    code: the count its rank rule reads): min, mean and max over the
+    entries."""
+    import torch
+
+    from femto_tpu_torch.ops import rank as R
+
+    cl = costs[:n_live]
+    reach = ((cl[:, nd.src] < cfg.cost_bound)[:, :, None]
+             & nd.mask[None]).any(dim=1)
+    if cfg.cost_bound > 1:
+        any_live = (cl.min(dim=1).values + min(cfg.subst, cfg.insert)
+                    < cfg.cost_bound)
+        reach |= any_live[:, None] & (torch.arange(261, device=cl.device)
+                                      >= 5)[None, :]
+    coded = R.map_char(arrays, torch.arange(261, dtype=torch.int32,
+                                            device=cl.device)) >= 0
+    n = (reach & coded[None, :]).sum(dim=1).float()
+    return {"min": int(n.min()), "mean": float(n.mean()),
+            "max": int(n.max())}
+
+
+# the layers phase 5 times kernel R's two rank routes at, beside APPROX 1
+# ther's widest: an exact alternation's widest (a symbol reached an
+# entry) and a class's layer of the most reached forks (26 an entry)
+RANK_PROBE_QUERIES = {
+    "exact": ZIPF_QUERIES["alternation"],
+    "class": ("[a-z]{3}ing", 256),
+}
+
+
+def fork_route_probe(ix, q, fcap, forced, by_forks=False, at_depth=None):
+    """Kernel R's regex_fork at the widest layer of q on ix (by_forks,
+    at_depth: widest_frontier's) on both rank routes (rank_route_fields)
+    with the layer's shape, the codes its entries rank, the route rule's
+    least count and the call as built."""
+    from femto_tpu_torch import kernels
+    from femto_tpu_torch.ops import regex_ops as RO
+    from femto_tpu_torch.ops import search_ops as S
+
+    nd, cfg, depth, n_live, (first, last, costs) = widest_frontier(
+        ix, q, fcap, by_forks, at_depth)
+    A, sub = ix.arrays, depth > 0
+
+    def run():
+        return RO.regex_fork(A, first, last, costs, n_live, nd, cfg, sub)
+
+    out = {"query": q, "depth": depth, "n_live": n_live, "S": nd.S,
+           "reached": reached_counts(A, costs, n_live, nd, cfg),
+           "row_min": kernels.size("regex_fork_row_min",
+                                   S.fm_view(A)[0], nd.S),
+           "as_built_ms": cuda_ms(run)}
+    out.update(rank_route_fields("regex_frontier", forced, run,
+                                 f"regex_fork {q!r}")["rank_routes"])
+    return out
+
+
+def query_kernel_rows(kernel_row, st, st3, st4, h_builds=None,
+                      r_forced=None):
     """Kernel C's step entries and kernel R at the query path's shapes:
     the widest layer of APPROX 1 ther (frontier cap 1024) on each of the
     zipf full, compact and packed and the prose vseg and vrle indexes
@@ -7635,9 +8167,13 @@ def query_kernel_rows(kernel_row, st, st3, st4, h_builds=None):
     patterns, and, on zipf full, H and regex_merge after that layer's
     forks, H beside torch.sort on the same keys, and H's routes against
     each other on the query path's sorts (h_route_rows, given
-    phase_build's builds of radix_sort.cu).  Then fork, H and merge held
-    to their plain versions at the widest layers of APPROX 2 parameter
-    and 0{1,64}1 on prose vrle."""
+    phase_build's builds of radix_sort.cu).  regex_fork's rows carry its
+    two rank routes in turns and the row route's bound (given r_forced:
+    rank_forced's builds of regex_frontier.cu), and the routes are also
+    timed at the widest layers of RANK_PROBE_QUERIES on every layout
+    (fork_route_probe).  Then fork, H and merge held to their plain
+    versions at the widest layers of APPROX 2 parameter and 0{1,64}1 on
+    prose vrle."""
     import torch
 
     from femto_tpu_torch.ops import regex_ops as RO
@@ -7653,12 +8189,25 @@ def query_kernel_rows(kernel_row, st, st3, st4, h_builds=None):
         shapes[lay] = {"depth": depth, "n_live": n_live, "S": nd.S,
                        "T": nd.T}
         sub = depth > 0
-        kernel_row(f"regex_fork[{lay}]",
-                   lambda: RO.regex_fork(A, first, last, costs, n_live, nd,
-                                         cfg, sub),
+
+        def fork():
+            return RO.regex_fork(A, first, last, costs, n_live, nd, cfg, sub)
+
+        extra = {"row_bound_ms": bound_regex_fork_rows(
+            A, first, last, costs, n_live, nd, cfg),
+            "reached": reached_counts(A, costs, n_live, nd, cfg)}
+        if r_forced is not None:
+            extra.update(rank_route_fields("regex_frontier", r_forced, fork,
+                                           f"regex_fork[{lay}]"))
+            shapes[lay]["rank_probes"] = {
+                kind: fork_route_probe(ix, q, fcap, r_forced,
+                                       by_forks=kind == "class")
+                for kind, (q, fcap) in RANK_PROBE_QUERIES.items()}
+        kernel_row(f"regex_fork[{lay}]", fork,
                    lambda: RO.regex_fork_plain(A, first, last, costs,
                                                n_live, nd, cfg, sub),
-                   bound_regex_fork(A, first, last, costs, n_live, nd, cfg))
+                   bound_regex_fork(A, first, last, costs, n_live, nd, cfg),
+                   extra=extra)
         c = torch.arange(261, dtype=torch.int32,
                          device=first.device).repeat(n_live)
         f = first[:n_live].repeat_interleave(261)
@@ -8014,8 +8563,9 @@ def phase_numbers(record, st, st2, st3, st4, own, builds):
                  ("vseg", prows["vseg"].arrays, pprep.n),
                  ("vrle", prows["vrle"].arrays, pprep.n)],
         np.random.default_rng(5), limits)
-    record["query_shapes"] = query_kernel_rows(kernel_row, st, st3, st4,
-                                               builds["radix_sort"])
+    record["query_shapes"] = query_kernel_rows(
+        kernel_row, st, st3, st4, builds["radix_sort"],
+        rank_forced(builds, "regex_frontier"))
     rows = kern + [r for o in own for r in o["kernel_rows"]]
     have = {(r["name"], r["path"]) for r in rows}
     missing = sorted((name, path) for path, counts in path_launches.items()
@@ -8238,7 +8788,7 @@ def main(argv=None):
         st8 = phase(phase_sharded, rng, st, builds)
         st2 = phase(phase_tiers, rng, st)
         st3 = phase(phase_rows, rng, st, st2)
-        st4 = phase(phase_query, rng, st, st2, st3)
+        st4 = phase(phase_query, rng, st, st2, st3, builds)
         # the sharded query engine, held to phase 4d's answers
         st9 = phase(phase_sharded_query, rng, st4, st8, builds)
         st6 = phase(phase_paged, rng, st, st3, st4, builds)

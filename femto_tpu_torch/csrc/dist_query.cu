@@ -1,6 +1,6 @@
 // Kernel K18f, the sharded queries' shard-side answers: owner_occ,
-// masked_occ, owner_lf and masked_lf over the full, compact, packed, vseg
-// and vrle layouts (one instantiation each).
+// masked_occ, masked_occ_rows, owner_lf and masked_lf over the full,
+// compact, packed, vseg and vrle layouts (one instantiation each).
 //
 // Replaces (femto_tpu/parallel/dist_query.py): _occ_owner_compute (216),
 // the owner's occ for the (row, dense code) requests the routed count
@@ -32,6 +32,14 @@
 // checkpoint ride its serving row, and mark_ckpt int32[Dl] holds each
 // local shard's global mark base (femto_tpu's grank - mark_ckpt[0]).
 //
+// masked_occ_rows (the sharded frontier's ranks, K18h's masked_occ of
+// every fork's lanes) answers every symbol of each row at once: a warp a
+// (row, local shard), which decodes the row once where its shard owns it
+// (fm_common.cuh warp_rank_row), where masked_occ gives each (row, code)
+// lane a thread that decodes the row again; the lane route (that design)
+// stays for builds with -DFEMTO_R_ROW_RANK=0 (row_rank_min, regex_fork's
+// rule).
+//
 // owner_lf on vseg and vrle takes kernel D's warp route (fm_common.cuh) up
 // to the same limit on the number of requests (Dl x R slots) as D's
 // locate: a warp a request, which fetches the serving row with its marks
@@ -46,7 +54,9 @@
 //
 // Bound on the H100: bytes of dependent gathers, as kernels C and D: per
 // request the checkpoint and the counted row prefix (plus, for LF, the
-// code and the segment's mark words and two or three mark_vals words).
+// code and the segment's mark words and two or three mark_vals words);
+// masked_occ_rows: each owned row once (its checkpoint row and prefix),
+// the rows in and Dl x 261 answers a row out.
 // The warp route moves more: each valid request's whole row from its
 // symbol list on (symbols, mark words, relative checkpoints) and its L1
 // row, in one round trip.  A prose docs query's first call holds 48,060
@@ -213,6 +223,29 @@ __global__ void owner_occ_kernel(FmView ix, long long nseg_local, int shard0,
   out[k] = res;
 }
 
+// Local shard d's part of occ(dense code c, row rr) (of Dl local shards):
+// the owner's occ, C[c+1] - C[c] from global shard 0 at rr past the rows,
+// else 0 (c < 0 too).
+template <int L>
+__device__ __forceinline__ int masked_occ_at(const FmView& ix,
+                                             long long nseg_local,
+                                             int shard0, int d, int Dl,
+                                             int c, long long rr,
+                                             long long n_rows_total) {
+  if (c < 0) return 0;
+  const long long g = shard0 + d;
+  if (rr >= n_rows_total)
+    return g == 0 ? __ldg(ix.C + c + 1) - __ldg(ix.C + c) : 0;
+  const long long s = rr / ix.seg;
+  const long long slg = s - g * nseg_local;
+  if (slg < 0 || slg >= nseg_local) return 0;
+  const int off = static_cast<int>(rr - s * ix.seg);
+  if constexpr (femto::is_row<L>())
+    return occ_at<L>(shard_view<L>(ix, d, Dl, nseg_local), slg, off, c);
+  else
+    return occ_at<L>(ix, d * nseg_local + slg, off, c);
+}
+
 template <int L>
 __global__ void masked_occ_kernel(FmView ix, long long nseg_local,
                                   int shard0, const int* __restrict__ cd,
@@ -223,27 +256,83 @@ __global__ void masked_occ_kernel(FmView ix, long long nseg_local,
   const long long i =
       static_cast<long long>(blockIdx.x) * blockDim.x + threadIdx.x;
   if (i >= B) return;
-  const int c = cd[i];
+  out[d * B + i] = masked_occ_at<L>(ix, nseg_local, shard0, d, gridDim.y,
+                                    cd[i], r[i], n_rows_total);
+}
+
+// masked_occ_rows on the lane route: a thread a (row, symbol) lane, as
+// masked_occ over the expanded lanes (in builds with -DFEMTO_R_ROW_RANK=0,
+// and where a block of the row route would not fit an SM).
+template <int L>
+__global__ void masked_occ_lanes_kernel(FmView ix, long long nseg_local,
+                                        int shard0,
+                                        const int* __restrict__ rows,
+                                        long long M, long long n_rows_total,
+                                        int* __restrict__ out) {
+  const int d = blockIdx.y;
+  const long long i =
+      static_cast<long long>(blockIdx.x) * blockDim.x + threadIdx.x;
+  if (i >= M * femto::kAlpha) return;
+  const long long m = i / femto::kAlpha;
+  const int a = static_cast<int>(i - m * femto::kAlpha);
+  out[d * M * femto::kAlpha + i] = masked_occ_at<L>(
+      ix, nseg_local, shard0, d, gridDim.y, femto::map_char(ix, a), rows[m],
+      n_rows_total);
+}
+
+// (row, local shard) pairs a block of masked_occ_rows' row route
+constexpr int kRankWarps = 4;
+
+// masked_occ_rows on the row route: a warp a (row m, local shard d) pair
+// (t = m * Dl + d), which ranks the row for every code at once where the
+// shard owns it (warp_rank_row in its shard's view: one decode of the
+// row), then writes the 261 symbols' answers (0 for an absent symbol).
+// Shared memory a warp: a rank row of kAlpha ints, then its scratch.
+template <int L>
+__global__ void __launch_bounds__(kRankWarps * 32) masked_occ_rows_kernel(
+    FmView ix, long long nseg_local, int shard0, int Dl,
+    const int* __restrict__ rows, long long M, long long n_rows_total,
+    int* __restrict__ out, int scratch_words) {
+  extern __shared__ unsigned smem[];
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  const long long t =
+      static_cast<long long>(blockIdx.x) * kRankWarps + warp;
+  if (t >= M * Dl) return;
+  const long long m = t / Dl;
+  const int d = static_cast<int>(t - m * Dl);
+  int* rank = reinterpret_cast<int*>(smem) +
+              warp * (femto::kAlpha + scratch_words);
+  unsigned* scratch = reinterpret_cast<unsigned*>(rank + femto::kAlpha);
   const long long g = shard0 + d;
-  int res = 0;
-  if (c >= 0) {
-    const long long rr = r[i];
-    if (rr >= n_rows_total) {
-      if (g == 0) res = __ldg(ix.C + c + 1) - __ldg(ix.C + c);
-    } else {
-      const long long s = rr / ix.seg;
-      const long long slg = s - g * nseg_local;
-      if (slg >= 0 && slg < nseg_local) {
-        const int off = static_cast<int>(rr - s * ix.seg);
-        if constexpr (femto::is_row<L>())
-          res = occ_at<L>(shard_view<L>(ix, d, gridDim.y, nseg_local), slg,
-                          off, c);
-        else
-          res = occ_at<L>(ix, d * nseg_local + slg, off, c);
-      }
+  const long long r = rows[m];
+  // 0: the shard contributes nothing, 1: the totals, 2: the owner's ranks
+  int mode = 0;
+  if (r >= n_rows_total) {
+    mode = g == 0 ? 1 : 0;
+  } else {
+    const long long s = r / ix.seg;
+    const long long slg = s - g * nseg_local;
+    if (slg >= 0 && slg < nseg_local) {
+      mode = 2;
+      const long long off = r - s * ix.seg;
+      if constexpr (femto::is_row<L>())
+        femto::warp_rank_row<L>(shard_view<L>(ix, d, Dl, nseg_local),
+                                slg * ix.seg + off, lane, scratch, rank);
+      else
+        femto::warp_rank_row<L>(ix, (d * nseg_local + slg) * ix.seg + off,
+                                lane, scratch, rank);
     }
   }
-  out[d * B + i] = res;
+  int* o = out + (static_cast<long long>(d) * M + m) * femto::kAlpha;
+  for (int a = lane; a < femto::kAlpha; a += 32) {
+    const int c = femto::map_char(ix, a);
+    int v = 0;
+    if (c >= 0 && mode == 2)
+      v = rank[c];
+    else if (c >= 0 && mode == 1)
+      v = __ldg(ix.C + c + 1) - __ldg(ix.C + c);
+    o[a] = v;
+  }
 }
 
 template <int L>
@@ -380,6 +469,21 @@ long long owner_lf_smem(const FmView& ix, long long R, int Dl,
          *buf_words;
 }
 
+// The route of a masked_occ_rows call on the view (one rule with regex_fork:
+// fm_common.cuh row_rank_min, on the K codes every row is ranked for): the
+// row route's dynamic shared memory a block in bytes with *scratch_words a
+// warp's scratch, 0 on the lane route (also where a block would not fit an
+// SM).
+long long masked_occ_rows_smem(const FmView& ix, long long M, int Dl,
+                               int* scratch_words) {
+  *scratch_words = femto::rank_scratch_words(ix);
+  if (ix.K < femto::row_rank_min() || Dl < 1) return 0;
+  const long long pairs = M * Dl;
+  const long long warps = pairs < kRankWarps ? pairs : kRankWarps;
+  const long long bytes = 4ll * warps * (femto::kAlpha + *scratch_words);
+  return bytes <= 227 * 1024 ? bytes : 0;
+}
+
 }  // namespace
 
 // rows, cd int32[Dl, R], valid uint8[Dl, R] -> out int32[Dl, R].
@@ -412,6 +516,49 @@ extern "C" int femto_masked_occ(const FmView* ix, long long nseg_local,
         *ix, nseg_local, shard0, static_cast<const int*>(cd),
         static_cast<const int*>(r), B, n_rows_total, static_cast<int*>(out));
   });
+}
+
+// rows int32[M] (replicated) -> out int32[Dl, M, 261]: each local shard's
+// part of occ(symbol a, rows[m]) for every alphabet symbol a (masked_occ's
+// answer for the lane (map_char(a), rows[m]); 0 for an absent symbol).
+// The route by masked_occ_rows_smem.
+extern "C" int femto_masked_occ_rows(const FmView* ix, long long nseg_local,
+                                     int shard0, int Dl, const void* rows,
+                                     long long M, long long n_rows_total,
+                                     void* out, void* stream) {
+  if (Dl < 1) return static_cast<int>(cudaErrorInvalidValue);
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+  int scratch_words = 0;
+  const long long smem = masked_occ_rows_smem(*ix, M, Dl, &scratch_words);
+  return femto::dispatch_layout(*ix, [&](auto lay) {
+    constexpr int L = decltype(lay)::value;
+    if (smem > 0) {
+      if (smem > 48 * 1024)
+        cudaFuncSetAttribute(masked_occ_rows_kernel<L>,
+                             cudaFuncAttributeMaxDynamicSharedMemorySize,
+                             static_cast<int>(smem));
+      const long long pairs = M * Dl;
+      masked_occ_rows_kernel<L>
+          <<<static_cast<unsigned>((pairs + kRankWarps - 1) / kRankWarps),
+             kRankWarps * 32, static_cast<size_t>(smem), st>>>(
+              *ix, nseg_local, shard0, Dl, static_cast<const int*>(rows), M,
+              n_rows_total, static_cast<int*>(out), scratch_words);
+      return;
+    }
+    masked_occ_lanes_kernel<L><<<grid_of(M * femto::kAlpha, Dl), 256, 0,
+                                 st>>>(
+        *ix, nseg_local, shard0, static_cast<const int*>(rows), M,
+        n_rows_total, static_cast<int*>(out));
+  });
+}
+
+// The route a masked_occ_rows call of M rows and Dl local shards on the
+// view takes (masked_occ_rows_smem): the row route's dynamic shared memory
+// a block in bytes, 0 on the lane route.
+extern "C" long long femto_masked_occ_rows_route(const FmView* ix,
+                                                 long long M, int Dl) {
+  int scratch_words = 0;
+  return masked_occ_rows_smem(*ix, M, Dl, &scratch_words);
 }
 
 // rows int32[Dl, R], valid uint8[Dl, R] -> out int32[Dl, R].  The route

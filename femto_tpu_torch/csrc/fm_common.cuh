@@ -829,6 +829,200 @@ __device__ __forceinline__ void block_load_c(const femto::FmView& ix,
   __syncthreads();
 }
 
+// ---- the all-symbol rank of one row: occ(c, r) for every dense code c at
+// once (csrc/regex_frontier.cu regex_fork's row route, csrc/dist_query.cu
+// masked_occ_rows) ----
+//
+// One warp ranks one row: the checkpoint row, then one pass over the
+// row's prefix [0, off) that adds each field (or run) to a counter of its
+// code in shared memory, then rank[c] = checkpoint + the counter of c's
+// code.  On vseg and vrle the fetch is D's warp_row_fetch without the
+// marks (one dependent round trip; a side segment or a continued
+// run-length segment a second one), and the counters are per local code,
+// read through the symbol list; on full, compact and packed the lanes
+// read the checkpoint row and the prefix from global memory and count
+// into rank itself.  A rank of every code of a row so costs one decode of
+// the row, where femto::occ decodes it once per code.  row_rank_min is
+// the one rule that picks it or femto::occ per code; a build with
+// -DFEMTO_R_ROW_RANK=0 (never) or =1 (always) forces one route.
+
+// Words of a warp's scratch for warp_rank_row: on vseg and vrle the row
+// buffer and kAlpha counters, none on full, compact and packed.
+__host__ __device__ __forceinline__ int rank_scratch_words(
+    const femto::FmView& ix) {
+  return ix.layout == femto::kVseg || ix.layout == femto::kVrle
+             ? row_buf_words(ix) + femto::kAlpha
+             : 0;
+}
+
+// Entry k of a symbol list copied to shared memory (u8 or u16 entries).
+__device__ __forceinline__ int smem_list_sym(const femto::FmView& ix,
+                                             const unsigned* list, int k) {
+  return ix.wide ? static_cast<int>((list[k >> 1] >> ((k & 1) * 16)) & 0xFFFFu)
+                 : static_cast<int>((list[k >> 2] >> ((k & 3) * 8)) & 0xFFu);
+}
+
+// One to cnt[v] for each of the first `off` w-bit fields v of words (a
+// word a lane) below `limit`: the fields at or past it match no code.
+__device__ __forceinline__ void warp_count_fields(const unsigned* words,
+                                                  int w, int off, int limit,
+                                                  int lane, int* cnt) {
+  const int per = 32 / w;
+  const unsigned mask = (1u << w) - 1u;
+  const int nw = (off + per - 1) / per;
+  for (int i = lane; i < nw; i += 32) {
+    const unsigned x = words[i];
+    const int nf = min(per, off - i * per);
+    for (int k = 0; k < nf; ++k) {
+      const int v = static_cast<int>((x >> (k * w)) & mask);
+      if (v < limit) atomicAdd(cnt + v, 1);
+    }
+  }
+}
+
+// Each run-length slot's length before off to cnt[its local code] (a
+// slot a lane, 32 slots a round, the starts from a warp scan of the
+// lengths; slots_count's clamp-sum for every code at once).
+__device__ __forceinline__ void warp_count_slots(const unsigned* words,
+                                                 int nwords, int nsym,
+                                                 int off, int lane,
+                                                 int* cnt) {
+  int w, lenbits;
+  femto::slot_geom(nsym, &w, &lenbits);
+  const int kmax = (nwords * 32) / w;
+  int carry = 0;
+  for (int base = 0; base < kmax && carry < off; base += 32) {
+    const int k = base + lane;
+    int ls = 0, len = 0;
+    if (k < kmax) femto::smem_slot(words, w, lenbits, k, &ls, &len);
+    const int incl = femto::warp_inclusive_sum(len, lane);
+    const int start = carry + incl - len;
+    if (k < kmax && start < off && len > 0 && ls < femto::kAlpha)
+      atomicAdd(cnt + ls, min(off - start, len));
+    carry += __shfl_sync(femto::kAllLanes, incl, 31);
+  }
+}
+
+// rank[c] = occ(c, r) for every dense code c < K (femto::occ's answer),
+// by the whole warp; rank is shared memory (K ints), complete on every
+// lane at return.  scratch: rank_scratch_words(ix) words of shared memory
+// (none on full, compact and packed).
+template <int L>
+__device__ __forceinline__ void warp_rank_row(const femto::FmView& ix,
+                                              long long r, int lane,
+                                              unsigned* scratch, int* rank) {
+  if (r >= ix.n_seg * ix.seg) {
+    for (int c = lane; c < ix.K; c += 32)
+      rank[c] = __ldg(ix.C + c + 1) - __ldg(ix.C + c);
+    __syncwarp();
+    return;
+  }
+  if constexpr (femto::is_row<L>()) {
+    int* cnt = reinterpret_cast<int*>(scratch + row_buf_words(ix));
+    for (int c = lane; c < femto::kAlpha; c += 32) cnt[c] = 0;
+    RowFetch f;
+    warp_row_fetch<L>(ix, r, false, lane, scratch, f);
+    const unsigned* tail = scratch + row_stream_words(ix);
+    const unsigned* rel = tail + (ix.off_rel - ix.off_syms);
+#pragma unroll
+    for (int j = 0; j < femto::kRowRegs; ++j) {
+      const int c = lane + 32 * j;
+      if (c < ix.K)
+        rank[c] = f.l1[j] +
+                  static_cast<int>((rel[c >> 1] >> ((c & 1) * 16)) & 0xFFFFu);
+    }
+    const int off = f.off, woff = f.woff;
+    if (woff > 0) {
+      // a side segment: its global codes count into rank itself
+      femto::warp_copy_words(scratch, femto::side_of(ix, woff),
+                             off / (32 / ix.w_side) + 1, lane);
+      femto::cp_async_wait_warp();
+      warp_count_fields(scratch, ix.w_side, off, ix.K, lane, rank);
+      __syncwarp();
+      return;
+    }
+    if (L == femto::kVrle && woff < 0) {
+      // a run-length segment, its continuation read as warp_row_lf reads
+      // it
+      int nwords = ix.code_words;
+      if (woff < -1 && ix.ngr > 0) {
+        const long long g0 = static_cast<long long>(-woff - 2) / ix.G;
+        const long long g = min(g0, ix.X - 1);
+        const int total = ix.ngr * ix.G;
+        for (int t = lane; t < total; t += 32) {
+          const int i = t / ix.G;
+          femto::cp_async4(scratch + ix.code_words + t,
+                           ix.seg_cont + min(g + i, ix.X - 1) * ix.G +
+                               (t - i * ix.G));
+        }
+        femto::cp_async_wait_warp();
+        nwords += total;
+      }
+      warp_count_slots(scratch, nwords, f.nsym, off, lane, cnt);
+    } else {
+      warp_count_fields(scratch, ix.w_main, off, femto::kAlpha, lane, cnt);
+    }
+    __syncwarp();
+    // c's local code is the first entry of the sorted list that equals c
+    // (row_query_code's lower bound)
+    for (int lc = lane; lc < ix.S && lc < femto::kAlpha; lc += 32) {
+      const int c = smem_list_sym(ix, tail, lc);
+      if (c < ix.K && (lc == 0 || smem_list_sym(ix, tail, lc - 1) != c))
+        rank[c] += cnt[lc];
+    }
+    __syncwarp();
+  } else {
+    const long long s = r / ix.seg;
+    const int off = static_cast<int>(r - s * ix.seg);
+    for (int c = lane; c < ix.K; c += 32)
+      rank[c] = femto::ckpt_base<L>(ix, s, c);
+    __syncwarp();
+    if constexpr (L == femto::kPacked) {
+      warp_count_fields(static_cast<const unsigned*>(ix.bwt) + s * ix.W,
+                        ix.bits, off, ix.K, lane, rank);
+    } else {
+      // 8 uint16 symbols a 16-byte load (rows are 16-byte aligned)
+      const uint4* v = reinterpret_cast<const uint4*>(
+          static_cast<const uint16_t*>(ix.bwt) + s * ix.seg);
+      const int nv = (off + 7) >> 3;
+      for (int i = lane; i < nv; i += 32) {
+        const uint4 q = __ldg(v + i);
+        const unsigned wd[4] = {q.x, q.y, q.z, q.w};
+#pragma unroll
+        for (int h = 0; h < 8; ++h) {
+          const int c = static_cast<int>((wd[h >> 1] >> ((h & 1) * 16)) &
+                                         0xFFFFu);
+          if (i * 8 + h < off && c < ix.K) atomicAdd(rank + c, 1);
+        }
+      }
+    }
+    __syncwarp();
+  }
+}
+
+// The fewest codes a rank of one row must answer for warp_rank_row to
+// take them (else femto::occ a code): builds with -DFEMTO_R_ROW_RANK=0
+// (never) or =1 (always, even for none) let chip_smoke.py and
+// chip_rank_routes.py hold each route against the other.
+#ifndef FEMTO_R_ROW_RANK
+#define FEMTO_R_ROW_RANK -1
+#endif
+// chip_rank_routes.py (H100, device time queued behind a spin kernel):
+// regex_fork at layers of 256-400 entries that rank 1, 2, 4, 8, 16 or 26
+// codes each and at approximate layers, on all five layouts at seg 256
+// and 2048 on zipf, prose and a/c/g/t text, the rows route ahead at every
+// count from one code on (at one code 1.03-1.44x at seg 256, 1.6-6.6x at
+// seg 2048); masked_occ_rows' rows route ahead of a thread a lane at
+// every K from 5 to 261 (1.1-60x, 350 and 14,412 rows).  Hence one rule
+// for every layout and seg: rows wherever a row is ranked for any code.
+constexpr int kRowRankMin = 1;
+
+__host__ __device__ __forceinline__ int row_rank_min() {
+  if (FEMTO_R_ROW_RANK == 0) return 0x7fffffff;
+  if (FEMTO_R_ROW_RANK == 1) return 0;
+  return kRowRankMin;
+}
+
 // The largest batch that takes the warp route on an index.  Builds with
 // -DFEMTO_D_WARP_MAX=0 (every call a thread a walk) or 0x7fffffff (every
 // call a warp a walk) let chip_smoke.py hold each route against the other.

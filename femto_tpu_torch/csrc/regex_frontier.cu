@@ -26,8 +26,16 @@
 //
 // regex_fork: one block per entry, one warp per reached fork.  The entry's
 // costs and its reach bits (9 words of the 261-symbol masks, OR-ed over
-// the transitions whose source is live) sit in shared memory; lanes 0 and
-// 1 rank first and last; then lanes own states: a state's new cost is the
+// the transitions whose source is live) sit in shared memory.  The ranks
+// take one of two routes by the number of codes the entry's forks would
+// rank (fm_common.cuh row_rank_min): the row route, where warps
+// 0 and 1 rank the rows of first and last for every code at once
+// (warp_rank_row: one decode of each row) into two int32[K] rows in shared
+// memory that every fork then reads, wherever the entry ranks a code; or
+// the fork route (the design before it, which a build with
+// -DFEMTO_R_ROW_RANK=0 forces), where lanes 0 and 1 of a fork's warp rank
+// its first and last (femto::occ: one decode of each row a fork).  Then
+// lanes own states: a state's new cost is the
 // min over its incoming transitions (CSR by destination, so no atomics)
 // of the source's cost (mask hit) or that plus subst (miss, approximate,
 // depth > 0), then insertion, the clamp to NO_COST at cost_bound, and
@@ -49,8 +57,10 @@
 // Bound on the H100: bytes.  The fork must read each live entry's range
 // and costs and write n_live * 261 keys and cost rows, and each reached
 // fork reads the row prefixes of two ranks (chip_smoke.py
-// bound_regex_fork); the merge must read the sorted keys, payload and the
-// cost rows of the live forks and write the next frontier and the hits.
+// bound_regex_fork), or, ranked by rows, each entry's two rows once
+// (bound_regex_fork_rows); the merge must read the sorted keys, payload
+// and the cost rows of the live forks and write the next frontier and the
+// hits.
 #include "fm_common.cuh"
 
 namespace {
@@ -92,6 +102,10 @@ struct ForkArgs {
   int* scratch;              // int32[n_live * kForkWarps, S] or null
   const int* rfirst;         // int32[n_live * 261]: the forks' ranges
   const int* rlast;          //   (regex_fork_ranked), else null
+  int rank_off;              // the row route's words in dynamic shared
+                             // memory from here (two int32[kAlpha] rank
+                             // rows, two warps' scratch), -1: fork route
+  int scratch_words;         // rank_scratch_words: a warp's scratch
 };
 
 __device__ __forceinline__ long long dead_key(int half_bits) {
@@ -99,7 +113,8 @@ __device__ __forceinline__ long long dead_key(int half_bits) {
 }
 
 // kRanked: the forks' ranges come from a.rfirst / a.rlast and ix is not
-// read (regex_fork_ranked); else lanes 0 and 1 rank them (regex_fork).
+// read (regex_fork_ranked); else the row route or lanes 0 and 1 of each
+// fork's warp rank them (regex_fork).
 template <int L, bool kRanked>
 __global__ void __launch_bounds__(kForkThreads)
     regex_fork_kernel(femto::FmView ix, ForkArgs a) {
@@ -138,6 +153,37 @@ __global__ void __launch_bounds__(kForkThreads)
       approx && min_cost + min(a.subst, a.ins) < a.bound;
   const int first = kRanked ? 0 : a.first[f];
   const int last = kRanked ? 0 : a.last[f];
+  // the row route: the codes the entry's forks would rank (reached
+  // symbols the index maps to a code; a block count, uniform in the block)
+  // against the rule's least count; warps 0 and 1 rank first and last
+  bool by_rows = false;
+  int* rank_f = nullptr;
+  int* rank_l = nullptr;
+  if constexpr (!kRanked) {
+    if (a.rank_off >= 0) {
+      auto ranked = [&](int c) {
+        return c < femto::kAlpha &&
+               (((reach[c >> 5] >> (c & 31)) & 1u) ||
+                (any_live && c >= kCharOffset)) &&
+               femto::map_char(ix, c) >= 0;
+      };
+      static_assert(2 * kForkThreads >= femto::kAlpha, "two passes");
+      const int reached = __syncthreads_count(ranked(tid)) +
+                          __syncthreads_count(ranked(tid + kForkThreads));
+      by_rows = reached >= femto::row_rank_min();
+      rank_f = sh + a.rank_off;
+      rank_l = rank_f + femto::kAlpha;
+      if (by_rows) {
+        if (warp < 2) {
+          unsigned* scratch = reinterpret_cast<unsigned*>(
+              rank_l + femto::kAlpha) + warp * a.scratch_words;
+          femto::warp_rank_row<L>(ix, warp ? last : first, lane, scratch,
+                                  warp ? rank_l : rank_f);
+        }
+        __syncthreads();
+      }
+    }
+  }
   const long long dead = dead_key(a.half_bits);
   int* buf0 = in_smem ? sh + S + warp * 2 * S : nullptr;
   for (int c = warp; c < femto::kAlpha; c += kForkWarps) {
@@ -154,7 +200,11 @@ __global__ void __launch_bounds__(kForkThreads)
         nl = __ldg(a.rlast + row);
       } else {
         const int cd = femto::map_char(ix, c);  // uniform in the warp
-        if (cd >= 0) {
+        if (cd >= 0 && by_rows) {
+          const int base = __ldg(ix.C + cd);
+          nf = base + rank_f[cd];
+          nl = base + rank_l[cd];
+        } else if (cd >= 0) {
           int o = 0;
           if (lane < 2)
             o = __ldg(ix.C + cd) + femto::occ<L>(ix, cd, lane ? last : first);
@@ -385,6 +435,29 @@ extern "C" long long femto_regex_fork_scratch(int n_live, int S) {
              : static_cast<long long>(n_live) * kForkWarps * S;
 }
 
+// The row route's dynamic shared memory for a view, in words past the
+// cost rows' (two rank rows, two warps' scratch), or 0 where the view's
+// blocks take the fork route alone (row_rank_min past every count, or a
+// block past the SM's 227 KiB with cost_words of cost rows, less the
+// kernel's static part).
+static int fork_rank_words(const femto::FmView& ix, int cost_words) {
+  if (femto::row_rank_min() > femto::kAlpha) return 0;
+  const int words = 2 * femto::kAlpha + 2 * femto::rank_scratch_words(ix);
+  return 4ll * (cost_words + words) <= 226 * 1024 ? words : 0;
+}
+
+// The fewest codes an entry of regex_fork on the view must rank for its
+// block to rank by rows (fm_common.cuh row_rank_min), 0x7fffffff where it
+// never does (for S states).
+extern "C" long long femto_regex_fork_row_min(const femto::FmView* ix,
+                                              int S) {
+  const int cost_words = fork_smem_bytes(S) <= kSmemLimit
+                             ? fork_smem_bytes(S) / 4 : 0;
+  return fork_rank_words(*ix, cost_words) > 0
+             ? femto::row_rank_min()
+             : 0x7fffffff;
+}
+
 // Int32 elements of regex_merge's tile counts for E forks.
 extern "C" long long femto_regex_merge_tiles(long long E) {
   return 2 * ((E + kMergeTile - 1) / kMergeTile);
@@ -407,16 +480,23 @@ extern "C" int femto_regex_fork(const femto::FmView* ix, const void* first,
   const bool in_smem = fork_smem_bytes(S) <= kSmemLimit;
   if (!in_smem && scratch == nullptr)
     return static_cast<int>(cudaErrorInvalidValue);
+  const int cost_words = in_smem ? fork_smem_bytes(S) / 4 : 0;
+  const int rank_words = fork_rank_words(*ix, cost_words);
   ForkArgs a{static_cast<const int*>(first), static_cast<const int*>(last),
              static_cast<const int*>(costs), S, T,
              static_cast<const int*>(in_off), static_cast<const int*>(in_src),
              static_cast<const unsigned*>(in_mask), bound, subst, del, ins,
              del_rounds, allow_subst, half_bits,
              static_cast<long long*>(keys), static_cast<int*>(fcosts),
-             static_cast<int*>(scratch), nullptr, nullptr};
-  const int smem = in_smem ? fork_smem_bytes(S) : 0;
+             static_cast<int*>(scratch), nullptr, nullptr,
+             rank_words > 0 ? cost_words : -1,
+             femto::rank_scratch_words(*ix)};
+  const int smem = 4 * (cost_words + rank_words);
   return femto::dispatch_layout(*ix, [&](auto layout) {
     constexpr int L = decltype(layout)::value;
+    if (smem > 48 * 1024)
+      cudaFuncSetAttribute(regex_fork_kernel<L, false>,
+                           cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
     regex_fork_kernel<L, false><<<n_live, kForkThreads, smem,
                                   static_cast<cudaStream_t>(stream)>>>(*ix,
                                                                        a);
@@ -447,7 +527,7 @@ extern "C" int femto_regex_fork_ranked(const void* costs, const void* rfirst,
              del_rounds, allow_subst, half_bits,
              static_cast<long long*>(keys), static_cast<int*>(fcosts),
              static_cast<int*>(scratch), static_cast<const int*>(rfirst),
-             static_cast<const int*>(rlast)};
+             static_cast<const int*>(rlast), -1, 0};
   const femto::FmView none{};
   const int smem = in_smem ? fork_smem_bytes(S) : 0;
   regex_fork_kernel<femto::kFull, true>

@@ -164,6 +164,8 @@ ENTRIES: Dict[str, Tuple[str, List]] = {
                                     _P]),
     "owner_occ": ("dist_query", [_V, _L, _I, _P, _P, _P, _L, _I, _L, _P]),
     "masked_occ": ("dist_query", [_V, _L, _I, _I, _P, _P, _L, _L, _P]),
+    # the sharded frontier's ranks: every symbol's masked occ at each row
+    "masked_occ_rows": ("dist_query", [_V, _L, _I, _I, _P, _L, _L, _P]),
     "owner_lf": ("dist_query", [_V, _L, _I, _P, _P, _L, _I, _P, _P, _P, _L,
                                 _P, _P]),
     "masked_lf": ("dist_query", [_V, _L, _I, _I, _P, _L, _P, _P, _P, _L, _P,
@@ -193,11 +195,19 @@ SIZES: Dict[str, Tuple[str, List]] = {
     # K18f owner_lf's route for a call of (view, R, Dl): the same rule on
     # its Dl x R requests, 0 on the thread route
     "owner_lf_route": ("dist_query", [_V, _L, _I]),
+    # the all-symbol rank's rule (csrc/fm_common.cuh row_rank_min):
+    # masked_occ_rows' route for a call of (view, M rows, Dl), the row
+    # route's bytes of a block's shared memory, 0 on the lane route; and
+    # the fewest codes an entry of regex_fork (view, S states) must rank
+    # to rank by rows, 0x7fffffff where it never does
+    "masked_occ_rows_route": ("dist_query", [_V, _L, _I]),
+    "regex_fork_row_min": ("regex_frontier", [_V, _I]),
 }
 # entries that take an FmView: one count per layout
 LAYOUT_ENTRIES = ("backward_search", "backward_search_steps", "backward_step",
                   "lf_locate", "lf_extract", "psi_walk", "regex_fork",
-                  "owner_occ", "masked_occ", "owner_lf", "masked_lf")
+                  "owner_occ", "masked_occ", "masked_occ_rows", "owner_lf",
+                  "masked_lf")
 # entries that take an FmView of a row tier only: one count per row layout
 ROW_LAYOUTS = ("vseg", "vrle")
 ROW_LAYOUT_ENTRIES = ("backward_step_masked", "lf_walk_step")

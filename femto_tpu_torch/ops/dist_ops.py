@@ -27,7 +27,9 @@ between the steps are the mesh's (parallel/mesh.py), never a kernel's.
                             replicated epilogue's psum fetches)
   K18f csrc/dist_query.cu   owner_occ, owner_lf (the routed schemes'
                             owner answers), masked_occ, masked_lf (the
-                            psum schemes' local parts), on all five
+                            psum schemes' local parts), masked_occ_rows
+                            (every symbol's masked_occ at each row: the
+                            sharded frontier's ranks), on all five
                             layouts
 
 The local sorts of dist_sort and of the replicated epilogue run through
@@ -45,6 +47,7 @@ from typing import List, NamedTuple, Optional, Sequence
 import torch
 
 from .. import kernels
+from ..alphabet import ALPHA_SIZE
 from ..fmindex import FMArrays
 from . import rank as R
 from .search_ops import _index_tensors, fm_view
@@ -1003,6 +1006,44 @@ def masked_occ(arrays: FMArrays, cd: torch.Tensor, r: torch.Tensor, *,
         kernels.launch("masked_occ", view, nseg_local, shard0, Dl,
                        cd.data_ptr(), r.data_ptr(), cd.shape[0],
                        n_rows_total, out.data_ptr(), layout=lay)
+    return out
+
+
+def masked_occ_rows_plain(arrays, rows, *, Dl, nseg_local, shard0,
+                          n_rows_total):
+    M = rows.shape[0]
+    sym = torch.arange(ALPHA_SIZE, dtype=torch.int32, device=rows.device)
+    cd = R.map_char(arrays, sym).to(torch.int32)
+    return masked_occ_plain(arrays, cd.repeat(M).contiguous(),
+                            rows.repeat_interleave(ALPHA_SIZE).contiguous(),
+                            Dl=Dl, nseg_local=nseg_local, shard0=shard0,
+                            n_rows_total=n_rows_total)
+
+
+def masked_occ_rows(arrays: FMArrays, rows: torch.Tensor, *, Dl: int,
+                    nseg_local: int, shard0: int,
+                    n_rows_total: int) -> torch.Tensor:
+    """masked_occ of every alphabet symbol at each replicated row (rows
+    int32[M]): int32[Dl, M * 261], entry [d, m * 261 + a] local shard d's
+    part of occ(map_char(a), rows[m]) (0 for an absent symbol), as
+    masked_occ over the lanes (map_char(a), rows[m]) gives it; summed by
+    the mesh's psum.  The sharded frontier's ranks (K18h).  Kernel K18f
+    on the card: a warp ranks an owned row for every code at once (the
+    row route), or, in a build with -DFEMTO_R_ROW_RANK=0, a thread a lane
+    (the lane route; csrc/fm_common.cuh's row_rank_min)."""
+    kernels.check(rows, "rows", torch.int32, 1)
+    if not kernels.on_card(rows, *_index_tensors(arrays)):
+        return masked_occ_rows_plain(arrays, rows, Dl=Dl,
+                                     nseg_local=nseg_local, shard0=shard0,
+                                     n_rows_total=n_rows_total)
+    view, lay = fm_view(arrays)
+    M = rows.shape[0]
+    out = torch.empty((Dl, M * ALPHA_SIZE), dtype=torch.int32,
+                      device=rows.device)
+    if M:
+        kernels.launch("masked_occ_rows", view, nseg_local, shard0, Dl,
+                       rows.data_ptr(), M, n_rows_total, out.data_ptr(),
+                       layout=lay)
     return out
 
 

@@ -22,8 +22,9 @@ The query engine over a sharded index (sharded_regexp_matches,
 sharded_term_ranges, sharded_count_query, sharded_docs_query): the device
 regex frontier of query/regexp_device.py runs replicated, the same on
 every shard, and each layer's ranks are answered by the shards together:
-K18f's masked_occ of every fork's (code, first) and (code, last) lanes,
-one psum over the mesh, plus C[code] (0 for absent codes), then kernel
+K18f's masked_occ_rows of every live entry's first and last rows (every
+symbol's masked occ at each row), one psum over the mesh, plus C[code]
+(0 for absent codes), then kernel
 R's regex_fork_ranked, H's sort and R's merge.  Past its largest
 capacities the sharded frontier raises RuntimeError (it has no host
 engine to fall back on).  Offsets come from sharded_locate, and Boolean
@@ -300,10 +301,10 @@ MAX_FRONTIER_CAPS = (16384, 262144, 1024)
 def _fork_ranks(index: FMIndex, mesh):
     """The sharded frontier's rank hook (query/regexp_device._layer): the
     new range of every fork (entry f, symbol a) of the n_live live
-    entries, int32[n_live * 261] each, from K18f's masked_occ of the
-    forks' (code, first) and (code, last) lanes on every local shard, one
-    psum over the mesh and C[code]; (0, 0) where a is absent
-    (femto_tpu's backward_step_pair_sharded)."""
+    entries, int32[n_live * 261] each, from K18f's masked_occ_rows of the
+    entries' first and last rows (every symbol's masked occ at each row)
+    on every local shard, one psum over the mesh and C[code]; (0, 0)
+    where a is absent (femto_tpu's backward_step_pair_sharded)."""
     arrays, meta = index.arrays, index.meta
     nseg_local = _nseg_local(index, mesh)
     n_rows_total = mesh.D * nseg_local * meta.seg
@@ -315,12 +316,9 @@ def _fork_ranks(index: FMIndex, mesh):
     def rank(first, last, n_live):
         A = ALPHA_SIZE
         rows = torch.cat([first[:n_live], last[:n_live]])
-        lanes = rows[:, None].expand(2 * n_live, A).reshape(-1)
-        codes = cd[None].expand(2 * n_live, A).reshape(-1)
-        occ = mesh.psum(DO.masked_occ(
-            arrays, codes, lanes, Dl=mesh.Dl, nseg_local=nseg_local,
+        occ = mesh.psum(DO.masked_occ_rows(
+            arrays, rows, Dl=mesh.Dl, nseg_local=nseg_local,
             shard0=mesh.shard0, n_rows_total=n_rows_total))
-        del lanes, codes
         occ = torch.where(valid, base + occ.view(2, n_live, A), 0)
         return occ[0].reshape(-1), occ[1].reshape(-1)
 
