@@ -9,8 +9,9 @@ non-zero):
 
 1. card and toolchain: nvidia-smi name and power limit, CUDA, nvcc, triton;
 2. build every kernel under femto_tpu_torch/csrc/ with nvcc for sm_90a
-   (and, beside them, the other-route builds of H, K18a, D and of the
-   all-symbol rank in R and K18f, and a pointer-chase latency probe);
+   (and, beside them, the other-route builds of H, K18a, D, C and of
+   the all-symbol rank in R and K18f, and a pointer-chase latency probe);
+   ptxas must report no local memory in kernel C's kernels;
 3. kernel L's gather_rows and gather_cols at edge shapes (1 to 8 columns,
    int32 and int64, idx views off a 16-byte boundary, -1 and
    out-of-range indices, 0, 1, 65,536 and 2^26 rows), kernel D's extract
@@ -44,7 +45,14 @@ non-zero):
    shard at edge rows (row0 and its neighbours, segment ends, the last
    segment, n_rows, the segments' end, side and continued segments) on
    both routes, regex_fork's layers and masked_occ_rows also on pad_shape
-   builds (row0 > 0: full, vseg and vrle), and on the five layouts a
+   builds (row0 > 0: full, vseg and vrle); kernel C's four entries on
+   both routes (a warp or a thread a pattern or lane) and as built on
+   every layout, the prose's (side and continued segments) and the
+   pad_shape builds, backward_search and backward_search_steps at 64
+   columns and at 1, 5 and every pattern, the one-step entries on lanes
+   whose ends share a segment (empty and reversed ranges too), end on
+   side and continued segments or between row0 - 1 and n_rows, with -1,
+   absent and outside-alphabet symbols, and on the five layouts a
    whole run_regexp_device on the card against the same search on a CPU
    copy of the index (the plain versions) and the host engine, with a
    forced capacity retry; the chunked path's kernels: P's doc_lists and
@@ -163,7 +171,10 @@ non-zero):
    engine's run (path "query_host") are read apart; then regex_fork's
    device ms summed over one pass of the regex and approximate queries
    (CUDA events around each call, queued behind a spin kernel), as built
-   and on each rank route forced, the answers equal;
+   and on each rank route forced, the answers equal, and kernel C's the
+   same way on each of its routes: backward_search over the prose
+   queries, backward_search_steps over the report's calls and the host
+   engine's backward_step over every query and term;
 4f. paged serving (K16): phase 4c's zipf vrle index (at a quarter and
    half of its rows), its zipf vseg index (a quarter) and its prose vrle
    index (a quarter, seg 2048) through save_flat and load_paged, each
@@ -176,8 +187,10 @@ non-zero):
    resident index's, warm repeats whose cold faults fit the cache held to
    no fault; ms, faults, hits, fetched MiB, dispatches, the fault path's
    GB/s, us per extracted character and the ratio to the resident call;
-   the paged path's launch counts; its kernels' phase 5 rows at the zipf
-   quarter's shapes; one cold count profiled for phase 6;
+   the paged path's launch counts; kernel C's masked step's device ms
+   over one count of each cell on each of C's routes; its kernels' phase
+   5 rows at the zipf quarter's shapes; one cold count profiled for
+   phase 6;
 4g. the LCP analytics (K17): lcp_array of phase 4's corpus and of its
    twin from the suffix arrays built on the card, held to a host byte
    compare at 65536 sampled ranks (lcp[0] == 0), and of the prose,
@@ -208,7 +221,12 @@ non-zero):
    (regex_fork also at an exact and a class layer on every layout, with
    the codes its entries rank; chip_rank_routes.py times both routes
    over more layers, layouts and segs), each beside a second bound (each
-   entry's or row's rows read once); D's routes: extract on every layout's 8192-step walk
+   entry's or row's rows read once); kernel C's rows (every entry at its
+   paths' calls) with its warp route in 5 rounds in turns with its
+   thread route (builds with -DFEMTO_C_WARP_MAX=0x7fffffff and =0), the
+   route the source picks, the bound with a shared segment's row read
+   once beside the bound of each end's row read apart, and C's device ms
+   summed over the count rates' calls on each route; D's routes: extract on every layout's 8192-step walk
    and on the context batch's backward walk, locate on the prose's
    65,536 walks (vseg, vrle) and the paged lf_walk_step at phase 4f's
    first step (zipf vseg and vrle quarter caches); both extract routes
@@ -222,7 +240,9 @@ non-zero):
    build, count, locate and context of the packed tier, the vseg and vrle
    builds, one build, count, locate and context of the prose vrle
    index, and one APPROX 1 ther query on the zipf full and the prose vrle
-   index (with the host time per layer) (torch.profiler);
+   index (with the host time per layer) (torch.profiler; a count's
+   kernel C device ms also from CUDA events around its calls, which the
+   profiler has missed);
    the two-chunk build of phase 4e, the cold paged count of 4f, the
    lcp_array of 4g and the sharded build of 4h (with their largest idle
    gaps, and the sharded build's launches of K18a's and K18b's entries
@@ -947,13 +967,26 @@ R_ALTERNATIVES = {
     "rows": ("codes", "-DFEMTO_R_ROW_RANK=0"),
     "codes": ("rows", "-DFEMTO_R_ROW_RANK=1"),
 }
+# kernel C's routes for its four entries (csrc/fm_common.cuh c_route_smem,
+# exposed as femto_backward_search_route): a warp a pattern or lane, or a
+# thread a pattern or lane (the design before, with the shared segment
+# row); the route every call takes in a build of csrc/backward_search.cu
+# with the flag, and that flag: phase 3 holds both routes to the plain
+# versions, phase 5 times the warp route against the thread route in
+# turns and sums each route's device ms over the count and query paths'
+# calls; chip_c_routes.py sweeps them
+C_ALTERNATIVES = {
+    "warp": ("thread", "-DFEMTO_C_WARP_MAX=0"),
+    "thread": ("warp", "-DFEMTO_C_WARP_MAX=0x7fffffff"),
+}
 # the builds of sources with other routes or settings (a name, or
 # "source:what" where one source has two sets), each with its
 # alternatives
 ROUTE_BUILDS = {"radix_sort": H_ALTERNATIVES, "exchange": K18A_ALTERNATIVES,
                 "lf_walk": D_ALTERNATIVES, "dist_query": D_ALTERNATIVES,
                 "regex_frontier": R_ALTERNATIVES,
-                "dist_query:rank": R_ALTERNATIVES}
+                "dist_query:rank": R_ALTERNATIVES,
+                "backward_search": C_ALTERNATIVES}
 # The card's dependent global-load latency: one thread follows a random
 # cycle through an array past L2, one load waiting for the last (phase 5's
 # latency floor of the LF walks).  Built beside the sources in phase 2; a
@@ -1030,11 +1063,55 @@ def rank_forced(builds, name):
     return {R_ALTERNATIVES[route][0]: lib for route, lib in libs.items()}
 
 
-def rank_route_fields(src, forced, run, name, rounds=5):
-    """Phase 5's fields of a rank entry's two routes on one call, run():
-    each forced by its build of csrc/<src>.cu (forced: rank_forced's),
-    held to each other bit for bit, timed in turns (`rounds` rounds, rows
-    first) and queued behind a spin kernel."""
+def c_forced(builds):
+    """The builds of csrc/backward_search.cu (start_route_builds'
+    builds) that force each of kernel C's routes: {route: lib}."""
+    libs = route_libs(builds["backward_search"], "backward_search")
+    return {C_ALTERNATIVES[route][0]: lib for route, lib in libs.items()}
+
+
+def c_block_bytes(arrays, B, entry="backward_search"):
+    """Kernel C's route for a call of `entry` of B patterns or lanes on an
+    index, as csrc/fm_common.cuh c_route_smem picks it: the warp route's
+    shared memory a block in bytes, 0 on the thread route."""
+    from femto_tpu_torch import kernels
+    from femto_tpu_torch.ops import search_ops as S
+
+    return kernels.size("backward_search_route", S.fm_view(arrays)[0], B,
+                        int(entry.startswith("backward_step")))
+
+
+def c_route(arrays, B, entry="backward_search"):
+    """"warp" or "thread": the route of a call of kernel C's `entry`."""
+    return "warp" if c_block_bytes(arrays, B, entry) else "thread"
+
+
+def c_route_fields(forced, run, name, rounds=5):
+    """Kernel C's two routes on one call, run() (forced: c_forced's
+    builds; route_turns)."""
+    return route_turns("backward_search", forced, run, name, "warp",
+                       "thread", rounds)
+
+
+def c_fields(forced, arrays, B, run, name, old_bound_ms):
+    """Phase 5's fields of a row of kernel C (a call of B patterns or
+    lanes, run(); name: the row's, "entry[layout]" first): the route it
+    takes as built and its block's shared memory, both routes in turns
+    (c_route_fields) and the bound of the design before the shared row
+    (each end's segment read apart)."""
+    entry = name.split("[")[0]
+    return {"c_route": c_route(arrays, B, entry),
+            "c_block_bytes": c_block_bytes(arrays, B, entry),
+            "old_bound_ms": old_bound_ms,
+            "c_routes": c_route_fields(forced, run, name)}
+
+
+def route_turns(src, forced, run, name, first, second, rounds=5):
+    """One call, run(), on two routes of csrc/<src>.cu, each forced by its
+    build (forced: {route: lib}, kernels.variant around the same wrapper):
+    held to each other bit for bit, timed in turns (`rounds` rounds,
+    `first` first) and queued behind a spin kernel; the fields are named
+    by the routes."""
     from femto_tpu_torch import kernels
 
     def on(route):
@@ -1043,19 +1120,28 @@ def rank_route_fields(src, forced, run, name, rounds=5):
                 return run()
         return call
 
-    rows, codes = on("rows"), on("codes")
-    max_abs_err(f"{name}: rows route against codes route", _flat([rows()]),
-                _flat([codes()]))
-    ms, other_ms, fours = in_turns(rows, codes, rounds)
-    out = {"rows_ms": ms, "codes_ms": other_ms, "turns_ms": fours,
-           "rows_ahead_rounds": sum(k1 + k2 < l1 + l2
-                                    for k1, l1, l2, k2 in fours),
-           "rows_queued_ms": queued_ms(rows),
-           "codes_queued_ms": queued_ms(codes)}
-    log(f"    {name}: rows route {ms:.4g} ms, codes route {other_ms:.4g}, "
-        f"rows first in {out['rows_ahead_rounds']} of {rounds}; queued "
-        f"{out['rows_queued_ms']:.4g} / {out['codes_queued_ms']:.4g}")
-    return {"rank_routes": out}
+    a, b = on(first), on(second)
+    max_abs_err(f"{name}: {first} route against {second} route",
+                _flat([a()]), _flat([b()]))
+    ms, other_ms, fours = in_turns(a, b, rounds)
+    out = {f"{first}_ms": ms, f"{second}_ms": other_ms, "turns_ms": fours,
+           f"{first}_ahead_rounds": sum(k1 + k2 < l1 + l2
+                                        for k1, l1, l2, k2 in fours),
+           f"{first}_queued_ms": queued_ms(a),
+           f"{second}_queued_ms": queued_ms(b)}
+    log(f"    {name}: {first} route {ms:.4g} ms, {second} route "
+        f"{other_ms:.4g}, {first} first in {out[f'{first}_ahead_rounds']} "
+        f"of {rounds}; queued {out[f'{first}_queued_ms']:.4g} / "
+        f"{out[f'{second}_queued_ms']:.4g}")
+    return out
+
+
+def rank_route_fields(src, forced, run, name, rounds=5):
+    """Phase 5's fields of a rank entry's two routes on one call, run()
+    (forced: rank_forced's builds of csrc/<src>.cu; route_turns, rows
+    first)."""
+    return {"rank_routes": route_turns(src, forced, run, name, "rows",
+                                       "codes", rounds)}
 
 
 # cycles of the spin kernel queued before each call that route_sums times
@@ -1066,11 +1152,11 @@ SUM_SPIN_CYCLES = 400_000
 def route_sums(mod, entry, src, forced, runs):
     """The device ms of `entry`'s calls (mod.entry, a wrapper) summed over
     one pass of runs ({key: fn}, each returning what its answer is held
-    by), as built and with each rank route forced (forced: rank_forced's
-    builds of csrc/<src>.cu), after a pass untimed: every call between two
-    CUDA events queued behind a spin kernel, so that its host part is
-    hidden.  Each forced
-    pass's answers equal the as-built pass's.  {route: {"ms", "calls",
+    by), as built and with each route forced (forced: {route: a build of
+    csrc/<src>.cu that forces it}, rank_forced's or c_forced's), after a
+    pass untimed: every call between two CUDA events queued behind a spin
+    kernel, so that its host part is hidden.  Each forced pass's answers
+    equal the as-built pass's.  {route: {"ms", "calls",
     "per_run_ms"}}."""
     import torch
 
@@ -1767,6 +1853,19 @@ def text_tensor(prepared, dev):
         torch.int32)
 
 
+def text_patterns(text, rng, B, P, min_len=1):
+    """int32[B, P] patterns drawn from the text's codes (a tensor on the
+    card): lengths min_len to P, right-aligned, -1 on the left."""
+    import torch
+
+    n = text.shape[0]
+    pos = torch.from_numpy(rng.integers(0, n - P, B)).to(text.device)
+    lens = torch.from_numpy(rng.integers(min_len, P + 1, B)).to(text.device)
+    pats = text[pos[:, None] + torch.arange(P, device=text.device)]
+    pad = torch.arange(P, device=text.device)[None, :] < (P - lens)[:, None]
+    return torch.where(pad, -1, pats).to(torch.int32).contiguous()
+
+
 # ---------------------------------------------------------------------------
 # bounds: bytes each function must move for this run's data, over HBM rate
 # ---------------------------------------------------------------------------
@@ -1837,10 +1936,14 @@ def _layout_bytes(arrays):
     return 2, ckpt, lambda s, off: 2 * off, remap
 
 
-def _step_bytes(arrays, c, first, last, active):
+def _step_bytes(arrays, c, first, last, active, shared=True):
     """Bytes one FM step moves on the lanes where `active`: the symbol
     map (c in the alphabet), C[c] (c present) and, for first and last
-    inside the segments, one checkpoint and the counted prefix."""
+    inside the segments, one checkpoint and the counted prefix -- where
+    `shared` and both lie in one segment, one checkpoint and the prefix up
+    to the larger offset for both (the least a step must read; without
+    `shared`, each end's own, as kernel C's design before the shared row
+    read them)."""
     import torch
 
     from femto_tpu_torch.ops import rank as R
@@ -1851,19 +1954,28 @@ def _step_bytes(arrays, c, first, last, active):
     total = remap * int((active & (c < 261)).sum())
     valid = active & (R.map_char(arrays, c) >= 0)
     total += 4 * int(valid.sum())
+    end = n_seg * seg
+    one = torch.zeros_like(valid)
+    if shared:
+        one = (valid & (first < end) & (last < end)
+               & (first.long() // seg == last.long() // seg))
+        hi = torch.maximum(first, last).long()
+        total += int((one * (ckpt + prefix(hi // seg, hi % seg))).sum())
     for r in (first, last):
-        inside = valid & (r < n_seg * seg)
-        rs = torch.clamp(r.long(), max=n_seg * seg - 1)
+        inside = valid & (r < end) & ~one
+        rs = torch.clamp(r.long(), max=end - 1)
         total += int((inside * (ckpt + prefix(rs // seg, r.long() % seg))
                       ).sum())
     return total
 
 
-def bound_backward_search(arrays, pats, n_rows, row0, steps=False):
+def bound_backward_search(arrays, pats, n_rows, row0, steps=False,
+                          shared=True):
     """Patterns + outputs + per valid step the symbol map, C[c] and, for
     first and last, one checkpoint and the bytes of segment prefix
     counted (steps: backward_search_steps, whose lanes stop once their
-    range is empty, with three more outputs)."""
+    range is empty, with three more outputs); a segment that holds both
+    ends read once where `shared` (_step_bytes)."""
     import torch
 
     from femto_tpu_torch.ops import rank as R
@@ -1877,7 +1989,7 @@ def bound_backward_search(arrays, pats, n_rows, row0, steps=False):
         active = col >= 0
         if steps:
             active = active & (last > first)
-        total += _step_bytes(arrays, col, first, last, active)
+        total += _step_bytes(arrays, col, first, last, active, shared)
         nf, nl = R.backward_step_pair(arrays, col, first, last)
         first = torch.where(active, nf, first)
         last = torch.where(active, nl, last)
@@ -2034,8 +2146,9 @@ def phase_toolchain(record):
 
 
 def phase_build(record):
-    """Every source at once (kernels.build), and kernel H's, K18a's and
-    D's other routes and the latency probe beside them:
+    """Every source at once (kernels.build), and the other-route builds of
+    ROUTE_BUILDS (H, K18a, D, the all-symbol rank, C) and the latency
+    probe beside them:
     returns start_route_builds' with the latency probe's build under
     "chase"."""
     from femto_tpu_torch import kernels
@@ -2054,6 +2167,17 @@ def phase_build(record):
     for src, lines in ptxas.items():
         for ln in lines:
             log(f"    {src}: {ln}")
+    # kernel C's kernels keep every value in registers: an indexed register
+    # array would show as a stack frame (local memory)
+    if "backward_search" in kernels.build_logs:
+        local = [int(v) for v in re.findall(
+            r"(\d+) bytes (?:stack frame|lmem|spill stores|spill loads)",
+            kernels.build_logs["backward_search"])]
+        check(local and max(local) == 0,
+              f"kernel C's kernels use local memory: {local}")
+        record["c_local_bytes"] = {"max": max(local), "records": len(local)}
+        log(f"    backward_search: 0 bytes of local memory in {len(local)} "
+            f"ptxas records")
     return routes
 
 
@@ -3118,6 +3242,119 @@ def parity_query_kernels(indexes, pt, rng, errs, whole, r_forced=None):
     return runs
 
 
+def shared_segment_ranges(ix, rng, k=256):
+    """k (first, last) ranges whose two ends lie in one segment (drawn
+    segments, the last one's pad rows included, and offsets; empty ones
+    where the offsets meet), and k // 16 with first > last, int64 numpy."""
+    from femto_tpu_torch.ops import rank as R
+
+    seg, n_seg = R.seg_size(ix.arrays), ix.meta.n_seg
+    s = rng.integers(0, n_seg, k)
+    s[:4] = n_seg - 1
+    a = s * seg + rng.integers(0, seg, k)
+    b = s * seg + rng.integers(0, seg, k)
+    a[4:8] = b[4:8]
+    first, last = np.minimum(a, b), np.maximum(a, b)
+    h = k // 16
+    return (np.concatenate([first, last[:h]]),
+            np.concatenate([last, first[:h]]))
+
+
+def count_lanes(ix, rng, B):
+    """B lanes (c, first, last) of kernel C's one-step entries, int32 on the
+    index's device: symbols of the index's alphabet, -1 on an eighth of
+    the lanes, 300 (outside the alphabet) and, on a remapped index,
+    symbols absent from it on others; ranges whose ends share a segment
+    (shared_segment_ranges, some reversed), end on side and continued
+    segments (segment_kind_ranges), lie between row0 - 1, row0, row0 + 1,
+    n_rows - 1 and n_rows (edge_ranges), the whole range and drawn
+    ranges, repeated up to B."""
+    import torch
+
+    from femto_tpu_torch.ops import rank as R
+
+    A, meta = ix.arrays, ix.meta
+    parts = [shared_segment_ranges(ix, rng)]
+    kinds = segment_kind_ranges(ix, rng)
+    if kinds is not None:
+        parts.append((kinds[0].numpy(), kinds[1].numpy()))
+    e_f, e_l = edge_ranges(ix)
+    parts.append((e_f.numpy(), e_l.numpy()))
+    parts.append((np.array([meta.row0]), np.array([meta.n_rows])))
+    ends = np.sort(rng.integers(0, meta.n_rows + 1, size=(B, 2)), axis=1)
+    parts.append((ends[:, 0], ends[:, 1]))
+    first = np.concatenate([p[0] for p in parts]).astype(np.int32)
+    last = np.concatenate([p[1] for p in parts]).astype(np.int32)
+    first, last = np.resize(first, B), np.resize(last, B)
+    if R.is_remapped(A):
+        amap = A.alpha_map.cpu().numpy()
+        syms, absent = np.nonzero(amap >= 0)[0], np.nonzero(amap < 0)[0]
+    else:
+        syms, absent = np.arange(261), np.zeros(0, np.int64)
+    c = syms[rng.integers(0, len(syms), B)].astype(np.int32)
+    c[::8] = -1
+    c[3::17] = 300
+    if len(absent):
+        c[5::13] = absent[rng.integers(0, len(absent), len(c[5::13]))]
+    dev = A.C.device
+    return tuple(torch.from_numpy(np.ascontiguousarray(x)).to(dev)
+                 for x in (c, first, last))
+
+
+def parity_count_routes(cases, forced, rng, errs):
+    """Phase 3's hold of kernel C on both routes (forced: c_forced's
+    builds) and as built, all four entries against their plain versions
+    bit for bit: cases {name: (index, int32[B, P] patterns)};
+    backward_search and backward_search_steps from row0 to n_rows at the
+    patterns' B and at 1 and 5 of them, backward_step (and on the row
+    tiers backward_step_masked) on count_lanes' lanes at B = 1, 5 and
+    4096.  Returns {name: {route: the calls that take it as built}}."""
+    import torch
+
+    from femto_tpu_torch import kernels
+    from femto_tpu_torch.ops import rank as R
+    from femto_tpu_torch.ops import search_ops as S
+
+    rec = {}
+    for name, (ix, pt) in cases.items():
+        A, meta = ix.arrays, ix.meta
+        nr, r0 = meta.n_rows, meta.row0
+        runs = {}
+        for B in (pt.shape[0], 1, 5):
+            p = pt[:B].contiguous()
+            runs[f"backward_search(B={B})"] = (
+                B, lambda p=p: S.backward_search(A, nr, p, r0),
+                lambda p=p: S.backward_search_plain(A, nr, p, r0))
+            runs[f"backward_search_steps(B={B})"] = (
+                B, lambda p=p: S.backward_search_steps(A, nr, p, r0),
+                lambda p=p: S.backward_search_steps_plain(A, nr, p, r0))
+        for B in (4096, 1, 5):
+            lanes = count_lanes(ix, rng, B)
+            runs[f"backward_step(B={B})"] = (
+                B, lambda ln=lanes: S.backward_step_pair(A, *ln),
+                lambda ln=lanes: S.backward_step_plain(A, *ln))
+            if R.is_row_tier(A):
+                runs[f"backward_step_masked(B={B})"] = (
+                    B, lambda ln=lanes: S.backward_step_masked(A, *ln),
+                    lambda ln=lanes: S.backward_step_masked_plain(A, *ln))
+        rec[name] = {}
+        for key, (B, run_k, run_p) in runs.items():
+            want = run_p()
+            tag = f"{key.split('(')[0]}[{name}]({key.split('(')[1]}"
+            errs[tag] = max_abs_err(tag, run_k(), want)
+            for route, lib in forced.items():
+                with kernels.variant("backward_search", lib):
+                    got = run_k()
+                torch.cuda.synchronize()
+                errs[f"{tag}, {route} route"] = max_abs_err(
+                    f"{tag}, {route} route", got, want)
+            route = c_route(A, B, key.split("(")[0])
+            rec[name][route] = rec[name].get(route, 0) + 1
+    log(f"    C: both routes and the build's own equal the plain versions "
+        f"on every entry: {rec}")
+    return rec
+
+
 # rows a plain all-symbol rank takes at once (its lanes are rows x 261)
 RANK_CHUNK = 128
 
@@ -3386,12 +3623,22 @@ def phase_parity(record, rng, route_builds):
     for name, ix in pads.items():
         check(ix.meta.row0 > 0, f"{name}: row0 is 0")
         parity_query_layer(ix, name, pt, rng, errs, r_forced)
+    # kernel C on both routes: every layout, the prose's side and
+    # continued segments, the pad_shape builds (row0 > 0); 64 columns, two
+    # of the warp route's 32-column loads
+    c_libs = c_forced(route_builds)
+    pt64 = pt[:, -64:].contiguous()
+    ppt = text_patterns(text_tensor(prose, dev), rng, 2048, 40)
+    c_routes = parity_count_routes(
+        {**{k: (v, pt64) for k, v in {**indexes, **pads}.items()},
+         **{f"prose_{k}": (v, ppt) for k, v in prose_ix.items()}},
+        c_libs, rng, errs)
     rank_rows = parity_rank_rows(
         {**indexes, **{f"prose_{k}": v for k, v in prose_ix.items()},
          **pads}, rank_forced(route_builds, "dist_query:rank"), rng, errs)
     del pads
     paged_lcp = parity_paged_lcp(indexes, prose_ix, prepared, docs, text, sa,
-                                 rng, errs, d_libs)
+                                 rng, errs, d_libs, c_libs)
     del indexes, prose_ix
     sharded = parity_sharded(rng, docs, prepared, sa, errs,
                              route_builds["exchange"], prose,
@@ -3401,6 +3648,7 @@ def phase_parity(record, rng, route_builds):
                              "sort_regimes": regimes, "prose": prose_rec,
                              "query_runs": query_runs,
                              "rank_rows": rank_rows,
+                             "count_routes": c_routes,
                              "paged_lcp": paged_lcp, "sharded": sharded,
                              "extract_routes": d_routes,
                              "locate_routes": d_locate}
@@ -4216,13 +4464,18 @@ def phase_query(record, rng, st, st2, st3, builds=None):
                         ix, q, icase=icase))
         rank_sums = route_sums(RO, "regex_fork", "regex_frontier",
                                rank_forced(builds, "regex_frontier"), runs)
+    c_sums = "not measured"
+    if builds is not None:
+        c_sums = query_c_sums(c_forced(builds), answers, zipf, prows,
+                              zsteps, psteps)
     record["query_path"] = {"queries": out, "host_engine_s": host_s,
                             "scan_s": t_scan, "launches": device_launches,
                             "host_launches": host_launches,
                             "h_calls": h_calls,
-                            "regex_fork_sums": rank_sums}
+                            "regex_fork_sums": rank_sums,
+                            "c_sums": c_sums}
     return dict(launches=device_launches, host_launches=host_launches,
-                zipf=zipf, zsteps=zsteps, psteps=psteps,
+                zipf=zipf, zsteps=zsteps, psteps=psteps, c_sums=c_sums,
                 h_sorts={f"{route}, largest below 2^{b}": (k, lo, hi)
                          for (route, b), (_, k, lo, hi) in sorted(
                              largest.items())},
@@ -4233,6 +4486,46 @@ def phase_query(record, rng, st, st2, st3, builds=None):
                 prose_answers={(tier, name): (v[2], v[3]) for (
                     corpus, tier, name), v in answers.items()
                     if corpus == "prose"})
+
+
+def query_c_sums(forced, answers, zipf, prows, zsteps, psteps):
+    """Kernel C's device ms summed over phase 4d's calls as built and on
+    each route forced (route_sums; forced: c_forced's builds): the query
+    path's backward_search (the prose queries' literal terms, through
+    count_query) and backward_search_steps (the too-few-matches report on
+    all five layouts), and the query_host path's backward_step (the host
+    engine over every query and term of phase 4d)."""
+    from femto_tpu_torch import query as Q
+    from femto_tpu_torch.ops import search_ops as S
+
+    terms, host = {}, {}
+    for key, val in answers.items():
+        tag = " ".join(key)
+        if key[0] == "zipf":
+            ix, nfa, node, _ = val
+            host[tag] = (lambda ix=ix, nfa=nfa, node=node: [
+                (m.first, m.last, m.cost)
+                for m in Q.run_regexp(ix, nfa, node.approx)])
+            continue
+        ix, node = val[0], val[1]
+        q, _, icase = PROSE_QUERIES[key[2]]
+        terms[tag] = (lambda ix=ix, q=q, icase=icase: Q.count_query(
+            ix, q, icase=icase))
+        host[tag] = (lambda ix=ix, node=node: [
+            [(m.first, m.last, m.cost)
+             for m in Q.run_regexp(ix, term_nfa(t), t.approx)]
+            for t in query_terms(node)])
+    steps = {lay: (lambda A=ix.arrays, n=ix.meta.n_rows, pt=pt: [
+        t.tolist() for t in S.backward_search_steps(A, n, pt)])
+        for group, pt in ((zipf, zsteps), (prows, psteps))
+        for lay, ix in group.items()}
+    return {"query": {
+        "backward_search": route_sums(S, "backward_search",
+                                      "backward_search", forced, terms),
+        "backward_search_steps": route_sums(
+            S, "backward_search_steps", "backward_search", forced, steps)},
+        "query_host": {"backward_step": route_sums(
+            S, "backward_step_pair", "backward_search", forced, host)}}
 
 
 def interval_overlap(spans, others):
@@ -4714,16 +5007,18 @@ def half_cache(arrays, rng, errs, tag):
     return arrays._replace(bwt=cache, seg_slot=smap), mapped
 
 
-def parity_paged_steps(name, ix, rng, errs, d_libs=None):
+def parity_paged_steps(name, ix, rng, errs, d_libs=None, c_libs=None):
     """K16's steps (C's masked step, D's lf_walk_step, resolve_marks and
     the one-step extract) on a half-filled cache with a random seg_slot:
     each kernel against its plain version there and against itself on
-    the resident index (the indirection changes no answer); the one-step
-    extract also on each of kernel D's routes (d_libs) at B rows and at
-    1, and then a whole walk of lf_walk_step (paged_walk_parity, whose
-    record it returns)."""
+    the resident index (the indirection changes no answer); the masked
+    step also on each of kernel C's routes (c_libs) and the one-step
+    extract on each of kernel D's (d_libs), at B rows and at 1, and then
+    a whole walk of lf_walk_step (paged_walk_parity, whose record it
+    returns)."""
     import torch
 
+    from femto_tpu_torch import kernels
     from femto_tpu_torch.ops import search_ops as S
 
     arrays = ix.arrays
@@ -4769,6 +5064,15 @@ def parity_paged_steps(name, ix, rng, errs, d_libs=None):
             f"{entry}[{name}] on a half-filled cache", got, want)
         max_abs_err(f"{entry}[{name}]: paged against resident", got,
                     resident)
+    for lanes in ((c, first, last), (c[:1].contiguous(), first[:1].contiguous(),
+                                     last[:1].contiguous())):
+        key = f"backward_step_masked[{name}](paged, B={lanes[0].shape[0]})"
+        want = S.backward_step_masked_plain(paged, *lanes)
+        for route, lib in (c_libs or {}).items():
+            with kernels.variant("backward_search", lib):
+                got = S.backward_step_masked(paged, *lanes)
+            errs[f"{key}, {route} route"] = max_abs_err(
+                f"{key}, {route} route", got, want)
     if d_libs is None:
         return None
     for rr in (rows, rows[:1].contiguous()):
@@ -5030,16 +5334,17 @@ def parity_lcp(prepared, text, sa, errs):
 
 
 def parity_paged_lcp(indexes, prose_ix, prepared, docs, text, sa, rng,
-                     errs, d_libs):
+                     errs, d_libs, c_libs=None):
     """Phase 3's K16 and K17 checks (the one-step extract on both of
-    kernel D's routes: d_libs)."""
+    kernel D's routes: d_libs; the masked step on both of kernel C's:
+    c_libs)."""
     pdocs = prose_docs(int(PARITY_PROSE_MIB * 2**20))
     rec = {}
     for name, ix, dd in (("vseg", indexes["vseg"], docs),
                          ("vrle", indexes["vrle"], docs),
                          ("prose_vrle", prose_ix["vrle"], pdocs)):
         rec[f"{name} walk"] = parity_paged_steps(name, ix, rng, errs,
-                                                 d_libs)
+                                                 d_libs, c_libs)
         rec[name] = parity_paged_index(name, ix, dd, rng, errs)
     log(f"    K16: apply_faults, the masked step, lf_walk_step, "
         f"resolve_marks and the one-step extract equal their plain "
@@ -5241,6 +5546,20 @@ def phase_paged(record, rng, st, st3, st4, builds):
         f"refused (layers wider than the cache): {refused}; launches "
         f"{ {k: v for k, v in launches.items() if v} }")
 
+    # kernel C's masked step: its device ms over one count of each cell,
+    # as built and on each route forced
+    c_libs = c_forced(builds)
+    runs = {}
+    for key, share in PAGED_CELLS:
+        pgc = TP.load_paged(paths[key], paged_budget(paths[key], share),
+                            device="cuda")
+        pats = inputs[key.split()[0]][0]
+        runs[f"{key} {share} count"] = (lambda pgc=pgc, pats=pats: [
+            a.tolist() for a in tt.count_ranges(pgc, pats)])
+    c_sums = {"paged": {"backward_step_masked": route_sums(
+        S, "backward_step_masked", "backward_search", c_libs, runs)}}
+    del runs, pgc
+
     # phase 5's rows at the zipf cells' shapes (a quarter of the rows)
     log("[5] the paged path's kernels (zipf, a quarter of the rows):")
     rows5 = []
@@ -5297,7 +5616,13 @@ def phase_paged(record, rng, st, st3, st4, builds):
             lambda: S.backward_step_masked(A, c, first, last),
             lambda: S.backward_step_masked_plain(A, c, first, last),
             bound_backward_step(A_res, c, first, last) * HBM_BYTES_PER_S
-            / 1e3 + 8 * c.shape[0], card))
+            / 1e3 + 8 * c.shape[0], card,
+            extra=c_fields(c_libs, A, c.shape[0],
+                           lambda: S.backward_step_masked(A, c, first, last),
+                           f"backward_step_masked[{lay}] (paged)",
+                           bound_backward_step(A_res, c, first, last,
+                                               shared=False)
+                           + 8 * c.shape[0] / HBM_BYTES_PER_S * 1e3)))
         # the walk's first step over the 65536 rows
         pgl._ensure_rows(loc.cpu().numpy())
         z = torch.zeros_like(loc)
@@ -5347,7 +5672,13 @@ def phase_paged(record, rng, st, st3, st4, builds):
         lambda: S.backward_step_pair(pp.arrays, pc, pf, pl),
         lambda: S.backward_step_plain(pp.arrays, pc, pf, pl),
         bound_backward_step(pres.arrays, pc, pf, pl) * HBM_BYTES_PER_S
-        / 1e3 + 8 * lanes, card))
+        / 1e3 + 8 * lanes, card,
+        extra=c_fields(c_libs, pp.arrays, lanes,
+                       lambda: S.backward_step_pair(pp.arrays, pc, pf, pl),
+                       "backward_step[vrle] (paged)",
+                       bound_backward_step(pres.arrays, pc, pf, pl,
+                                           shared=False)
+                       + 8 * lanes / HBM_BYTES_PER_S * 1e3)))
     del pv, px, pp
     # phase 6: one cold count on zipf vrle at a quarter
     zq = paths["zipf vrle"]
@@ -5364,7 +5695,8 @@ def phase_paged(record, rng, st, st3, st4, builds):
                             "prose8k_docs": len(xdocs),
                             "seconds": time.perf_counter() - t_phase}
     log(f"[4f] phase 4f took {record['paged_path']['seconds']:.1f}s")
-    return {"launches": launches, "kernel_rows": rows5, "profile": prof}
+    return {"launches": launches, "kernel_rows": rows5, "profile": prof,
+            "c_sums": c_sums}
 
 
 def bound_walk_step(arrays, rows):
@@ -7888,11 +8220,12 @@ def sort_kernel_rows(record, kernel_row, text, ds, sa, sa_direct, rows, *,
     log(f"    gather_rows at the direct tier's shape: {direct}")
 
 
-def row_kernel_rows(kernel_row, st3, d_libs, lat_ns):
+def row_kernel_rows(kernel_row, st3, d_libs, lat_ns, c_libs):
     """Kernels M and N at the shapes the prose builds give them (M on the
     vseg build, N on the vrle one), and C, D and E on the prose vseg and
-    vrle indexes (run-length, continued, fixed and side segments); D's
-    extract and locate also on both routes (d_fields)."""
+    vrle indexes (run-length, continued, fixed and side segments); C's
+    count and D's extract and locate also on both routes (c_fields,
+    d_fields)."""
     import torch
 
     from femto_tpu_torch.alphabet import pattern_to_alpha
@@ -7931,7 +8264,12 @@ def row_kernel_rows(kernel_row, st3, d_libs, lat_ns):
         kernel_row(f"backward_search[{lay}]",
                    lambda: S.backward_search(A, n, pt),
                    lambda: S.backward_search_plain(A, n, pt),
-                   bound_backward_search(A, pt, n, 0))
+                   bound_backward_search(A, pt, n, 0),
+                   extra=c_fields(c_libs, A, pt.shape[0],
+                                  lambda: S.backward_search(A, n, pt),
+                                  f"backward_search[{lay}]",
+                                  bound_backward_search(A, pt, n, 0,
+                                                        shared=False)))
         kernel_row(f"lf_locate[{lay}]",
                    lambda: [S.locate_rows(A, mp, rt)],
                    lambda: [S.locate_rows_plain(A, mp, rt)],
@@ -7954,12 +8292,13 @@ def row_kernel_rows(kernel_row, st3, d_libs, lat_ns):
                    bound_psi(A, ct, fwd))
 
 
-def bound_backward_step(arrays, c, first, last):
+def bound_backward_step(arrays, c, first, last, shared=True):
     """Lanes in and ranges out (20 bytes a lane); per valid lane the
     symbol map, C[c] and, for first and last, one checkpoint and the
-    bytes of segment prefix counted."""
-    return (20 * c.shape[0] + _step_bytes(arrays, c, first, last,
-                                          c >= 0)) / HBM_BYTES_PER_S * 1e3
+    bytes of segment prefix counted (a shared segment's once where
+    `shared`: _step_bytes)."""
+    return (20 * c.shape[0] + _step_bytes(arrays, c, first, last, c >= 0,
+                                          shared)) / HBM_BYTES_PER_S * 1e3
 
 
 def bound_regex_fork(arrays, first, last, costs, n_live, nd, cfg):
@@ -7980,9 +8319,11 @@ def bound_regex_fork(arrays, first, last, costs, n_live, nd, cfg):
         reach |= any_live[:, None] & (torch.arange(A, device=cl.device)
                                       >= 5)[None, :]
     c = torch.arange(A, dtype=torch.int32, device=cl.device).repeat(n_live)
+    # each fork's two ends counted apart, as femto::occ reads them (its
+    # row route has a bound of its own: bound_regex_fork_rows)
     step = _step_bytes(arrays, c, first[:n_live].repeat_interleave(A),
                        last[:n_live].repeat_interleave(A),
-                       reach.reshape(-1))
+                       reach.reshape(-1), shared=False)
     total = (n_live * (8 + 4 * S_) + 4 * (S_ + 1)
              + 4 * (1 + RO.MASK_WORDS) * nd.T
              + A * n_live * (8 + 4 * S_) + step)
@@ -8157,8 +8498,8 @@ def fork_route_probe(ix, q, fcap, forced, by_forks=False, at_depth=None):
     return out
 
 
-def query_kernel_rows(kernel_row, st, st3, st4, h_builds=None,
-                      r_forced=None):
+def query_kernel_rows(kernel_row, st, st3, st4, h_builds, r_forced,
+                      c_libs):
     """Kernel C's step entries and kernel R at the query path's shapes:
     the widest layer of APPROX 1 ther (frontier cap 1024) on each of the
     zipf full, compact and packed and the prose vseg and vrle indexes
@@ -8168,8 +8509,10 @@ def query_kernel_rows(kernel_row, st, st3, st4, h_builds=None,
     forks, H beside torch.sort on the same keys, and H's routes against
     each other on the query path's sorts (h_route_rows, given
     phase_build's builds of radix_sort.cu).  regex_fork's rows carry its
-    two rank routes in turns and the row route's bound (given r_forced:
-    rank_forced's builds of regex_frontier.cu), and the routes are also
+    two rank routes in turns and the row route's bound (r_forced:
+    rank_forced's builds of regex_frontier.cu), C's rows its two routes
+    in turns and the bound before the shared row (c_libs: c_forced's
+    builds, c_fields), and the rank routes are also
     timed at the widest layers of RANK_PROBE_QUERIES on every layout
     (fork_route_probe).  Then fork, H and merge held to their plain
     versions at the widest layers of APPROX 2 parameter and 0{1,64}1 on
@@ -8215,12 +8558,23 @@ def query_kernel_rows(kernel_row, st, st3, st4, h_builds=None,
         kernel_row(f"backward_step[{lay}]",
                    lambda: S.backward_step_pair(A, c, f, l),
                    lambda: S.backward_step_plain(A, c, f, l),
-                   bound_backward_step(A, c, f, l))
+                   bound_backward_step(A, c, f, l),
+                   extra=c_fields(c_libs, A, c.shape[0],
+                                  lambda: S.backward_step_pair(A, c, f, l),
+                                  f"backward_step[{lay}]",
+                                  bound_backward_step(A, c, f, l,
+                                                      shared=False)))
         pt = st4["zsteps"] if lay in st4["zipf"] else st4["psteps"]
         kernel_row(f"backward_search_steps[{lay}]",
                    lambda: S.backward_search_steps(A, n, pt),
                    lambda: S.backward_search_steps_plain(A, n, pt),
-                   bound_backward_search(A, pt, n, 0, steps=True))
+                   bound_backward_search(A, pt, n, 0, steps=True),
+                   extra=c_fields(c_libs, A, pt.shape[0],
+                                  lambda: S.backward_search_steps(A, n, pt),
+                                  f"backward_search_steps[{lay}]",
+                                  bound_backward_search(A, pt, n, 0,
+                                                        steps=True,
+                                                        shared=False)))
         if lay != "full":
             continue
         keys, fcosts = RO.regex_fork(A, first, last, costs, n_live, nd, cfg,
@@ -8396,6 +8750,21 @@ def phase_numbers(record, st, st2, st3, st4, own, builds):
         on = f", prose blake2b {_PROSE['blake2b']}" if "prose" in k else ""
         log(f"[5] {k}: {v['median']:.6g} (min {v['min']:.6g}, max "
             f"{v['max']:.6g}, {v['runs']} runs{on})")
+    # kernel C's device ms over the count rates' calls, as built and on
+    # each route forced
+    count_ix = {"zipf full": walk, "zipf packed": packed,
+                **{f"zipf {t}": st3["zrows"][t] for t in ROW_LAYOUTS},
+                "prose full": pwalk,
+                **{f"prose {t}": prows[t] for t in ROW_LAYOUTS}}
+    c_libs = c_forced(builds)
+    record["c_route_sums"] = {"count_rates": route_sums(
+        S, "backward_search", "backward_search", c_libs,
+        {k: (lambda ix=ix, p=(st3["ppats"] if k.startswith("prose")
+                              else patterns): tt.count(ix, p).tolist())
+         for k, ix in count_ix.items()})}
+    for o in (st4, own[1]):
+        if isinstance(o.get("c_sums"), dict):
+            record["c_route_sums"].update(o["c_sums"])
 
     # kernels at the main path's shapes
     arrays = walk.arrays
@@ -8514,7 +8883,12 @@ def phase_numbers(record, st, st2, st3, st4, own, builds):
             f"backward_search[{lay}]",
             lambda: S.backward_search(A, n, pt),
             lambda: S.backward_search_plain(A, n, pt),
-            bound_backward_search(A, pt, n, 0))
+            bound_backward_search(A, pt, n, 0),
+            extra=c_fields(c_libs, A, pt.shape[0],
+                           lambda: S.backward_search(A, n, pt),
+                           f"backward_search[{lay}]",
+                           bound_backward_search(A, pt, n, 0,
+                                                 shared=False)))
         kernel_row(
             f"lf_locate[{lay}]",
             lambda: [S.locate_rows(A, mp, rt)],
@@ -8536,7 +8910,7 @@ def phase_numbers(record, st, st2, st3, st4, own, builds):
             lambda: [S.psi_walk_plain(A, ct, fwd)],
             bound_psi(A, ct, fwd))
     del isa
-    row_kernel_rows(kernel_row, st3, d_libs, lat_ns)
+    row_kernel_rows(kernel_row, st3, d_libs, lat_ns, c_libs)
     # the context batch's backward walk (packed, 4096 rows x 32 steps) on
     # both of D's routes, and both routes on each layout at its limit and
     # twice it (vseg and vrle, which have none: at 2^18 walks), enough to
@@ -8565,7 +8939,7 @@ def phase_numbers(record, st, st2, st3, st4, own, builds):
         np.random.default_rng(5), limits)
     record["query_shapes"] = query_kernel_rows(
         kernel_row, st, st3, st4, builds["radix_sort"],
-        rank_forced(builds, "regex_frontier"))
+        rank_forced(builds, "regex_frontier"), c_libs)
     rows = kern + [r for o in own for r in o["kernel_rows"]]
     have = {(r["name"], r["path"]) for r in rows}
     missing = sorted((name, path) for path, counts in path_launches.items()
@@ -8698,6 +9072,7 @@ def phase_profile(record, st, st2, st3, st4, own):
     "not measured" where the profiler reports no device time.  The
     two-chunk build of phase 4e was profiled there (st5)."""
     import femto_tpu_torch as tt
+    from femto_tpu_torch.ops import search_ops as S
     from femto_tpu_torch.query import regexp_device as RD
 
     own_kernels = own_kernel_names()
@@ -8740,6 +9115,21 @@ def phase_profile(record, st, st2, st3, st4, own):
     out = {}
     for name, fn in steps.items():
         out[name] = profile_step(name, fn, own_kernels)[0]
+        if name.endswith("count"):
+            # kernel C's own device ms from CUDA events around its calls
+            # (the profiler has seen no device item of a count)
+            ev = route_sums(S, "backward_search", "backward_search", {},
+                            {name: fn})["as_built"]
+            out[name]["c_device_ms_events"] = ev["ms"]
+            out[name]["c_calls"] = ev["calls"]
+            if out[name]["device_ms"] == "not measured":
+                out[name].update(
+                    device_ms=ev["ms"], busy_share=ev["ms"]
+                    / out[name]["wall_ms"], device_ms_source=(
+                        "CUDA events around kernel C's calls, each queued "
+                        "behind a spin kernel; copies not included"))
+            log(f"      {name}: kernel C {ev['ms']:.4g} ms over "
+                f"{ev['calls']} calls (CUDA events)")
         if name.startswith("query"):
             layers = RD.last_stats["layers"]
             dev_ms = out[name]["device_ms"]

@@ -15,7 +15,7 @@
 // The view (fm_common.cuh FmView) is the process's shard blocks end to
 // end: the checkpoints carry the global base (_package_shard), so a row's
 // view segment is its global segment less shard0 * nseg_local, and the
-// counts are ckpt_base + count_prefix as kernels C and D compute them.
+// counts are ckpt_base + count_range as kernels C and D compute them.
 // mark_vals holds one packed store per local shard (of mv_len / Dl words);
 // a mark's slot there is its global rank less the shard's first
 // checkpoint.  The shard dimension is blockIdx.y.
@@ -93,7 +93,7 @@ template <int L>
 __device__ __forceinline__ int occ_at(const FmView& ix, long long sl,
                                       int off, int c) {
   return femto::ckpt_base<L>(ix, sl, c) +
-         femto::count_prefix<L>(ix, sl, off, c);
+         femto::count_range<L>(ix, sl, 0, off, c);
 }
 
 // A row tier's view of local shard d alone (Dl local shards of nseg_local
@@ -174,7 +174,7 @@ __device__ __forceinline__ int lf_answer_row(const FmView& v, long long sl,
     const int c = woff > 0 ? lc : femto::row_global(v, row, lc);
     const long long lf = static_cast<long long>(__ldg(v.C + c)) +
                          femto::ckpt_base<L>(v, sl, c) +
-                         femto::row_within<L>(v, row, sl, woff, lc, off);
+                         femto::row_within<L>(v, row, sl, woff, lc, 0, off);
     return static_cast<int>(-1 - lf);
   }
   int g = static_cast<int>(__ldg(row + v.off_mck));

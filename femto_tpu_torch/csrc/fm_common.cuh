@@ -91,26 +91,6 @@ struct FmView {
   const int* seg_slot;  // int32[n_seg] cache slots (paged serving) or null
 };
 
-// Occurrences of symbol c among the first `off` symbols of one uint16
-// segment row.  The row starts 16-byte aligned (seg % 32 == 0), so whole
-// 8-symbol chunks are read with one 16-byte load each and compared two
-// symbols at a time (__vcmpeq2 sets 16 bits per equal half-word).
-__device__ __forceinline__ int count_prefix_u16(
-    const uint16_t* __restrict__ row, int off, int c) {
-  const uint4* v = reinterpret_cast<const uint4*>(row);
-  const unsigned cc = static_cast<unsigned>(c) * 0x00010001u;
-  const int nv = off >> 3;
-  int bits = 0;
-  for (int i = 0; i < nv; ++i) {
-    const uint4 q = __ldg(v + i);
-    bits += __popc(__vcmpeq2(q.x, cc)) + __popc(__vcmpeq2(q.y, cc)) +
-            __popc(__vcmpeq2(q.z, cc)) + __popc(__vcmpeq2(q.w, cc));
-  }
-  int cnt = bits >> 4;
-  for (int j = nv << 3; j < off; ++j) cnt += (__ldg(row + j) == c);
-  return cnt;
-}
-
 // Bit 0 of every `bits`-wide field of a word that holds per_word fields.
 __device__ __forceinline__ unsigned field_lsbs(int bits, int per_word) {
   unsigned m = 0;
@@ -127,23 +107,79 @@ __device__ __forceinline__ unsigned zero_fields(unsigned x, int bits,
   return ~t & lsbs;
 }
 
-// Fields of `w` bits equal to lq among the first `off` fields of words
+// The symbols of an 8-symbol uint16 chunk equal to c (cc = c in both
+// halves of a word): bit i set where symbol i is.
+__device__ __forceinline__ unsigned eq8_u16(const uint4& q, unsigned cc) {
+  const unsigned e0 = __vcmpeq2(q.x, cc), e1 = __vcmpeq2(q.y, cc);
+  const unsigned e2 = __vcmpeq2(q.z, cc), e3 = __vcmpeq2(q.w, cc);
+  // each equal half-word is 0xFFFF
+  return (e0 & 1u) | ((e0 >> 15) & 2u) | ((e1 & 1u) << 2) |
+         ((e1 >> 13) & 8u) | ((e2 & 1u) << 4) | ((e2 >> 11) & 32u) |
+         ((e3 & 1u) << 6) | ((e3 >> 9) & 128u);
+}
+
+// The first v of the per fields (w bits each) of a word: none for v <= 0,
+// all for v >= per.
+__device__ __forceinline__ unsigned keep_fields(int v, int per, int w) {
+  return v >= per ? 0xffffffffu : v <= 0 ? 0u : (1u << (v * w)) - 1u;
+}
+
+// The first v symbols of an 8-symbol chunk (eq8_u16's bits).
+__device__ __forceinline__ unsigned keep8(int v) {
+  return v >= 8 ? 0xffu : v <= 0 ? 0u : (1u << v) - 1u;
+}
+
+// Occurrences of c among symbols [from, to) of one uint16 segment row.
+// The row starts 16-byte aligned (seg % 32 == 0), so whole 8-symbol chunks
+// are read with one 16-byte load each and compared two symbols at a time
+// (__vcmpeq2 sets 16 bits per equal half-word); the partial first and
+// last chunks by mask.
+__device__ __forceinline__ int count_range_u16(
+    const uint16_t* __restrict__ row, int from, int to, int c) {
+  if (to <= from) return 0;
+  const uint4* v = reinterpret_cast<const uint4*>(row);
+  const unsigned cc = static_cast<unsigned>(c) * 0x00010001u;
+  const int i0 = from >> 3, i1 = to >> 3;
+  int cnt = 0, bits = 0, i = i0;
+  if (from & 7) {  // the first chunk, partial
+    cnt += __popc(eq8_u16(__ldg(v + i0), cc) & keep8(to - 8 * i0) &
+                  ~keep8(from & 7));
+    i = i0 + 1;
+  }
+  for (; i < i1; ++i) {
+    const uint4 q = __ldg(v + i);
+    bits += __popc(__vcmpeq2(q.x, cc)) + __popc(__vcmpeq2(q.y, cc)) +
+            __popc(__vcmpeq2(q.z, cc)) + __popc(__vcmpeq2(q.w, cc));
+  }
+  cnt += bits >> 4;  // each equal half-word set 16 bits
+  if ((to & 7) && i1 >= i)  // the last chunk, partial
+    cnt += __popc(eq8_u16(__ldg(v + i1), cc) & keep8(to & 7));
+  return cnt;
+}
+
+// Fields of `w` bits equal to lq among fields [from, to) of words
 // (ops/rank.py count_eq_packed): XOR with lq in every field, zero fields
-// to their bit 0, popcount.  lq outside [0, 2^w) counts nothing.
-__device__ __forceinline__ int swar_count(const unsigned* __restrict__ words,
-                                          int w, int lq, int off) {
-  if (lq < 0 || lq >= (1 << w)) return 0;
+// to their bit 0, popcount, the partial first and last words by mask.
+// lq outside [0, 2^w), or to <= from, counts nothing.
+__device__ __forceinline__ int swar_count_range(
+    const unsigned* __restrict__ words, int w, int lq, int from, int to) {
+  if (lq < 0 || lq >= (1 << w) || to <= from) return 0;
   const int per = 32 / w;
   const unsigned lsbs = field_lsbs(w, per);
   const unsigned rep = static_cast<unsigned>(lq) * lsbs;
-  const int nfull = off / per;
-  const int rem = off - nfull * per;
-  int cnt = 0;
-  for (int i = 0; i < nfull; ++i)
+  const int i0 = from / per, i1 = to / per;
+  int cnt = 0, i = i0;
+  if (from > i0 * per) {  // the first word, partial
+    cnt += __popc(zero_fields(__ldg(words + i0) ^ rep, w, lsbs) &
+                  keep_fields(to - i0 * per, per, w) &
+                  ~keep_fields(from - i0 * per, per, w));
+    i = i0 + 1;
+  }
+  for (; i < i1; ++i)
     cnt += __popc(zero_fields(__ldg(words + i) ^ rep, w, lsbs));
-  if (rem > 0)
-    cnt += __popc(zero_fields(__ldg(words + nfull) ^ rep, w, lsbs) & lsbs &
-                  ((1u << (rem * w)) - 1u));
+  if (to > i1 * per && i1 >= i)  // the last word, partial
+    cnt += __popc(zero_fields(__ldg(words + i1) ^ rep, w, lsbs) &
+                  keep_fields(to - i1 * per, per, w));
   return cnt;
 }
 
@@ -288,14 +324,15 @@ __device__ __forceinline__ void walk_slots(const SlotStream& st, F&& visit) {
   }
 }
 
-// Occurrences of local code lq among the first off positions (a clamp-sum
-// over the slots that start before off).
-__device__ __forceinline__ int slots_count(const SlotStream& st, int lq,
-                                           int off) {
+// Occurrences of local code lq among positions [from, to) of a run-length
+// stream: each slot's overlap with the span, the walk stopping at the
+// first slot that starts at or past `to`.
+__device__ __forceinline__ int slots_count_range(const SlotStream& st, int lq,
+                                                 int from, int to) {
   int cnt = 0;
   walk_slots(st, [&](int lsym, int start, int len) {
-    if (start >= off) return false;
-    if (lsym == lq) cnt += min(off - start, len);
+    if (start >= to) return false;
+    if (lsym == lq) cnt += max(min(start + len, to) - max(start, from), 0);
     return true;
   });
   return cnt;
@@ -328,17 +365,20 @@ __device__ __forceinline__ int row_lane_code(const FmView& ix,
   return field_at(row, ix.w_main, off);
 }
 
-// Occurrences of per-lane code lq among the first off positions of
-// segment s (ops/rank.py RowCtx.within).
+// Occurrences of per-lane code lq among positions [from, to) of segment s
+// (ops/rank.py RowCtx.within at from = 0).
 template <int L>
 __device__ __forceinline__ int row_within(const FmView& ix,
                                           const unsigned* row, long long s,
-                                          int woff, int lq, int off) {
-  if (woff > 0) return swar_count(side_of(ix, woff), ix.w_side, lq, off);
+                                          int woff, int lq, int from,
+                                          int to) {
+  if (woff > 0)
+    return swar_count_range(side_of(ix, woff), ix.w_side, lq, from, to);
   if constexpr (L == kVrle) {
-    if (woff < 0) return slots_count(slot_stream(ix, row, s, woff), lq, off);
+    if (woff < 0)
+      return slots_count_range(slot_stream(ix, row, s, woff), lq, from, to);
   }
-  return swar_count(row, ix.w_main, lq, off);
+  return swar_count_range(row, ix.w_main, lq, from, to);
 }
 
 template <int L>
@@ -377,33 +417,24 @@ __device__ __forceinline__ int ckpt_base(const FmView& ix, long long s,
   }
 }
 
-// Occurrences of dense code c among the first `off` rows of segment s.
+// Occurrences of dense code c among rows [from, to) of segment s (from
+// 0: its prefix).
 template <int L>
-__device__ __forceinline__ int count_prefix(const FmView& ix, long long s,
-                                            int off, int c) {
+__device__ __forceinline__ int count_range(const FmView& ix, long long s,
+                                           int from, int to, int c) {
   if constexpr (is_row<L>()) {
     const unsigned* row = row_of(ix, s);
     const int woff = __ldg(ix.seg_woff + s);
     const int lq = woff > 0 ? c : row_query_code(ix, row, c);
-    return row_within<L>(ix, row, s, woff, lq, off);
+    return row_within<L>(ix, row, s, woff, lq, from, to);
   } else if constexpr (L == kPacked) {
-    const unsigned* row = static_cast<const unsigned*>(ix.bwt) + s * ix.W;
-    const unsigned lsbs = field_lsbs(ix.bits, ix.per_word);
-    const unsigned rep = static_cast<unsigned>(c) * lsbs;
-    const int nfull = off / ix.per_word;
-    const int rem = off - nfull * ix.per_word;
-    int cnt = 0;
-    for (int i = 0; i < nfull; ++i)
-      cnt += __popc(zero_fields(__ldg(row + i) ^ rep, ix.bits, lsbs));
-    if (rem > 0) {
-      const unsigned keep = (1u << (rem * ix.bits)) - 1u;  // rem*bits < 32
-      cnt += __popc(zero_fields(__ldg(row + nfull) ^ rep, ix.bits, lsbs) &
-                    keep);
-    }
-    return cnt;
+    // packed codes are `bits`-wide fields (per_word == 32 / bits), c below
+    // the pad code
+    return swar_count_range(static_cast<const unsigned*>(ix.bwt) + s * ix.W,
+                            ix.bits, c, from, to);
   } else {
-    return count_prefix_u16(
-        static_cast<const uint16_t*>(ix.bwt) + s * ix.seg, off, c);
+    return count_range_u16(
+        static_cast<const uint16_t*>(ix.bwt) + s * ix.seg, from, to, c);
   }
 }
 
@@ -414,7 +445,7 @@ __device__ __forceinline__ int occ(const FmView& ix, int c, long long r) {
   if (r >= ix.n_seg * ix.seg) return __ldg(ix.C + c + 1) - __ldg(ix.C + c);
   const long long s = r / ix.seg;
   const int off = static_cast<int>(r - s * ix.seg);
-  return ckpt_base<L>(ix, s, c) + count_prefix<L>(ix, s, off, c);
+  return ckpt_base<L>(ix, s, c) + count_range<L>(ix, s, 0, off, c);
 }
 
 // Alphabet symbol -> dense code, -1 outside the alphabet or absent
@@ -511,18 +542,11 @@ __device__ __forceinline__ int warp_pick(const int (&v)[kRowRegs], int c) {
   return x;
 }
 
-// Symbols of an 8-symbol uint16 chunk equal to c (cc = c in both halves
-// of a word) among its first `valid` symbols (valid >= 8: all of them).
+// Symbols of an 8-symbol uint16 chunk equal to c among its first `valid`
+// symbols (valid >= 8: all of them).
 __device__ __forceinline__ int count8_u16(const uint4& q, unsigned cc,
                                           int valid) {
-  const unsigned e0 = __vcmpeq2(q.x, cc), e1 = __vcmpeq2(q.y, cc);
-  const unsigned e2 = __vcmpeq2(q.z, cc), e3 = __vcmpeq2(q.w, cc);
-  // bit i: symbol i equal (each equal half-word is 0xFFFF)
-  const unsigned bits = (e0 & 1u) | ((e0 >> 15) & 2u) | ((e1 & 1u) << 2) |
-                        ((e1 >> 13) & 8u) | ((e2 & 1u) << 4) |
-                        ((e2 >> 11) & 32u) | ((e3 & 1u) << 6) |
-                        ((e3 >> 9) & 128u);
-  return __popc(valid >= 8 ? bits : bits & ((1u << valid) - 1u));
+  return __popc(eq8_u16(q, cc) & keep8(valid));
 }
 
 // Inclusive sum of x over the lanes up to this one.
@@ -535,9 +559,9 @@ __device__ __forceinline__ int warp_inclusive_sum(int x, int lane) {
   return x;
 }
 
-// swar_count over words in shared memory, the lanes taking every 32nd
-// word: fields of `w` bits equal to lq among the first `off` fields, the
-// whole warp's sum on every lane.
+// swar_count_range from 0 over words in shared memory, the lanes taking
+// every 32nd word: fields of `w` bits equal to lq among the first `off`
+// fields, the whole warp's sum on every lane.
 __device__ __forceinline__ int warp_swar_count(const unsigned* words, int w,
                                                int lq, int off, int lane) {
   if (lq < 0 || lq >= (1 << w)) return 0;
@@ -578,12 +602,13 @@ __device__ __forceinline__ void smem_slot(const unsigned* words, int w,
   *lsym = static_cast<int>(v >> lenbits);
 }
 
-// slots_code_at and slots_count of a stream in shared memory, a slot a
-// lane and 32 slots a round: the local code lq at position off (0 where
-// no slot holds it) and its occurrences among the first off positions,
-// from two passes over the slots, each a warp scan of the lengths a
-// round (the first stops at the slot that holds off, the second where
-// the slots start at or past off).  Every lane returns both.
+// slots_code_at and slots_count_range (from 0) of a stream in shared
+// memory, a slot a lane and 32 slots a round: the local code lq at
+// position off (0 where no slot holds it) and its occurrences among the
+// first off positions, from two passes over the slots, each a warp scan
+// of the lengths a round (the first stops at the slot that holds off,
+// the second where the slots start at or past off).  Every lane returns
+// both.
 __device__ __forceinline__ void warp_slots(const unsigned* words, int nwords,
                                            int nsym, int off, int lane,
                                            int* lq_out, int* cnt_out) {
@@ -882,7 +907,7 @@ __device__ __forceinline__ void warp_count_fields(const unsigned* words,
 
 // Each run-length slot's length before off to cnt[its local code] (a
 // slot a lane, 32 slots a round, the starts from a warp scan of the
-// lengths; slots_count's clamp-sum for every code at once).
+// lengths; slots_count_range's clamp-sum for every code at once).
 __device__ __forceinline__ void warp_count_slots(const unsigned* words,
                                                  int nwords, int nsym,
                                                  int off, int lane,
@@ -1087,6 +1112,408 @@ void launch_warps(K kernel, int B, long long bytes, cudaStream_t st,
                          static_cast<int>(bytes));
   kernel<<<(B + walks - 1) / walks, walks * 32, static_cast<size_t>(bytes),
            st>>>(args...);
+}
+
+// ---- kernel C's count step (csrc/backward_search.cu): both ends of a
+// range from one read of a segment where they share it ----
+//
+// A step's symbol, and so its dense code c, is known before any row is
+// read.  Where first and last lie in one segment, occ(c, last) - occ(c,
+// first) is the count of c between their offsets, so one checkpoint read
+// and one pass over the prefix up to the larger offset serve both ranks
+// (the thread route, a thread a pattern: count_range from the first end's
+// offset; the warp route's counts below).  The warp route steps a pattern (or a lane) a
+// warp: for each end inside the segments it issues at once c's
+// checkpoint (full: one int; compact, packed and the row tiers: the L1
+// int and the uint16 relative entry) and the segment's prefix up to the
+// offset -- on full, compact and packed into the lanes' registers (16-B
+// chunks or words, the lanes taking every 32nd), on vseg and vrle into
+// the warp's shared memory by cp.async with the symbol list (the code
+// area up to the offset's word; vrle: all of it, as a run-length segment
+// is read by a walk over its slots) -- and waits once: one dependent DRAM
+// round trip a step for both ranks, two on a side segment (its side row)
+// or a continued run-length segment (its granules), whose addresses come
+// from seg_woff.  Unlike D's step (warp_row_fetch), whose code comes
+// from the row, no checkpoint row is read whole.  c_route_smem is the
+// rule that picks the route for all four of C's entries; builds with
+// -DFEMTO_C_WARP_MAX=0 or 0x7fffffff force one route.
+
+// warp_swar_count at two offsets: fields equal to lq among the first offA
+// (*cA) and offB (*cB) fields of words in shared memory, the lanes taking
+// every 32nd word of the longer prefix; the warp's sums on every lane.
+__device__ __forceinline__ void warp_swar_count2(const unsigned* words, int w,
+                                                 int lq, int offA, int offB,
+                                                 int lane, int* cA, int* cB) {
+  int a = 0, b = 0;
+  if (lq >= 0 && lq < (1 << w)) {
+    const int per = 32 / w;
+    const unsigned lsbs = field_lsbs(w, per);
+    const unsigned rep = static_cast<unsigned>(lq) * lsbs;
+    const int nw = (max(offA, offB) + per - 1) / per;
+    for (int i = lane; i < nw; i += 32) {
+      const unsigned z = zero_fields(words[i] ^ rep, w, lsbs);
+      a += __popc(z & keep_fields(offA - i * per, per, w));
+      b += __popc(z & keep_fields(offB - i * per, per, w));
+    }
+  }
+  *cA = __reduce_add_sync(kAllLanes, a);
+  *cB = __reduce_add_sync(kAllLanes, b);
+}
+
+// slots_count_range from 0 at two offsets over a run-length stream in
+// shared memory (nwords words), a slot a lane and 32 slots a round, the
+// starts from a warp scan of the lengths, up to the round whose slots
+// reach the larger offset; local code lq (-1: absent, counts nothing).
+// The warp's sums on every lane.
+__device__ __forceinline__ void warp_slots_count2(const unsigned* words,
+                                                  int nwords, int nsym,
+                                                  int lq, int offA, int offB,
+                                                  int lane, int* cA,
+                                                  int* cB) {
+  int w, lenbits;
+  slot_geom(nsym, &w, &lenbits);
+  const int kmax = (nwords * 32) / w;
+  const int hi = max(offA, offB);
+  int a = 0, b = 0, carry = 0;
+  for (int base = 0; base < kmax && carry < hi; base += 32) {
+    const int k = base + lane;
+    int ls = -1, len = 0;
+    if (k < kmax) smem_slot(words, w, lenbits, k, &ls, &len);
+    const int incl = warp_inclusive_sum(len, lane);
+    const int start = carry + incl - len;
+    if (ls == lq) {
+      a += max(min(offA - start, len), 0);
+      b += max(min(offB - start, len), 0);
+    }
+    carry += __shfl_sync(kAllLanes, incl, 31);
+  }
+  *cA = __reduce_add_sync(kAllLanes, a);
+  *cB = __reduce_add_sync(kAllLanes, b);
+}
+
+// Local code of dense code c in a symbol list copied to shared memory:
+// row_query_code's lower bound, as the warp's count of the entries below
+// c (the list is sorted, its pads above every code), -1 where the entry
+// there is not c.
+__device__ __forceinline__ int warp_list_code(const FmView& ix,
+                                              const unsigned* list, int c,
+                                              int lane) {
+  int below = 0;
+  for (int k = lane; k < ix.S; k += 32)
+    below += smem_list_sym(ix, list, k) < c;
+  const int lo = __reduce_add_sync(kAllLanes, below);
+  return smem_list_sym(ix, list, min(lo, ix.S - 1)) == c ? lo : -1;
+}
+
+// 16-B chunks (full, compact) or words (packed) of the counted prefixes a
+// lane loads at once in a warp step
+constexpr int kCountChunks = 8;
+
+// The warp route's in-segment counts on full, compact or packed: code c
+// among the first offA rows of segment sA (*cA; none unless inA) and the
+// first offB of sB (*cB; none unless inB) -- the chunks of both prefixes
+// issued together, or (shared: both ends in one segment) one pass over
+// the longer prefix counted at both offsets.  The warp's sums on every
+// lane.
+template <int L>
+__device__ __forceinline__ void warp_fixed_counts(
+    const FmView& ix, int c, long long sA, int offA, bool inA, long long sB,
+    int offB, bool inB, bool shared, int lane, int* cA, int* cB) {
+  int a = 0, b = 0;
+  if constexpr (L == kPacked) {
+    const unsigned* bwt = static_cast<const unsigned*>(ix.bwt);
+    const unsigned* ra = bwt + (inA ? sA : 0) * ix.W;
+    const unsigned* rb = bwt + (inB ? sB : 0) * ix.W;
+    const int per = ix.per_word, bits = ix.bits;
+    const int nA = inA ? (offA + per - 1) / per : 0;
+    const int nB = inB ? (offB + per - 1) / per : 0;
+    const int total = shared ? max(nA, nB) : nA + nB;
+    const unsigned lsbs = field_lsbs(bits, per);
+    const unsigned rep = static_cast<unsigned>(c) * lsbs;
+    for (int t0 = 0; t0 < total; t0 += 32 * kCountChunks) {
+      unsigned v[kCountChunks];
+#pragma unroll
+      for (int j = 0; j < kCountChunks; ++j) {
+        const int t = t0 + lane + 32 * j;
+        v[j] = t < total ? __ldg(shared || t < nA ? ra + t : rb + (t - nA))
+                         : 0u;
+      }
+#pragma unroll
+      for (int j = 0; j < kCountChunks; ++j) {
+        const int t = t0 + lane + 32 * j;
+        if (t >= total) continue;
+        const unsigned z = zero_fields(v[j] ^ rep, bits, lsbs);
+        if (shared) {
+          a += __popc(z & keep_fields(offA - t * per, per, bits));
+          b += __popc(z & keep_fields(offB - t * per, per, bits));
+        } else if (t < nA) {
+          a += __popc(z & keep_fields(offA - t * per, per, bits));
+        } else {
+          b += __popc(z & keep_fields(offB - (t - nA) * per, per, bits));
+        }
+      }
+    }
+  } else {
+    const uint16_t* bwt = static_cast<const uint16_t*>(ix.bwt);
+    const uint4* ra = reinterpret_cast<const uint4*>(bwt + (inA ? sA : 0) *
+                                                               ix.seg);
+    const uint4* rb = reinterpret_cast<const uint4*>(bwt + (inB ? sB : 0) *
+                                                               ix.seg);
+    const int nA = inA ? (offA + 7) >> 3 : 0;
+    const int nB = inB ? (offB + 7) >> 3 : 0;
+    const int total = shared ? max(nA, nB) : nA + nB;
+    const unsigned cc = static_cast<unsigned>(c) * 0x00010001u;
+    for (int t0 = 0; t0 < total; t0 += 32 * kCountChunks) {
+      uint4 v[kCountChunks];
+#pragma unroll
+      for (int j = 0; j < kCountChunks; ++j) {
+        const int t = t0 + lane + 32 * j;
+        if (t < total) v[j] = __ldg(shared || t < nA ? ra + t : rb + (t - nA));
+      }
+#pragma unroll
+      for (int j = 0; j < kCountChunks; ++j) {
+        const int t = t0 + lane + 32 * j;
+        if (t >= total) continue;
+        const unsigned e = eq8_u16(v[j], cc);
+        if (shared) {
+          a += __popc(e & keep8(offA - 8 * t));
+          b += __popc(e & keep8(offB - 8 * t));
+        } else if (t < nA) {
+          a += __popc(e & keep8(offA - 8 * t));
+        } else {
+          b += __popc(e & keep8(offB - 8 * (t - nA)));
+        }
+      }
+    }
+  }
+  *cA = __reduce_add_sync(kAllLanes, a);
+  *cB = __reduce_add_sync(kAllLanes, b);
+}
+
+// Words of one end's buffer on the row tiers: the stream area (the code
+// area with its granules, or a side row) and the symbol list; 0 on full,
+// compact and packed, whose counts need no buffer.
+__host__ __device__ __forceinline__ int c_buf_words(const FmView& ix) {
+  return ix.layout == kVseg || ix.layout == kVrle
+             ? row_stream_words(ix) + ix.off_mk - ix.off_syms
+             : 0;
+}
+
+// The warp route's dynamic shared memory, in words from its start: C (K
+// + 1 ints), alpha_map (kAlpha ints, where the index is remapped), then
+// two c_buf_words buffers a warp.
+__host__ __device__ __forceinline__ int c_smem_start(const FmView& ix) {
+  return ix.K + 1 + kAlpha;
+}
+
+// One end's first round trip on vseg or vrle from segment s: seg_woff,
+// seg_nsym (vrle) and c's L1 int and relative word into registers and, by
+// cp.async into buf, the code area up to off's word (vrle: all of it)
+// and the symbol list; not waited for.
+template <int L>
+__device__ __forceinline__ void warp_count_fetch(const FmView& ix,
+                                                 long long s, int off, int c,
+                                                 int lane, unsigned* buf,
+                                                 int* woff, int* nsym,
+                                                 int* l1, unsigned* rel) {
+  const unsigned* row = row_of(ix, s);
+  *woff = __ldg(ix.seg_woff + s);
+  *nsym = L == kVrle ? __ldg(ix.seg_nsym + s) : 0;
+  // rows lie below 2^31: a 32-bit division
+  *l1 = __ldg(ix.occ_l1 +
+              static_cast<long long>(static_cast<unsigned>(s) /
+                                     static_cast<unsigned>(ix.grp)) *
+                  ix.K +
+              c);
+  *rel = __ldg(row + ix.off_rel + (c >> 1));
+  const int ncode = L == kVrle ? ix.code_words : off / (32 / ix.w_main) + 1;
+  warp_copy_words(buf, row, ncode, lane);
+  warp_copy_words(buf + row_stream_words(ix), row + ix.off_syms,
+                  ix.off_mk - ix.off_syms, lane);
+}
+
+// One end's second round trip where its segment needs one (woff, the
+// segment's seg_woff): a side segment's side row up to off's word over
+// the stream area, a continued run-length segment's ngr granule rows
+// after the code area (clamped to the store, as SlotStream reads them).
+// Returns whether it issued any; not waited for.
+template <int L>
+__device__ __forceinline__ bool warp_count_fetch2(const FmView& ix, int woff,
+                                                  int off, int lane,
+                                                  unsigned* buf) {
+  if (woff > 0) {
+    warp_copy_words(buf, side_of(ix, woff), off / (32 / ix.w_side) + 1,
+                    lane);
+    return true;
+  }
+  if (L == kVrle && woff < -1 && ix.ngr > 0) {
+    const long long g = min(static_cast<long long>(-woff - 2) / ix.G,
+                            ix.X - 1);
+    const int total = ix.ngr * ix.G;
+    for (int t = lane; t < total; t += 32) {
+      const int i = t / ix.G;
+      cp_async4(buf + ix.code_words + t,
+                ix.seg_cont + min(g + i, ix.X - 1) * ix.G + (t - i * ix.G));
+    }
+    return true;
+  }
+  return false;
+}
+
+// One end's counts of dense code c from its fetched buffer at two offsets
+// (the same twice where the buffer serves one end): the side row's global
+// codes, or c's local code in the row's list counted in the run-length
+// slots or the fixed-width code area.
+template <int L>
+__device__ __forceinline__ void warp_count_end(const FmView& ix, int c,
+                                               int woff, int nsym,
+                                               const unsigned* buf, int offA,
+                                               int offB, int lane, int* cA,
+                                               int* cB) {
+  if (woff > 0) {
+    warp_swar_count2(buf, ix.w_side, c, offA, offB, lane, cA, cB);
+    return;
+  }
+  const int lq = warp_list_code(ix, buf + row_stream_words(ix), c, lane);
+  if (L == kVrle && woff < 0) {
+    const int nwords =
+        ix.code_words + (woff < -1 && ix.ngr > 0 ? ix.ngr * ix.G : 0);
+    warp_slots_count2(buf, nwords, nsym, lq, offA, offB, lane, cA, cB);
+    return;
+  }
+  warp_swar_count2(buf, ix.w_main, lq, offA, offB, lane, cA, cB);
+}
+
+// One FM step of dense code c >= 0 from [*first, *last), by the whole warp
+// (every lane holds the range and gets the new one): C[c] + occ(c, .) at
+// both ends, an end at or past the segments' end counting every
+// occurrence.  Cs: C in shared memory; buf0, buf1: the warp's two
+// c_buf_words buffers (row tiers).
+template <int L>
+__device__ __forceinline__ void warp_count_step(const FmView& ix, int c,
+                                                int lane, const int* Cs,
+                                                unsigned* buf0,
+                                                unsigned* buf1, int* first,
+                                                int* last) {
+  const long long end = ix.n_seg * ix.seg;
+  const int rf = *first, rl = *last;
+  const bool in_f = rf < end, in_l = rl < end;
+  // rows lie below 2^31: 32-bit divisions, 64-bit offsets after them
+  const unsigned seg = static_cast<unsigned>(ix.seg);
+  const unsigned sf = static_cast<unsigned>(rf) / seg;
+  const unsigned sl = static_cast<unsigned>(rl) / seg;
+  const int of = static_cast<int>(static_cast<unsigned>(rf) - sf * seg);
+  const int ol = static_cast<int>(static_cast<unsigned>(rl) - sl * seg);
+  const bool shared = in_f && in_l && sf == sl;
+  const int hi = shared ? max(of, ol) : of;
+  int ck_f = 0, ck_l = 0, cf = 0, cl = 0;
+  if constexpr (is_row<L>()) {
+    __syncwarp();  // the last step's reads of the buffers are done
+    int wf = 0, wl = 0, nf = 0, nl = 0, l1f = 0, l1l = 0;
+    unsigned relf = 0, rell = 0;
+    if (in_f) warp_count_fetch<L>(ix, sf, hi, c, lane, buf0, &wf, &nf, &l1f,
+                                  &relf);
+    if (in_l && !shared)
+      warp_count_fetch<L>(ix, sl, ol, c, lane, buf1, &wl, &nl, &l1l, &rell);
+    cp_async_wait_warp();
+    bool more = false;
+    if (in_f) more |= warp_count_fetch2<L>(ix, wf, hi, lane, buf0);
+    if (in_l && !shared) more |= warp_count_fetch2<L>(ix, wl, ol, lane, buf1);
+    if (more) cp_async_wait_warp();
+    const int sh = (c & 1) * 16;
+    if (in_f) {
+      ck_f = l1f + static_cast<int>((relf >> sh) & 0xFFFFu);
+      int other;
+      warp_count_end<L>(ix, c, wf, nf, buf0, of, shared ? ol : of, lane, &cf,
+                        &other);
+      if (shared) cl = other;
+    }
+    if (in_l && !shared) {
+      ck_l = l1l + static_cast<int>((rell >> sh) & 0xFFFFu);
+      int same;
+      warp_count_end<L>(ix, c, wl, nl, buf1, ol, ol, lane, &cl, &same);
+    }
+  } else {
+    if (in_f) ck_f = ckpt_base<L>(ix, sf, c);
+    if (in_l && !shared) ck_l = ckpt_base<L>(ix, sl, c);
+    warp_fixed_counts<L>(ix, c, sf, of, in_f, sl, ol, in_l, shared, lane, &cf,
+                         &cl);
+  }
+  if (shared) ck_l = ck_f;
+  const int base = Cs[c], total = Cs[c + 1] - base;
+  *first = base + (in_f ? ck_f + cf : total);
+  *last = base + (in_l ? ck_l + cl : total);
+}
+
+// The largest call that takes C's warp route on an index: B patterns of
+// backward_search or backward_search_steps, or B lanes of one step
+// (backward_step, backward_step_masked; one_step).  Builds with
+// -DFEMTO_C_WARP_MAX=0 (every call a thread a pattern or lane) or
+// 0x7fffffff (every call a warp) let chip_smoke.py and chip_c_routes.py
+// hold each route against the other.
+#ifndef FEMTO_C_WARP_MAX
+#define FEMTO_C_WARP_MAX -1
+#endif
+// chip_c_routes.py (NVIDIA H100 80GB HBM3, 700 W; each route forced, in
+// turns, CUDA events; three runs, the geometric mean of each run's
+// ratio): both routes of all four entries on the five layouts at seg 256,
+// 1024 and 2048 over zipf text (31 codes), English prose (167) and
+// a/c/g/t text (5), at every power of two B from 2^10 to 2^20, patterns
+// of 16 symbols and one step.  The warp route leads at small B, by up to
+// 30x (prose vrle seg 2048, 1024 patterns: a thread route of 8 blocks
+// walks 2048-symbol prefixes a load at a time); the thread route, whose
+// step costs fewer instructions once the card is full, leads at large B
+// on short segments (up to 11x at 2^20 a/c/g/t patterns, vseg seg 256).
+// Where they cross grows with seg and depends on the entry kind (one step
+// crosses at 1/8 to 4 times the B of 16-step patterns), the layout (up
+// to 4x) and the text: at seg 2048 on vseg, 64k patterns on the a/c/g/t
+// text, 128k on zipf, past 2^20 on the prose.  The dense alphabet's size
+// is the one property of the text that the view holds (packed, vseg and
+// vrle); full and compact keep the identity alphabet, so their limits are
+// the best for the three texts together.  Hence a limit, in 1024s, for
+// each entry kind, layout and alphabet (up to 8 codes, up to 64, more)
+// and seg (up to 256, up to 1024, more), the one that keeps each swept
+// call within 10% of the faster route where the text is known (full and
+// compact: within 25%); none past 2^20, which the sweep did not pass.
+constexpr short kCWarpMaxK[2][11][3] = {
+    // patterns: full, compact, then packed, vseg and vrle by alphabet
+    {{16, 32, 64}, {8, 32, 32},
+     {8, 32, 32}, {16, 64, 128}, {32, 512, 1024},
+     {8, 32, 64}, {16, 32, 128}, {16, 64, 1024},
+     {8, 32, 64}, {16, 32, 64}, {32, 1024, 1024}},
+    // one step
+    {{2, 32, 256}, {4, 32, 64},
+     {1, 32, 64}, {16, 64, 256}, {32, 256, 1024},
+     {16, 64, 256}, {16, 32, 128}, {16, 64, 1024},
+     {8, 64, 256}, {8, 32, 128}, {32, 1024, 1024}},
+};
+
+inline int c_warp_max(const FmView& ix, bool one_step) {
+  if (FEMTO_C_WARP_MAX >= 0) return FEMTO_C_WARP_MAX;
+  const int alpha = ix.K <= 8 ? 0 : ix.K <= 64 ? 1 : 2;
+  const int row = ix.layout == kFull      ? 0
+                  : ix.layout == kCompact ? 1
+                                          : 2 + 3 * (ix.layout - kPacked) +
+                                                alpha;
+  const int segs = ix.seg <= 256 ? 0 : ix.seg <= 1024 ? 1 : 2;
+  return kCWarpMaxK[one_step ? 1 : 0][row][segs] * 1024;
+}
+
+// The route of a call of B patterns (backward_search, _steps) or, with
+// one_step, lanes (backward_step, _masked): the warp route's dynamic
+// shared memory a block in bytes (blocks of min(B, kWarpWalks) warps), 0
+// where the call takes a thread a pattern or lane -- past c_warp_max or
+// where the block's shared memory would not fit an SM.  *buf_words:
+// c_buf_words.
+inline long long c_route_smem(const FmView& ix, int B, bool one_step,
+                              int* buf_words) {
+  *buf_words = c_buf_words(ix);
+  const int warps = B < kWarpWalks ? B : kWarpWalks;
+  const long long bytes =
+      4ll * (c_smem_start(ix) + 2ll * warps * *buf_words);
+  return B > 0 && B <= c_warp_max(ix, one_step) && bytes <= 227 * 1024
+             ? bytes
+             : 0;
 }
 
 // Block-wide scans of one int per thread for the build kernels' stream

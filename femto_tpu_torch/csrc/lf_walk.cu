@@ -105,13 +105,14 @@ __device__ __forceinline__ long long lf_step(const femto::FmView& ix,
     if (c >= ix.K) return -1;
     return static_cast<long long>(__ldg(ix.C + c)) +
            femto::ckpt_base<L>(ix, s, c) +
-           femto::row_within<L>(ix, row, s, woff, lc, off);
+           femto::row_within<L>(ix, row, s, woff, lc, 0, off);
   }
   const int c = femto::code_at<L>(ix, s, off);
   *code = c;
   if (c >= ix.K) return -1;
   return static_cast<long long>(__ldg(ix.C + c)) +
-         femto::ckpt_base<L>(ix, s, c) + femto::count_prefix<L>(ix, s, off, c);
+         femto::ckpt_base<L>(ix, s, c) +
+         femto::count_range<L>(ix, s, 0, off, c);
 }
 
 // ops/rank.py mark_offset: decode the packed store's slot g.

@@ -192,6 +192,12 @@ SIZES: Dict[str, Tuple[str, List]] = {
     # bytes of a warp-a-walk block's dynamic shared memory, 0 where the
     # call takes a thread a walk
     "lf_walk_route": ("lf_walk", [_V, _I, _I]),
+    # kernel C's route for a call on an index (view, B, one_step: 0 for
+    # B patterns of backward_search or backward_search_steps, 1 for B
+    # lanes of backward_step or backward_step_masked), one rule for its
+    # four entries: the bytes of a warp-a-pattern block's dynamic shared
+    # memory, 0 where the call takes a thread a pattern or lane
+    "backward_search_route": ("backward_search", [_V, _I, _I]),
     # K18f owner_lf's route for a call of (view, R, Dl): the same rule on
     # its Dl x R requests, 0 on the thread route
     "owner_lf_route": ("dist_query", [_V, _L, _I]),
