@@ -7,9 +7,13 @@ tree A, B, B, A, each importing femto_tpu_torch from its own tree and
 building its kernels there.  Each process builds the index once to warm
 up, then profiles one build with torch.profiler: wall ms, device ms (every
 device item: kernels, copies, fills, memsets), the busy share, the device
-ms and calls of the rebalance's kernels and of PyTorch's fills, rolls,
-wheres and copies, and the launches of every entry whose name holds
-"rebalance".  The measuring code is this file's, the same for both trees.
+ms and calls of the rebalance's kernels, of mesh_scan's and
+compact_rows' kernels (either design's: the earlier three-kernel scan or
+the tile kernels), of memsets and of PyTorch's fills, rolls, wheres and
+copies, and the launches of every entry named in LAUNCHES.  Each
+process also hashes the built index's FMArrays and meta and the suffix
+array of the same text (dist_suffix_array), and the two trees' hashes
+must agree.  The measuring code is this file's, the same for both trees.
 
     python3 chip_sharded_build_ab.py TREE_A TREE_B
 
@@ -35,10 +39,16 @@ HERE = os.path.dirname(os.path.abspath(__file__))
 SEED = 7
 MIB = 256
 D = 4
-# device items by kind: a substring of the kernel's name
-KINDS = {"rebalance": "rebalance", "fill": "FillFunctor",
-         "roll": "roll_cuda_kernel", "where": "where_kernel_impl",
-         "copy": "direct_copy_kernel", "memcpy": "Memcpy"}
+# device items by kind: substrings of the kernels' names (either tree's)
+KINDS = {"rebalance": ("rebalance",),
+         "mesh_scan": ("scan_tiles_kernel", "scan_carry_kernel",
+                       "scan_apply_kernel", "mesh_scan_tile"),
+         "compact_rows": ("compact_rows",),
+         "fill": ("FillFunctor",), "memset": ("Memset",),
+         "roll": ("roll_cuda_kernel",), "where": ("where_kernel_impl",),
+         "copy": ("direct_copy_kernel",), "memcpy": ("Memcpy",)}
+# entries whose launches the record keeps
+LAUNCHES = ("rebalance", "mesh_scan", "compact_rows")
 
 
 def _smoke():
@@ -71,9 +81,9 @@ def one(tree):
     mesh = LocalMesh(D, "cuda")
 
     def build():
-        build_index_sharded(prepared, mesh, seg=256, mark_period=20)
+        return build_index_sharded(prepared, mesh, seg=256, mark_period=20)
 
-    build()
+    digest = index_digest(build(), prepared, mesh)
     torch.cuda.synchronize()
     kernels.reset_launches()
     with profile(activities=[ProfilerActivity.CPU,
@@ -90,13 +100,39 @@ def one(tree):
     return {
         "tree": tree, "n": prepared.n, "wall_ms": wall_ms,
         "device_ms": device_ms, "busy_share": device_ms / wall_ms,
-        "by_kind": {k: {"ms": sum(ms for n, ms, _ in items if tag in n),
-                        "calls": sum(c for n, _, c in items if tag in n)}
-                    for k, tag in KINDS.items()},
+        "by_kind": {k: {"ms": sum(ms for n, ms, _ in items
+                                  if any(t in n for t in tags)),
+                        "calls": sum(c for n, _, c in items
+                                     if any(t in n for t in tags))}
+                    for k, tags in KINDS.items()},
         "launches": {k: v for k, v in kernels.launches.items()
-                     if v and "rebalance" in k},
+                     if v and any(e in k for e in LAUNCHES)},
+        "digest": digest,
         "top": [{"op": n[:120], "ms": ms, "calls": c}
                 for n, ms, c in sorted(items, key=lambda x: -x[1])[:12]]}
+
+
+def index_digest(ix, prepared, mesh):
+    """blake2b of every FMArrays field and the meta of a sharded index,
+    and of the suffix array of the same padded text (dist_suffix_array)."""
+    import dataclasses
+    import hashlib
+
+    from femto_tpu_torch.parallel import dist_suffix_array, pad_text_for_mesh
+    from femto_tpu_torch.parallel.distributed import put_global
+
+    h = hashlib.blake2b(digest_size=16)
+    for k, v in ix.arrays._asdict().items():
+        h.update(k.encode())
+        if v is not None:
+            h.update(v.cpu().numpy().tobytes())
+    h.update(json.dumps(dataclasses.asdict(ix.meta), sort_keys=True,
+                        default=str).encode())
+    tp, _ = pad_text_for_mesh(prepared.text, D, 256)
+    sa = dist_suffix_array(put_global(tp, mesh), mesh, n=prepared.n)[0]
+    return {"index": h.hexdigest(),
+            "sa": hashlib.blake2b(sa.cpu().numpy().tobytes(),
+                                  digest_size=16).hexdigest()}
 
 
 def main():
@@ -124,6 +160,9 @@ def main():
               f"{r['device_ms']:.3f} ms, busy {r['busy_share']:.4f}, "
               f"launches {r['launches']}, by kind {r['by_kind']}",
               flush=True)
+    digests = {r["tree"]: r["digest"] for r in runs}
+    if len({json.dumps(d, sort_keys=True) for d in digests.values()}) != 1:
+        sys.exit(f"the trees built different indexes: {digests}")
     card = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit",
          "--format=csv,noheader"], capture_output=True,
@@ -132,9 +171,12 @@ def main():
         "card": card, "order": [a, b, b, a],
         "device_ms": {t: [r["device_ms"] for r in runs if r["tree"] ==
                           os.path.abspath(t)] for t in (a, b)},
-        "rebalance_ms": {t: [r["by_kind"]["rebalance"]["ms"] for r in runs
-                             if r["tree"] == os.path.abspath(t)]
-                         for t in (a, b)}}
+        "by_kind_ms": {k: {t: [r["by_kind"][k]["ms"] for r in runs
+                               if r["tree"] == os.path.abspath(t)]
+                           for t in (a, b)}
+                       for k in ("rebalance", "mesh_scan", "compact_rows",
+                                 "fill", "memset")},
+        "same_sa_and_index": True}
     os.makedirs(os.path.join(HERE, "chiprun_out"), exist_ok=True)
     with open(os.path.join(HERE, "chiprun_out", "sharded_build_ab.json"),
               "w") as f:

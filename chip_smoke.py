@@ -1,7 +1,7 @@
 #!/usr/bin/env python3
 """On-card smoke test of femto_tpu_torch, the PyTorch/CUDA port.
 
-    python3 chip_smoke.py [--seed 1234]
+    python3 chip_smoke.py [--seed 1234] [--parent DIR]
 
 Needs one CUDA card and nvcc; without them it exits non-zero and prints no
 result.  It imports neither jax nor femto_tpu.  Phases (any failure exits
@@ -11,7 +11,8 @@ non-zero):
 2. build every kernel under femto_tpu_torch/csrc/ with nvcc for sm_90a
    (and, beside them, the other-route builds of H, K18a, D, C and of
    the all-symbol rank in R and K18f, and a pointer-chase latency probe);
-   ptxas must report no local memory in kernel C's kernels;
+   ptxas must report no local memory in kernel C's kernels, nor in
+   mesh_scan's and compact_rows' tile kernels;
 3. kernel L's gather_rows and gather_cols at edge shapes (1 to 8 columns,
    int32 and int64, idx views off a 16-byte boundary, -1 and
    out-of-range indices, 0, 1, 65,536 and 2^26 rows), kernel D's extract
@@ -79,7 +80,14 @@ non-zero):
    the inputs a sharded build of the 8 MiB corpus gives it (seed keys,
    payload, splitters, the bucket exchange, the rebalance, group starts,
    scans, compaction, psum fetches, placements, the mesh prefix,
-   add_base and add_mesh_base), the last three also at edge
+   add_base and add_mesh_base), mesh_scan and compact_rows at edge
+   shapes (no flag, every flag, one at a shard's first or last slot,
+   random, runs; m 100, 2^20 + 1 and one below, at, one and 17 past
+   each kernel's tile, at Dl 4 and at Dl 1 with shard0 2, the flags 0, 1
+   and 4 bytes past 16-byte alignment; compact_rows at off the counts'
+   prefix and past M, 1 to 9 columns with the global index among them;
+   both at 4 x (2^24 + 3) flags, more tiles than the card holds at once), the last three of
+   the list above also at edge
    shapes (A of 1, 3, 256 and 1024 columns, 0, 1, 5 and 2^18 rows, 1 or
    4 local shards from shard 0 or 3 of 8, x 16-B aligned or not, int32
    values that wrap, op "max" on negative rows, C and the base on and
@@ -234,7 +242,12 @@ non-zero):
    over a wider range), the row tiers' walk locate rates on the thread
    route too, and each walk's latency floor (steps x the card's
    dependent-load latency from a pointer chase over 1 GiB) beside its
-   bytes bound;
+   bytes bound; mesh_scan and compact_rows at their first sharded calls
+   (_group_state's cummax, dist_sort's compaction) with the bound of the
+   design before (old_bound_ms) and, given --parent DIR (the parent
+   commit unpacked by git archive), in 5 rounds in turns with the
+   parent's design at the same call (its three-kernel scan; its scan,
+   fills and compaction), held to it bit for bit;
 6. where the time goes: device time by kernel and the device's busy share
    over one build, count, locate and extract of the full tier, one
    build, count, locate and context of the packed tier, the vseg and vrle
@@ -246,7 +259,10 @@ non-zero):
    the two-chunk build of phase 4e, the cold paged count of 4f, the
    lcp_array of 4g and the sharded build of 4h (with their largest idle
    gaps, and the sharded build's launches of K18a's and K18b's entries
-   and kernel L's device ms and launches)
+   and kernel L's device ms and launches; it fails unless every
+   mesh_scan call and every compact_rows call of up to 8 columns is one
+   launch, and unless one call of each alone shows its tile kernel and
+   memsets only, no fill of compact_rows' outputs)
    join these; a build or
    query whose
    device items include a library sort or scan fails, and
@@ -2178,6 +2194,17 @@ def phase_build(record):
         record["c_local_bytes"] = {"max": max(local), "records": len(local)}
         log(f"    backward_search: 0 bytes of local memory in {len(local)} "
             f"ptxas records")
+    # mesh_scan's and compact_rows' tile kernels too (compact_rows' column
+    # loop is unrolled over its 8 columns: a column indexed by a variable
+    # would copy the parameter block to local memory)
+    if "dist_rounds" in kernels.build_logs:
+        local = scan_compact_local_bytes(kernels.build_logs["dist_rounds"])
+        check(len(local) == 3 and max(local.values()) == 0,
+              f"mesh_scan's and compact_rows' kernels use local memory, or "
+              f"ptxas reported fewer than their 3: {local}")
+        record["scan_compact_local_bytes"] = local
+        log(f"    dist_rounds: 0 bytes of local memory in mesh_scan's and "
+            f"compact_rows' {len(local)} kernels")
     return routes
 
 
@@ -6162,19 +6189,41 @@ def sharded_case(name, a, kw, occ=None):
     elif name == "mesh_flags":
         nbytes = size(a[0]) + a[0][0].numel() + size(a[1])
     elif name == "mesh_scan":
+        # the flags read once, the flagged slots where given, out and last
+        # written once (the rule of the row before the redesign too)
         flags = a[0]
-        nbytes = 5 * flags.numel() + size([kw["slots"]]) + 4 * flags.shape[0]
-        if kw["mode"] == "sum" and kw["slots"] is None:
+        slots = kw["slots"]
+        nbytes = (5 * flags.numel() + 4 * flags.shape[0]
+                  + (4 * int(flags.count_nonzero()) if slots is not None
+                     else 0))
+        case["extra"].update(
+            flags=list(flags.shape), mode=kw["mode"],
+            slots=slots is not None, old_bound_ms=bound_ms(
+                5 * flags.numel() + size([slots]) + 4 * flags.shape[0]))
+        if kw["mode"] == "sum" and slots is None:
             def lib():
                 return torch.cumsum(flags, 1, dtype=torch.int32)
+        case["more"] = lambda: parent_fields(
+            name, run_k, lambda: _flat([parent_mesh_scan(
+                flags, kw["mode"], kw["shard0"], slots)]))
     elif name == "compact_rows":
-        flags, rank, off, cols = a
+        # the flags and the kept slots' columns read once, each place of
+        # every column written once; old_bound_ms: the row's rule before
+        # the redesign, which also read the rank mesh_scan wrote
+        flags, off, cols = a
         M = kw["M"]
         took = sum(min(c, max(0, M - o)) for c, o in zip(
             flags.sum(dim=1, dtype=torch.int64).tolist(), off.tolist()))
-        nbytes = (5 * flags.numel()
-                  + 4 * took * sum(c is not None for c in cols)
-                  + 4 * len(cols) * flags.shape[0] * M)
+        moved = (4 * took * sum(c is not None for c in cols)
+                 + 4 * len(cols) * flags.shape[0] * M)
+        nbytes = flags.numel() + moved
+        case["extra"].update(flags=list(flags.shape), ncols=len(cols),
+                             M=M, kept=took,
+                             old_bound_ms=bound_ms(5 * flags.numel()
+                                                   + moved))
+        case["more"] = lambda: parent_fields(
+            name, run_k, lambda: _flat(parent_compaction(
+                flags, off, cols, M, kw["fills"], kw["shard0"])))
     elif name == "fetch_owned":
         src, idx, valid = a
         nv = idx.numel() if valid is None else int(valid.sum())
@@ -6658,6 +6707,241 @@ def parity_rebalance_edges(rng):
     return errs
 
 
+# phase 3's mesh_scan and compact_rows shapes (parity_scan_compact_edges):
+# m below, at and past one tile of each kernel (scan_ms: csrc/
+# dist_rounds.cu's own tiles), not a multiple of 16, one past 2^20; each
+# at Dl 4 (shard0 0) and Dl 1 (shard0 2), the flags also 1 and 4 bytes
+# past a 16-byte boundary (the tiles follow the flags' alignment; 1 byte
+# puts mesh_scan's out off its 16-byte stores); and SCAN_BIG_M at Dl 4,
+# whose 4 x 1025 and 4 x 2049 tiles outnumber the blocks the card holds
+# at once, so that tiles wait in the look-back
+SCAN_BIG_M = (1 << 24) + 3
+
+
+def scan_ms():
+    """Phase 3's m of mesh_scan and compact_rows (SCAN_BIG_M apart)."""
+    from femto_tpu_torch import kernels
+
+    ms = {100, (1 << 20) + 1}
+    for which in (0, 1):
+        tile = kernels.size("scan_tile", which)
+        ms |= {tile - 1, tile, tile + 1, tile + 17}
+    return sorted(ms)
+
+
+SCAN_PATTERNS = ("none", "all", "first", "last", "random", "runs")
+
+
+def scan_flags(pattern, Dl, m, rng):
+    """uint8[Dl, m] flags of one of SCAN_PATTERNS: none, every slot, one
+    at a shard's first or last slot, 30% at random, runs of 37 slots
+    (bytes 1 and 255) as dist_sort's bucketed buffers keep them."""
+    f = np.zeros((Dl, m), np.uint8)
+    if pattern == "all":
+        f[:] = 1
+    elif pattern == "first":
+        f[Dl // 2, 0] = 1
+    elif pattern == "last":
+        f[Dl // 2, m - 1] = 1
+    elif pattern == "random":
+        f[:] = rng.random((Dl, m)) < 0.3
+    elif pattern == "runs":
+        p = np.arange(m)
+        f[:] = np.where((p // 37) % 3 == 0, np.where(p % 2, 255, 1), 0)
+    return f
+
+
+def parity_scan_compact_edges(rng):
+    """mesh_scan (sum; max; max with slots) and compact_rows on the card
+    against their plain versions on the same card tensors, bit for bit:
+    every SCAN_PATTERNS x scan_ms() at Dl 4 and Dl 1 (shard0 2), the flags
+    16-byte aligned and 1 and 4 bytes past it; compact_rows at off the
+    counts' exclusive prefix (M 3 past the total) and at off pushing the
+    counts past M (M half the total), 1 to 9 columns with the slot's
+    global index (None) among them; and both at SCAN_BIG_M, Dl 4.
+    Returns {"<entry>[edges]": 0} for phase 3's errs (a difference
+    raises)."""
+    import torch
+
+    from femto_tpu_torch.ops import dist_ops as DO
+
+    dev = torch.device("cuda")
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(int(rng.integers(0, 2**31)))
+    cases = {"mesh_scan": 0, "compact_rows": 0}
+    t0 = time.perf_counter()
+
+    def i32(*shape):
+        return torch.randint(-2**31, 2**31 - 1, shape, generator=gen,
+                             device=dev, dtype=torch.int32)
+
+    def hold(entry, tag, fk, fp, **kw):
+        max_abs_err(f"{entry} ({tag})", _flat([fk(**kw)]), _flat([fp(**kw)]))
+        cases[entry] += 1
+
+    def one(f, shard0, shift, k):
+        Dl, m = f.shape
+        buf = torch.empty(f.size + shift, dtype=torch.uint8, device=dev)
+        buf[shift:] = torch.from_numpy(f.reshape(-1)).to(dev)
+        flags = buf[shift:].view(Dl, m)
+        tag = f"Dl {Dl}, m {m}, shard0 {shard0}, {shift} B past 16"
+        slots = torch.randint(0, 2**31 - 1, (Dl, m), generator=gen,
+                              device=dev, dtype=torch.int32)
+        for mode, sl in (("sum", None), ("max", None), ("max", slots)):
+            hold("mesh_scan", f"{mode}{' slots' if sl is not None else ''},"
+                 f" {tag}", DO.mesh_scan, DO.mesh_scan_plain, flags=flags,
+                 mode=mode, shard0=shard0, slots=sl)
+        cnt = (f != 0).sum(axis=1)
+        total = int(cnt.sum())
+        ncols = 1 + k % 9
+        cols = [None if c % 3 == 1 else i32(Dl, m) for c in range(ncols)]
+        fills = rng.integers(-2**31, 2**31 - 1, size=ncols).tolist()
+        for how in ("prefix", "past"):
+            if how == "prefix":
+                off, M = np.cumsum(cnt) - cnt, total + 3
+            else:
+                M = max(1, total // 2)
+                off = rng.integers(0, M, size=Dl)
+            hold("compact_rows", f"{ncols} columns, off {how}, M {M}, {tag}",
+                 DO.compact_rows, DO.compact_rows_plain, flags=flags,
+                 off=torch.from_numpy(off.astype(np.int32)).to(dev),
+                 cols=cols, M=M, fills=fills, shard0=shard0)
+
+    k = 0
+    for m in scan_ms():
+        for Dl, shard0 in ((4, 0), (1, 2)):
+            for pattern in SCAN_PATTERNS:
+                for shift in (0, 1, 4):
+                    one(scan_flags(pattern, Dl, m, rng), shard0, shift, k)
+                    k += 1
+    for pattern in ("random", "runs"):
+        one(scan_flags(pattern, 4, SCAN_BIG_M, rng), 0, 0, 2)
+    torch.cuda.synchronize()
+    log(f"    mesh_scan and compact_rows at edge shapes: {cases} cases "
+        f"equal their plain versions ({time.perf_counter() - t0:.1f}s)")
+    return {f"{e}[edges]": 0 for e in cases}
+
+
+def scan_compact_local_bytes(log_):
+    """{kernel: the largest of its stack frame, spill stores and spill
+    loads} of mesh_scan's and compact_rows' tile kernels in ptxas' -v
+    output of csrc/dist_rounds.cu."""
+    out = {}
+    for part in log_.split("Compiling entry function")[1:]:
+        name = re.match(r"\s*'(\S+)'", part)
+        if name and ("mesh_scan_tile" in name.group(1)
+                     or "compact_rows_tile" in name.group(1)):
+            nums = [int(v) for v in re.findall(
+                r"(\d+) bytes (?:stack frame|lmem|spill stores|spill loads)",
+                part)]
+            check(bool(nums), f"no ptxas record for {name.group(1)}")
+            out[name.group(1)] = max(nums)
+    return out
+
+
+# The parent tree's scan and compaction (--parent DIR: the parent commit
+# unpacked by git archive): csrc/dist_rounds.cu of DIR built beside this
+# tree's, its two entries bound with the parent's argument types, and
+# phase 5's mesh_scan and compact_rows rows timed against it at their own
+# calls.  None: not given (those fields say "not measured").
+PARENT = None
+PARENT_ENTRIES = {  # entry -> the parent's argument types (without stream)
+    "mesh_scan": ["p", "p", "l", "i", "i", "i", "p", "p", "p"],
+    "compact_rows": ["p", "p", "p", "l", "i", "i", "l", "i"] + ["p"] * 6}
+PARENT_SCAN_TILE = 4096  # the parent's kScanTile: its tiles scratch
+_PARENT_LIB = []
+
+
+def parent_lib():
+    """The parent's csrc/dist_rounds.cu built with this tree's flags (once
+    a run), its mesh_scan and compact_rows entries bound."""
+    import ctypes
+
+    from femto_tpu_torch import kernels
+
+    if not _PARENT_LIB:
+        so = os.path.join(kernels.BUILD_DIR, "libdist_rounds.parent.so")
+        out = subprocess.run(
+            [kernels.nvcc_path(), *kernels.NVCC_FLAGS, "-o", so,
+             os.path.join(PARENT, "femto_tpu_torch", "csrc",
+                          "dist_rounds.cu")],
+            capture_output=True, text=True)
+        check(out.returncode == 0, f"nvcc failed for the parent's "
+                                   f"dist_rounds.cu:\n{out.stdout}")
+        lib = ctypes.CDLL(so)
+        kinds = {"p": ctypes.c_void_p, "i": ctypes.c_int,
+                 "l": ctypes.c_longlong}
+        for entry, args in PARENT_ENTRIES.items():
+            fn = getattr(lib, "femto_" + entry)
+            fn.argtypes = [kinds[a] for a in args] + [ctypes.c_void_p]
+            fn.restype = ctypes.c_int
+        _PARENT_LIB.append(lib)
+    return _PARENT_LIB[0]
+
+
+def parent_mesh_scan(flags, mode, shard0, slots):
+    """The parent's mesh_scan: tile totals, their carry, the scan with it
+    (three kernels), its tiles scratch allocated here as its wrapper
+    did."""
+    import torch
+
+    lib = parent_lib()
+    Dl, m = flags.shape
+    dev = flags.device
+    out = torch.empty((Dl, m), dtype=torch.int32, device=dev)
+    last = torch.empty(Dl, dtype=torch.int32, device=dev)
+    tiles = torch.empty((Dl, -(-m // PARENT_SCAN_TILE)), dtype=torch.int32,
+                        device=dev)
+    rc = lib.femto_mesh_scan(
+        flags.data_ptr(), None if slots is None else slots.data_ptr(), m,
+        Dl, shard0, 0 if mode == "sum" else 1, out.data_ptr(),
+        last.data_ptr(), tiles.data_ptr(),
+        torch.cuda.current_stream().cuda_stream)
+    check(rc == 0, f"the parent's mesh_scan returned {rc}")
+    return out, last
+
+
+def parent_compaction(flags, off, cols, M, fills, shard0):
+    """The parent's compaction at the same call: its mesh_scan("sum") for
+    the ranks, then torch.full of the outputs and its compact_rows, three
+    columns a launch."""
+    import torch
+
+    lib = parent_lib()
+    Dl, m = flags.shape
+    rank, _ = parent_mesh_scan(flags, "sum", shard0, None)
+    outs = []
+    for i in range(0, len(cols), 3):
+        chunk = cols[i:i + 3]
+        o = [torch.full((Dl, M), f, dtype=torch.int32, device=flags.device)
+             for f in fills[i:i + 3]]
+        ptrs = [None if c is None else c.data_ptr() for c in chunk]
+        ptrs += [None] * (3 - len(chunk))
+        optrs = [x.data_ptr() for x in o] + [None] * (3 - len(o))
+        rc = lib.femto_compact_rows(
+            flags.data_ptr(), rank.data_ptr(), off.data_ptr(), m, Dl, shard0,
+            M, len(chunk), *ptrs, *optrs,
+            torch.cuda.current_stream().cuda_stream)
+        check(rc == 0, f"the parent's compact_rows returned {rc}")
+        outs += o
+    return outs
+
+
+def parent_fields(name, run_k, run_parent):
+    """A row's kernel against the parent tree's design at the same call
+    (PARENT): held bit for bit, then 5 rounds in turns (this tree, the
+    parent, the parent, this tree)."""
+    if PARENT is None:
+        return {"parent_ms": "not measured (no --parent)"}
+    max_abs_err(f"{name}: against the parent's design", run_k(),
+                run_parent())
+    ms, p_ms, fours = in_turns(run_k, run_parent, 5)
+    return {"parent_ms": p_ms, "ms_in_turns_with_parent": ms,
+            "parent_turns_ms": fours,
+            "ahead_of_parent_rounds": sum(k1 + k2 < l1 + l2
+                                          for k1, l1, l2, k2 in fours)}
+
+
 # K18f owner_lf's requests a shard in phase 3's hold of its routes
 OWNER_LF_R = 4096
 
@@ -7038,6 +7322,7 @@ def parity_sharded(rng, docs, prepared, sa, errs, k18a_builds=None,
     errs.update(parity_k18b_edges(rng))
     errs.update(parity_bucket_pack_edges(rng))
     errs.update(parity_rebalance_edges(rng))
+    errs.update(parity_scan_compact_edges(rng))
     if k18a_builds is not None:
         for route, lib in route_libs(k18a_builds, "exchange").items():
             with kernels.variant("exchange", lib):
@@ -7366,6 +7651,7 @@ def phase_sharded(record, rng, st, builds=None):
                                           sharded_locate,
                                           sharded_regexp_matches)
     from femto_tpu_torch.ops import build_ops as BO
+    from femto_tpu_torch.ops import dist_ops as DO
     from femto_tpu_torch.parallel import dist_build as DB
     from femto_tpu_torch.parallel.distributed import put_global
     from femto_tpu_torch.query import regexp_device as RD
@@ -7625,19 +7911,25 @@ def phase_sharded(record, rng, st, builds=None):
         counts = {}
         l_calls = {}
         sorts = []
+        scans = []   # the columns of each compact_rows call, 0 a mesh_scan
 
         def build():
             kernels.reset_launches()
             l_calls.clear()
             sorts.clear()
-            sort = DB.dist_sort
+            scans.clear()
+            sort, scan, compact = DB.dist_sort, DO.mesh_scan, DO.compact_rows
             DB.dist_sort = lambda *a, **k: sorts.append(1) or sort(*a, **k)
+            DO.mesh_scan = lambda *a, **k: scans.append(0) or scan(*a, **k)
+            DO.compact_rows = (lambda flags, off, cols, **k: scans.append(
+                len(cols)) or compact(flags, off, cols, **k))
             try:
                 with l_call_sizes(l_calls):
                     build_index_sharded(prepared, mesh, seg=256,
                                         mark_period=20, tier=tier)
             finally:
                 DB.dist_sort = sort
+                DO.mesh_scan, DO.compact_rows = scan, compact
             counts.clear()
             counts.update({k: v for k, v in kernels.launches.items() if v})
 
@@ -7672,11 +7964,20 @@ def phase_sharded(record, rng, st, builds=None):
                 "rebalance_kernel", "not measured"),
             "torch_items": torch_items_by_kind(entry)}
         log(f"[6] sharded {tier} build: rebalance {entry['rebalance']}")
+        entry["scan_compact"] = scan_compact_launches(entry, counts, scans)
+        log(f"[6] sharded {tier} build: mesh_scan and compact_rows "
+            f"{entry['scan_compact']}")
         log(f"[6] sharded {tier} build launched "
             + ", ".join(f"{k} {counts.get(k, 0)}"
                         for k in ("bucket_pack", "mesh_exclusive",
                                   "add_mesh_base", "add_base",
                                   "rebalance_local")))
+    # one call each of mesh_scan and compact_rows alone (their first in a
+    # full build): one kernel and the scratch's memset, no fill
+    prof["sharded_build_full"]["scan_compact_calls"] = {
+        name: one_call_items(name, *captured_call(name, None, lambda: (
+            build_index_sharded(prepared, mesh, seg=256, mark_period=20))))
+        for name in ("mesh_scan", "compact_rows")}
     record["sharded_path"] = {
         "D": D, "mib": MAIN_MIB, "n": n, "tiers": rec,
         "twin_stats": twin_stats,
@@ -7706,6 +8007,77 @@ def torch_items_by_kind(entry):
                    "calls": sum(o["calls"] for o in items
                                 if tag in o["op"])}
             for kind, tag in TORCH_ITEM_KINDS.items()}
+
+
+def scan_compact_launches(entry, counts, scans):
+    """Phase 6's check of mesh_scan and compact_rows in a profiled sharded
+    build (scans: 0 for each mesh_scan call, each compact_rows call's
+    column count): one launch a mesh_scan call and a compact_rows call of
+    up to COMPACT_COLS columns, by the launch counts and, where the
+    profile saw every H kernel, by the profiler's items of their tile
+    kernels; their device ms and the build's fills."""
+    from femto_tpu_torch.ops import dist_ops as DO
+
+    n_scan = scans.count(0)
+    cols = [c for c in scans if c]
+    want = {"mesh_scan": n_scan,
+            "compact_rows": sum(-(-c // DO.COMPACT_COLS) for c in cols)}
+    got = {k: counts.get(k, 0) for k in want}
+    check(got == want, f"mesh_scan / compact_rows launches {got} for "
+                       f"{n_scan} scans and compactions of {cols} columns")
+    calls = entry.get("by_port_kernel_calls", {})
+    seen = {k: calls.get(k + "_tile", 0) for k in want}
+    complete = entry.get("H", {}).get("complete", False)
+    if complete:
+        check(seen == want, f"the profiler saw {seen} tile kernels of "
+                            f"mesh_scan / compact_rows for {want} launches")
+    ms = entry.get("by_port_kernel_ms", {})
+    return {"mesh_scan_calls": n_scan, "compact_rows_columns": cols,
+            "launches": got,
+            "profiled_kernels": seen if complete else
+            "not measured (the profile missed kernels)",
+            "ms": {k: ms.get(k + "_tile", "not measured") for k in want},
+            "torch_items": torch_items_by_kind(entry)}
+
+
+def one_call_items(name, a, kw, tries=3):
+    """The device items of one call of dist_ops.<name>(*a, **kw) under
+    torch.profiler (after a warm-up call): {item: calls}.  mesh_scan and
+    compact_rows must show one tile kernel (compact_rows: one a
+    COMPACT_COLS columns), memsets and nothing else: no fill of their
+    outputs."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    from femto_tpu_torch.ops import dist_ops as DO
+
+    fn = getattr(DO, name)
+    fn(*a, **kw)
+    torch.cuda.synchronize()
+    want = (1 if name == "mesh_scan"
+            else -(-len(a[2]) // DO.COMPACT_COLS))
+    for _ in range(tries):
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            profiler_warm_up()
+            fn(*a, **kw)
+            torch.cuda.synchronize()
+        items = {}
+        for e in prof.key_averages():
+            if (e.device_type == torch.autograd.DeviceType.CUDA
+                    and e.self_device_time_total > 0
+                    and SPIN_KERNEL not in e.key):
+                items[e.key[:120]] = items.get(e.key[:120], 0) + e.count
+        tile = sum(c for k, c in items.items() if name + "_tile" in k)
+        if tile:
+            break
+    other = [k for k in items if name + "_tile" not in k
+             and "memset" not in k.lower()]
+    check(tile == want and not other,
+          f"one {name} call ran {tile} tile kernels (want {want}) and "
+          f"{other} besides its memsets")
+    log(f"[6] one {name} call: {items}")
+    return {"items": items, "tile_kernels": tile}
 
 
 # lanes a plain row-tier decode takes at once in phase 5's rows at the
@@ -9058,6 +9430,9 @@ def profile_step(name, fn, own_kernels, tries=3):
         out["by_port_kernel_ms"] = {
             own: sum(ms for k, ms, _ in ops if own in k)
             for own in own_kernels if any(own in k for k, _, _ in ops)}
+        out["by_port_kernel_calls"] = {
+            own: sum(c for k, _, c in ops if own in k)
+            for own in out["by_port_kernel_ms"]}
         log(f"      no library sort or scan; outside the port's kernels "
             f"and copies: {out['outside_port_kernels_ms']:.3f} ms")
         for k, ms, c in outside:
@@ -9147,7 +9522,13 @@ def phase_profile(record, st, st2, st3, st4, own):
 def main(argv=None):
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--seed", type=int, default=1234)
+    ap.add_argument("--parent", default=None,
+                    help="root of the parent tree (unpacked by git "
+                         "archive): phase 5 times its mesh_scan and "
+                         "compaction at this tree's calls")
     args = ap.parse_args(argv)
+    global PARENT
+    PARENT = args.parent and os.path.abspath(args.parent)
 
     import torch
 

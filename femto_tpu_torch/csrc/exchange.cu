@@ -187,26 +187,6 @@ __device__ __forceinline__ void rank_tile(const int* dest,
   *start_out = start;
 }
 
-// Zeroes elements [lo, hi) of p (T: int or unsigned char): this thread's
-// share, part of parts, in 16-byte vectors where they are aligned.
-template <typename T>
-__device__ __forceinline__ void zero_range(T* p, long long lo, long long hi,
-                                           long long part, long long parts) {
-  constexpr int kVec = 16 / sizeof(T);
-  if (lo >= hi) return;
-  const long long mis =
-      static_cast<long long>(reinterpret_cast<uintptr_t>(p + lo) & 15) /
-      static_cast<long long>(sizeof(T));
-  long long a = lo + (mis ? kVec - mis : 0);
-  if (a > hi) a = hi;
-  const long long nvec = (hi - a) / kVec;
-  const long long b = a + nvec * kVec;
-  if (part < a - lo) p[lo + part] = 0;
-  if (part < hi - b) p[b + part] = 0;
-  uint4* q = reinterpret_cast<uint4*>(p + a);
-  for (long long k = part; k < nvec; k += parts) q[k] = make_uint4(0, 0, 0, 0);
-}
-
 // Zeroes slots [lo[b], hi[b]) of each bucket b < D of a shard's outputs
 // (the columns and the flags): thread t's share.
 template <int kT>
@@ -218,8 +198,8 @@ __device__ __forceinline__ void zero_tails(const int* lo, const int* hi,
     if (lo[b] >= hi[b]) continue;
     const long long s0 = obase + static_cast<long long>(b) * cap;
     for (int c = 0; c < ncols; ++c)
-      zero_range(cols.out[c] + s0, lo[b], hi[b], threadIdx.x, kT);
-    zero_range(vout + s0, lo[b], hi[b], threadIdx.x, kT);
+      femto::fill_range(cols.out[c] + s0, lo[b], hi[b], 0, threadIdx.x, kT);
+    femto::fill_range(vout + s0, lo[b], hi[b], 0, threadIdx.x, kT);
   }
 }
 
@@ -276,8 +256,8 @@ __device__ __forceinline__ void write_runs(
     if (zero) {
       for (int b = 0; b < D; ++b) {
         const long long s0 = obase + static_cast<long long>(b) * cap;
-        zero_range(cols.out[c] + s0, s.zlo[b], s.zhi[b], t, kT);
-        if (c == 0) zero_range(vout + s0, s.zlo[b], s.zhi[b], t, kT);
+        femto::fill_range(cols.out[c] + s0, s.zlo[b], s.zhi[b], 0, t, kT);
+        if (c == 0) femto::fill_range(vout + s0, s.zlo[b], s.zhi[b], 0, t, kT);
       }
     }
     __syncthreads();

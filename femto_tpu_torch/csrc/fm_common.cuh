@@ -1579,4 +1579,91 @@ __device__ __forceinline__ int block_exclusive_max(int v, int none,
   return before;
 }
 
+// A single-pass scan's decoupled look-back over one int a tile (a sum, or
+// with kMax a max), for kernels whose tiles take their numbers from an
+// atomic counter, so that every tile a block waits on belongs to a block
+// that already runs.  A tile's status word holds a tag in its high half
+// (kLbAggregate: the tile's own value, kLbInclusive: the combination of
+// every tile up to it, 0: not yet published; one memset zeroes a call's
+// words) and the int32 in its low half, in one 64-bit store, so a reader
+// never sees a tag without its value.  No tile reads data another tile
+// wrote, so no fence orders the words against other stores.
+constexpr unsigned long long kLbAggregate = 1, kLbInclusive = 2;
+
+template <bool kMax>
+__device__ __forceinline__ int lb_op(int a, int b) {
+  return kMax ? max(a, b) : a + b;
+}
+
+// Called by the 32 lanes of one warp of tile `tile` with its value `agg`
+// (`status`: tile 0's word of the tiles' row).  Publishes agg, combines
+// the earlier tiles' words 32 at a time, newest first (lane i reads tile
+// - 1 - i; the words up to the nearest inclusive one are taken once all
+// of them are published, else the window is read again; without an
+// inclusive word all 32 are taken and the window moves on), publishes
+// the tile's inclusive word and returns its exclusive prefix (`none`,
+// the identity, for tile 0).
+template <bool kMax>
+__device__ __forceinline__ int warp_lookback(unsigned long long* status,
+                                             long long tile, int agg,
+                                             int none) {
+  const int lane = threadIdx.x & 31;
+  volatile unsigned long long* st = status;
+  if (tile == 0) {
+    if (lane == 0) st[0] = kLbInclusive << 32 | static_cast<unsigned>(agg);
+    return none;
+  }
+  if (lane == 0) st[tile] = kLbAggregate << 32 | static_cast<unsigned>(agg);
+  int excl = none;
+  for (long long p = tile - 1;;) {
+    const long long q = p - lane;
+    const unsigned long long w =
+        q >= 0 ? st[q] : kLbInclusive << 32 | static_cast<unsigned>(none);
+    const unsigned tag = static_cast<unsigned>(w >> 32);
+    const unsigned incl = __ballot_sync(0xffffffffu, tag == kLbInclusive);
+    const unsigned ready = __ballot_sync(0xffffffffu, tag != 0);
+    // lanes 0 .. the nearest inclusive word (all 32 without one)
+    const unsigned need = (incl & (0u - incl)) * 2u - 1u;
+    if ((ready & need) != need) continue;
+    int v = need >> lane & 1u ? static_cast<int>(static_cast<unsigned>(w))
+                              : none;
+#pragma unroll
+    for (int o = 16; o > 0; o >>= 1)
+      v = lb_op<kMax>(v, __shfl_xor_sync(0xffffffffu, v, o));
+    excl = lb_op<kMax>(excl, v);
+    if (incl) break;
+    p -= 32;
+  }
+  if (lane == 0)
+    st[tile] = kLbInclusive << 32 |
+               static_cast<unsigned>(lb_op<kMax>(excl, agg));
+  return excl;
+}
+
+// Sets elements [lo, hi) of p (T: int or unsigned char) to v: this
+// thread's share, part of parts, in 16-byte stores where they are
+// aligned.
+template <typename T>
+__device__ __forceinline__ void fill_range(
+    T* p, long long lo, long long hi,
+    typename std::remove_reference<T>::type v, long long part,
+    long long parts) {
+  constexpr int kVec = 16 / sizeof(T);
+  if (lo >= hi) return;
+  const long long mis =
+      static_cast<long long>(reinterpret_cast<uintptr_t>(p + lo) & 15) /
+      static_cast<long long>(sizeof(T));
+  long long a = lo + (mis ? kVec - mis : 0);
+  if (a > hi) a = hi;
+  const long long nvec = (hi - a) / kVec;
+  const long long b = a + nvec * kVec;
+  if (part < a - lo) p[lo + part] = v;
+  if (part < hi - b) p[b + part] = v;
+  const unsigned w = sizeof(T) == 1
+                         ? static_cast<unsigned char>(v) * 0x01010101u
+                         : static_cast<unsigned>(v);
+  uint4* q = reinterpret_cast<uint4*>(p + a);
+  for (long long k = part; k < nvec; k += parts) q[k] = make_uint4(w, w, w, w);
+}
+
 }  // namespace femto

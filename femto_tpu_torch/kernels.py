@@ -158,8 +158,8 @@ ENTRIES: Dict[str, Tuple[str, List]] = {
     "mesh_flags": ("dist_rounds", [_P] * 6 + [_I] + [_P] * 6
                    + [_L, _I, _I, _I, _P]),
     "mesh_scan": ("dist_rounds", [_P, _P, _L, _I, _I, _I, _P, _P, _P]),
-    "compact_rows": ("dist_rounds", [_P, _P, _P, _L, _I, _I, _L, _I]
-                     + [_P] * 6),
+    "compact_rows": ("dist_rounds", [_P, _P, _L, _I, _I, _L, _I]
+                     + [_I] * 8 + [_P] * 17),
     "fetch_owned": ("dist_rounds", [_P, _L, _I, _I, _P, _P, _L, _L, _I, _L,
                                     _P]),
     "owner_occ": ("dist_query", [_V, _L, _I, _P, _P, _P, _L, _I, _L, _P]),
@@ -180,6 +180,11 @@ SIZES: Dict[str, Tuple[str, List]] = {
     "lcp_compact_scratch": ("lcp", [_L]),
     "radix_sort_scratch": ("radix_sort", [_L]),
     "bucket_pack_scratch": ("exchange", [_L, _I, _I]),
+    # mesh_scan's and compact_rows' scratch (m, Dl): tile counters and
+    # look-back status words, a multiple of 4
+    "scan_scratch": ("dist_rounds", [_L, _I]),
+    # not a size: the flags a tile of mesh_scan (0) or compact_rows (1)
+    "scan_tile": ("dist_rounds", [_I]),
     # not sizes: the kernels one radix_sort_pairs call launches, and the
     # keys a tile there (0: one block sorts them all)
     "radix_sort_kernels": ("radix_sort", [_L, _I, _I]),

@@ -24,7 +24,9 @@ between the steps are the mesh's (parallel/mesh.py), never a kernel's.
   K18c csrc/dist_rounds.cu  seed_keys, payload_block, mesh_flags,
                             mesh_scan, compact_rows, fetch_owned (the
                             suffix sort's per-shard bodies and the
-                            replicated epilogue's psum fetches)
+                            replicated epilogue's psum fetches; the scan
+                            and the compaction each one tile pass with a
+                            decoupled look-back)
   K18f csrc/dist_query.cu   owner_occ, owner_lf (the routed schemes'
                             owner answers), masked_occ, masked_lf (the
                             psum schemes' local parts), masked_occ_rows
@@ -61,7 +63,7 @@ REBALANCE_WINDOW = 3  # csrc/sample_sort.cu kMaxWindow (dist_sort's W)
 MAX_COLUMNS = 1024    # csrc/sample_sort.cu kMaxColumns (the prefix's A)
 MAX_KEYS = 4          # csrc/sample_sort.cu kMaxKeys (splitter keys)
 FLAG_KEYS = 6         # csrc/dist_rounds.cu kFlagKeys (mesh_flags keys)
-_SCAN_TILE = 4096      # csrc/dist_rounds.cu kScanTile
+COMPACT_COLS = 8      # csrc/dist_rounds.cu kMaxCols (compact_rows columns)
 
 
 def _ptr(t: Optional[torch.Tensor]):
@@ -645,14 +647,24 @@ def mesh_scan_plain(flags, *, mode, shard0, slots):
     return out, out[:, -1].contiguous()
 
 
+def _with_scratch(scratch: int, sizes: Sequence[int], dev):
+    """int32 views of one allocation: the scratch first (16-byte aligned,
+    its status words 8-byte aligned), then each of `sizes`, each from a
+    16-byte boundary."""
+    pads = [scratch] + [-(-n // 4) * 4 for n in sizes]
+    parts = torch.empty(sum(pads), dtype=torch.int32, device=dev).split(pads)
+    return parts[0], [p[:n] for p, n in zip(parts[1:], sizes)]
+
+
 def mesh_scan(flags: torch.Tensor, *, mode: str, shard0: int,
               slots: Optional[torch.Tensor] = None):
     """Inclusive scans along each shard's block of uint8 flags: mode "sum"
     counts the flags; mode "max" carries the last flagged slot (cummax of
     flag ? slot : 0, the slot the global index (shard0 + d) * m + p or,
     given, slots int32[Dl, m]).  Returns (out int32[Dl, m], last int32[Dl]
-    = out[:, -1]).  Kernel K18c on the card (tile totals, their scan,
-    the scan with the carry)."""
+    = out[:, -1]).  Kernel K18c on the card: one launch a call, a single
+    pass with a decoupled look-back, its scratch in the outputs'
+    allocation (zeroed by one memset)."""
     kernels.check(flags, "flags", torch.uint8, 2)
     Dl, m = flags.shape
     if mode not in ("sum", "max") or m == 0:
@@ -662,25 +674,23 @@ def mesh_scan(flags: torch.Tensor, *, mode: str, shard0: int,
     ts = [flags] + ([slots] if slots is not None else [])
     if not kernels.on_card(*ts):
         return mesh_scan_plain(flags, mode=mode, shard0=shard0, slots=slots)
-    dev = flags.device
-    out = torch.empty((Dl, m), dtype=torch.int32, device=dev)
-    last = torch.empty(Dl, dtype=torch.int32, device=dev)
-    tiles = torch.empty((Dl, -(-m // _SCAN_TILE)), dtype=torch.int32,
-                        device=dev)
+    scratch, (out, last) = _with_scratch(
+        kernels.size("scan_scratch", m, Dl), [Dl * m, Dl], flags.device)
     kernels.launch("mesh_scan", flags.data_ptr(), _ptr(slots), m, Dl, shard0,
                    0 if mode == "sum" else 1, out.data_ptr(), last.data_ptr(),
-                   tiles.data_ptr())
-    return out, last
+                   scratch.data_ptr())
+    return out.view(Dl, m), last
 
 
-def compact_rows_plain(flags, rank, off, cols, *, M, fills, shard0):
+def compact_rows_plain(flags, off, cols, *, M, fills, shard0):
     Dl, m = flags.shape
     dev = flags.device
     outs = [torch.full((Dl, M), f, dtype=torch.int32, device=dev)
             for f in fills]
     p = torch.arange(m, device=dev)
+    rank = torch.cumsum(flags.bool().to(torch.int64), dim=1)
     for d in range(Dl):
-        k = int(off[d]) + rank[d].long() - 1
+        k = int(off[d]) + rank[d] - 1
         ok = flags[d].bool() & (k < M)
         for c, o in zip(cols, outs):
             v = (shard0 + d) * m + p if c is None else c[d].long()
@@ -688,33 +698,43 @@ def compact_rows_plain(flags, rank, off, cols, *, M, fills, shard0):
     return outs
 
 
-def compact_rows(flags: torch.Tensor, rank: torch.Tensor, off: torch.Tensor,
+def compact_rows(flags: torch.Tensor, off: torch.Tensor,
                  cols: Sequence[Optional[torch.Tensor]], *, M: int,
                  fills: Sequence[int], shard0: int) -> List[torch.Tensor]:
     """Stream compaction of the flagged slots of each shard: the flagged
-    slot with inclusive count rank (mesh_scan "sum") goes to off[d] +
-    rank - 1 when that is below M, taking each column's value there
-    (None: the slot's global index).  Returns int32[Dl, M] per column,
-    ``fills`` elsewhere.  Kernel K18c on the card."""
+    slot with inclusive count r in its shard's flags goes to off[d] + r - 1
+    (off int32[Dl], >= 0) when that is below M, taking each column's value
+    there (None: the slot's global index (shard0 + d) * m + p).  Returns
+    int32[Dl, M] per column, ``fills`` elsewhere.  Kernel K18d on the card:
+    it ranks the flags itself, one launch for up to COMPACT_COLS columns
+    (a launch each COMPACT_COLS above), every output place written once
+    inside it; the outputs and the scratch are one allocation."""
     kernels.check(flags, "flags", torch.uint8, 2)
     Dl, m = flags.shape
-    kernels.check(rank, "rank", torch.int32, 2, (Dl, m))
     kernels.check(off, "off", torch.int32, 1, (Dl,))
     for i, c in enumerate(cols):
         if c is not None:
             kernels.check(c, f"cols[{i}]", torch.int32, 2, (Dl, m))
-    if not 1 <= len(cols) == len(fills) <= 3:
-        raise ValueError("need 1 to 3 columns, each with its fill")
-    ts = [flags, rank, off] + [c for c in cols if c is not None]
+    if not cols or len(cols) != len(fills):
+        raise ValueError("need at least one column, each with its fill")
+    if len(cols) > COMPACT_COLS:
+        return [o for i in range(0, len(cols), COMPACT_COLS)
+                for o in compact_rows(flags, off, cols[i:i + COMPACT_COLS],
+                                      M=M, fills=fills[i:i + COMPACT_COLS],
+                                      shard0=shard0)]
+    ts = [flags, off] + [c for c in cols if c is not None]
     if not kernels.on_card(*ts):
-        return compact_rows_plain(flags, rank, off, cols, M=M, fills=fills,
+        return compact_rows_plain(flags, off, cols, M=M, fills=fills,
                                   shard0=shard0)
-    outs = [torch.full((Dl, M), f, dtype=torch.int32, device=flags.device)
-            for f in fills]
-    kernels.launch("compact_rows", flags.data_ptr(), rank.data_ptr(),
-                   off.data_ptr(), m, Dl, shard0, M, len(cols),
-                   *_ptrs(cols, 3), *_ptrs(outs, 3))
-    return outs
+    scratch, outs = _with_scratch(kernels.size("scan_scratch", m, Dl),
+                                  [Dl * M] * len(cols), flags.device)
+    if Dl * M:
+        kernels.launch("compact_rows", flags.data_ptr(), off.data_ptr(), m,
+                       Dl, shard0, M, len(cols),
+                       *(list(fills) + [0] * (COMPACT_COLS - len(fills))),
+                       *_ptrs(cols, COMPACT_COLS),
+                       *_ptrs(outs, COMPACT_COLS), scratch.data_ptr())
+    return [o.view(Dl, M) for o in outs]
 
 
 def fetch_owned_plain(src, idx, valid, *, add, T, stride, shard0):

@@ -10,7 +10,7 @@ single-device design:
      built on a right halo by kernel K18c's seed_keys) with the BWT + aux
      payload (payload_block) riding along;
   2. a replicated direct-extension epilogue over the unresolved slots:
-     compacted to every shard (mesh_scan + compact_rows + psum), extended
+     compacted to every shard (compact_rows + psum), extended
      by the next _EXT_T packed words per round (fetch_owned + psum), sorted
      locally (kernel H), written back (owner_place), with filtered
      doubling for long-repeat tails and the pull fix of the BWT payload;
@@ -186,11 +186,11 @@ def _rep_compact(mesh, sa, st, *, n_pad: int, M: int):
     suffix position, group base): each shard compacts its own at its
     offset over the mesh, one psum merges them."""
     base_all, unres = _group_state(mesh, st, n_pad)
-    rank, cnt = DO.mesh_scan(unres, mode="sum", shard0=mesh.shard0)
+    cnt = unres.sum(dim=1, dtype=torch.int32)
     off = _exclusive_base(mesh, cnt)
-    bufs = DO.compact_rows(unres, rank, off, [None, sa, base_all], M=M,
+    bufs = DO.compact_rows(unres, off, [None, sa, base_all], M=M,
                            fills=[0, 0, 0], shard0=mesh.shard0)
-    del rank, base_all, unres
+    del base_all, unres
     slots, pos, base = (mesh.psum(b) for b in bufs)
     live = torch.arange(M, device=sa.device) < mesh.psum(cnt)
     return (torch.where(live, slots, n_pad), torch.where(live, pos, 0),
@@ -220,10 +220,10 @@ def _rep_sort_commit(mesh, sa, slots, pos, keys, *, n_pad: int,
     nxt = torch.cat([stn[0, 1:], torch.ones(1, dtype=torch.uint8,
                                             device=sa.device)])
     keep = (_col(valid) & (1 - (stn[0] & nxt))).to(torch.uint8)
-    cpos, cnt = DO.mesh_scan(keep, mode="sum", shard0=0)
+    cnt = keep.sum(dim=1, dtype=torch.int32)
     M = slots.shape[0]
     slots2, pos2, base2 = DO.compact_rows(
-        keep, cpos, torch.zeros(1, dtype=torch.int32, device=sa.device),
+        keep, torch.zeros(1, dtype=torch.int32, device=sa.device),
         [_col(slots), _col(sp), new_base], M=M, fills=[n_pad, 0, _I32MAX],
         shard0=0)
     return stn[0], slots2[0], pos2[0], base2[0], cnt

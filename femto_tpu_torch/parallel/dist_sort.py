@@ -103,16 +103,11 @@ def dist_sort(mesh, keys: Sequence[torch.Tensor],
     # D * cap slots)
     v = rvalid.sum(dim=1, dtype=torch.int32)
     L = max(1, int(v.max()))
-    rank, _ = DO.mesh_scan(rvalid, mode="sum", shard0=mesh.shard0)
-    zero = torch.zeros(Dl, dtype=torch.int32, device=dev)
-    comp = []
-    for i in range(0, len(received), 3):
-        chunk = received[i:i + 3]
-        comp += DO.compact_rows(
-            rvalid, rank, zero, chunk, M=L, shard0=mesh.shard0,
-            fills=[DO.INT32_MAX if i + c < nk else 0
-                   for c in range(len(chunk))])
-    del received, rvalid, rank
+    comp = DO.compact_rows(
+        rvalid, torch.zeros(Dl, dtype=torch.int32, device=dev), received,
+        M=L, shard0=mesh.shard0,
+        fills=[DO.INT32_MAX if c < nk else 0 for c in range(len(received))])
+    del received, rvalid
     received = local_sort(comp[:nk], comp[nk:])
     del comp
     # ---- exact rebalance to equal blocks of m ----
