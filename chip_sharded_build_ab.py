@@ -7,10 +7,11 @@ tree A, B, B, A, each importing femto_tpu_torch from its own tree and
 building its kernels there.  Each process builds the index once to warm
 up, then profiles one build with torch.profiler: wall ms, device ms (every
 device item: kernels, copies, fills, memsets), the busy share, the device
-ms and calls of the rebalance's kernels, of mesh_scan's and
-compact_rows' kernels (either design's: the earlier three-kernel scan or
-the tile kernels), of memsets and of PyTorch's fills, rolls, wheres and
-copies, and the launches of every entry named in LAUNCHES.  Each
+ms and calls of the rebalance's kernels, of mesh_flags', of mesh_scan's
+and compact_rows' kernels (either design's: the earlier three-kernel scan
+or the tile kernels), of memsets and of PyTorch's fills, rolls, wheres
+and copies (memcpy: the uploads among them), and the launches of every
+entry named in LAUNCHES.  Each
 process also hashes the built index's FMArrays and meta and the suffix
 array of the same text (dist_suffix_array), and the two trees' hashes
 must agree.  The measuring code is this file's, the same for both trees.
@@ -40,7 +41,7 @@ SEED = 7
 MIB = 256
 D = 4
 # device items by kind: substrings of the kernels' names (either tree's)
-KINDS = {"rebalance": ("rebalance",),
+KINDS = {"rebalance": ("rebalance",), "mesh_flags": ("mesh_flags_kernel",),
          "mesh_scan": ("scan_tiles_kernel", "scan_carry_kernel",
                        "scan_apply_kernel", "mesh_scan_tile"),
          "compact_rows": ("compact_rows",),
@@ -48,7 +49,7 @@ KINDS = {"rebalance": ("rebalance",),
          "roll": ("roll_cuda_kernel",), "where": ("where_kernel_impl",),
          "copy": ("direct_copy_kernel",), "memcpy": ("Memcpy",)}
 # entries whose launches the record keeps
-LAUNCHES = ("rebalance", "mesh_scan", "compact_rows")
+LAUNCHES = ("rebalance", "mesh_flags", "mesh_scan", "compact_rows")
 
 
 def _smoke():
@@ -174,8 +175,9 @@ def main():
         "by_kind_ms": {k: {t: [r["by_kind"][k]["ms"] for r in runs
                                if r["tree"] == os.path.abspath(t)]
                            for t in (a, b)}
-                       for k in ("rebalance", "mesh_scan", "compact_rows",
-                                 "fill", "memset")},
+                       for k in ("rebalance", "mesh_flags", "mesh_scan",
+                                 "compact_rows", "fill", "memset",
+                                 "memcpy")},
         "same_sa_and_index": True}
     os.makedirs(os.path.join(HERE, "chiprun_out"), exist_ok=True)
     with open(os.path.join(HERE, "chiprun_out", "sharded_build_ab.json"),

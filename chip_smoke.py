@@ -9,17 +9,24 @@ non-zero):
 
 1. card and toolchain: nvidia-smi name and power limit, CUDA, nvcc, triton;
 2. build every kernel under femto_tpu_torch/csrc/ with nvcc for sm_90a
-   (and, beside them, the other-route builds of H, K18a, D, C and of
+   (and, beside them, the other-route builds of H, K18a, D, C, E and of
    the all-symbol rank in R and K18f, and a pointer-chase latency probe);
    ptxas must report no local memory in kernel C's kernels, nor in
-   mesh_scan's and compact_rows' tile kernels;
+   kernel E's, mesh_flags', mesh_scan's and compact_rows' kernels;
 3. kernel L's gather_rows and gather_cols at edge shapes (1 to 8 columns,
    int32 and int64, idx views off a 16-byte boundary, -1 and
    out-of-range indices, 0, 1, 65,536 and 2^26 rows), kernel D's extract
    on both routes (a warp a walk, a thread a walk) at B = 1, 5, the
    crossover and one past it, from the last segment's pad rows, side
    segments and continued run-length segments on every layout, and
-   the paged one-step extract on both; kernel D's locate on both
+   the paged one-step extract on both; kernel E's psi walk on both
+   routes (a warp a walk, a thread a walk) and as built, 64 steps from
+   C[c] and C[c+1] - 1 of every present code, from the rows whose step
+   lands on the first or last field of a segment, on the last segment,
+   on side and continued segments and on the prose's stream_edges
+   segments, and from rows before each document's end, at all of them,
+   1 and 5 walks, on every layout of the 8 MiB builds, the prose's row
+   tiers and the pad_shape builds; kernel D's locate on both
    routes on the row tiers (the 8 MiB corpus's, the prose's, and the
    prose built at mark_period 3) at B = 1, 5, 65,536 and 2^17, from the
    last segment's rows, side segments and continued segments, at the
@@ -86,7 +93,11 @@ non-zero):
    each kernel's tile, at Dl 4 and at Dl 1 with shard0 2, the flags 0, 1
    and 4 bytes past 16-byte alignment; compact_rows at off the counts'
    prefix and past M, 1 to 9 columns with the global index among them;
-   both at 4 x (2^24 + 3) flags, more tiles than the card holds at once), the last three of
+   both at 4 x (2^24 + 3) flags, more tiles than the card holds at once),
+   mesh_flags at 1 to 6 key columns, first both ways, m 1, 15, 16, 17,
+   1000 and 2^24 + 3, Dl 4 from shard0 0 and 4 and Dl 1 from shard0 2,
+   keys 0 and 4 bytes past 16-byte alignment, ties across shard
+   boundaries, the last three of
    the list above also at edge
    shapes (A of 1, 3, 256 and 1024 columns, 0, 1, 5 and 2^18 rows, 1 or
    4 local shards from shard 0 or 3 of 8, x 16-B aligned or not, int32
@@ -221,7 +232,7 @@ non-zero):
    tier (the call, its own device item and its queued device work apart,
    the host us of each part of one call), gather_cols against one gather_rows a column at the sharded
    local sort's call; kernel D's warp route (a build with
-   -DFEMTO_D_WARP_MAX=0x7fffffff) in 5 rounds in turns with its thread
+   -DFEMTO_D_WARP_MAX=0x7fffffff) in 3 rounds in turns with its thread
    route (the design before, a build with -DFEMTO_D_WARP_MAX=0), with
    the route the source picks: kernel R's regex_fork and K18f's
    masked_occ_rows on their two rank routes (each forced by a build with
@@ -244,18 +255,22 @@ non-zero):
    dependent-load latency from a pointer chase over 1 GiB) beside its
    bytes bound; mesh_scan and compact_rows at their first sharded calls
    (_group_state's cummax, dist_sort's compaction) with the bound of the
-   design before (old_bound_ms) and, given --parent DIR (the parent
-   commit unpacked by git archive), in 5 rounds in turns with the
-   parent's design at the same call (its three-kernel scan; its scan,
-   fills and compaction), held to it bit for bit;
+   design before (old_bound_ms); kernel E's rows (4096 walks x 64 steps)
+   with its warp route in 5 rounds in turns with its thread route (builds
+   with -DFEMTO_E_WARP_MAX=0x7fffffff and =0), the route the source picks,
+   each route's dependent round trips a step and the latency floor of the
+   picked one; and, given --parent DIR (the parent commit unpacked by git
+   archive), kernel E's rows and mesh_flags' at its first sharded call in
+   5 rounds in turns with the parent's build of the same source through
+   the same wrapper, held to it bit for bit;
 6. where the time goes: device time by kernel and the device's busy share
    over one build, count, locate and extract of the full tier, one
    build, count, locate and context of the packed tier, the vseg and vrle
    builds, one build, count, locate and context of the prose vrle
    index, and one APPROX 1 ther query on the zipf full and the prose vrle
    index (with the host time per layer) (torch.profiler; a count's
-   kernel C device ms also from CUDA events around its calls, which the
-   profiler has missed);
+   kernel C device ms and a context's kernel E device ms also from CUDA
+   events around their calls, which the profiler has missed);
    the two-chunk build of phase 4e, the cold paged count of 4f, the
    lcp_array of 4g and the sharded build of 4h (with their largest idle
    gaps, and the sharded build's launches of K18a's and K18b's entries
@@ -587,9 +602,13 @@ ITEM_KERNELS = {"add_mesh_base": "add_base_kernel",
 # kernels whose library call takes about their own time, where one round
 # in turns cannot say which is faster (host- and launch-bound times move
 # 20-90% from run to run, PERF.md): timed in turns this many rounds
-TURN_ROUNDS = {"radix_sort_pairs": 5, "mesh_exclusive": 5, "add_base": 5,
-               "add_mesh_base": 5, "bucket_pack": 5, "owner_place": 5,
+TURN_ROUNDS = {"radix_sort_pairs": 5, "mesh_exclusive": 5, "add_base": 3,
+               "add_mesh_base": 3, "bucket_pack": 3, "owner_place": 5,
                "gather_rows": 5}
+# rounds in turns of kernel D's two routes (d_fields): the warp route has
+# led on every row in every run PERF.md records, so fewer rounds than a
+# close call needs
+D_TURN_ROUNDS = 3
 # each of K18a bucket_pack's routes (k18a_route), the route its calls take
 # instead in a build of csrc/exchange.cu with the flag, and that flag: phase
 # 4h holds every route against the other on the sharded query path's own
@@ -995,6 +1014,16 @@ C_ALTERNATIVES = {
     "warp": ("thread", "-DFEMTO_C_WARP_MAX=0"),
     "thread": ("warp", "-DFEMTO_C_WARP_MAX=0x7fffffff"),
 }
+# kernel E's routes (csrc/psi_walk.cu psi_route_smem, exposed as
+# femto_psi_walk_route): a warp a walk (the 32-way checkpoint search and
+# the warp select) or a thread a walk (the design before); the route every
+# call takes in a build of csrc/psi_walk.cu with the flag, and that flag:
+# phase 3 holds both routes to the plain version, phase 5 times one
+# against the other in turns; chip_e_routes.py sweeps them
+E_ALTERNATIVES = {
+    "warp": ("thread", "-DFEMTO_E_WARP_MAX=0"),
+    "thread": ("warp", "-DFEMTO_E_WARP_MAX=0x7fffffff"),
+}
 # the builds of sources with other routes or settings (a name, or
 # "source:what" where one source has two sets), each with its
 # alternatives
@@ -1002,7 +1031,8 @@ ROUTE_BUILDS = {"radix_sort": H_ALTERNATIVES, "exchange": K18A_ALTERNATIVES,
                 "lf_walk": D_ALTERNATIVES, "dist_query": D_ALTERNATIVES,
                 "regex_frontier": R_ALTERNATIVES,
                 "dist_query:rank": R_ALTERNATIVES,
-                "backward_search": C_ALTERNATIVES}
+                "backward_search": C_ALTERNATIVES,
+                "psi_walk": E_ALTERNATIVES}
 # The card's dependent global-load latency: one thread follows a random
 # cycle through an array past L2, one load waiting for the last (phase 5's
 # latency floor of the LF walks).  Built beside the sources in phase 2; a
@@ -1084,6 +1114,39 @@ def c_forced(builds):
     builds) that force each of kernel C's routes: {route: lib}."""
     libs = route_libs(builds["backward_search"], "backward_search")
     return {C_ALTERNATIVES[route][0]: lib for route, lib in libs.items()}
+
+
+def e_forced(builds):
+    """The builds of csrc/psi_walk.cu (start_route_builds' builds) that
+    force each of kernel E's routes: {route: lib}."""
+    libs = route_libs(builds["psi_walk"], "psi_walk")
+    return {E_ALTERNATIVES[route][0]: lib for route, lib in libs.items()}
+
+
+def e_block_bytes(arrays, B):
+    """Kernel E's route for a call of B walks on an index, as csrc/
+    psi_walk.cu psi_route_smem picks it: the warp route's shared memory a
+    block in bytes, 0 on the thread route."""
+    from femto_tpu_torch import kernels
+    from femto_tpu_torch.ops import search_ops as S
+
+    return kernels.size("psi_walk_route", S.fm_view(arrays)[0], B)
+
+
+def e_route(arrays, B):
+    """"warp" or "thread": the route of a psi walk of B rows."""
+    return "warp" if e_block_bytes(arrays, B) else "thread"
+
+
+def e_search_rounds(n_seg):
+    """The warp route's dependent round trips of its 32-way checkpoint
+    search over n_seg segments, at most: each round keeps one of the 33
+    pieces its 32 pivots cut the interval into."""
+    rounds, N = 0, n_seg
+    while N > 1:
+        N = -(-N // 33)
+        rounds += 1
+    return rounds
 
 
 def c_block_bytes(arrays, B, entry="backward_search"):
@@ -1663,11 +1726,11 @@ def d_fields(libs, entry, arrays, B, steps, run, lat_ns):
     """Kernel D's `entry` (lf_extract, lf_locate or lf_walk_step) on each
     route, each forced by its build (D_ALTERNATIVES, kernels.variant
     around the same wrapper): the warp route against the thread route
-    (the design before it), 5 rounds in turns, both routes' queued_ms,
-    the own device item of the route the source picks (d_route), and the
-    walk's latency floor: steps (the longest walk's dependent steps) times
-    the card's dependent-load latency, with the share of it the warp
-    route reached."""
+    (the design before it), D_TURN_ROUNDS rounds in turns, both routes'
+    queued_ms, the own device item of the route the source picks
+    (d_route), and the walk's latency floor: steps (the longest walk's
+    dependent steps) times the card's dependent-load latency, with the
+    share of it the warp route reached."""
     from femto_tpu_torch import kernels
 
     def warp():
@@ -1680,7 +1743,7 @@ def d_fields(libs, entry, arrays, B, steps, run, lat_ns):
 
     max_abs_err(f"{entry}: the warp route against the thread route",
                 warp(), thread())
-    ms, t_ms, fours = in_turns(warp, thread, 5)
+    ms, t_ms, fours = in_turns(warp, thread, D_TURN_ROUNDS)
     items = {}
     for _ in range(5):
         items = {k: v for k, v in device_items(run, 3).items()
@@ -1700,6 +1763,32 @@ def d_fields(libs, entry, arrays, B, steps, run, lat_ns):
                                  else "not measured"),
             "kernel_items": {k[:80]: v for k, v in items.items()},
             "latency_floor_ms": floor, "latency_floor_share": floor / ms}
+
+
+def e_fields(forced, arrays, B, steps, run, name, lat_ns):
+    """Phase 5's fields of a row of kernel E (a walk of B rows and `steps`
+    steps, run()): the route the source picks (e_route) and its block's
+    shared memory, both routes in turns (route_turns, each forced by its
+    build, warp first), each route's dependent DRAM round trips a step
+    (the warp route's 32-way search rounds over n_seg and its row fetch;
+    the thread route's bisect of n_seg and its row scan; a side or
+    continued segment's second fetch is not counted) and the latency floor
+    of the route the source picks (steps x its round trips a step x the
+    card's dependent-load latency), with the share of it reached; and,
+    with PARENT, the parent's build in turns (parent_fields)."""
+    from femto_tpu_torch.ops import rank as R
+
+    n_seg = R.n_segments(arrays)
+    trips = {"warp": e_search_rounds(n_seg) + 1,
+             "thread": max(n_seg - 1, 1).bit_length() + 1}
+    route = e_route(arrays, B)
+    routes = route_turns("psi_walk", forced, run, name, "warp", "thread")
+    floor = steps * trips[route] * lat_ns / 1e6
+    return {"e_route": route, "e_block_bytes": e_block_bytes(arrays, B),
+            "B": B, "steps": steps, "n_seg": n_seg, "e_routes": routes,
+            "round_trips_a_step": trips, "latency_floor_ms": floor,
+            "latency_floor_share": floor / routes[f"{route}_ms"],
+            **parent_fields(name, "psi_walk", run)}
 
 
 def locate_checks(arrays, mark_period, rows):
@@ -2163,7 +2252,7 @@ def phase_toolchain(record):
 
 def phase_build(record):
     """Every source at once (kernels.build), and the other-route builds of
-    ROUTE_BUILDS (H, K18a, D, the all-symbol rank, C) and the latency
+    ROUTE_BUILDS (H, K18a, D, the all-symbol rank, C, E) and the latency
     probe beside them:
     returns start_route_builds' with the latency probe's build under
     "chase"."""
@@ -2194,17 +2283,23 @@ def phase_build(record):
         record["c_local_bytes"] = {"max": max(local), "records": len(local)}
         log(f"    backward_search: 0 bytes of local memory in {len(local)} "
             f"ptxas records")
-    # mesh_scan's and compact_rows' tile kernels too (compact_rows' column
-    # loop is unrolled over its 8 columns: a column indexed by a variable
-    # would copy the parameter block to local memory)
-    if "dist_rounds" in kernels.build_logs:
-        local = scan_compact_local_bytes(kernels.build_logs["dist_rounds"])
-        check(len(local) == 3 and max(local.values()) == 0,
-              f"mesh_scan's and compact_rows' kernels use local memory, or "
-              f"ptxas reported fewer than their 3: {local}")
-        record["scan_compact_local_bytes"] = local
-        log(f"    dist_rounds: 0 bytes of local memory in mesh_scan's and "
-            f"compact_rows' {len(local)} kernels")
+    # mesh_scan's and compact_rows' tile kernels and mesh_flags' six too
+    # (compact_rows' column loop is unrolled over its 8 columns, mesh_flags'
+    # over its key count: a column indexed by a variable would copy the
+    # parameter block to local memory), and kernel E's ten (its warp
+    # route's registers hold C and a row's words, indexed by constants)
+    for src, kinds, count in (
+            ("dist_rounds", ("mesh_scan_tile", "compact_rows_tile",
+                             "mesh_flags_kernel"), 9),
+            ("psi_walk", ("psi_walk_kernel", "psi_walk_warp_kernel"), 10)):
+        if src in kernels.build_logs:
+            local = kernel_local_bytes(kernels.build_logs[src], kinds)
+            check(len(local) == count and max(local.values()) == 0,
+                  f"{src}'s kernels {kinds} use local memory, or ptxas "
+                  f"reported fewer than their {count}: {local}")
+            record[f"{src}_local_bytes"] = local
+            log(f"    {src}: 0 bytes of local memory in {len(local)} "
+                f"kernels ({', '.join(kinds)})")
     return routes
 
 
@@ -3382,6 +3477,85 @@ def parity_count_routes(cases, forced, rng, errs):
     return rec
 
 
+# steps of each walk in phase 3's hold of kernel E's routes
+PSI_STEPS = 64
+
+
+def psi_edge_rows(A, rng, extra_segs=(), k=64):
+    """Rows of phase 3's hold of kernel E on one index, int32 on its
+    device: C[c] and C[c+1] - 1 of every present code; the rows whose
+    step lands on the first and on the last field of a segment (segment
+    0, the last one and k drawn ones), on offsets of the last segment, of
+    `extra_segs` and of k drawn side and continued segments (the
+    segment's first two and last two offsets and 16 drawn ones): LF of
+    each such row (psi's inverse), on rows that hold a code; and the rows
+    1 to 12 text positions before each document's end (LF steps back
+    from its SEOF row), whose walks cross it."""
+    import torch
+
+    from femto_tpu_torch.ops import rank as R
+
+    seg, n_seg, K = R.seg_size(A), R.n_segments(A), R.alpha_count(A)
+    C = A.C.long()
+    n = int(C[K])
+    present = torch.nonzero(C[1:] > C[:-1]).flatten()
+    starts = torch.cat([C[present], C[present + 1] - 1])
+    s = np.concatenate([[0, n_seg - 1], rng.integers(0, n_seg, k)])
+    xs = [s * seg, s * seg + seg - 1]
+    segs = [n_seg - 1, *extra_segs]
+    if R.is_row_tier(A):
+        woff = A.seg_woff.cpu().numpy()
+        for kind in (np.nonzero(woff > 0)[0], np.nonzero(woff < -1)[0]):
+            if len(kind):
+                segs += kind[rng.integers(0, len(kind), k)].tolist()
+    offs = np.concatenate([[0, 1, seg - 2, seg - 1],
+                           rng.integers(0, seg, 16)])
+    xs += [t * seg + offs for t in np.unique(np.array(segs, np.int64))]
+    x = torch.from_numpy(np.concatenate(xs).astype(np.int64)).to(C.device)
+    x = torch.unique(x[(x >= 0) & (x < n)]).to(torch.int32)
+    x = x[R.bwt_code_at(A, x) < K]
+    rows = [starts, R.lf_step(A, x).long()]
+    r = A.doc_seof_rows.to(torch.int32)
+    for _ in range(12):
+        r = R.lf_step(A, r)
+        rows.append(r.long())
+    return torch.cat(rows).to(torch.int32).contiguous()
+
+
+def parity_psi_routes(cases, forced, rng, errs):
+    """Phase 3's hold of kernel E on both routes (forced: e_forced's
+    builds) and as built, against psi_walk_plain bit for bit, PSI_STEPS
+    steps: cases {name: (index, extra segments)}; psi_edge_rows' rows, all
+    of them, the first and the first 5.  Returns {name: {"rows": their
+    number, route: the calls that take it as built}}."""
+    import torch
+
+    from femto_tpu_torch import kernels
+    from femto_tpu_torch.ops import search_ops as S
+
+    rec = {}
+    for name, (ix, extra) in cases.items():
+        A = ix.arrays
+        rows = psi_edge_rows(A, rng, extra)
+        rec[name] = {"rows": int(rows.numel())}
+        for B in (rows.shape[0], 1, 5):
+            r = rows[:B].contiguous()
+            want = [S.psi_walk_plain(A, r, PSI_STEPS)]
+            tag = f"psi_walk[{name}](B={B})"
+            errs[tag] = max_abs_err(tag, [S.psi_walk(A, r, PSI_STEPS)], want)
+            for route, lib in forced.items():
+                with kernels.variant("psi_walk", lib):
+                    got = [S.psi_walk(A, r, PSI_STEPS)]
+                torch.cuda.synchronize()
+                errs[f"{tag}, {route} route"] = max_abs_err(
+                    f"{tag}, {route} route", got, want)
+            route = e_route(A, B)
+            rec[name][route] = rec[name].get(route, 0) + 1
+    log(f"    E: both routes and the build's own equal the plain version: "
+        f"{rec}")
+    return rec
+
+
 # rows a plain all-symbol rank takes at once (its lanes are rows x 261)
 RANK_CHUNK = 128
 
@@ -3660,6 +3834,11 @@ def phase_parity(record, rng, route_builds):
         {**{k: (v, pt64) for k, v in {**indexes, **pads}.items()},
          **{f"prose_{k}": (v, ppt) for k, v in prose_ix.items()}},
         c_libs, rng, errs)
+    psi_routes = parity_psi_routes(
+        {**{k: (v, ()) for k, v in {**indexes, **pads}.items()},
+         **{f"prose_{k}": (v, prose_rec["edge_segments"] if k == "vrle"
+                           else ()) for k, v in prose_ix.items()}},
+        e_forced(route_builds), rng, errs)
     rank_rows = parity_rank_rows(
         {**indexes, **{f"prose_{k}": v for k, v in prose_ix.items()},
          **pads}, rank_forced(route_builds, "dist_query:rank"), rng, errs)
@@ -3676,6 +3855,7 @@ def phase_parity(record, rng, route_builds):
                              "query_runs": query_runs,
                              "rank_rows": rank_rows,
                              "count_routes": c_routes,
+                             "psi_routes": psi_routes,
                              "paged_lcp": paged_lcp, "sharded": sharded,
                              "extract_routes": d_routes,
                              "locate_routes": d_locate}
@@ -6188,6 +6368,9 @@ def sharded_case(name, a, kw, occ=None):
                              records_moved=moved)
     elif name == "mesh_flags":
         nbytes = size(a[0]) + a[0][0].numel() + size(a[1])
+        case["extra"].update(keys=list(a[0][0].shape), nk=len(a[0]),
+                             shard0=kw["shard0"], first=kw["first"])
+        case["more"] = lambda: parent_fields(name, "dist_rounds", run_k)
     elif name == "mesh_scan":
         # the flags read once, the flagged slots where given, out and last
         # written once (the rule of the row before the redesign too)
@@ -6203,9 +6386,6 @@ def sharded_case(name, a, kw, occ=None):
         if kw["mode"] == "sum" and slots is None:
             def lib():
                 return torch.cumsum(flags, 1, dtype=torch.int32)
-        case["more"] = lambda: parent_fields(
-            name, run_k, lambda: _flat([parent_mesh_scan(
-                flags, kw["mode"], kw["shard0"], slots)]))
     elif name == "compact_rows":
         # the flags and the kept slots' columns read once, each place of
         # every column written once; old_bound_ms: the row's rule before
@@ -6221,9 +6401,6 @@ def sharded_case(name, a, kw, occ=None):
                              M=M, kept=took,
                              old_bound_ms=bound_ms(5 * flags.numel()
                                                    + moved))
-        case["more"] = lambda: parent_fields(
-            name, run_k, lambda: _flat(parent_compaction(
-                flags, off, cols, M, kw["fills"], kw["shard0"])))
     elif name == "fetch_owned":
         src, idx, valid = a
         nv = idx.numel() if valid is None else int(valid.sum())
@@ -6707,6 +6884,65 @@ def parity_rebalance_edges(rng):
     return errs
 
 
+# phase 3's mesh_flags shapes (parity_mesh_flags_edges): m around its
+# 16 elements a thread, and 2^24 + 3 (the rows' starts off 16 bytes but
+# the first)
+FLAG_MS = (1, 15, 16, 17, 1000, (1 << 24) + 3)
+
+
+def parity_mesh_flags_edges(rng):
+    """mesh_flags on the card against mesh_flags_plain on the same card
+    tensors, bit for bit: every key count 1 to 6 and `first` both ways at
+    each FLAG_MS (nk 1, 2 and 6 at 2^24 + 3), at Dl 4 from shard0 0 and
+    from shard0 4 (a DistMesh's view of shards 4 to 7), and at Dl 1 from
+    shard0 2; the keys 16-byte aligned and 4 bytes past it, drawn from 3
+    values (ties within a row and across each shard boundary: prev is the
+    row before's last key, and the first row's prev is equal to its first
+    key where the draw says so).  Returns {"mesh_flags[edges]": 0} for
+    phase 3's errs (a difference raises)."""
+    import torch
+
+    from femto_tpu_torch.ops import dist_ops as DO
+
+    dev = torch.device("cuda")
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(int(rng.integers(0, 2**31)))
+    n_cases = 0
+    t0 = time.perf_counter()
+    for m in FLAG_MS:
+        for Dl, shard0 in ((4, 0), (4, 4), (1, 2)):
+            for shift in (0, 1):
+                nks = range(1, 7) if m < 1 << 20 else (1, 2, 6)
+                for nk in nks:
+                    keys, prev = [], []
+                    for _ in range(nk):
+                        buf = torch.randint(0, 3, (Dl * m + shift,),
+                                            generator=gen, device=dev,
+                                            dtype=torch.int32)
+                        k = buf[shift:].view(Dl, m)
+                        keys.append(k)
+                        # the shard before's last key: row d - 1's last,
+                        # the first row's drawn from the same 3 values
+                        p = torch.cat([torch.randint(
+                            0, 3, (1,), generator=gen, device=dev,
+                            dtype=torch.int32), k[:-1, -1]])
+                        prev.append(p.contiguous())
+                    for first in (True, False):
+                        kw = dict(shard0=shard0, first=first)
+                        max_abs_err(
+                            f"mesh_flags (nk {nk}, m {m}, Dl {Dl}, shard0 "
+                            f"{shard0}, keys {4 * shift} B past 16, first "
+                            f"{first})", [DO.mesh_flags(keys, prev, **kw)],
+                            [DO.mesh_flags_plain(keys, prev, **kw)])
+                        n_cases += 1
+                    del keys, prev
+    log(f"    mesh_flags: {n_cases} edge cases (nk 1-6, m {list(FLAG_MS)}, "
+        f"Dl 4 from shard0 0 and 4, Dl 1 from shard0 2, keys 0 and 4 B "
+        f"past 16) equal the plain version in "
+        f"{time.perf_counter() - t0:.1f}s")
+    return {"mesh_flags[edges]": 0}
+
+
 # phase 3's mesh_scan and compact_rows shapes (parity_scan_compact_edges):
 # m below, at and past one tile of each kernel (scan_ms: csrc/
 # dist_rounds.cu's own tiles), not a multiple of 16, one past 2^20; each
@@ -6822,15 +7058,14 @@ def parity_scan_compact_edges(rng):
     return {f"{e}[edges]": 0 for e in cases}
 
 
-def scan_compact_local_bytes(log_):
+def kernel_local_bytes(log_, kinds):
     """{kernel: the largest of its stack frame, spill stores and spill
-    loads} of mesh_scan's and compact_rows' tile kernels in ptxas' -v
-    output of csrc/dist_rounds.cu."""
+    loads} of the kernels whose mangled names hold one of `kinds`, in
+    ptxas' -v output of one source."""
     out = {}
     for part in log_.split("Compiling entry function")[1:]:
         name = re.match(r"\s*'(\S+)'", part)
-        if name and ("mesh_scan_tile" in name.group(1)
-                     or "compact_rows_tile" in name.group(1)):
+        if name and any(k in name.group(1) for k in kinds):
             nums = [int(v) for v in re.findall(
                 r"(\d+) bytes (?:stack frame|lmem|spill stores|spill loads)",
                 part)]
@@ -6839,107 +7074,70 @@ def scan_compact_local_bytes(log_):
     return out
 
 
-# The parent tree's scan and compaction (--parent DIR: the parent commit
-# unpacked by git archive): csrc/dist_rounds.cu of DIR built beside this
-# tree's, its two entries bound with the parent's argument types, and
-# phase 5's mesh_scan and compact_rows rows timed against it at their own
-# calls.  None: not given (those fields say "not measured").
+# The parent tree (--parent DIR: the parent commit unpacked by git
+# archive): a source of DIR built beside this tree's, its entries bound
+# with this tree's argument types (a redesign keeps every extern "C"
+# signature), so that the same wrapper runs either build
+# (kernels.variant); phase 5 times kernel E's and mesh_flags' rows
+# against it at their own calls.  None: not given (those fields say "not
+# measured").
 PARENT = None
-PARENT_ENTRIES = {  # entry -> the parent's argument types (without stream)
-    "mesh_scan": ["p", "p", "l", "i", "i", "i", "p", "p", "p"],
-    "compact_rows": ["p", "p", "p", "l", "i", "i", "l", "i"] + ["p"] * 6}
-PARENT_SCAN_TILE = 4096  # the parent's kScanTile: its tiles scratch
-_PARENT_LIB = []
+_PARENT_LIBS = {}
 
 
-def parent_lib():
-    """The parent's csrc/dist_rounds.cu built with this tree's flags (once
-    a run), its mesh_scan and compact_rows entries bound."""
+def parent_lib(src):
+    """The parent's csrc/<src>.cu built with this tree's flags (once a
+    run), its entries (ENTRIES of that source) bound."""
     import ctypes
 
     from femto_tpu_torch import kernels
 
-    if not _PARENT_LIB:
-        so = os.path.join(kernels.BUILD_DIR, "libdist_rounds.parent.so")
+    if src not in _PARENT_LIBS:
+        so = os.path.join(kernels.BUILD_DIR, f"lib{src}.parent.so")
         out = subprocess.run(
             [kernels.nvcc_path(), *kernels.NVCC_FLAGS, "-o", so,
-             os.path.join(PARENT, "femto_tpu_torch", "csrc",
-                          "dist_rounds.cu")],
+             os.path.join(PARENT, "femto_tpu_torch", "csrc", src + ".cu")],
             capture_output=True, text=True)
         check(out.returncode == 0, f"nvcc failed for the parent's "
-                                   f"dist_rounds.cu:\n{out.stdout}")
+                                   f"{src}.cu:\n{out.stdout}")
         lib = ctypes.CDLL(so)
-        kinds = {"p": ctypes.c_void_p, "i": ctypes.c_int,
-                 "l": ctypes.c_longlong}
-        for entry, args in PARENT_ENTRIES.items():
-            fn = getattr(lib, "femto_" + entry)
-            fn.argtypes = [kinds[a] for a in args] + [ctypes.c_void_p]
-            fn.restype = ctypes.c_int
-        _PARENT_LIB.append(lib)
-    return _PARENT_LIB[0]
+        for entry, (s, argtypes) in kernels.ENTRIES.items():
+            if s == src:
+                fn = getattr(lib, "femto_" + entry)
+                fn.argtypes = argtypes + [ctypes.c_void_p]
+                fn.restype = ctypes.c_int
+        _PARENT_LIBS[src] = lib
+    return _PARENT_LIBS[src]
 
 
-def parent_mesh_scan(flags, mode, shard0, slots):
-    """The parent's mesh_scan: tile totals, their carry, the scan with it
-    (three kernels), its tiles scratch allocated here as its wrapper
-    did."""
-    import torch
+def parent_fields(name, src, run):
+    """A row's call, run(), through this tree's csrc/<src>.cu and the
+    parent's (PARENT; kernels.variant around the same wrapper, so that
+    both pay the swap): held bit for bit, then 5 rounds in turns (this
+    tree, the parent, the parent, this tree)."""
+    from femto_tpu_torch import kernels
 
-    lib = parent_lib()
-    Dl, m = flags.shape
-    dev = flags.device
-    out = torch.empty((Dl, m), dtype=torch.int32, device=dev)
-    last = torch.empty(Dl, dtype=torch.int32, device=dev)
-    tiles = torch.empty((Dl, -(-m // PARENT_SCAN_TILE)), dtype=torch.int32,
-                        device=dev)
-    rc = lib.femto_mesh_scan(
-        flags.data_ptr(), None if slots is None else slots.data_ptr(), m,
-        Dl, shard0, 0 if mode == "sum" else 1, out.data_ptr(),
-        last.data_ptr(), tiles.data_ptr(),
-        torch.cuda.current_stream().cuda_stream)
-    check(rc == 0, f"the parent's mesh_scan returned {rc}")
-    return out, last
-
-
-def parent_compaction(flags, off, cols, M, fills, shard0):
-    """The parent's compaction at the same call: its mesh_scan("sum") for
-    the ranks, then torch.full of the outputs and its compact_rows, three
-    columns a launch."""
-    import torch
-
-    lib = parent_lib()
-    Dl, m = flags.shape
-    rank, _ = parent_mesh_scan(flags, "sum", shard0, None)
-    outs = []
-    for i in range(0, len(cols), 3):
-        chunk = cols[i:i + 3]
-        o = [torch.full((Dl, M), f, dtype=torch.int32, device=flags.device)
-             for f in fills[i:i + 3]]
-        ptrs = [None if c is None else c.data_ptr() for c in chunk]
-        ptrs += [None] * (3 - len(chunk))
-        optrs = [x.data_ptr() for x in o] + [None] * (3 - len(o))
-        rc = lib.femto_compact_rows(
-            flags.data_ptr(), rank.data_ptr(), off.data_ptr(), m, Dl, shard0,
-            M, len(chunk), *ptrs, *optrs,
-            torch.cuda.current_stream().cuda_stream)
-        check(rc == 0, f"the parent's compact_rows returned {rc}")
-        outs += o
-    return outs
-
-
-def parent_fields(name, run_k, run_parent):
-    """A row's kernel against the parent tree's design at the same call
-    (PARENT): held bit for bit, then 5 rounds in turns (this tree, the
-    parent, the parent, this tree)."""
     if PARENT is None:
         return {"parent_ms": "not measured (no --parent)"}
-    max_abs_err(f"{name}: against the parent's design", run_k(),
-                run_parent())
-    ms, p_ms, fours = in_turns(run_k, run_parent, 5)
-    return {"parent_ms": p_ms, "ms_in_turns_with_parent": ms,
-            "parent_turns_ms": fours,
-            "ahead_of_parent_rounds": sum(k1 + k2 < l1 + l2
-                                          for k1, l1, l2, k2 in fours)}
+
+    def mine():
+        with kernels.variant(src, None):
+            return run()
+
+    def parent():
+        with kernels.variant(src, parent_lib(src)):
+            return run()
+
+    max_abs_err(f"{name}: against the parent's build", _flat([mine()]),
+                _flat([parent()]))
+    ms, p_ms, fours = in_turns(mine, parent, 5)
+    out = {"parent_ms": p_ms, "ms_in_turns_with_parent": ms,
+           "parent_turns_ms": fours,
+           "ahead_of_parent_rounds": sum(k1 + k2 < l1 + l2
+                                         for k1, l1, l2, k2 in fours)}
+    log(f"    {name}: {ms:.4g} ms, the parent's {p_ms:.4g}, first in "
+        f"{out['ahead_of_parent_rounds']} of 5")
+    return out
 
 
 # K18f owner_lf's requests a shard in phase 3's hold of its routes
@@ -7323,6 +7521,7 @@ def parity_sharded(rng, docs, prepared, sa, errs, k18a_builds=None,
     errs.update(parity_bucket_pack_edges(rng))
     errs.update(parity_rebalance_edges(rng))
     errs.update(parity_scan_compact_edges(rng))
+    errs.update(parity_mesh_flags_edges(rng))
     if k18a_builds is not None:
         for route, lib in route_libs(k18a_builds, "exchange").items():
             with kernels.variant("exchange", lib):
@@ -8592,7 +8791,7 @@ def sort_kernel_rows(record, kernel_row, text, ds, sa, sa_direct, rows, *,
     log(f"    gather_rows at the direct tier's shape: {direct}")
 
 
-def row_kernel_rows(kernel_row, st3, d_libs, lat_ns, c_libs):
+def row_kernel_rows(kernel_row, st3, d_libs, lat_ns, c_libs, e_libs):
     """Kernels M and N at the shapes the prose builds give them (M on the
     vseg build, N on the vrle one), and C, D and E on the prose vseg and
     vrle indexes (run-length, continued, fixed and side segments); C's
@@ -8661,7 +8860,10 @@ def row_kernel_rows(kernel_row, st3, d_libs, lat_ns, c_libs):
         kernel_row(f"psi_walk[{lay}]",
                    lambda: [S.psi_walk(A, ct, fwd)],
                    lambda: [S.psi_walk_plain(A, ct, fwd)],
-                   bound_psi(A, ct, fwd))
+                   bound_psi(A, ct, fwd),
+                   extra=e_fields(e_libs, A, ct.shape[0], fwd,
+                                  lambda: [S.psi_walk(A, ct, fwd)],
+                                  f"psi_walk[{lay}]", lat_ns))
 
 
 def bound_backward_step(arrays, c, first, last, shared=True):
@@ -9241,6 +9443,7 @@ def phase_numbers(record, st, st2, st3, st4, own, builds):
     log(f"    dependent global-load latency: {lat_ns:.4g} ns "
         f"({CHASE_STEPS} loads over {CHASE_WORDS * 4 >> 20} MiB)")
     d_libs = route_libs(builds["lf_walk"], "lf_walk")
+    e_libs = e_forced(builds)
     pt = torch.from_numpy(pack_patterns(
         [pattern_to_alpha(p) for p in patterns],
         pad_b=len(patterns))[0]).to(dev)
@@ -9280,9 +9483,12 @@ def phase_numbers(record, st, st2, st3, st4, own, builds):
             f"psi_walk[{lay}]",
             lambda: [S.psi_walk(A, ct, fwd)],
             lambda: [S.psi_walk_plain(A, ct, fwd)],
-            bound_psi(A, ct, fwd))
+            bound_psi(A, ct, fwd),
+            extra=e_fields(e_libs, A, ct.shape[0], fwd,
+                           lambda: [S.psi_walk(A, ct, fwd)],
+                           f"psi_walk[{lay}]", lat_ns))
     del isa
-    row_kernel_rows(kernel_row, st3, d_libs, lat_ns, c_libs)
+    row_kernel_rows(kernel_row, st3, d_libs, lat_ns, c_libs, e_libs)
     # the context batch's backward walk (packed, 4096 rows x 32 steps) on
     # both of D's routes, and both routes on each layout at its limit and
     # twice it (vseg and vrle, which have none: at 2^18 walks), enough to
@@ -9505,6 +9711,15 @@ def phase_profile(record, st, st2, st3, st4, own):
                         "behind a spin kernel; copies not included"))
             log(f"      {name}: kernel C {ev['ms']:.4g} ms over "
                 f"{ev['calls']} calls (CUDA events)")
+        if name.endswith("context"):
+            # kernel E's own device ms from CUDA events around its call
+            # (the profiler has dropped the context's device items)
+            ev = route_sums(S, "psi_walk", "psi_walk", {},
+                            {name: fn})["as_built"]
+            out[name]["e_device_ms_events"] = ev["ms"]
+            out[name]["e_calls"] = ev["calls"]
+            log(f"      {name}: kernel E {ev['ms']:.4g} ms over "
+                f"{ev['calls']} calls (CUDA events)")
         if name.startswith("query"):
             layers = RD.last_stats["layers"]
             dev_ms = out[name]["device_ms"]
@@ -9524,8 +9739,8 @@ def main(argv=None):
     ap.add_argument("--seed", type=int, default=1234)
     ap.add_argument("--parent", default=None,
                     help="root of the parent tree (unpacked by git "
-                         "archive): phase 5 times its mesh_scan and "
-                         "compaction at this tree's calls")
+                         "archive): phase 5 times its kernel E and "
+                         "mesh_flags at this tree's calls")
     args = ap.parse_args(argv)
     global PARENT
     PARENT = args.parent and os.path.abspath(args.parent)

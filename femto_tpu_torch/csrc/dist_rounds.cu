@@ -26,6 +26,11 @@
 // The compact's slot order, the extension's sort and the write-backs are
 // kernels H, L and K18a's owner_place.  The shard dimension is blockIdx.y.
 //
+// mesh_flags takes 16 consecutive elements a thread, templated on the key
+// count (its column loop unrolled, no parameter indexed at run time): a
+// column's keys in four 16-byte loads, the key before the first from the
+// lane before by a shuffle, the 16 flags one 16-byte store.
+//
 // mesh_scan and compact_rows are one launch a call each, a single pass
 // over tiles with a decoupled look-back (csrc/fm_common.cuh
 // warp_lookback; the tile numbers from an atomic counter a shard, as in
@@ -68,8 +73,15 @@ constexpr int kCompactBlocks = 8;  // resident blocks an SM asked of ptxas
 constexpr int kU = 8;
 constexpr int kIntMin = -2147483647 - 1;
 
-struct FlagKeys {
-  const int* p[kFlagKeys];
+// mesh_flags' threads a block (16 elements a thread)
+constexpr int kFlagThreads = 256;
+
+// mesh_flags' key columns (or their previous-shard keys), one pointer a
+// column: NK is a template argument, so the column loop unrolls and no
+// parameter is indexed at run time.
+template <int NK>
+struct KeyCols {
+  const int* p[NK];
 };
 
 struct CompactCols {
@@ -150,23 +162,6 @@ __global__ void payload_block_kernel(const int* __restrict__ text,
   out[d * m + p] = tp | (aux << 9);
 }
 
-__global__ void mesh_flags_kernel(FlagKeys k, int nk, FlagKeys prev,
-                                  long long m, int shard0, int first,
-                                  unsigned char* __restrict__ out) {
-  const int d = blockIdx.y;
-  const long long p =
-      static_cast<long long>(blockIdx.x) * blockDim.x + threadIdx.x;
-  if (p >= m) return;
-  bool neq = false;
-  for (int c = 0; c < nk; ++c) {
-    const int cur = k.p[c][d * m + p];
-    const int pv = p > 0 ? k.p[c][d * m + p - 1] : prev.p[c][d];
-    neq |= cur != pv;
-  }
-  if (shard0 + d == 0 && p == 0) neq = first != 0;
-  out[d * m + p] = neq ? 1 : 0;
-}
-
 // mesh_scan and compact_rows: one tile pass each.  A tile is kT * 16 kV
 // flags of one shard, its number from the shard's atomic counter, its
 // flags warp-striped: warp w holds the tile's elements [w kV 512, (w + 1)
@@ -188,6 +183,104 @@ __device__ __forceinline__ unsigned in_row(long long e, long long m) {
   if (e < 0) b &= 0xffffu << (-e);
   if (e + 16 > m) b &= (1u << (m - e)) - 1u;
   return b;
+}
+
+// mesh_flags: a thread takes 16 consecutive elements e .. e + 15 of one
+// row of m (blockIdx.y), e aligned to the row's flags (e = 16 t - omis,
+// omis the row's start address mod 16, as the scan's tiles are), so its
+// 16 flags are one 16-byte store; a thread whose 16 lie partly outside
+// the row stores its in-row flags a byte each.  A column's 16 keys are
+// four 16-byte loads where the thread's first key is 16-byte aligned and
+// all 16 lie in the row, else a load an element.  The key before element
+// e comes from the lane before (its last), by one load at a warp's first
+// lane, and from prev[d] at the row's start; the global slot 0 takes
+// `first`.
+// 1 where a != b, else 0, by integer arithmetic: nvcc 12.9's predicate
+// packing dropped bits 0 and 1 of the second key column's mask when the
+// 16 flags were ORed as comparisons (seen on the H100)
+__device__ __forceinline__ unsigned differs(int a, int b) {
+  const unsigned x = static_cast<unsigned>(a ^ b);
+  return (x | (0u - x)) >> 31;
+}
+
+template <int NK>
+__global__ void __launch_bounds__(kFlagThreads) mesh_flags_kernel(
+    KeyCols<NK> k, KeyCols<NK> prev, long long m, int shard0, int first,
+    unsigned char* __restrict__ out) {
+  const int d = blockIdx.y;
+  const int lane = threadIdx.x & 31;
+  unsigned char* orow = out + d * m;
+  const long long e =
+      (static_cast<long long>(blockIdx.x) * blockDim.x + threadIdx.x) * 16 -
+      static_cast<long long>(reinterpret_cast<uintptr_t>(orow) & 15);
+  const unsigned live = in_row(e, m);
+  unsigned neq = 0;
+#pragma unroll
+  for (int c = 0; c < NK; ++c) {
+    const int* row = k.p[c] + d * m;
+    int v[16];
+    if (live == 0xffffu &&
+        (reinterpret_cast<uintptr_t>(row + e) & 15) == 0) {
+      const int4* q = reinterpret_cast<const int4*>(row + e);
+#pragma unroll
+      for (int i = 0; i < 4; ++i) {
+        const int4 x = __ldg(q + i);
+        v[4 * i] = x.x;
+        v[4 * i + 1] = x.y;
+        v[4 * i + 2] = x.z;
+        v[4 * i + 3] = x.w;
+      }
+    } else {
+#pragma unroll
+      for (int j = 0; j < 16; ++j)
+        v[j] = live >> j & 1u ? __ldg(row + e + j) : 0;
+    }
+    // the key before element e: the lane before's last; a warp's first
+    // lane loads it (a thread whose e is 0 or less reads prev[d] below)
+    int before = __shfl_up_sync(femto::kAllLanes, v[15], 1);
+    if (lane == 0 && e > 0 && e <= m) before = __ldg(row + e - 1);
+    const int pv = e <= 0 ? __ldg(prev.p[c] + d) : 0;
+    neq |= differs(v[0], e == 0 ? pv : before);
+#pragma unroll
+    for (int j = 1; j < 16; ++j)
+      neq |= differs(v[j], e + j == 0 ? pv : v[j - 1]) << j;
+  }
+  if (shard0 + d == 0 && e <= 0 && e + 16 > 0) {
+    const unsigned bit = 1u << static_cast<int>(-e);
+    neq = first ? neq | bit : neq & ~bit;
+  }
+  neq &= live;
+  if (live == 0xffffu) {
+    // bit j to byte j: a nibble's four bits to four bytes by one multiply
+    const auto bytes4 = [](unsigned x) {
+      return ((x & 15u) * 0x00204081u) & 0x01010101u;
+    };
+    *reinterpret_cast<uint4*>(orow + e) = make_uint4(
+        bytes4(neq), bytes4(neq >> 4), bytes4(neq >> 8), bytes4(neq >> 12));
+  } else {
+#pragma unroll
+    for (int j = 0; j < 16; ++j)
+      if (live >> j & 1u)
+        orow[e + j] = static_cast<unsigned char>(neq >> j & 1u);
+  }
+}
+
+template <int NK>
+void launch_mesh_flags(const void* const* keys, const void* const* prev,
+                       long long m, int Dl, int shard0, int first,
+                       unsigned char* out, cudaStream_t st) {
+  KeyCols<NK> k, p;
+  for (int c = 0; c < NK; ++c) {
+    k.p[c] = static_cast<const int*>(keys[c]);
+    p.p[c] = static_cast<const int*>(prev[c]);
+  }
+  // a thread more than m / 16 for the rows whose flags start off 16
+  const long long threads = (m + 15) / 16 + 1;
+  mesh_flags_kernel<NK>
+      <<<dim3(static_cast<unsigned>((threads + kFlagThreads - 1) /
+                                    kFlagThreads),
+              Dl),
+         kFlagThreads, 0, st>>>(k, p, m, shard0, first, out);
 }
 
 // A lane's 16 flags from element e of a row of m: bit j is element e + j's
@@ -567,15 +660,16 @@ extern "C" int femto_mesh_flags(const void* k0, const void* k1,
                                 void* stream) {
   if (nk < 1 || nk > kFlagKeys || Dl < 1)
     return static_cast<int>(cudaErrorInvalidValue);
-  FlagKeys k = {{static_cast<const int*>(k0), static_cast<const int*>(k1),
-                 static_cast<const int*>(k2), static_cast<const int*>(k3),
-                 static_cast<const int*>(k4), static_cast<const int*>(k5)}};
-  FlagKeys p = {{static_cast<const int*>(p0), static_cast<const int*>(p1),
-                 static_cast<const int*>(p2), static_cast<const int*>(p3),
-                 static_cast<const int*>(p4), static_cast<const int*>(p5)}};
-  mesh_flags_kernel<<<dim3(blocks(m), Dl), 256, 0,
-                      static_cast<cudaStream_t>(stream)>>>(
-      k, nk, p, m, shard0, first, static_cast<unsigned char*>(out));
+  const void* keys[kFlagKeys] = {k0, k1, k2, k3, k4, k5};
+  const void* prev[kFlagKeys] = {p0, p1, p2, p3, p4, p5};
+  using Launch = void (*)(const void* const*, const void* const*, long long,
+                         int, int, int, unsigned char*, cudaStream_t);
+  static const Launch by_nk[kFlagKeys] = {
+      launch_mesh_flags<1>, launch_mesh_flags<2>, launch_mesh_flags<3>,
+      launch_mesh_flags<4>, launch_mesh_flags<5>, launch_mesh_flags<6>};
+  by_nk[nk - 1](keys, prev, m, Dl, shard0, first,
+                static_cast<unsigned char*>(out),
+                static_cast<cudaStream_t>(stream));
   return static_cast<int>(cudaGetLastError());
 }
 

@@ -203,6 +203,10 @@ SIZES: Dict[str, Tuple[str, List]] = {
     # four entries: the bytes of a warp-a-pattern block's dynamic shared
     # memory, 0 where the call takes a thread a pattern or lane
     "backward_search_route": ("backward_search", [_V, _I, _I]),
+    # kernel E's route for a psi walk of B rows on an index (view, B): the
+    # bytes of a warp-a-walk block's dynamic shared memory, 0 where the
+    # call takes a thread a walk
+    "psi_walk_route": ("psi_walk", [_V, _I]),
     # K18f owner_lf's route for a call of (view, R, Dl): the same rule on
     # its Dl x R requests, 0 on the thread route
     "owner_lf_route": ("dist_query", [_V, _L, _I]),

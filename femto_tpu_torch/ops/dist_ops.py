@@ -617,13 +617,14 @@ def mesh_flags(keys: Sequence[torch.Tensor], prev: Sequence[torch.Tensor],
     slot before it (keys int32[Dl, m] each; prev int32[Dl] each, the last
     key of the shard before); the global slot 0 gets ``first`` (group
     starts: True, _rank_refine's diff: False).  Kernel K18c on the card."""
+    if not 1 <= len(keys) == len(prev) <= FLAG_KEYS:
+        raise ValueError(f"need 1 to {FLAG_KEYS} key columns, each with "
+                         f"its prev")
     kernels.check(keys[0], "keys[0]", torch.int32, 2)
     Dl, m = keys[0].shape
     for i, (k, p) in enumerate(zip(keys, prev)):
         kernels.check(k, f"keys[{i}]", torch.int32, 2, (Dl, m))
         kernels.check(p, f"prev[{i}]", torch.int32, 1, (Dl,))
-    if not 1 <= len(keys) == len(prev) <= FLAG_KEYS:
-        raise ValueError(f"need 1 to {FLAG_KEYS} key columns")
     if not kernels.on_card(*keys, *prev):
         return mesh_flags_plain(keys, prev, shard0=shard0, first=first)
     out = torch.empty((Dl, m), dtype=torch.uint8, device=keys[0].device)
